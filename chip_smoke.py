@@ -5,12 +5,14 @@
 
 Phases (any failure exits non-zero; no exception is caught):
 
-1. Print the card's name and power limit; build both CUDA kernels from the
-   sources in the checkout (set-up time).
+1. Print the card's name and power limit; build the five CUDA kernels from
+   the sources in the checkout, one ``nvcc`` each, all at once (set-up
+   time).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with the tolerance stated beside each comparison;
+   paths' shapes, with the tolerance stated beside each comparison;
    ``ring_decode`` also on a one-tile ring (no split, no merge) and at head
-   dims 16, 32 and 128.
+   dims 16, 32 and 128; ``lora_matmul``, ``flash_attention`` and
+   ``adapter_gram`` at the federated round's shapes, ragged edges included.
 3. Each kernel's time (median of 50 launches, CUDA events, L2 flushed
    before each), its bound, its plain version's time and a one-call
    PyTorch yardstick where one exists.
@@ -21,10 +23,21 @@ Phases (any failure exits non-zero; no exception is caught):
 5. The engine on the card, kernels against plain versions, at full width in
    fp32 with TF32 off: first prefill step's logits within tolerance, and
    the greedy-token agreement over 16 steps.
+6. The federated slice end to end: two FLoRIST rounds of full-width
+   Llama-3.2-1B (random seeded weights, bf16; 8 clients of ranks 4/8/16/32,
+   4 sampled a round, 4 local steps of 4 × 512 tokens, the Gram SVD route)
+   through ``FederatedTrainer``; eval loss, kept ranks, wire bytes, round
+   and finalize times, train-step times and tokens/s per round; launch
+   counts held to what the code implies; a profiled window of train steps.
+7. The federated path on the card in fp32 with TF32 off, at full width and
+   4 layers: two train steps on the kernel route against the plain route
+   (loss, adapters, ``scale``), and one FLoRIST finalize on the Gram route
+   against the LAPACK route (ranks, spectra, ``B_g A_g``).
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
 """
+import dataclasses
 import json
 import re
 import statistics
@@ -37,6 +50,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 REPS = 50
+DEVICE = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -70,22 +84,31 @@ def main() -> None:
               f"registers per thread, {spills} bytes spilled")
 
     report = {"card": smi}
-    report["kernel_cases"] = kernel_cases(torch)
+    report["kernel_cases"] = kernel_cases(torch) + train_kernel_cases(torch)
     report["e2e"], counts = end_to_end(torch)
     report["parity"] = engine_parity(torch)
+    report["federated"], fed_counts = federated_round(torch)
+    report["fed_parity"] = federated_parity(torch)
+    counts.update(fed_counts)
 
     kernels = []
     for name, case in (("ring_decode", "bf16 cache, C=1, B=8 H=32 K=8 hd=64 cap=1024"),
-                       ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4")):
+                       ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"),
+                       ("lora_matmul", LORA_MAIN),
+                       ("flash_attention", FLASH_MAIN),
+                       ("adapter_gram", GRAM_MAIN)):
         rec = next(r for r in report["kernel_cases"]
                    if r["name"] == name and r["case"] == case)
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "case")}
-            | {"launches": counts[name]})
+            | {"launches": counts[name]}
+            | ({"library": rec["library"]} if "library" in rec else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
+    report["script_s"] = time.perf_counter() - t0
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"whole script from the build on: {report['script_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -124,6 +147,23 @@ def check(name, got, want, valid, tol):
     scale = max(1.0, w.abs().max().item())
     ok = err <= tol * scale
     print(f"  {name}: max_abs_err {err:.3e} (limit {tol * scale:.3e}) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def check_rows(name, got, want, tol):
+    """Each row (the last axis) on its own scale: max |got - want| over the
+    row must be <= tol * max |want| over the row.  Returns max |got - want|
+    over all rows."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rel = (d.amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+    err, mean = d.max().item(), d.mean().item()
+    ok = rel <= tol
+    print(f"  {name}: max_abs_err {err:.3e}, mean_abs_err {mean:.3e}; worst "
+          f"row max |Δ| / row max |plain| {rel:.3e} (limit {tol:.1e}) "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
@@ -259,7 +299,7 @@ def kernel_cases(torch):
 
 
 def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
-            dtype):
+            dtype, library=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_n / PEAK_OPS[dtype] * 1e3
     rec = {"name": name, "route": "cuda", "source": source,
@@ -268,11 +308,155 @@ def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "ops": ops_n}
+    if library is not None:
+        rec["library"] = library
     print(f"  {name}[{case}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"library {'-' if lib is None else f'{lib:.4f} ms'}, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
           f"{nbytes / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP)")
     return rec
+
+
+# -- phases 2 and 3 for the federated round's kernels ------------------------
+
+LORA_MAIN = "bf16, M=2048 din=2048 dout=2048 r=16"
+FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
+GRAM_MAIN = "fp32, G=32 m=2048 r=64"
+
+
+def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible: the work this run needs."""
+    total = 0
+    for s in range(S):
+        hi = min(T, s + 1) if causal else T
+        lo = max(0, s - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def train_kernel_cases(torch):
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records = []
+    print("phase 2/3: the federated round's kernels against plain versions; "
+          "times beside bounds")
+    dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+    # lora_matmul: the train step's projections (M = 4 x 512 tokens; wq/wo
+    # 2048 -> 2048, wk/wv 2048 -> 512) at the round's client ranks, and one
+    # ragged M / dout / rank.  bf16: both sides round z and s·B at the same
+    # points; the plain version rounds x W and the delta to bf16 before
+    # adding, the kernel once at the end, so they differ by up to 2 bf16
+    # ulps of the output (an ulp is up to 2^-7 of |y|): limit 2e-2 of
+    # max |y|.  fp32 (TF32 off): sum order over din = 2048: limit 1e-4.
+    for dt, M, dout, r in ((torch.bfloat16, 2048, 2048, 16),
+                           (torch.bfloat16, 2048, 512, 16),
+                           (torch.bfloat16, 2048, 2048, 4),
+                           (torch.bfloat16, 2048, 2048, 32),
+                           (torch.bfloat16, 2048, 512, 32),
+                           (torch.bfloat16, 1999, 1000, 7),
+                           (torch.float32, 2048, 2048, 16),
+                           (torch.float32, 2048, 512, 32),
+                           (torch.float32, 1999, 1000, 7)):
+        din = 2048
+        x = torch.randn(M, din, generator=gen, device=dev).to(dt)
+        w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
+        a = torch.randn(r, din, generator=gen, device=dev) * 0.02
+        b = torch.randn(dout, r, generator=gen, device=dev) * 0.05
+        scale = torch.tensor(16.0 / r, device=dev)
+        a_c, b_s = ops.lora_operands(x, w, a, b, scale)
+        got = ops.lora_matmul(x, w, a, b, scale)
+        want = ref.lora_matmul_ref(x, w, a_c, b_s, 1.0)
+        torch.cuda.synchronize()
+        case = f"{dname[dt]}, M={M} din={din} dout={dout} r={r}"
+        err = check(f"lora_matmul[{case}]", got, want,
+                    torch.ones(M, dtype=torch.bool, device=dev),
+                    2e-2 if dt == torch.bfloat16 else 1e-4)
+        ms = gpu_ms(torch, lambda: ops.lora_matmul(x, w, a, b, scale))
+        plain = gpu_ms(torch, lambda: ref.lora_matmul_ref(x, w, a_c, b_s, 1.0))
+        lib = gpu_ms(torch, lambda: torch.matmul(x, w))
+        eb = x.element_size()
+        nbytes = eb * (M * din + din * dout + r * din + dout * r + M * dout)
+        ops_n = 2 * M * din * dout + 2 * M * r * (din + dout)
+        records.append(_record(
+            "lora_matmul", case, "src/repro_torch/kernels/csrc/lora_matmul.cu",
+            "src/repro/kernels/lora_matmul.py:31", err, ms, plain, lib, nbytes,
+            ops_n, str(dt).split(".")[-1],
+            library="torch.matmul(x, W): base product only"))
+
+    # flash_attention: the train step's attention (B 4, S 512, 32 heads over
+    # 8 KV heads, hd 64), a window, a ragged S and hd 128.  Each query row
+    # is held to its own magnitude: a row that averages hundreds of values
+    # is ~20x smaller than the first rows, so one limit over the whole
+    # output would let an error in the long rows through.  bf16: the kernel
+    # rounds its output to bf16 (up to 2^-8 of an entry) and P to bf16
+    # before P·V (as the TPU kernel does); the plain version stays fp32:
+    # limit 1e-2 of the row's max |plain| (6.5e-3 measured at most).  fp32:
+    # sum order and exp rounding: limit 1e-5 of it (2.3e-6 measured).
+    for dt, B, S, H, K, hd, window in (
+            (torch.bfloat16, 4, 512, 32, 8, 64, 0),
+            (torch.bfloat16, 4, 512, 32, 8, 64, 128),
+            (torch.bfloat16, 4, 500, 32, 8, 64, 0),
+            (torch.bfloat16, 4, 512, 16, 4, 128, 0),
+            (torch.float32, 4, 512, 32, 8, 64, 0),
+            (torch.float32, 2, 300, 16, 4, 128, 100),
+            (torch.float32, 1, 77, 4, 1, 16, 0)):
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v, True, window)
+        want = ref.flash_attention_ref(q, k, v, True, window)
+        torch.cuda.synchronize()
+        case = (f"{dname[dt]}, causal{f', window={window}' if window else ''}, "
+                f"B={B} S={S} H={H} K={K} hd={hd}")
+        err = check_rows(f"flash_attention[{case}]", got, want,
+                         1e-2 if dt == torch.bfloat16 else 1e-5)
+        ms = gpu_ms(torch, lambda: ops.flash_attention(q, k, v, True, window))
+        plain = gpu_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True,
+                                                              window))
+        lib = None
+        if not window:      # one SDPA call, on pre-transposed inputs
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        eb = q.element_size()
+        nbytes = eb * (2 * q.numel() + k.numel() + v.numel())
+        ops_n = 4 * B * H * hd * _causal_pairs(S, S, True, window)
+        records.append(_record(
+            "flash_attention", case,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:70", err, ms, plain, lib,
+            nbytes, ops_n, str(dt).split(".")[-1],
+            library=None if window else
+            "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"))
+
+    # adapter_gram: the Gram SVD route's stacks, a bucket of 2 leaves x 16
+    # layers, m = 2048 (wq/wo, and every A stack) or 512 (wk/wv B stacks),
+    # r = Σ r_k up to 128, and a tail m.  fp32 FMAs on both sides (TF32
+    # off), sums in another order over m rows: limit 1e-4 of max |xᵀx|.
+    # xᵀx is symmetric, so the function needs only its r(r+1)/2 distinct
+    # entries, m multiply-adds each: G·m·r·(r+1) operations for the bound.
+    for G, m, r in ((32, 2048, 64), (32, 2048, 16), (32, 2048, 128),
+                    (32, 512, 16), (32, 512, 64), (32, 512, 128),
+                    (32, 2000, 60)):
+        x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
+        got = ops.adapter_gram(x)
+        want = ref.adapter_gram_ref(x)
+        torch.cuda.synchronize()
+        case = f"fp32, G={G} m={m} r={r}"
+        err = check(f"adapter_gram[{case}]", got, want,
+                    torch.ones(G, dtype=torch.bool, device=dev), 1e-4)
+        ms = gpu_ms(torch, lambda: ops.adapter_gram(x))
+        plain = gpu_ms(torch, lambda: ref.adapter_gram_ref(x))
+        lib = gpu_ms(torch, lambda: torch.bmm(x.mT, x))
+        nbytes = 4 * (G * m * r + G * r * r)
+        records.append(_record(
+            "adapter_gram", case, "src/repro_torch/kernels/csrc/adapter_gram.cu",
+            "src/repro/kernels/adapter_gram.py:41", err, ms, plain, lib, nbytes,
+            G * m * r * (r + 1), "float32", library="torch.bmm(x.mT, x)"))
+    return records
 
 
 # -- phase 4: the slice end to end ------------------------------------------
@@ -331,26 +515,33 @@ def profile_decode(torch, eng, steps: int = 10):
     """Where a decode step's time goes: ``steps`` width-1 engine steps of a
     fresh full batch, once under ``torch.profiler`` (device time by kernel)
     and once without it (wall time per step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import SamplingParams
 
-    def wave():
-        for i in range(eng.B):
-            eng.submit(list(range(1 + i, 17 + i)),
-                       SamplingParams(max_tokens=2 * steps + 4))
-        eng.run_steps(2)                   # admission and the prefill step
-        torch.cuda.synchronize()
+    for i in range(eng.B):
+        eng.submit(list(range(1 + i, 17 + i)),
+                   SamplingParams(max_tokens=2 * steps + 4))
+    eng.run_steps(2)                       # admission and the prefill step
+    torch.cuda.synchronize()
+    out = profile_window(torch, eng.run_steps, steps,
+                         f"decode step, {steps} steps x {eng.B} rows")
+    eng.run()
+    return out
 
-    wave()
+
+def profile_window(torch, run, steps: int, label: str):
+    """``run(steps)`` once under ``torch.profiler`` (device time by kernel,
+    host time by operator) and once without it (wall time per step); the
+    idle share is 1 - device busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run_steps(steps)
+        run(steps)
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_steps(steps)
+    run(steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    eng.run()
     by_kernel, by_op = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:          # kernels and copies
@@ -360,9 +551,9 @@ def profile_decode(torch, eng, steps: int = 10):
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  decode step, {steps} steps x {eng.B} rows: wall {wall_ms:.3f} ms "
-          f"per step (no profiler); device busy {busy:.3f} ms per step "
-          f"(profiler): idle share {1 - busy / wall_ms:.3f}")
+    print(f"  {label}: wall {wall_ms:.3f} ms per step (no profiler); device "
+          f"busy {busy:.3f} ms per step (profiler): idle share "
+          f"{1 - busy / wall_ms:.3f}")
     for name, ms in top:
         print(f"    device {ms:8.4f} ms/step  {name[:80]}")
     for name, ms in top_host:
@@ -387,7 +578,7 @@ def engine_parity(torch):
     print("phase 5: engine on the card, kernels vs plain versions, "
           "full width in fp32; " + parity_mode())
     cfg = CONFIG.replace(dtype="float32")
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     params = T.init(cfg, 1, dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     reg = AdapterRegistry(init_lora(params, TARGETS, 4, 8.0, gen), page_rank=4,
@@ -432,6 +623,229 @@ def engine_parity(torch):
     print(f"  greedy-token agreement over 16 steps x {B} requests: "
           f"{agree:.4f} ({sum(a == b for a, b in pairs)}/{len(pairs)})")
     return {"logits_max_abs_err": err, "greedy_agreement": agree}
+
+
+# -- phase 6: the federated slice end to end ---------------------------------
+
+FED_ROUNDS = 2
+FED_SEQ = 512
+FED_BATCH = 4
+
+
+def federated_round(torch):
+    import numpy as np
+    from repro_torch.common.config import FedConfig, LoRAConfig, OptimConfig
+    from repro_torch.configs.llama3p2_1b import CONFIG
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.core.runtime import SequentialRunner
+    from repro_torch.core.runtime.runners import to_device
+    from repro_torch.data.synthetic import make_eval_data
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import adamw_init
+    cfg = CONFIG
+    L = cfg.num_layers
+    print(f"phase 6: {FED_ROUNDS} FLoRIST rounds of {cfg.name} at full width "
+          f"({L} L, d {cfg.d_model}, {cfg.num_heads} H / {cfg.num_kv_heads} KV, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}; random seeded weights), 8 "
+          f"clients of ranks 4/8/16/32, 4 a round, 4 local steps of "
+          f"{FED_BATCH} x {FED_SEQ} tokens, Gram SVD route")
+    fed = FedConfig(num_clients=8, clients_per_round=4, heterogeneous=True,
+                    rank_distribution=((4, 2), (8, 2), (16, 2), (32, 2)),
+                    tau=0.9, method="florist")
+    lora = LoRAConfig(rank=16, alpha=16.0, targets=("wq", "wk", "wv", "wo"))
+    runner = SequentialRunner(record_steps=True)
+    t0 = time.perf_counter()
+    tr = FederatedTrainer(cfg, fed, lora, OptimConfig(lr=3e-4),
+                          eval_data=make_eval_data(num_samples=16,
+                                                   seq_len=FED_SEQ,
+                                                   vocab=cfg.vocab_size),
+                          batch_size=FED_BATCH, local_steps=4, seq_len=FED_SEQ,
+                          svd_method="gram", runner=runner, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"  set-up (weights, data, trainer): {time.perf_counter() - t0:.1f} s")
+    rounds = []
+    ops.reset_launch_counts()
+    for rnd in range(FED_ROUNDS):
+        before, n_log = ops.launch_counts(), len(runner.step_log())
+        rec = tr.run_round(rnd)
+        after = ops.launch_counts()
+        step_ms = [e["ms"] for e in runner.step_log()[n_log:]]
+        steps = len(step_ms)
+        buckets = len({(n, m) for _, n, m in tr.aggregator.dims.values()})
+        want = {"lora_matmul": L * len(lora.targets) * steps,
+                "flash_attention": L * (steps + 1),          # + one eval step
+                "adapter_gram": 2 * buckets}                 # B and A stacks
+        got = {k: after[k] - before[k] for k in want}
+        ranks = tr.global_state.ranks
+        r_sum = sum(tr.aggregator.client_ranks)
+        tok_s = steps * FED_BATCH * FED_SEQ / (sum(step_ms) / 1e3)
+        print(f"  round {rnd}: eval loss {rec.eval_loss:.4f} acc "
+              f"{rec.eval_acc:.4f}; clients of ranks "
+              f"{tr.aggregator.client_ranks} (Σ {r_sum}); upload "
+              f"{rec.upload_bytes} B, download {rec.download_bytes} B; wall "
+              f"{rec.wall_secs:.2f} s, finalize {rec.finalize_secs * 1e3:.1f} "
+              f"ms; {steps} train steps, median {statistics.median(step_ms):.2f}"
+              f" ms (CUDA events), {tok_s:.0f} train tok/s")
+        for path, ps in ranks.items():
+            print(f"    kept ranks {'/'.join(map(str, path))}: {ps}")
+        print(f"    launches {json.dumps(got)}; expected {json.dumps(want)}")
+        if got != want:
+            fail(f"round {rnd}: launch counts {got} != {want}")
+        if not np.isfinite(rec.eval_loss):
+            fail(f"round {rnd}: eval loss {rec.eval_loss} is not finite")
+        if any(not 1 <= p <= r_sum for ps in ranks.values() for p in ps):
+            fail(f"round {rnd}: a kept rank is outside [1, {r_sum}]")
+        rounds.append({"record": dataclasses.asdict(rec),
+                       "ranks": {"/".join(map(str, k)): v
+                                 for k, v in ranks.items()},
+                       "client_ranks": list(tr.aggregator.client_ranks),
+                       "train_step_ms": step_ms,
+                       "train_step_ms_median": statistics.median(step_ms),
+                       "train_tok_s": tok_s, "launches": got})
+    counts = {k: v for k, v in ops.launch_counts().items()
+              if k in ("lora_matmul", "flash_attention", "adapter_gram")}
+
+    # a window of train steps of one rank-16 client, profiled
+    step = tr._train_step()
+    data = tr.clients[0]
+    batch = {"tokens": torch.as_tensor(data.tokens[:FED_BATCH], device=DEVICE).long(),
+             "loss_mask": torch.as_tensor(data.loss_mask[:FED_BATCH], device=DEVICE)}
+    state = {"a": to_device(tr._client_init(0, 16), tr.device)}
+    state["opt"] = adamw_init(state["a"])
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["opt"], _ = step(tr.params, state["a"],
+                                               state["opt"], batch)
+
+    run(1)
+    window = profile_window(torch, run, 3,
+                            f"train step, {FED_BATCH} x {FED_SEQ} tokens, r=16")
+    del tr, state
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "launches": counts,
+            "profiled_train_step": window}, counts
+
+
+# -- phase 7: the federated path, kernels against plain routes, fp32 ---------
+
+def federated_parity(torch):
+    import numpy as np
+    from repro_torch.common.config import OptimConfig
+    from repro_torch.configs.llama3p2_1b import CONFIG
+    from repro_torch.core.aggregators import FloristAggregator
+    from repro_torch.data.synthetic import make_federated_data
+    from repro_torch.device import parity_mode
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.train.step import make_train_step
+    cfg = CONFIG.replace(dtype="float32", num_layers=4)
+    L = cfg.num_layers
+    print(f"phase 7: federated path on the card, kernel routes vs plain routes, "
+          f"full width in fp32, depth cut to {L} layers; " + parity_mode())
+    dev = torch.device(DEVICE)
+    params = T.init(cfg, 3, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ad = init_lora(params, ("wq", "wk", "wv", "wo"), 16, 16.0, gen)
+    for leaf in ad["blocks"][0]["attn"].values():   # B ≠ 0: dscale ≠ 0 at once
+        leaf["B"] = torch.randn(leaf["B"].shape, generator=gen, device=dev) * 0.01
+    data = make_federated_data(num_clients=1, seq_len=FED_SEQ,
+                               vocab=cfg.vocab_size, seed=5)[0]
+    batches = [{"tokens": torch.as_tensor(data.tokens[i:i + 2], device=dev).long(),
+                "loss_mask": torch.as_tensor(data.loss_mask[i:i + 2], device=dev)}
+               for i in (0, 2)]
+    lr = 3e-4
+    out = {}
+    for use_kernels in (True, False):
+        step = make_train_step(cfg, OptimConfig(lr=lr), loss_chunk=64,
+                               use_kernels=use_kernels)
+        a, opt, losses = ad, adamw_init(ad), []
+        for b in batches:
+            a, opt, m = step(params, a, opt, b)
+            losses.append(float(m["loss"]))
+        out[use_kernels] = (losses, a)
+    res = {"losses_kernel": out[True][0], "losses_plain": out[False][0]}
+    # the losses: fp32 on both routes, sums in another order through 4
+    # layers and a 128k-vocabulary logsumexp: limit 1e-5 relative
+    for i, (lk, lp) in enumerate(zip(out[True][0], out[False][0])):
+        ok = abs(lk - lp) <= 1e-5 * max(1.0, abs(lp))
+        print(f"  train step {i + 1} loss: kernel {lk:.7f}, plain {lp:.7f} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("phase 7: train-step losses of the two routes differ")
+    # the adapters after 2 steps.  Adam divides by |g|: an entry whose
+    # gradient is within fp noise of zero can step by up to lr one way on
+    # one route and the other way on the other, so A and B are held to a
+    # mean |Δ| ≤ 1e-3·lr (a wrong gradient would move most entries by ~lr)
+    # and a share of entries with |Δ| > 0.1·lr of at most 1e-5 (4 of 0.85 M
+    # entries, 4.7e-6, measured; no bound on max |Δ| can fail: an Adam step
+    # moves an entry by at most ~lr).
+    # scale's gradient sums over every token and is never near zero: max
+    # |Δ| ≤ 1e-6.
+    ka = tree_leaves(out[True][1])
+    pa = tree_leaves(out[False][1])
+    keys = [k for _, leaf in sorted(ad["blocks"][0]["attn"].items())
+            for k in sorted(leaf)]
+    d_ab = torch.cat([(x - y).abs().flatten() for x, y, k in zip(ka, pa, keys)
+                      if k != "scale"])
+    d_s = torch.cat([(x - y).abs().flatten() for x, y, k in zip(ka, pa, keys)
+                     if k == "scale"])
+    mean_ab, max_ab, max_s = float(d_ab.mean()), float(d_ab.max()), float(d_s.max())
+    n_far = int((d_ab > 0.1 * lr).sum())
+    far = n_far / d_ab.numel()
+    res.update(adapters_mean_abs_diff=mean_ab, adapters_max_abs_diff=max_ab,
+               adapters_share_above_0p1_lr=far, scale_max_abs_diff=max_s)
+    print(f"  adapters after 2 steps: mean |Δ| {mean_ab:.3e} (limit "
+          f"{1e-3 * lr:.1e}); |Δ| > 0.1·lr on {n_far} of {d_ab.numel()} entries"
+          f" ({far:.2e}, limit 1e-5); max |Δ| {max_ab:.3e}; scale max |Δ| "
+          f"{max_s:.3e} (limit 1e-6)")
+    if mean_ab > 1e-3 * lr or far > 1e-5 or max_s > 1e-6:
+        fail("phase 7: the adapters of the two routes differ")
+
+    # one finalize on the Gram route (adapter_gram) against the LAPACK route
+    clients, ranks = [], (4, 8, 16, 32)
+    for r in ranks:
+        tree = {"blocks": {0: {"attn": {}}}}
+        for name, wt in sorted(params["blocks"][0]["attn"].items()):
+            if name not in ("wq", "wk", "wv", "wo"):
+                continue
+            _, din, dout = wt.shape
+            tree["blocks"][0]["attn"][name] = {
+                "A": torch.randn(L, r, din, generator=gen, device=dev) * 0.02,
+                "B": torch.randn(L, dout, r, generator=gen, device=dev) * 0.01,
+                "scale": torch.full((L,), 16.0 / r, device=dev)}
+        clients.append(tree)
+    w = np.random.default_rng(7).dirichlet(np.ones(len(ranks)))
+    agg = {m: FloristAggregator(tau=0.9, svd_method=m).aggregate(clients, w)
+           for m in ("gram", "svd")}
+    worst_s = worst_p = 0.0
+    for path, ps in agg["svd"].ranks.items():
+        if agg["gram"].ranks[path] != ps:
+            fail(f"phase 7: kept ranks of {path} differ: "
+                 f"{agg['gram'].ranks[path]} vs {ps}")
+        for sg, sv in zip(agg["gram"].spectra[path], agg["svd"].spectra[path]):
+            # the Gram route resolves σ down to σ_max·√(r·eps) only
+            big = sv > 2 * sv[0] * np.sqrt(len(sv) * np.finfo(np.float32).eps)
+            worst_s = max(worst_s, float(np.abs(sg - sv)[big].max() / sv[0]))
+        gl = agg["gram"].global_adapters
+        sl = agg["svd"].global_adapters
+        for k in path:
+            gl, sl = gl[k], sl[k]
+        pg = torch.einsum("lmr,lrn->lmn", gl["B"], gl["A"])
+        pv = torch.einsum("lmr,lrn->lmn", sl["B"], sl["A"])
+        worst_p = max(worst_p, float((pg - pv).abs().max() / pv.abs().max()))
+    # fp32: the Gram route squares the condition number; above its
+    # resolution limit spectra and products agree to 1e-4 of their largest
+    print(f"  finalize gram vs svd: ranks equal on {len(agg['svd'].ranks)} "
+          f"leaves x {L} layers; spectra max rel err {worst_s:.2e}, B_g A_g "
+          f"max rel err {worst_p:.2e} (limit 1e-4)")
+    if worst_s > 1e-4 or worst_p > 1e-4:
+        fail("phase 7: the Gram route disagrees with the LAPACK route")
+    res.update(spectra_max_rel_err=worst_s, products_max_rel_err=worst_p,
+               kept_ranks={"/".join(map(str, k)): v
+                           for k, v in agg["svd"].ranks.items()})
+    return res
 
 
 if __name__ == "__main__":

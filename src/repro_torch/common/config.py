@@ -1,8 +1,9 @@
-"""Model and LoRA configuration (a copy of ``repro.common.config``'s
-``ModelConfig`` and ``LoRAConfig``; the port keeps its own so that it never
-imports the JAX package).  Field names and defaults match the reference, so
-a config prints and compares the same in both packages; the port's dense
-path reads the attention, MLP, numerics and LoRA fields."""
+"""Model, LoRA, optimizer and federated configuration (a copy of
+``repro.common.config``'s ``ModelConfig``, ``LoRAConfig``, ``OptimConfig``
+and ``FedConfig``; the port keeps its own so that it never imports the JAX
+package).  Field names and defaults match the reference, so a config prints
+and compares the same in both packages; the port's dense path reads the
+attention, MLP, numerics and LoRA fields."""
 from __future__ import annotations
 
 import dataclasses
@@ -72,3 +73,46 @@ class LoRAConfig:
     alpha: float = 16.0
     targets: Sequence[str] = ("wq", "wk", "wv", "wo")
     dropout: float = 0.0
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"
+    lr: float = 3e-4                  # paper: 0.0003
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    schedule: str = "constant"        # constant | cosine | linear
+    warmup_steps: int = 0
+    total_steps: int = 1000
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    """Federated fine-tuning setup (paper §4.1)."""
+    num_clients: int = 100
+    clients_per_round: int = 10
+    num_rounds: int = 75
+    local_epochs: int = 1
+    local_steps: int = 0              # if >0, overrides epochs
+    dirichlet_alpha: float = 0.5
+    method: str = "florist"           # florist|fedit|ffa|flora|flexlora
+    tau: float = 0.9                  # energy threshold
+    heterogeneous: bool = False
+    # paper's heavy-tail rank distribution: 40x4, 20x8, 20x16, 10x32, 10x64
+    rank_distribution: Sequence[tuple] = ((4, 40), (8, 20), (16, 20), (32, 10), (64, 10))
+    homogeneous_rank: int = 16
+    zero_padding: bool = False        # HetLoRA zero-pad for fedit/ffa
+    seed: int = 0
+
+    def client_ranks(self) -> list:
+        if not self.heterogeneous:
+            return [self.homogeneous_rank] * self.num_clients
+        ranks = []
+        for r, count in self.rank_distribution:
+            ranks += [r] * count
+        if len(ranks) != self.num_clients:
+            raise ValueError(f"rank_distribution covers {len(ranks)} clients, "
+                             f"num_clients is {self.num_clients}")
+        return ranks

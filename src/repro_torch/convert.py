@@ -5,6 +5,11 @@ The port keeps the reference's tree layout — the same keys, the ``blocks``
 tuple, stacked ``(L, ...)`` leaves, per-layer adapter ``scale`` — so every
 conversion here is a copy without renames.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) are carried bit for bit.
+
+A reference ``FederatedTrainer``'s state crosses the same way: its
+``params`` through :func:`params_from_numpy` and its shared ``A_init_full``
+(an adapter tree) through :func:`adapters_from_numpy`, assigned to the
+port trainer's attributes of the same names before its first round.
 """
 from __future__ import annotations
 

@@ -22,19 +22,25 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 _PACKAGE = Path(__file__).resolve().parents[1]
 _ROOT = _PACKAGE.parents[1]           # the checkout holding src/repro_torch
-SOURCES = ("ring_decode", "bgmv")
+SOURCES = ("ring_decode", "bgmv", "lora_matmul", "flash_attention",
+           "adapter_gram")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 ARGTYPES = {
     "ring_decode_launch": [_P, _I, _L, _L, _L, _P, _P, _I, _L, _L, _L,
                            _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bgmv_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P],
+    "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
+    "adapter_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -64,3 +64,43 @@ def bgmv_ref(x, a_pages, b_pages, table, rank, scale, ids):
                     torch.zeros((), dtype=z.dtype, device=z.device))
     y = torch.einsum("bcr,bor->bco", z, Bg)
     return y * scale.float()[ids][:, None, None]
+
+
+def lora_matmul_ref(x, w, a, b, scale):
+    """``y = x @ w + scale * (x @ aᵀ) @ bᵀ`` (``repro.kernels.ref.
+    lora_matmul_ref``).  x: (M, din), w: (din, dout), a: (r, din),
+    b: (dout, r); products in x's dtype."""
+    y = x @ w
+    z = x @ a.t().to(x.dtype)
+    return y + (z @ b.t().to(x.dtype)) * scale
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
+    """Dense grouped-query attention with an fp32 softmax
+    (``repro.kernels.ref.flash_attention_ref``).  q: (B,S,H,hd), k/v:
+    (B,T,K,hd); the window applies independently of causal.  Returns
+    (B,S,H,hd) fp32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    qf = q.float().reshape(B, S, K, g, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qf, k.float()) * (1.0 / math.sqrt(hd))
+    if causal or window:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(T, device=q.device)[None, :]
+        m = torch.ones((S, T), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= kpos <= qpos
+        if window:
+            m &= kpos > (qpos - window)
+        s = torch.where(m, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return o.reshape(B, S, H, hd)
+
+
+def adapter_gram_ref(x):
+    """Gram matrix ``xᵀx`` in fp32 (``repro.kernels.ref.adapter_gram_ref``).
+    x: (m, r) or, batched, (G, m, r)."""
+    xf = x.float()
+    return xf.mT @ xf

@@ -1,7 +1,12 @@
 """Dense transformer layers (port of the dense subset of
-``repro.models.layers``): RMSNorm, RoPE, GQA attention with the cached
-decode path, SwiGLU MLP.  Plain functions on tensors over parameter dicts
-that keep the reference's layout and keys.
+``repro.models.layers``): RMSNorm, RoPE, GQA attention over full sequences
+(train / eval) and the cached decode path, SwiGLU MLP.  Plain functions on
+tensors over parameter dicts that keep the reference's layout and keys.
+
+``use_kernel`` routes the LoRA projections through the fused
+``lora_matmul`` kernel and full-sequence attention through the
+``flash_attention`` kernel (:mod:`repro_torch.kernels.ops`); the reference
+selects the same routes with ``use_kernels`` and ``lora.USE_KERNEL``.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.attention_core import ring_attend_mask
+from repro_torch.models.attention_core import flash_torch, ring_attend_mask
 from repro_torch.peft.lora import lora_proj
 from repro_torch.serve.kvcache import cache_kv, cache_update
 
@@ -78,14 +83,15 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator, L: int,
     return p
 
 
-def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions):
+def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
+         use_kernel: bool = False):
     """Project x (B,S,d) to roped q (B,S,H,hd) and k, v (B,S,K,hd)."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a = adapters or {}
-    q = lora_proj(x, p["wq"], a.get("wq"))
-    k = lora_proj(x, p["wk"], a.get("wk"))
-    v = lora_proj(x, p["wv"], a.get("wv"))
+    q = lora_proj(x, p["wq"], a.get("wq"), use_kernel)
+    k = lora_proj(x, p["wk"], a.get("wk"), use_kernel)
+    v = lora_proj(x, p["wv"], a.get("wv"), use_kernel)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -96,6 +102,50 @@ def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions):
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def causal_mask(S: int, T: int, window: int = 0, device=None) -> torch.Tensor:
+    """(S,T) mask, True = attend: query i attends key j iff ``j <= i`` and
+    (no window or ``j > i - window``)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > (qpos - window)
+    return m
+
+
+def attention_fwd(cfg: ModelConfig, p: Params, x, adapters=None,
+                  positions=None, use_kernel: bool = False) -> torch.Tensor:
+    """Full-sequence causal attention (train / eval).  x: (B,S,d).
+
+    Three routes, as in the reference: the ``flash_attention`` kernel
+    (``use_kernel``; any S), chunked ``flash_torch`` when
+    ``S % min(S, 512) == 0``, and dense einsum attention otherwise.
+    """
+    B, S, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(cfg, p, x, adapters, positions, use_kernel)
+    if use_kernel:
+        o = kops.flash_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window)
+    elif S % min(S, 512) == 0:
+        o = flash_torch(q, k, v, causal=True, window=cfg.sliding_window,
+                        q_chunk=512, kv_chunk=1024)
+    else:
+        g = H // K
+        qf = q.float().reshape(B, S, K, g, hd)
+        s = torch.einsum("bskgh,btkh->bkgst", qf, k.float()).reshape(B, H, S, S)
+        s = s * (1.0 / math.sqrt(hd))
+        mask = causal_mask(S, S, cfg.sliding_window, x.device)
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+        w = torch.softmax(s, dim=-1).reshape(B, K, g, S, S)
+        o = torch.einsum("bkgst,btkh->bskgh", w, v.float())
+    o = o.reshape(B, S, H * hd).to(x.dtype)
+    a = adapters or {}
+    return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
@@ -156,10 +206,10 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, L: int,
     }
 
 
-def mlp_fwd(p: Params, x, adapters=None):
+def mlp_fwd(p: Params, x, adapters=None, use_kernel: bool = False):
     """SwiGLU with the SiLU taken in fp32."""
     a = adapters or {}
-    g = lora_proj(x, p["w_gate"], a.get("w_gate"))
-    u = lora_proj(x, p["w_up"], a.get("w_up"))
+    g = lora_proj(x, p["w_gate"], a.get("w_gate"), use_kernel)
+    u = lora_proj(x, p["w_up"], a.get("w_up"), use_kernel)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return lora_proj(h, p["w_down"], a.get("w_down"))
+    return lora_proj(h, p["w_down"], a.get("w_down"), use_kernel)

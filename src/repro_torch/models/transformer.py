@@ -10,6 +10,7 @@ Public API:
     layer_plan(cfg)                                 -> [(kind, count)]
     init(cfg, seed, device=None)                    -> params
     embed_inputs(cfg, params, batch)                -> (B, S, d)
+    forward(cfg, params, batch, adapters, ...)      -> (hidden, aux)  [train / eval]
     logits(cfg, params, hidden)                     -> (B, S, V)
     init_cache(cfg, batch, capacity, ..., device)   -> cache tuple
     decode(cfg, params, cache, batch, ...)          -> (logits, cache)
@@ -76,6 +77,37 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
 def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return hidden @ head
+
+
+def _block_fwd(cfg: ModelConfig, p: Params, x, a: Dict, use_kernels: bool):
+    """One dense layer over a full sequence."""
+    a = a or {}
+    h = Lyr.attention_fwd(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                          a.get("attn"), use_kernel=use_kernels)
+    x = x + h
+    h = Lyr.mlp_fwd(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
+                    a.get("mlp"), use_kernel=use_kernels)
+    return x + h
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict,
+            adapters: Optional[Dict] = None,
+            use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over ``batch["tokens"]: (B, S)``.  Returns
+    (final hidden (B,S,d), aux loss), aux being zero for the dense family.
+    ``use_kernels`` routes attention and the LoRA projections through the
+    ``flash_attention`` and ``lora_matmul`` kernels.  The reference's
+    ``remat`` has no counterpart: autograd keeps the activations."""
+    x = embed_inputs(cfg, params, batch)
+    a_blocks = (adapters or {}).get("blocks", ())
+    for seg_i, (_, count) in enumerate(layer_plan(cfg)):
+        seg_p = params["blocks"][seg_i]
+        seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
+        for i in range(count):
+            x = _block_fwd(cfg, _layer(seg_p, i), x, _layer(seg_a, i),
+                           use_kernels)
+    x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
