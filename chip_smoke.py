@@ -5,21 +5,25 @@
 
 Phases (any failure exits non-zero; no exception is caught):
 
-1. Print the card's name and power limit; build the five CUDA kernels from
+1. Print the card's name and power limit; build the six CUDA kernels from
    the sources in the checkout, one ``nvcc`` each, all at once (set-up
    time).
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerance stated beside each comparison;
    ``ring_decode`` also on a one-tile ring (no split, no merge) and at head
-   dims 16, 32 and 128; ``lora_matmul``, ``flash_attention`` and
-   ``adapter_gram`` at the federated round's shapes, ragged edges included.
+   dims 16, 32 and 128; ``mla_ring_decode`` at DeepSeek-V3's latent widths
+   (bf16 at C 1 and 16, a window, int8 with per-half scales, fp32);
+   ``bgmv`` at the Llama and the MLA projections; ``lora_matmul``,
+   ``flash_attention`` and ``adapter_gram`` at the federated round's
+   shapes, ragged edges included.
 3. Each kernel's time (median of 50 launches, CUDA events, L2 flushed
    before each), its bound, its plain version's time and a one-call
    PyTorch yardstick where one exists.
-4. The slice end to end: full-width Llama-3.2-1B (random seeded weights,
-   bf16) serving 16 requests over three adapters of ranks 4/8/16 and the
-   base model, with a mid-flight swap, through ``decode_impl="kernel"``;
-   the kernels' launch counts must equal 16 x (and 16 x 4 x) engine steps.
+4. The serving slice end to end: full-width Llama-3.2-1B (random seeded
+   weights, bf16) serving 16 requests over three adapters of ranks 4/8/16
+   and the base model, with a mid-flight swap, through
+   ``decode_impl="kernel"``; the kernels' launch counts must equal 16 x
+   (and 16 x 4 x) engine steps; a profiled window of decode steps.
 5. The engine on the card, kernels against plain versions, at full width in
    fp32 with TF32 off: first prefill step's logits within tolerance, and
    the greedy-token agreement over 16 steps.
@@ -33,6 +37,15 @@ Phases (any failure exits non-zero; no exception is caught):
    4 layers: two train steps on the kernel route against the plain route
    (loss, adapters, ``scale``), and one FLoRIST finalize on the Gram route
    against the LAPACK route (ranks, spectra, ``B_g A_g``).
+8. The MLA serving slice end to end: DeepSeek-V3 at published widths, cut
+   to its three dense MLA layers (random seeded weights, bf16), phase 4's
+   traffic with adapters on the five MLA targets; ``mla_ring_decode`` must
+   run 3 times and ``bgmv`` 12 times (4 targets x 3 layers; ``wkv_b`` is
+   folded into the absorbed weights) per engine step; 16 of 16 requests
+   with 32 tokens; rates and a profiled window of decode steps.
+9. Phase 5 on phase 8's model in fp32 (TF32 off), once with a bf16 and once
+   with an int8 latent cache: first-step logits within 5e-3 of max(1,
+   |logit|) and the greedy tokens of the kernel and plain engines equal.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -77,22 +90,41 @@ def main() -> None:
     logs = build.build_all()
     print(f"phase 1 build (set-up): {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(logs)) or 'cached'})")
+    ptxas = {}
     for name, log in sorted(logs.items()):
         regs = [int(w.split()[-1]) for w in re.findall(r"Used \d+", log)]
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", log))
+        ptxas[name] = {"kernels": len(regs), "max_registers": max(regs),
+                       "spill_bytes": spills}
         print(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs)} "
               f"registers per thread, {spills} bytes spilled")
 
-    report = {"card": smi}
-    report["kernel_cases"] = kernel_cases(torch) + train_kernel_cases(torch)
+    report = {"card": smi, "ptxas": ptxas}
+    report["kernel_cases"] = (kernel_cases(torch) + mla_kernel_cases(torch)
+                              + train_kernel_cases(torch))
     report["e2e"], counts = end_to_end(torch)
     report["parity"] = engine_parity(torch)
     report["federated"], fed_counts = federated_round(torch)
     report["fed_parity"] = federated_parity(torch)
     counts.update(fed_counts)
+    report["mla_e2e"], mla_counts = end_to_end(torch, "8", "deepseek_v3_dense3")
+    # fp32, TF32 off; the routes sum in another order, so layer 1's output
+    # differs by ~1e-7 of itself, and that flips the rounding of a few
+    # latent elements that layers 2 and 3 write to a bf16 or int8 cache (a
+    # flip moves an element by one bf16 ulp, 2^-8 of it, or one int8 step,
+    # 1/127 of its half-row's absmax).  At reduced width on the CPU this
+    # moves logits of max ~4.5 by 5.5e-4 (bf16) and 2.3e-3 (int8), against
+    # 4.9e-6 with an fp32 cache (at full width on an H100: 1.9e-3 and
+    # 1.6e-3 to 5.6e-3, logits of max ~5.2); a wrong mask, scale or row
+    # moves them by O(0.1-1).  Limit 5e-3 of max(1, |logit|).
+    report["mla_parity"] = engine_parity(
+        torch, "9", "deepseek_v3_dense3", ("bfloat16", "int8"), 5e-3,
+        require_equal=True)
+    counts["mla_ring_decode"] = mla_counts["mla_ring_decode"]
 
     kernels = []
     for name, case in (("ring_decode", "bf16 cache, C=1, B=8 H=32 K=8 hd=64 cap=1024"),
+                       ("mla_ring_decode", MLA_MAIN),
                        ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"),
                        ("lora_matmul", LORA_MAIN),
                        ("flash_attention", FLASH_MAIN),
@@ -103,7 +135,9 @@ def main() -> None:
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "case")}
             | {"launches": counts[name]}
-            | ({"library": rec["library"]} if "library" in rec else {}))
+            | ({"library": rec["library"]} if "library" in rec else {})
+            | ({"launches_mla_path": mla_counts["bgmv"]} if name == "bgmv"
+               else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -256,17 +290,24 @@ def kernel_cases(torch):
             "src/repro/kernels/ring_decode.py:115", err, ms, plain, lib,
             nbytes, ops_n, kv_name))
 
-    # bgmv: main-path projections (wq/wo 2048->2048, wk/wv 2048->512);
-    # rows on adapters of ranks 0 (base), 3, 8, 16
-    P, pr, Pmax, din = 32, 4, 4, 2048
+    # bgmv: the Llama path's projections (wq/wo 2048->2048, wk/wv
+    # 2048->512) and the MLA path's (wq_b 1536->24576, wkv_a 7168->576,
+    # not a multiple of the 256-column tile, wo 16384->7168); rows on
+    # adapters of ranks 0 (base), 3, 8, 16
+    P, pr, Pmax = 32, 4, 4
     rank = torch.tensor([0, 3, 8, 16, 0], dtype=torch.int32, device=dev)
     table = torch.randperm(P, generator=gen, device=dev)[:20].reshape(5, 4)
     table = table.to(torch.int32)
     scale = torch.tensor([0.0, 2.0, 2.0, 2.0, 0.0], device=dev)
     ids = torch.tensor([0, 1, 2, 3, 1, 2, 3, 0], dtype=torch.int32, device=dev)
-    for dt_name, C, dout in (("bfloat16", 1, 2048), ("bfloat16", 1, 512),
-                             ("bfloat16", 16, 2048), ("bfloat16", 16, 512),
-                             ("float32", 1, 2048), ("float32", 16, 512)):
+    for dt_name, C, din, dout in (
+            ("bfloat16", 1, 2048, 2048), ("bfloat16", 1, 2048, 512),
+            ("bfloat16", 16, 2048, 2048), ("bfloat16", 16, 2048, 512),
+            ("float32", 1, 2048, 2048), ("float32", 16, 2048, 512),
+            ("bfloat16", 1, 1536, 24576), ("bfloat16", 16, 1536, 24576),
+            ("bfloat16", 1, 7168, 576), ("bfloat16", 16, 7168, 576),
+            ("bfloat16", 1, 16384, 7168), ("bfloat16", 16, 16384, 7168),
+            ("float32", 16, 7168, 576)):
         dt = getattr(torch, dt_name)
         x = torch.randn(8, C, din, generator=gen, device=dev).to(dt)
         a = (torch.randn(P, pr, din, generator=gen, device=dev) * 0.05).to(dt)
@@ -295,6 +336,98 @@ def kernel_cases(torch):
             "bgmv", case, "src/repro_torch/kernels/csrc/bgmv.cu",
             "src/repro/kernels/bgmv.py:55", err, ms, plain, None, nbytes,
             ops_n, dt_name))
+    return records
+
+
+MLA_MAIN = "bf16 cache, C=1, B=8 H=128 kvr=512 rope=64 cap=1024"
+
+
+def mla_kernel_cases(torch):
+    """``mla_ring_decode`` at the MLA path's shapes (B 8, H 128, kvr 512,
+    rope 64, ring 1024): bf16 at C 1 and 16, a window of 128, int8 with
+    per-half scales, fp32."""
+    import math
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mla_ring_decode import splits
+    from repro_torch.models.attention_core import ring_attend_mask
+    from repro_torch.serve.kvcache import quant
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    records = []
+    print("phase 2/3: mla_ring_decode against its plain version; times "
+          "beside bounds")
+    B, H, kvr, rope, cap = 8, 128, 512, 64, 1024
+    scale = 1.0 / math.sqrt(128 + rope)        # DeepSeek-V3: 1/√(nope+rope)
+    # rows: wrapped twice, full, partial, a fresh prefill, never written
+    # (n = 0), ragged n, wrapped with n = 1, one tile
+    pos = torch.tensor([1500, 1024, 300, 16, 0, 700, 2100, 64], device=dev)
+    length = torch.clamp(pos, max=cap)
+    # Each query row is held to its own magnitude (a row averaging
+    # hundreds of slots is several times smaller than one averaging a few).
+    # Both sides compute in fp32 from the same stored values (bf16 and int8
+    # dequantized per half in fp32; fp32 products on both sides, TF32 off
+    # by default); they differ only in summation order over up to 1024
+    # slots and in exp rounding: limit 1e-4 of the row's max |plain|.
+    for kv_name, C, window in (("bfloat16", 1, 0), ("bfloat16", 16, 0),
+                               ("bfloat16", 1, 128), ("bfloat16", 16, 128),
+                               ("int8", 1, 0), ("int8", 16, 0),
+                               ("float32", 1, 0), ("float32", 16, 0)):
+        n = torch.minimum(pos, torch.tensor([C, C, C, C, 0, min(5, C), 1, C],
+                                            device=dev)).to(torch.int32)
+        q = torch.randn(B, C, H, kvr + rope, generator=gen, device=dev)
+        ckv_f = torch.randn(B, cap, kvr, generator=gen, device=dev)
+        kr_f = torch.randn(B, cap, rope, generator=gen, device=dev)
+        cs = rs = None
+        if kv_name == "int8":
+            (ckv, cs), (kr, rs) = quant(ckv_f), quant(kr_f)
+        else:
+            ckv, kr = (t.to(getattr(torch, kv_name)) for t in (ckv_f, kr_f))
+        p32, l32 = pos.to(torch.int32), length.to(torch.int32)
+        args = (q, ckv, kr, p32, l32, n)
+        kw = dict(scale=scale, window=window, c_kv_scale=cs, k_rope_scale=rs)
+        got = ops.mla_ring_decode(*args, **kw)
+        want = ref.mla_ring_decode_ref(*args[:6], scale, window, cs, rs)
+        torch.cuda.synchronize()
+        valid = torch.arange(C, device=dev)[None, :] < n[:, None]
+        name = {"bfloat16": "bf16"}.get(kv_name, kv_name)
+        case = (f"{name} cache, C={C}{f', window={window}' if window else ''}, "
+                f"B={B} H={H} kvr={kvr} rope={rope} cap={cap}")
+        nsplit = splits(B, C, H, cap, dev)[0]
+        err = check_rows(f"mla_ring_decode[{case}; {nsplit} splits]",
+                         got[valid], want[valid], 1e-4)
+        ms = gpu_ms(torch, lambda: ops.mla_ring_decode(*args, **kw))
+        plain = gpu_ms(torch, lambda: ref.mla_ring_decode_ref(
+            *args[:6], scale, window, cs, rs))
+        qpos = (pos - n)[:, None] + torch.arange(C, device=dev)[None, :]
+        mask = ring_attend_mask(p32, l32, cap, qpos, window)      # (B,C,cap)
+        lib = None
+        if kv_name != "int8":
+            # yardstick: one SDPA call, MQA over the latent (K = 1 broadcast
+            # to the H heads, value = the first kvr key columns), on
+            # pre-arranged inputs and the prebuilt ring mask (not timed)
+            dt = ckv.dtype
+            qt = q.transpose(1, 2).contiguous().to(dt)            # (B,H,C,576)
+            kt = torch.cat([ckv, kr], -1)[:, None]                # (B,1,cap,576)
+            vt = ckv[:, None]                                     # (B,1,cap,512)
+            mt = mask[:, None]
+            lib = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mt, scale=scale, enable_gqa=True))
+        resident = int(length.sum())
+        eb = ckv.element_size()
+        nbytes = (q.numel() * 4 + resident * (kvr + rope) * eb
+                  + (resident * 2 * 4 if kv_name == "int8" else 0)
+                  + B * C * H * kvr * 4 + 3 * B * 4)
+        pairs = int((mask & valid[:, :, None]).sum())   # visible (query, slot)
+        ops_n = 2 * H * pairs * ((kvr + rope) + kvr)
+        records.append(_record(
+            "mla_ring_decode", case,
+            "src/repro_torch/kernels/csrc/mla_ring_decode.cu",
+            "src/repro/kernels/mla_ring_decode.py:67", err, ms, plain, lib,
+            nbytes, ops_n, kv_name,
+            library=None if lib is None else
+            "scaled_dot_product_attention(attn_mask=ring mask, "
+            "enable_gqa=True), K = 1"))
     return records
 
 
@@ -461,24 +594,41 @@ def train_kernel_cases(torch):
 
 # -- phase 4: the slice end to end ------------------------------------------
 
-def end_to_end(torch):
-    from repro_torch.configs.llama3p2_1b import CONFIG
+def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
+    """Serve ``launch.serve``'s traffic on ``config`` through the kernels;
+    the attention kernel (``ring_decode``, or ``mla_ring_decode`` for MLA)
+    must run once per layer per engine step, ``bgmv`` once per layer per
+    bgmv-routed target (all four GQA targets; MLA's ``wkv_b`` is folded into
+    the absorbed weights instead)."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import MAX_TOKENS, N_REQUESTS, serve
-    print(f"phase 4: {CONFIG.name} at full width ({CONFIG.num_layers} L, "
-          f"d {CONFIG.d_model}, {CONFIG.num_heads} H / {CONFIG.num_kv_heads} KV, "
-          f"hd {CONFIG.head_dim}, d_ff {CONFIG.d_ff}, vocab {CONFIG.vocab_size}, "
-          f"{CONFIG.dtype}), random seeded weights, decode_impl=kernel")
+    from repro_torch.launch.serve import CONFIGS, MAX_TOKENS, N_REQUESTS, serve
+    cfg = CONFIGS[config][0]
+    if cfg.use_mla:
+        attn = "mla_ring_decode"
+        shape = (f"{cfg.num_heads} H, q_lora {cfg.q_lora_rank}, kv_lora "
+                 f"{cfg.kv_lora_rank}, qk nope/rope {cfg.qk_nope_head_dim}/"
+                 f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}")
+        depth = f"depth cut to its {cfg.num_layers} dense MLA layers"
+    else:
+        attn = "ring_decode"
+        shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
+                 f"{cfg.head_dim}")
+        depth = f"{cfg.num_layers} L"
+    print(f"phase {phase}: {cfg.name} at published widths ({depth}, d "
+          f"{cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), random seeded weights, decode_impl=kernel")
     ops.reset_launch_counts()
-    out = serve("llama3p2_1b", device="cuda", log=lambda s: print("  " + s))
+    out = serve(config, device=DEVICE, log=lambda s: print("  " + s))
     counts = ops.launch_counts()
     stats = out["stats"]
     steps = out["engine"].steps_run
-    L = CONFIG.num_layers
+    L = cfg.num_layers
+    want = dict.fromkeys(counts, 0)
+    want.update({attn: L * steps, "bgmv": L * 4 * steps})
     print(f"  kernels: {json.dumps(counts)} over {steps} engine steps "
-          f"(expected ring_decode {L * steps}, bgmv {L * 4 * steps})")
-    if counts["ring_decode"] != L * steps or counts["bgmv"] != L * 4 * steps:
-        fail("launch counts do not match the engine steps")
+          f"(expected {json.dumps(want)})")
+    if counts != want:
+        fail(f"phase {phase}: launch counts do not match the engine steps")
     res = out["results"]
     if (len(res) != N_REQUESTS
             or any(len(t) != MAX_TOKENS for t in res.values())):
@@ -488,14 +638,14 @@ def end_to_end(torch):
         fail(f"the step log accounts for {stats['decode_tokens']} + "
              f"{stats['prefill_step_tokens']} tokens, the requests hold "
              f"{stats['generated_tokens']}")
-    if any(not 0 <= x < CONFIG.vocab_size for t in res.values() for x in t):
+    if any(not 0 <= x < cfg.vocab_size for t in res.values() for x in t):
         fail("a generated token is outside the vocabulary")
     ids = sorted(set(out["served_by"].values()))
     old, new = out["swap"]
     if len(ids) < 4 or new not in ids or old not in ids or 0 not in ids:
         fail(f"traffic did not cover base, old and new adapter ids: {ids}")
-    print(f"  served {len(res)} requests on adapter ids {ids}; "
-          f"swap {old} -> {new}")
+    print(f"  served {len(res)} of {N_REQUESTS} requests, {MAX_TOKENS} tokens "
+          f"each, on adapter ids {ids}; swap {old} -> {new}")
     print(f"  prefill {stats['prefill_tok_s']:.1f} prompt tok/s over "
           f"{stats['prefill_steps']} steps (median "
           f"{stats['prefill_step_ms_median']:.3f} ms; they also emitted "
@@ -566,24 +716,32 @@ def profile_window(torch, run, steps: int, label: str):
 
 # -- phase 5: the engine, kernels against plain versions --------------------
 
-def engine_parity(torch):
+def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
+                  kv_dtypes=("float32",), logit_tol: float = 1e-3,
+                  require_equal: bool = False):
+    """The engine at full width in fp32 (TF32 off), kernel routes against
+    plain routes, once per cache dtype in ``kv_dtypes``: the first prefill
+    step's logits within ``logit_tol`` of max(1, |logit|), then the greedy
+    tokens of 8 requests over 16 steps (required equal with
+    ``require_equal``)."""
     import numpy as np
-    from repro_torch.configs.llama3p2_1b import CONFIG
+    from repro_torch.configs import lora_targets
     from repro_torch.device import parity_mode
-    from repro_torch.launch.serve import TARGETS, make_adapter
+    from repro_torch.launch.serve import CONFIGS, make_adapter
     from repro_torch.models import transformer as T
     from repro_torch.peft.lora import init_lora
     from repro_torch.serve.adapters import AdapterRegistry, attach
     from repro_torch.serve.engine import SamplingParams, ServeEngine
-    print("phase 5: engine on the card, kernels vs plain versions, "
-          "full width in fp32; " + parity_mode())
-    cfg = CONFIG.replace(dtype="float32")
+    print(f"phase {phase}: engine on the card, kernels vs plain versions, "
+          f"{CONFIGS[config][0].name} at full width in fp32; " + parity_mode())
+    cfg = CONFIGS[config][0].replace(dtype="float32")
     dev = torch.device(DEVICE)
     params = T.init(cfg, 1, dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    reg = AdapterRegistry(init_lora(params, TARGETS, 4, 8.0, gen), page_rank=4,
+    targets = lora_targets(cfg)
+    reg = AdapterRegistry(init_lora(params, targets, 4, 8.0, gen), page_rank=4,
                           max_rank=16, device=dev)
-    aid = [0] + [reg.register(f"r{r}", make_adapter(params, r, gen,
+    aid = [0] + [reg.register(f"r{r}", make_adapter(params, targets, r, gen,
                                                      torch.float32))
                  for r in (4, 8, 16)]
     rng = np.random.default_rng(3)
@@ -592,37 +750,46 @@ def engine_parity(torch):
     n = torch.tensor([16, 16, 9, 16, 3, 16, 16, 1], dtype=torch.int32, device=dev)
     ids = torch.tensor([aid[i % 4] for i in range(B)], dtype=torch.int32,
                        device=dev)
-    lg = {}
-    for impl, lora in (("kernel", "kernel"), ("dense", "plain")):
-        cache = T.init_cache(cfg, B, 1024, torch.float32, prefill_chunk=C,
-                             device=dev)
-        lg[impl], _ = T.decode(cfg, params, cache, {"tokens": toks},
-                               attach(reg.device_state, ids, impl=lora),
-                               n_tokens=n, decode_impl=impl)
     valid = torch.arange(C, device=dev)[None, :] < n[:, None]
-    # fp32 on both sides, TF32 off; sums in another order in attention and
-    # the LoRA delta, carried through 16 layers into logits of size ~1
-    err = check("first prefill step logits", lg["kernel"], lg["dense"], valid,
-                1e-3)
-
-    outs = {}
-    for impl in ("kernel", "dense"):
-        eng = ServeEngine(cfg, params, registry=reg, batch_slots=B,
-                          capacity=1024, prefill_chunk=C, decode_impl=impl,
-                          device=dev)
-        prng = np.random.default_rng(4)
-        uids = [eng.submit(prng.integers(1, cfg.vocab_size,
-                                         int(prng.integers(32, 65))).tolist(),
-                           SamplingParams(max_tokens=16), adapter_id=aid[i % 4])
-                for i in range(B)]
-        res = eng.run()
-        outs[impl] = [res[u] for u in uids]
-    pairs = [(a, b) for ra, rb in zip(outs["kernel"], outs["dense"])
-             for a, b in zip(ra, rb)]
-    agree = sum(a == b for a, b in pairs) / max(1, len(pairs))
-    print(f"  greedy-token agreement over 16 steps x {B} requests: "
-          f"{agree:.4f} ({sum(a == b for a, b in pairs)}/{len(pairs)})")
-    return {"logits_max_abs_err": err, "greedy_agreement": agree}
+    results = {}
+    for kv_name in kv_dtypes:
+        kv = getattr(torch, kv_name)
+        lg = {}
+        for impl, lora in (("kernel", "kernel"), ("dense", "plain")):
+            cache = T.init_cache(cfg, B, 1024, kv, prefill_chunk=C, device=dev)
+            lg[impl], _ = T.decode(cfg, params, cache, {"tokens": toks},
+                                   attach(reg.device_state, ids, impl=lora),
+                                   n_tokens=n, decode_impl=impl)
+        err = check(f"{kv_name} cache: first prefill step logits", lg["kernel"],
+                    lg["dense"], valid, logit_tol)
+        del lg
+        outs = {}
+        for impl in ("kernel", "dense"):
+            eng = ServeEngine(cfg, params, registry=reg, batch_slots=B,
+                              capacity=1024, kv_dtype=kv, prefill_chunk=C,
+                              decode_impl=impl, device=dev)
+            prng = np.random.default_rng(4)
+            uids = [eng.submit(prng.integers(1, cfg.vocab_size,
+                                             int(prng.integers(32, 65))).tolist(),
+                               SamplingParams(max_tokens=16),
+                               adapter_id=aid[i % 4])
+                    for i in range(B)]
+            res = eng.run()
+            outs[impl] = [res[u] for u in uids]
+            del eng
+        pairs = [(a, b) for ra, rb in zip(outs["kernel"], outs["dense"])
+                 for a, b in zip(ra, rb)]
+        agree = sum(a == b for a, b in pairs) / max(1, len(pairs))
+        print(f"  {kv_name} cache: greedy-token agreement over 16 steps x {B} "
+              f"requests: {agree:.4f} ({sum(a == b for a, b in pairs)}/"
+              f"{len(pairs)})")
+        if require_equal and (agree != 1.0 or len(pairs) != 16 * B):
+            fail(f"phase {phase}: the kernel and plain engines' greedy tokens "
+                 f"differ ({kv_name} cache)")
+        results[kv_name] = {"logits_max_abs_err": err, "greedy_agreement": agree}
+    del params, reg
+    torch.cuda.empty_cache()
+    return results if len(results) > 1 else results[kv_dtypes[0]]
 
 
 # -- phase 6: the federated slice end to end ---------------------------------

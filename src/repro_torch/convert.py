@@ -4,7 +4,10 @@
 The port keeps the reference's tree layout — the same keys, the ``blocks``
 tuple, stacked ``(L, ...)`` leaves, per-layer adapter ``scale`` — so every
 conversion here is a copy without renames.  bfloat16 arrays (numpy's
-``ml_dtypes.bfloat16``) are carried bit for bit.
+``ml_dtypes.bfloat16``) are carried bit for bit.  Zero-size leaves (the
+``(0, ...)`` parameters and adapters of DeepSeek-V3's empty MoE segment when
+the config is cut to its dense layers) are accepted and carried across as
+zero-size tensors, so the port's tree keeps the reference's structure.
 
 A reference ``FederatedTrainer``'s state crosses the same way: its
 ``params`` through :func:`params_from_numpy` and its shared ``A_init_full``

@@ -22,8 +22,8 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 _PACKAGE = Path(__file__).resolve().parents[1]
 _ROOT = _PACKAGE.parents[1]           # the checkout holding src/repro_torch
-SOURCES = ("ring_decode", "bgmv", "lora_matmul", "flash_attention",
-           "adapter_gram")
+SOURCES = ("ring_decode", "mla_ring_decode", "bgmv", "lora_matmul",
+           "flash_attention", "adapter_gram")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,9 @@ ARGTYPES = {
     "ring_decode_launch": [_P, _I, _L, _L, _L, _P, _P, _I, _L, _L, _L,
                            _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mla_ring_decode_launch": [_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _I,
+                               _P, _P, _L, _L, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bgmv_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P],
     "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

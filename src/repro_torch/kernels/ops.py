@@ -24,6 +24,7 @@ from repro_torch.kernels.adapter_gram import adapter_gram_cuda
 from repro_torch.kernels.bgmv import bgmv_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lora_matmul import lora_matmul_cuda
+from repro_torch.kernels.mla_ring_decode import mla_ring_decode_cuda
 from repro_torch.kernels.ring_decode import ring_decode_cuda
 from repro_torch.models.attention_core import flash_torch
 
@@ -51,6 +52,33 @@ def ring_decode(q, k, v, pos, length, n_tokens=None, window: int = 0,
 
 
 ring_decode.launches = 0
+
+
+def mla_ring_decode(q_eff, c_kv, k_rope, pos, length, n_tokens=None, *,
+                    scale: float, window: int = 0,
+                    c_kv_scale=None, k_rope_scale=None):
+    """Flash-decoding over the MLA compressed-latent ring cache.
+
+    q_eff: (B,C,H,kvr+rope) absorbed queries (taken in fp32); c_kv/k_rope:
+    (B,cap,·) raw cache storage (int8 with per-half (B,cap,1) scales fused
+    in-kernel); ``scale`` is REQUIRED and must be the un-absorbed
+    1/√(nope+rope).  Returns out_lat (B,C,H,kvr) fp32, defined on valid
+    query positions ``t < n_tokens[b]``.
+    """
+    B, C = q_eff.shape[:2]
+    if n_tokens is None:
+        n_tokens = torch.full((B,), C, dtype=torch.int32, device=q_eff.device)
+    kw = dict(c_kv_scale=c_kv_scale, k_rope_scale=k_rope_scale)
+    if q_eff.device.type == "cpu":
+        return ref.mla_ring_decode_ref(q_eff, c_kv, k_rope, pos, length,
+                                       n_tokens, scale, window, **kw)
+    out = mla_ring_decode_cuda(q_eff.float(), c_kv, k_rope, pos, length,
+                               n_tokens, scale, window, **kw)
+    mla_ring_decode.launches += 1
+    return out
+
+
+mla_ring_decode.launches = 0
 
 
 def bgmv(x, a_pages, b_pages, table, rank, scale, ids):
@@ -180,7 +208,8 @@ def adapter_gram(x):
 
 adapter_gram.launches = 0
 
-WRAPPERS = {"ring_decode": ring_decode, "bgmv": bgmv,
+WRAPPERS = {"ring_decode": ring_decode, "mla_ring_decode": mla_ring_decode,
+            "bgmv": bgmv,
             "lora_matmul": lora_matmul, "flash_attention": flash_attention,
             "adapter_gram": adapter_gram}
 

@@ -42,6 +42,36 @@ def ring_decode_ref(q, k, v, pos, length, n_tokens, window: int = 0,
     return o.reshape(B, C, H, hd)
 
 
+def mla_ring_decode_ref(q_eff, c_kv, k_rope, pos, length, n_tokens,
+                        scale: float, window: int = 0,
+                        c_kv_scale=None, k_rope_scale=None):
+    """Dense absorbed-MLA decode over the compressed-latent ring cache
+    (``repro.kernels.ref.mla_ring_decode_ref``): MQA where every head's key
+    is ``[c_kv | k_rope]`` and its value is ``c_kv`` itself.
+
+    q_eff: (B,C,H,kvr+rope); c_kv: (B,cap,kvr), k_rope: (B,cap,rope) raw
+    cache storage (int8 with per-half (B,cap,1) scales, dequantized WHOLE in
+    fp32); pos/length/n_tokens: (B,) ring state AFTER the chunk write;
+    ``scale`` the un-absorbed 1/√(nope+rope).  Returns out_lat (B,C,H,kvr)
+    fp32.
+    """
+    B, C, H, _ = q_eff.shape
+    cap = c_kv.shape[1]
+    ckv = c_kv.float()
+    kr = k_rope.float()
+    if c_kv_scale is not None:
+        ckv = ckv * c_kv_scale
+        kr = kr * k_rope_scale
+    keff = torch.cat([ckv, kr], dim=-1)
+    s = torch.einsum("bchd,btd->bhct", q_eff.float(), keff) * scale
+    qpos = ((pos - n_tokens).long()[:, None]
+            + torch.arange(C, device=q_eff.device)[None, :])
+    mask = ring_attend_mask(pos, length, cap, qpos, window)      # (B,C,cap)
+    s = torch.where(mask[:, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhct,btk->bchk", p, ckv)
+
+
 def bgmv_ref(x, a_pages, b_pages, table, rank, scale, ids):
     """Per-row paged LoRA delta ``y_b = scale_b · (x_b A_bᵀ) B_bᵀ`` (the
     ``_paged_gather`` + einsum twin of ``repro.peft.lora``), in fp32.

@@ -3,14 +3,19 @@
 The port's counterpart of ``examples/serve_federated.py`` without the
 training half: one :class:`~repro_torch.serve.engine.ServeEngine` mounted on
 an :class:`~repro_torch.serve.adapters.AdapterRegistry` holding adapters of
-ranks 4, 8 and 16 (random, seeded) serves a wave of requests on mixed
-adapter ids, the base id 0 included, through ``decode_impl="kernel"``.
-Part-way through, one adapter name is ``swap``-ped to a new version: rows
-admitted on the old id finish on it, new requests go to the new id.
-Weights are random (seeded) at the configuration's published widths.
+ranks 4, 8 and 16 (random, seeded) on the family's LoRA targets
+(``lora_targets``: ``wq wk wv wo``, or MLA's ``wq_a wq_b wkv_a wkv_b wo``)
+serves a wave of requests on mixed adapter ids, the base id 0 included,
+through ``decode_impl="kernel"``.  Part-way through, one adapter name is
+``swap``-ped to a new version: rows admitted on the old id finish on it, new
+requests go to the new id.  Weights are random (seeded) at the
+configuration's published widths; DeepSeek-V3 is cut to its three dense MLA
+layers (``configs.deepseek_v3_671b.DENSE3``).
 
     python -m repro_torch.launch.serve                  # Llama-3.2-1B, cuda
+    python -m repro_torch.launch.serve --config deepseek_v3_dense3
     python -m repro_torch.launch.serve --config smoke --device cpu
+    python -m repro_torch.launch.serve --config deepseek_smoke --device cpu
 """
 from __future__ import annotations
 
@@ -21,14 +26,13 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import llama3p2_1b
+from repro_torch.configs import deepseek_v3_671b, llama3p2_1b, lora_targets
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
-from repro_torch.serve.adapters import AdapterRegistry
+from repro_torch.serve.adapters import AdapterRegistry, adapter_leaves
 from repro_torch.serve.engine import SamplingParams, ServeEngine
 
-TARGETS = ("wq", "wk", "wv", "wo")
 SEED = 0
 SLOTS = 8
 N_REQUESTS = 16
@@ -36,19 +40,24 @@ MAX_TOKENS = 32
 RANKS = (4, 8, 16)
 SWAP_AFTER_STEPS = 6
 # config name -> (model, ring capacity, prefill chunk, prompt length range)
-CONFIGS = {"llama3p2_1b": (llama3p2_1b.CONFIG, 1024, 16, (32, 256)),
-           "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24))}
+CONFIGS = {
+    "llama3p2_1b": (llama3p2_1b.CONFIG, 1024, 16, (32, 256)),
+    "deepseek_v3_dense3": (deepseek_v3_671b.DENSE3, 1024, 16, (32, 256)),
+    "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24)),
+    "deepseek_smoke": (deepseek_v3_671b.SMOKE.replace(first_dense_layers=3),
+                       64, 4, (4, 24)),
+}
 
 
-def make_adapter(params: Dict, rank: int, gen: torch.Generator,
-                 dtype: torch.dtype) -> Dict:
-    """A rank-``rank`` adapter on ``TARGETS`` with non-zero B (a trained
-    adapter changes the outputs; ``init_lora``'s zero B would not)."""
-    ad = init_lora(params, TARGETS, rank, 2.0 * rank, gen, dtype=dtype)
-    for seg in ad["blocks"].values():
-        for leaf in seg["attn"].values():
-            b = torch.randn(leaf["B"].shape, generator=gen, device=gen.device)
-            leaf["B"] = (b * 0.02).to(dtype)
+def make_adapter(params: Dict, targets: Sequence[str], rank: int,
+                 gen: torch.Generator, dtype: torch.dtype) -> Dict:
+    """A rank-``rank`` adapter on ``targets`` with non-zero B on every leaf
+    (a trained adapter changes the outputs; ``init_lora``'s zero B would
+    not)."""
+    ad = init_lora(params, targets, rank, 2.0 * rank, gen, dtype=dtype)
+    for _, leaf in adapter_leaves(ad):
+        b = torch.randn(leaf["B"].shape, generator=gen, device=gen.device)
+        leaf["B"] = (b * 0.02).to(dtype)
     return ad
 
 
@@ -67,12 +76,13 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     dev = resolve_device(device)
     dtype = T.torch_dtype(cfg.dtype)
     params = T.init(cfg, SEED, dev)
+    targets = lora_targets(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    template = init_lora(params, TARGETS, 4, 8.0, gen, dtype=dtype)
+    template = init_lora(params, targets, 4, 8.0, gen, dtype=dtype)
     registry = AdapterRegistry(template, page_rank=4, max_rank=max(RANKS),
                                num_pages=64, max_adapters=8, device=dev)
-    ids = {f"r{r}": registry.register(f"r{r}", make_adapter(params, r, gen, dtype))
-           for r in RANKS}
+    ids = {f"r{r}": registry.register(
+        f"r{r}", make_adapter(params, targets, r, gen, dtype)) for r in RANKS}
     eng = ServeEngine(cfg, params, registry=registry, batch_slots=SLOTS,
                       capacity=capacity, prefill_chunk=prefill_chunk,
                       max_tokens_cap=MAX_TOKENS, decode_impl="kernel",
@@ -103,7 +113,7 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     swap_name = f"r{RANKS[len(RANKS) // 2]}"
     old_id = ids[swap_name]
     new_id = registry.swap(swap_name, make_adapter(
-        params, RANKS[len(RANKS) // 2], gen, dtype))
+        params, targets, RANKS[len(RANKS) // 2], gen, dtype))
     in_flight = sorted({served_by[s.uid] for s in eng.slots if s is not None})
     log(f"swap {swap_name}: id {old_id} -> {new_id} after "
         f"{eng.steps_run} steps; ids in flight {in_flight}")

@@ -1,6 +1,7 @@
-"""Dense transformer layers (port of the dense subset of
+"""Transformer layers (port of the dense and MLA subset of
 ``repro.models.layers``): RMSNorm, RoPE, GQA attention over full sequences
-(train / eval) and the cached decode path, SwiGLU MLP.  Plain functions on
+(train / eval) and the cached decode path, DeepSeek-V3's multi-head latent
+attention (MLA) on the cached decode path, SwiGLU MLP.  Plain functions on
 tensors over parameter dicts that keep the reference's layout and keys.
 
 ``use_kernel`` routes the LoRA projections through the fused
@@ -18,8 +19,9 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.attention_core import flash_torch, ring_attend_mask
-from repro_torch.peft.lora import lora_proj
-from repro_torch.serve.kvcache import cache_kv, cache_update
+from repro_torch.peft.lora import PagedLoRA, lora_proj, paged_delta_weight
+from repro_torch.serve.kvcache import (cache_kv, cache_update, dequant,
+                                       mla_cache_update)
 
 Params = Dict[str, Any]
 DECODE_IMPLS = ("dense", "kernel")
@@ -148,6 +150,14 @@ def attention_fwd(cfg: ModelConfig, p: Params, x, adapters=None,
     return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
 
 
+def _check_decode_impl(decode_impl: str) -> None:
+    if decode_impl == "streamed":
+        raise NotImplementedError(
+            "decode_impl='streamed' is not ported yet; use 'dense' or 'kernel'")
+    if decode_impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode_impl {decode_impl!r}")
+
+
 def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
                      adapters=None, n_tokens=None, decode_impl: str = "dense"):
     """Chunked cached decode with per-slot positions.
@@ -161,11 +171,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
     Returns (out (B,C,d), new_cache); the cache's ring buffers are written
     in place.
     """
-    if decode_impl == "streamed":
-        raise NotImplementedError(
-            "decode_impl='streamed' is not ported yet; use 'dense' or 'kernel'")
-    if decode_impl not in DECODE_IMPLS:
-        raise ValueError(f"unknown decode_impl {decode_impl!r}")
+    _check_decode_impl(decode_impl)
     B, C, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
@@ -193,6 +199,124 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
                              v_scale=cache["v_scale"] if int8 else None)
     o = o.reshape(B, C, H * hd).to(x.dtype)
     a = adapters or {}
+    return lora_proj(o, p["wo"], a.get("wo")), cache
+
+
+# -- MLA: multi-head latent attention (DeepSeek-V3) ---------------------------
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator, L: int,
+             dtype: torch.dtype) -> Params:
+    """Stacked ``(L, ...)`` MLA weights of ``L`` layers: the low-rank query
+    path (``wq_a``, ``q_a_norm``, ``wq_b``), the joint latent projection
+    ``wkv_a`` (latent plus the shared RoPE key), its norm, the latent
+    up-projection ``wkv_b`` (per-head key-nope and value) and ``wo``."""
+    d = cfg.d_model
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    H = cfg.num_heads
+    dev = generator.device
+    return {
+        "wq_a": dense_init(generator, (L, d, qr), d, dtype),
+        "q_a_norm": torch.ones((L, qr), dtype=dtype, device=dev),
+        "wq_b": dense_init(generator, (L, qr, H * (nope + rope)), qr, dtype),
+        "wkv_a": dense_init(generator, (L, d, kvr + rope), d, dtype),
+        "kv_a_norm": torch.ones((L, kvr), dtype=dtype, device=dev),
+        "wkv_b": dense_init(generator, (L, kvr, H * (nope + vd)), kvr, dtype),
+        "wo": dense_init(generator, (L, H * vd, d), H * vd, dtype),
+    }
+
+
+def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions):
+    """x (B,S,d) -> q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the
+    normed latent c_kv (B,S,kvr) and the roped shared key k_rope (B,S,rope)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    a = adapters or {}
+    q = lora_proj(x, p["wq_a"], a.get("wq_a"))
+    q = rmsnorm(q, p["q_a_norm"], cfg.norm_eps)
+    q = lora_proj(q, p["wq_b"], a.get("wq_b")).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv = lora_proj(x, p["wkv_a"], a.get("wkv_a"))
+    c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+    cos, sin = rope_freqs(rope, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin)       # (B,S,1,rope)
+    c_kv = rmsnorm(c_kv, p["kv_a_norm"], cfg.norm_eps)
+    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+
+
+def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
+               n_tokens=None, decode_impl: str = "dense"):
+    """MLA chunked decode in the *absorbed* formulation: attention runs
+    against the compressed latent cache and the per-head K/V expansion is
+    never materialised.  Scores ``q_latᵀ c_kv + q_ropeᵀ k_rope`` with
+    ``q_lat = q_nope · W_k``; values: the latent, then the per-head
+    V-projection after the softmax.
+
+    x: (B,C,d) with per-slot cache positions; cache: the latent ring of
+    :func:`repro_torch.serve.kvcache.mla_cache`; ``n_tokens: (B,)`` masks
+    padded rows as in :func:`attention_decode`.  A paged ``wkv_b`` adapter
+    folds each row's own delta into the absorbed weights
+    (:func:`paged_delta_weight`); a classic one folds into the shared weight.
+    ``decode_impl``: ``"dense"`` (full scores and the dense ring mask; int8
+    dequantized whole in fp32) or ``"kernel"``
+    (:func:`repro_torch.kernels.ops.mla_ring_decode`; int8 halves dequantized
+    per tile).  Both agree on valid query positions ``t < n_tokens[b]``.
+    Returns (out (B,C,d), new_cache); the ring buffers are written in place.
+    """
+    _check_decode_impl(decode_impl)
+    B, C, _ = x.shape
+    H = cfg.num_heads
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
+    q_nope, q_rope, c_kv_t, k_rope_t = _mla_qkv(cfg, p, x, adapters, qpos)
+    cache = mla_cache_update(cache, c_kv_t, k_rope_t, n_tokens)
+
+    a = adapters or {}
+    w_kvb = p["wkv_b"]
+    a_kvb = a.get("wkv_b")
+    if isinstance(a_kvb, PagedLoRA):
+        # multi-tenant: every batch row folds ITS OWN adapter's delta into
+        # the absorbed weight, so the latent projections become per-row
+        w = (w_kvb.float()[None] + paged_delta_weight(a_kvb)
+             ).reshape(B, kvr, H, nope + vd)
+        w_k, w_v = w[..., :nope], w[..., nope:]
+        q_lat = torch.einsum("bshn,bkhn->bshk", q_nope.float(), w_k)
+        v_ein = "bshk,bkhv->bshv"
+    else:
+        if a_kvb is not None:     # fold the LoRA delta into the absorbed weight
+            w_kvb = w_kvb + ((a_kvb["B"] @ a_kvb["A"]).t()
+                             * a_kvb["scale"]).to(w_kvb.dtype)
+        w = w_kvb.reshape(kvr, H, nope + vd).float()
+        w_k, w_v = w[..., :nope], w[..., nope:]
+        q_lat = torch.einsum("bshn,khn->bshk", q_nope.float(), w_k)
+        v_ein = "bshk,khv->bshv"
+    scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+    int8 = cache["c_kv"].dtype == torch.int8
+    if decode_impl == "dense":
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        if int8:
+            c_kv = dequant(c_kv, cache["c_kv_scale"])
+            k_rope = dequant(k_rope, cache["k_rope_scale"])
+        c_kv, k_rope = c_kv.float(), k_rope.float()
+        s = (torch.einsum("bshk,btk->bhst", q_lat, c_kv)
+             + torch.einsum("bshr,btr->bhst", q_rope.float(), k_rope)) * scale
+        mask = ring_attend_mask(cache["pos"], cache["length"], s.shape[-1],
+                                qpos, cfg.sliding_window)       # (B,C,T)
+        s = torch.where(mask[:, None], s, torch.full_like(s, -1e30))
+        out_lat = torch.einsum("bhst,btk->bshk", torch.softmax(s, dim=-1), c_kv)
+    else:
+        n = (torch.full((B,), C, dtype=torch.int32, device=x.device)
+             if n_tokens is None else n_tokens.to(torch.int32))
+        q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)   # (B,C,H,kvr+rope)
+        out_lat = kops.mla_ring_decode(
+            q_eff, cache["c_kv"], cache["k_rope"], cache["pos"],
+            cache["length"], n, scale=scale, window=cfg.sliding_window,
+            c_kv_scale=cache["c_kv_scale"] if int8 else None,
+            k_rope_scale=cache["k_rope_scale"] if int8 else None)
+    o = torch.einsum(v_ein, out_lat, w_v).reshape(B, C, H * vd).to(x.dtype)
     return lora_proj(o, p["wo"], a.get("wo")), cache
 
 

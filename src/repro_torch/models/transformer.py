@@ -1,10 +1,16 @@
-"""Model assembly for the dense family (port of the dense path of
-``repro.models.transformer``).
+"""Model assembly for the dense and MLA families (port of the dense and MLA
+paths of ``repro.models.transformer``).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a tuple of
 segments, each a dict of stacked ``(L, ...)`` leaves under the reference's
 keys, so converting a reference tree is a copy without renames.  A Python
 loop over the stacked layers replaces ``lax.scan``.
+
+DeepSeek-V3's plan is ``[("mla_dense", k), ("mla_moe", L - k)]``.  The port
+has no MoE module yet: a MoE segment with layers raises, and the empty one
+of a config cut to its dense layers (``L == k``) is kept with zero-size
+``(0, ...)`` leaves, so the trees keep the reference's structure.  MLA runs
+only on the cached decode path so far; ``forward`` raises for it.
 
 Public API:
     layer_plan(cfg)                                 -> [(kind, count)]
@@ -36,12 +42,46 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    if cfg.family != "dense" or cfg.num_experts or cfg.use_mla:
+    """The reference's segment plan.  Families the port lacks (SSM, hybrid,
+    VLM, audio) and MoE segments with layers raise ``NotImplementedError``."""
+    L = cfg.num_layers
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the port serves the dense family so far, not {cfg.family!r}"
-            f"{' with MLA' if cfg.use_mla else ''}"
-            f"{' with experts' if cfg.num_experts else ''}")
-    return [("dense", cfg.num_layers)]
+            f"the {cfg.family!r} family is not ported yet: the port serves "
+            "dense models and DeepSeek-V3's dense MLA layers")
+    if cfg.num_experts:
+        kind = "mla_moe" if cfg.use_mla else "moe"
+        dense_kind = "mla_dense" if cfg.use_mla else "dense"
+        plan = ([(dense_kind, cfg.first_dense_layers),
+                 (kind, L - cfg.first_dense_layers)]
+                if cfg.first_dense_layers else [(kind, L)])
+    else:
+        plan = [("mla_dense" if cfg.use_mla else "dense", L)]
+    for kind, count in plan:
+        if kind.endswith("moe") and count:
+            raise NotImplementedError(
+                f"{cfg.name}: {count} {kind!r} layers; MoE (models/moe.py) is "
+                "not ported yet: cut the config to its dense layers "
+                "(num_layers = first_dense_layers)")
+    return plan
+
+
+def _empty_moe(cfg: ModelConfig, dtype: torch.dtype, dev) -> Params:
+    """Zero-size ``(0, ...)`` leaves with the shapes and dtypes of the
+    reference's ``init_moe``: the parameters of an empty MoE segment."""
+    d, E = cfg.d_model, cfg.num_experts
+    e_ff = cfg.moe_d_ff or cfg.d_ff
+
+    def z(*shape, dt=dtype):
+        return torch.zeros((0,) + shape, dtype=dt, device=dev)
+
+    p = {"router": z(d, E, dt=torch.float32), "w_gate": z(E, d, e_ff),
+         "w_up": z(E, d, e_ff), "w_down": z(E, e_ff, d)}
+    if cfg.num_shared_experts:
+        sff = e_ff * cfg.num_shared_experts
+        p["shared"] = {"w_gate": z(d, sff), "w_up": z(d, sff),
+                       "w_down": z(sff, d)}
+    return p
 
 
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
@@ -59,13 +99,16 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = Lyr.dense_init(gen, (d, V), d, dtype)
     blocks = []
-    for _, L in layer_plan(cfg):
-        blocks.append({
-            "ln1": torch.ones((L, d), dtype=dtype, device=dev),
-            "attn": Lyr.init_attention(cfg, gen, L, dtype),
-            "ln2": torch.ones((L, d), dtype=dtype, device=dev),
-            "mlp": Lyr.init_mlp(cfg, gen, L, dtype),
-        })
+    for kind, L in layer_plan(cfg):
+        attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
+        blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
+               "attn": attn_init(cfg, gen, L, dtype),
+               "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
+        if kind.endswith("moe"):             # empty: layer_plan raised otherwise
+            blk["moe"] = _empty_moe(cfg, dtype, dev)
+        else:
+            blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
+        blocks.append(blk)
     params["blocks"] = tuple(blocks)
     return params
 
@@ -98,6 +141,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
     ``use_kernels`` routes attention and the LoRA projections through the
     ``flash_attention`` and ``lora_matmul`` kernels.  The reference's
     ``remat`` has no counterpart: autograd keeps the activations."""
+    if cfg.use_mla:
+        raise NotImplementedError(
+            "the full-sequence MLA forward (mla_fwd / mla_absorbed) is not "
+            "ported yet: MLA runs on the cached decode path (decode); its "
+            "training path is a later slice")
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     for seg_i, (_, count) in enumerate(layer_plan(cfg)):
@@ -114,15 +162,17 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                kv_dtype: Optional[torch.dtype] = None, prefill_chunk: int = 1,
                device: DeviceLike = None) -> Tuple:
     """Cache tuple mirroring the segment plan: per segment a dict of
-    stacked ``(L, B, cap, K, hd)`` rings and ``(L, B)`` positions.  Sliding
+    stacked rings (``(L, B, cap, K, hd)`` k/v, or MLA's ``(L, B, cap, kvr)``
+    latent and ``(L, B, cap, rope)`` key) and ``(L, B)`` positions.  Sliding
     windows keep ``prefill_chunk - 1`` spare slots, as in the reference."""
     dev = resolve_device(device)
     kv_dtype = kv_dtype or torch_dtype(cfg.dtype)
     if cfg.sliding_window:
         capacity = min(capacity, cfg.sliding_window + max(prefill_chunk, 1) - 1)
     caches = []
-    for _, L in layer_plan(cfg):
-        one = Kv.attn_cache(cfg, batch, capacity, kv_dtype, dev)
+    for kind, L in layer_plan(cfg):
+        make = Kv.mla_cache if kind.startswith("mla") else Kv.attn_cache
+        one = make(cfg, batch, capacity, kv_dtype, dev)
         caches.append({k: torch.zeros((L,) + v.shape, dtype=v.dtype, device=dev)
                        for k, v in one.items()})
     return tuple(caches)
@@ -139,13 +189,14 @@ def _layer(tree: Any, i: int) -> Any:
     return tree
 
 
-def _block_decode(cfg: ModelConfig, p: Params, x, cache, a: Dict,
+def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                   n_tokens=None, decode_impl: str = "dense"):
+    """One dense or MLA-dense layer, one token chunk."""
     a = a or {}
-    h, cache = Lyr.attention_decode(cfg, p["attn"],
-                                    Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                    cache, a.get("attn"), n_tokens=n_tokens,
-                                    decode_impl=decode_impl)
+    dec_fn = Lyr.mla_decode if kind.startswith("mla") else Lyr.attention_decode
+    h, cache = dec_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                      cache, a.get("attn"), n_tokens=n_tokens,
+                      decode_impl=decode_impl)
     x = x + h
     h = Lyr.mlp_fwd(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
                     a.get("mlp"))
@@ -166,14 +217,17 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     new_caches = []
-    for seg_i, (_, count) in enumerate(layer_plan(cfg)):
+    for seg_i, (kind, count) in enumerate(layer_plan(cfg)):
+        seg_c = cache[seg_i]
+        if not count:                     # an empty MoE segment
+            new_caches.append(seg_c)
+            continue
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
-        seg_c = cache[seg_i]
         pos, length = [], []
         for i in range(count):
             c_l = {k: v[i] for k, v in seg_c.items()}
-            x, c_l = _block_decode(cfg, _layer(seg_p, i), x, c_l,
+            x, c_l = _block_decode(cfg, kind, _layer(seg_p, i), x, c_l,
                                    _layer(seg_a, i), n_tokens, decode_impl)
             pos.append(c_l["pos"])
             length.append(c_l["length"])

@@ -78,6 +78,29 @@ def paged_lora_delta(x: torch.Tensor, ad: PagedLoRA) -> torch.Tensor:
               ad.ids).to(x.dtype)
 
 
+def paged_delta_weight(ad: PagedLoRA) -> torch.Tensor:
+    """Per-row dense ``ΔW_b = scale_b · (B_b A_b)ᵀ``: (B, din, dout) fp32.
+
+    The paged counterpart of folding a LoRA delta into a base weight, used
+    by the MLA absorbed decode, where the ``wkv_b`` adapter must merge into
+    the absorbed projection per batch row.  Gathers each row's pages
+    (lanes at or above the row's rank zeroed) and materialises per-row
+    weights (B · din · dout), as the reference does: the dense fallback,
+    not a fast path."""
+    pt = ad.table.long()[ad.ids.long()]                      # (B, Pmax)
+    Bn, Pmax = pt.shape
+    _, pr, din = ad.a_pages.shape
+    dout = ad.b_pages.shape[1]
+    R = Pmax * pr
+    Ag = ad.a_pages[pt].reshape(Bn, R, din).float()
+    Bg = ad.b_pages[pt].permute(0, 2, 1, 3).reshape(Bn, dout, R).float()
+    lane = torch.arange(R, device=Ag.device)[None, :, None]
+    Ag = torch.where(lane < ad.rank.long()[ad.ids.long()][:, None, None], Ag,
+                     torch.zeros((), dtype=Ag.dtype, device=Ag.device))
+    delta = torch.einsum("bor,brd->bdo", Bg, Ag)
+    return delta * ad.scale.float()[ad.ids.long()][:, None, None]
+
+
 def lora_proj(x: torch.Tensor, w: torch.Tensor,
               adapter: Optional[Any] = None,
               use_kernel: bool = False) -> torch.Tensor:

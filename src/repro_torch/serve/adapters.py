@@ -39,17 +39,18 @@ def _map_adapter_leaves(fn: Callable, node: Any) -> Any:
     return node
 
 
-def _walk_adapter_leaves(node: Any, path=()):
-    """Yield (path, leaf_dict) for every adapter leaf, dict keys sorted."""
+def adapter_leaves(node: Any, path=()):
+    """Yield (path, leaf_dict) for every ``{"A", "B", ...}`` leaf of an
+    adapter tree, dict keys sorted."""
     if _is_adapter_leaf(node):
         yield path, node
         return
     if isinstance(node, dict):
         for k in sorted(node):
-            yield from _walk_adapter_leaves(node[k], path + (k,))
+            yield from adapter_leaves(node[k], path + (k,))
     elif isinstance(node, (tuple, list)):
         for i, v in enumerate(node):
-            yield from _walk_adapter_leaves(v, path + (i,))
+            yield from adapter_leaves(v, path + (i,))
 
 
 def attach(device_state: Dict[str, Any], ids: torch.Tensor,
@@ -111,7 +112,7 @@ class AdapterRegistry:
             }
 
         self._pools = _map_adapter_leaves(mk_pool, template)
-        self._leaf_paths = [p for p, _ in _walk_adapter_leaves(template)]
+        self._leaf_paths = [p for p, _ in adapter_leaves(template)]
         if not self._leaf_paths:
             raise ValueError("template adapter tree has no {'A','B'} leaves")
         self._table = torch.zeros((max_adapters, self.pages_max),
@@ -196,7 +197,7 @@ class AdapterRegistry:
 
     def _adapter_rank(self, adapters: Any) -> int:
         paths, ranks = [], []
-        for path, leaf in _walk_adapter_leaves(adapters):
+        for path, leaf in adapter_leaves(adapters):
             paths.append(path)
             ranks.append(int(leaf["A"].shape[-2]))
         if paths != self._leaf_paths:
@@ -226,8 +227,8 @@ class AdapterRegistry:
         rp = n_pg * pr                           # rank padded to whole pages
         pg = torch.as_tensor(pages, dtype=torch.long, device=self.device)
 
-        leaves = dict(_walk_adapter_leaves(adapters))
-        for path, pool in _walk_adapter_leaves(self._pools):
+        leaves = dict(adapter_leaves(adapters))
+        for path, pool in adapter_leaves(self._pools):
             leaf = leaves[path]
             a = torch.as_tensor(leaf["A"], device=self.device)
             b = torch.as_tensor(leaf["B"], device=self.device)

@@ -1,15 +1,16 @@
-"""Per-slot ring KV caches for batched decode (port of the GQA part of
-``repro.serve.kvcache``).
+"""Per-slot ring KV caches for batched decode (port of the GQA and MLA
+parts of ``repro.serve.kvcache``).
 
 ``pos``/``length`` have shape ``(B,)``: every slot of a continuous-batching
 engine advances its own ring.  Update ops take a whole token chunk
 ``(B, C, ...)`` with a per-slot valid count ``n_tokens: (B,)``.
 
 Unlike the reference's pure functions, the port writes in place: the ring
-buffers (``k``, ``v`` and int8 scales) are updated in their storage, and
+buffers (``k``, ``v``, MLA's ``c_kv`` and ``k_rope``, and int8 scales) are
+updated in their storage, and
 :func:`reset_slots` zeroes rows in place, so a decode step never copies a
-cache.  ``cache_update`` returns a new dict holding the same buffers and new
-``pos``/``length`` tensors.
+cache.  ``cache_update`` and ``mla_cache_update`` return a new dict holding the same
+buffers and new ``pos``/``length`` tensors.
 """
 from __future__ import annotations
 
@@ -127,6 +128,49 @@ def cache_kv(cfg: ModelConfig, cache: Dict):
         return (dequant(cache["k"], cache["k_scale"]).to(torch.bfloat16),
                 dequant(cache["v"], cache["v_scale"]).to(torch.bfloat16))
     return cache["k"], cache["v"]
+
+
+def mla_cache(cfg: ModelConfig, batch: int, capacity: int,
+              dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """The MLA compressed-latent ring: ``c_kv (B,cap,kv_lora_rank)`` and the
+    shared ``k_rope (B,cap,qk_rope_head_dim)``; an int8 cache quantizes each
+    half on its own, with ``c_kv_scale`` and ``k_rope_scale (B,cap,1)``."""
+    c = {
+        "c_kv": torch.zeros((batch, capacity, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, capacity, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        for name in ("c_kv_scale", "k_rope_scale"):
+            c[name] = torch.zeros((batch, capacity, 1), dtype=torch.float32,
+                                  device=device)
+    return c
+
+
+def mla_cache_update(cache: Dict, c_kv_t, k_rope_t,
+                     n_tokens: Optional[torch.Tensor] = None) -> Dict:
+    """Insert a chunk's latent ``c_kv_t (B,C,kvr)`` and ``k_rope_t
+    (B,C,rope)`` at each row's own ring offset (in place); rows with
+    ``n_tokens == 0`` are left untouched.  Returns a dict with the same
+    buffers and the advanced ``pos``/``length``."""
+    cap = cache["c_kv"].shape[1]
+    n = _n_tokens(n_tokens, c_kv_t.shape[0], c_kv_t.shape[1], c_kv_t.device)
+    pos = cache["pos"]
+    if cache["c_kv"].dtype == torch.int8:
+        q1, s1 = quant(c_kv_t)
+        q2, s2 = quant(k_rope_t)
+        _ring_write(cache["c_kv"], q1, pos, n)
+        _ring_write(cache["k_rope"], q2, pos, n)
+        _ring_write(cache["c_kv_scale"], s1, pos, n)
+        _ring_write(cache["k_rope_scale"], s2, pos, n)
+    else:
+        _ring_write(cache["c_kv"], c_kv_t, pos, n)
+        _ring_write(cache["k_rope"], k_rope_t, pos, n)
+    return dict(cache, pos=pos + n,
+                length=torch.clamp(cache["length"] + n, max=cap))
 
 
 def _reset(cache: Any, rows: torch.Tensor) -> Any:

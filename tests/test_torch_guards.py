@@ -48,11 +48,16 @@ def test_importing_every_module_leaves_jax_out():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(MODULES) >= 15
+    # the MLA serving slice's modules are among those scanned and imported
+    assert {"repro_torch.configs", "repro_torch.configs.deepseek_v3_671b",
+            "repro_torch.kernels.mla_ring_decode"} <= set(MODULES)
+    assert (PKG / "kernels" / "csrc" / "mla_ring_decode.cu").is_file()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     """With no CUDA device and no explicit device="cpu", every entry point
     raises; with device="cpu" it runs."""
+    from repro_torch.configs.deepseek_v3_671b import SMOKE as DSMOKE
     from repro_torch.configs.llama3p2_1b import SMOKE
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.serve import serve
@@ -66,15 +71,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     template = {"blocks": {0: {"attn": {"wq": {
         "A": torch.zeros(1, 4, 256), "B": torch.zeros(1, 256, 4),
         "scale": torch.ones(1)}}}}}
+    mla = DSMOKE.replace(first_dense_layers=3, d_model=64, vocab_size=64)
+    mla_params = T.init(mla, 0, device="cpu")
     calls = [lambda: T.init(cfg, 0), lambda: T.init_cache(cfg, 2, 8),
              lambda: ServeEngine(cfg, params),
              lambda: AdapterRegistry(template),
              lambda: params_from_numpy({"x": [1.0]}),
-             lambda: serve("smoke")]
+             lambda: serve("smoke"),
+             lambda: T.init(mla, 0), lambda: T.init_cache(mla, 2, 8),
+             lambda: ServeEngine(mla, mla_params),
+             lambda: serve("deepseek_smoke")]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+    assert ServeEngine(mla, mla_params, device="cpu").device.type == "cpu"
     AdapterRegistry(template, device="cpu")
 
 
@@ -93,6 +104,8 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
     t, r, s = (torch.zeros(2, 1, dtype=torch.int32),
                torch.zeros(2, dtype=torch.int32), torch.ones(2))
     ops.bgmv(x, a, b, t, r, s, torch.zeros(1, dtype=torch.int32))
+    ops.mla_ring_decode(torch.zeros(1, 1, 2, 48), torch.zeros(1, 4, 32),
+                        torch.zeros(1, 4, 16), i, i, i, scale=0.1)
     assert ops.launch_counts() == dict.fromkeys(ops.WRAPPERS, 0)
     with pytest.raises(ValueError, match="CUDA"):
         ops.ring_decode(q.to("meta"), kv.to("meta"), kv.to("meta"),
