@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero; no exception is caught):
 
-1. Print the card's name and power limit; build the six CUDA kernels from
-   the sources in the checkout, one ``nvcc`` each, all at once (set-up
+1. Print the card's name and power limit; build the seven CUDA kernels
+   from the sources in the checkout, one ``nvcc`` each, all at once (set-up
    time).
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerance stated beside each comparison;
@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no exception is caught):
    (bf16 at C 1 and 16, a window, int8 with per-half scales, fp32);
    ``bgmv`` at the Llama and the MLA projections; ``lora_matmul``,
    ``flash_attention`` and ``adapter_gram`` at the federated round's
-   shapes, ragged edges included.
+   shapes, ragged edges included; ``wkv6`` at RWKV6-1.6B's prefill shape
+   (bf16 and fp32) and a ragged sequence.
 3. Each kernel's time (median of 50 launches, CUDA events, L2 flushed
    before each), its bound, its plain version's time and a one-call
    PyTorch yardstick where one exists.
@@ -46,6 +47,18 @@ Phases (any failure exits non-zero; no exception is caught):
 9. Phase 5 on phase 8's model in fp32 (TF32 off), once with a bf16 and once
    with an int8 latent cache: first-step logits within 5e-3 of max(1,
    |logit|) and the greedy tokens of the kernel and plain engines equal.
+10. The RWKV6 prefill end to end: RWKV6-1.6B at published widths (random
+    seeded weights, bf16, one rank-16 adapter on its five targets) through
+    ``make_prefill_step(use_kernels=True)`` on 8 x 1024 tokens, three
+    calls after a warm-up; ``wkv6`` must run 24 and ``lora_matmul`` 120
+    times a call; tokens/s and a profiled window.
+11. RWKV6 serving end to end: phase 4's traffic on RWKV6-1.6B, one token
+    per engine step; ``bgmv`` must run 120 times per engine step (5 targets
+    x 24 layers) and ``wkv6`` never; 16 of 16 requests with 32 tokens.
+12. RWKV6 in fp32 (TF32 off) at full width: (a) the prefill step's kernel
+    route against its plain route, (b) phase 5 on this model, (c) the
+    kernel prefill's last logits against ``decode`` fed the same prompt one
+    token at a time (registry adapter, ``bgmv``).
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -101,7 +114,8 @@ def main() -> None:
 
     report = {"card": smi, "ptxas": ptxas}
     report["kernel_cases"] = (kernel_cases(torch) + mla_kernel_cases(torch)
-                              + train_kernel_cases(torch))
+                              + train_kernel_cases(torch)
+                              + wkv6_kernel_cases(torch))
     report["e2e"], counts = end_to_end(torch)
     report["parity"] = engine_parity(torch)
     report["federated"], fed_counts = federated_round(torch)
@@ -121,6 +135,20 @@ def main() -> None:
         torch, "9", "deepseek_v3_dense3", ("bfloat16", "int8"), 5e-3,
         require_equal=True)
     counts["mla_ring_decode"] = mla_counts["mla_ring_decode"]
+    report["rwkv_prefill"], rwkv_counts = rwkv_prefill(torch)
+    counts["wkv6"] = rwkv_counts["wkv6"]
+    report["rwkv_e2e"], rwkv_serve_counts = end_to_end(torch, "11", "rwkv6_1p6b")
+    report["rwkv_parity"] = rwkv_parity(torch)
+
+    def case_rec(name, case):
+        return next(r for r in report["kernel_cases"]
+                    if r["name"] == name and r["case"] == case)
+
+    def other_path(key, name, case):
+        """The case at another path's shape, beside that path's launches."""
+        rec = case_rec(name, case)
+        return {f"{key}_case": case, f"{key}_max_abs_err": rec["max_abs_err"],
+                f"{key}_ms": rec["ms"]}
 
     kernels = []
     for name, case in (("ring_decode", "bf16 cache, C=1, B=8 H=32 K=8 hd=64 cap=1024"),
@@ -128,16 +156,21 @@ def main() -> None:
                        ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"),
                        ("lora_matmul", LORA_MAIN),
                        ("flash_attention", FLASH_MAIN),
-                       ("adapter_gram", GRAM_MAIN)):
-        rec = next(r for r in report["kernel_cases"]
-                   if r["name"] == name and r["case"] == case)
+                       ("adapter_gram", GRAM_MAIN),
+                       ("wkv6", WKV6_MAIN)):
+        rec = case_rec(name, case)
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "case")}
             | {"launches": counts[name]}
             | ({"library": rec["library"]} if "library" in rec else {})
-            | ({"launches_mla_path": mla_counts["bgmv"]} if name == "bgmv"
-               else {}))
+            | ({"launches_mla_path": mla_counts["bgmv"],
+                "launches_rwkv_path": rwkv_serve_counts["bgmv"]}
+               | other_path("rwkv_path", "bgmv", BGMV_RWKV)
+               if name == "bgmv" else {})
+            | ({"launches_rwkv_prefill": rwkv_counts["lora_matmul"]}
+               | other_path("rwkv_prefill", "lora_matmul", LORA_RWKV)
+               if name == "lora_matmul" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -187,17 +220,18 @@ def check(name, got, want, valid, tol):
     return err
 
 
-def check_rows(name, got, want, tol):
+def check_rows(name, got, want, tol, floor: float = 1e-30):
     """Each row (the last axis) on its own scale: max |got - want| over the
-    row must be <= tol * max |want| over the row.  Returns max |got - want|
-    over all rows."""
+    row must be <= tol * max(floor, max |want| over the row).  Returns max
+    |got - want| over all rows."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
-    rel = (d.amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+    rel = (d.amax(-1) / w.abs().amax(-1).clamp_min(floor)).max().item()
     err, mean = d.max().item(), d.mean().item()
     ok = rel <= tol
+    scale = "row max |plain|" if floor < 1 else f"max({floor:g}, row max |plain|)"
     print(f"  {name}: max_abs_err {err:.3e}, mean_abs_err {mean:.3e}; worst "
-          f"row max |Δ| / row max |plain| {rel:.3e} (limit {tol:.1e}) "
+          f"row max |Δ| / {scale} {rel:.3e} (limit {tol:.1e}) "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
@@ -307,11 +341,13 @@ def kernel_cases(torch):
             ("bfloat16", 1, 1536, 24576), ("bfloat16", 16, 1536, 24576),
             ("bfloat16", 1, 7168, 576), ("bfloat16", 16, 7168, 576),
             ("bfloat16", 1, 16384, 7168), ("bfloat16", 16, 16384, 7168),
-            ("float32", 16, 7168, 576)):
-        dt = getattr(torch, dt_name)
+            ("float32", 16, 7168, 576), ("float32/bfloat16", 1, 2048, 2048)):
+        # "x/pages": an RWKV6 bf16 decode feeds r/k/v/g's fp32 inputs
+        dt_name, _, page_name = dt_name.partition("/")
+        dt, pdt = getattr(torch, dt_name), getattr(torch, page_name or dt_name)
         x = torch.randn(8, C, din, generator=gen, device=dev).to(dt)
-        a = (torch.randn(P, pr, din, generator=gen, device=dev) * 0.05).to(dt)
-        b = (torch.randn(P, dout, pr, generator=gen, device=dev) * 0.05).to(dt)
+        a = (torch.randn(P, pr, din, generator=gen, device=dev) * 0.05).to(pdt)
+        b = (torch.randn(P, dout, pr, generator=gen, device=dev) * 0.05).to(pdt)
         args = (x, a, b, table, rank, scale, ids)
         got = ops.bgmv(*args)
         want = ref.bgmv_ref(*args)
@@ -319,18 +355,20 @@ def kernel_cases(torch):
         base = rank[ids.long()] == 0
         if (got[base] != 0).any():
             fail("bgmv: a rank-0 row is not an exact zero")
-        case = (f"{'bf16' if dt_name == 'bfloat16' else dt_name}, C={C}, B=8 "
-                f"din={din} dout={dout} pr={pr} Pmax={Pmax}")
+        short = {"bfloat16": "bf16", "float32": "fp32"}
+        case = (f"{short[dt_name]} x, {short[page_name]} pages"
+                if page_name else
+                f"{'bf16' if dt_name == 'bfloat16' else dt_name}")
+        case += f", C={C}, B=8 din={din} dout={dout} pr={pr} Pmax={Pmax}"
         err = check(f"bgmv[{case}]", got, want,
                     torch.ones(8, dtype=torch.bool, device=dev),
                     1e-4 if dt_name == "float32" else 2e-3)
         ms = gpu_ms(torch, lambda: ops.bgmv(*args))
         plain = gpu_ms(torch, lambda: ref.bgmv_ref(*args))
-        eb = x.element_size()
         distinct = sorted(set(ids.tolist()))
         r_rows = [int(rank[i]) for i in ids.tolist()]
-        nbytes = (x.numel() * eb + sum(int(rank[i]) for i in distinct)
-                  * (din + dout) * eb + 8 * C * dout * 4)
+        nbytes = (x.numel() * x.element_size() + sum(int(rank[i]) for i in distinct)
+                  * (din + dout) * a.element_size() + 8 * C * dout * 4)
         ops_n = 2 * C * sum(r_rows) * (din + dout)
         records.append(_record(
             "bgmv", case, "src/repro_torch/kernels/csrc/bgmv.cu",
@@ -339,6 +377,7 @@ def kernel_cases(torch):
     return records
 
 
+BGMV_RWKV = "fp32 x, bf16 pages, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"
 MLA_MAIN = "bf16 cache, C=1, B=8 H=128 kvr=512 rope=64 cap=1024"
 
 
@@ -453,6 +492,7 @@ def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
 # -- phases 2 and 3 for the federated round's kernels ------------------------
 
 LORA_MAIN = "bf16, M=2048 din=2048 dout=2048 r=16"
+LORA_RWKV = "bf16, M=8192 din=2048 dout=2048 r=16"
 FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
 GRAM_MAIN = "fp32, G=32 m=2048 r=64"
 
@@ -478,13 +518,15 @@ def train_kernel_cases(torch):
     dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
     # lora_matmul: the train step's projections (M = 4 x 512 tokens; wq/wo
-    # 2048 -> 2048, wk/wv 2048 -> 512) at the round's client ranks, and one
+    # 2048 -> 2048, wk/wv 2048 -> 512) at the round's client ranks, the
+    # RWKV6 prefill's (M = 8 x 1024 tokens, 2048 -> 2048, r 16), and one
     # ragged M / dout / rank.  bf16: both sides round z and s·B at the same
     # points; the plain version rounds x W and the delta to bf16 before
     # adding, the kernel once at the end, so they differ by up to 2 bf16
     # ulps of the output (an ulp is up to 2^-7 of |y|): limit 2e-2 of
     # max |y|.  fp32 (TF32 off): sum order over din = 2048: limit 1e-4.
     for dt, M, dout, r in ((torch.bfloat16, 2048, 2048, 16),
+                           (torch.bfloat16, 8192, 2048, 16),
                            (torch.bfloat16, 2048, 512, 16),
                            (torch.bfloat16, 2048, 2048, 4),
                            (torch.bfloat16, 2048, 2048, 32),
@@ -592,28 +634,81 @@ def train_kernel_cases(torch):
     return records
 
 
+# -- phases 2 and 3 for the RWKV6 prefill's kernel ----------------------------
+
+WKV6_MAIN = "bf16 r/k/v, B=8 S=1024 H=32 hd=64"
+
+
+def wkv6_kernel_cases(torch):
+    """``wkv6`` at RWKV6-1.6B's prefill shape (B 8, S 1024, 32 heads of 64)
+    with bf16 and fp32 r/k/v, and a ragged S of 200 (one partial tile)."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    records = []
+    print("phase 2/3: wkv6 against its plain version; times beside bounds")
+    # Both sides compute in fp32 from the same stored values; the kernel
+    # forms y as r·S + v·(Σ r u k) with FMAs, the plain version as
+    # r·(S + u k v), and the sums run in another order, over a state that
+    # carries ~30 tokens (decays e^{-e^{N(-3, 1)}}): each (b, h) row within
+    # 1e-4 of max(1, its max |plain|).
+    for dt, B, S in ((torch.bfloat16, 8, 1024), (torch.float32, 8, 1024),
+                     (torch.bfloat16, 8, 200)):
+        H, hd = 32, 64
+        r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) - 3)
+        u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
+        got = ops.wkv6(r, k, v, w, u)
+        want = ref.wkv6_ref(r, k, v, w, u)
+        torch.cuda.synchronize()
+        case = (f"{'bf16' if dt == torch.bfloat16 else 'fp32'} r/k/v, "
+                f"B={B} S={S} H={H} hd={hd}")
+        err = check_rows(f"wkv6[{case}]", *(
+            t.permute(0, 2, 1, 3).reshape(B * H, S * hd) for t in (got, want)),
+            1e-4, floor=1.0)
+        ms = gpu_ms(torch, lambda: ops.wkv6(r, k, v, w, u))
+        plain = gpu_ms(torch, lambda: ref.wkv6_ref(r, k, v, w, u))
+        n = B * S * H * hd
+        nbytes = 3 * n * r.element_size() + 4 * n + 4 * H * hd + 4 * n
+        # 5·hd² + 5·hd operations per token and head: r·S (2hd²), the
+        # update e^w ⊙ S + k ⊗ v (3hd²) and the u-bonus, one dot product
+        # Σ r u k (3hd) times v added to y (2hd); the hd exps are left out
+        ops_n = (5 * hd * hd + 5 * hd) * B * S * H
+        records.append(_record(
+            "wkv6", case, "src/repro_torch/kernels/csrc/wkv6.cu",
+            "src/repro/kernels/wkv6.py:47", err, ms, plain, None, nbytes,
+            ops_n, "float32"))
+    return records
+
+
 # -- phase 4: the slice end to end ------------------------------------------
 
 def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
     """Serve ``launch.serve``'s traffic on ``config`` through the kernels;
-    the attention kernel (``ring_decode``, or ``mla_ring_decode`` for MLA)
-    must run once per layer per engine step, ``bgmv`` once per layer per
-    bgmv-routed target (all four GQA targets; MLA's ``wkv_b`` is folded into
-    the absorbed weights instead)."""
+    the attention kernel (``ring_decode``, or ``mla_ring_decode`` for MLA;
+    none for RWKV6) must run once per layer per engine step, ``bgmv`` once
+    per layer per bgmv-routed target (every LoRA target but MLA's ``wkv_b``,
+    which is folded into the absorbed weights instead)."""
+    from repro_torch.configs import lora_targets
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import CONFIGS, MAX_TOKENS, N_REQUESTS, serve
     cfg = CONFIGS[config][0]
+    depth = f"{cfg.num_layers} L"
     if cfg.use_mla:
         attn = "mla_ring_decode"
         shape = (f"{cfg.num_heads} H, q_lora {cfg.q_lora_rank}, kv_lora "
                  f"{cfg.kv_lora_rank}, qk nope/rope {cfg.qk_nope_head_dim}/"
                  f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}")
         depth = f"depth cut to its {cfg.num_layers} dense MLA layers"
+    elif cfg.family == "ssm":
+        attn = None
+        shape = (f"{cfg.num_rwkv_heads} heads of {cfg.rwkv_head_dim}, decay "
+                 f"LoRA {cfg.rwkv_decay_lora}; one token per engine step")
     else:
         attn = "ring_decode"
         shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
                  f"{cfg.head_dim}")
-        depth = f"{cfg.num_layers} L"
     print(f"phase {phase}: {cfg.name} at published widths ({depth}, d "
           f"{cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}), random seeded weights, decode_impl=kernel")
@@ -624,7 +719,9 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
     steps = out["engine"].steps_run
     L = cfg.num_layers
     want = dict.fromkeys(counts, 0)
-    want.update({attn: L * steps, "bgmv": L * 4 * steps})
+    want["bgmv"] = L * (len(lora_targets(cfg)) - cfg.use_mla) * steps
+    if attn:
+        want[attn] = L * steps
     print(f"  kernels: {json.dumps(counts)} over {steps} engine steps "
           f"(expected {json.dumps(want)})")
     if counts != want:
@@ -646,15 +743,17 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
         fail(f"traffic did not cover base, old and new adapter ids: {ids}")
     print(f"  served {len(res)} of {N_REQUESTS} requests, {MAX_TOKENS} tokens "
           f"each, on adapter ids {ids}; swap {old} -> {new}")
-    print(f"  prefill {stats['prefill_tok_s']:.1f} prompt tok/s over "
-          f"{stats['prefill_steps']} steps (median "
-          f"{stats['prefill_step_ms_median']:.3f} ms; they also emitted "
-          f"{stats['prefill_step_tokens']} tokens); decode "
-          f"{stats['decode_tok_s']:.1f} tok/s ({stats['decode_tokens']} tokens "
+    pre = (f"prefill {stats['prefill_tok_s']:.1f} prompt tok/s over "
+           f"{stats['prefill_steps']} steps (median "
+           f"{stats['prefill_step_ms_median']:.3f} ms; they also emitted "
+           f"{stats['prefill_step_tokens']} tokens)" if stats["prefill_steps"]
+           else "every step one token wide (prompts consumed one token a step)")
+    print(f"  {pre}; decode {stats['decode_tok_s']:.1f} tok/s ({stats['decode_tokens']} tokens "
           f"over {stats['decode_steps']} steps, median "
           f"{stats['decode_step_ms_median']:.3f} ms); end to end "
           f"{stats['e2e_tok_s']:.1f} generated tok/s over a wall of "
-          f"{stats['wall_s']:.2f} s")
+          f"{stats['wall_s']:.2f} s; prompt and generated tokens over the "
+          f"steps' time {stats['step_tok_s']:.1f} tok/s")
     window = profile_decode(torch, out["engine"])
     del out
     torch.cuda.empty_cache()
@@ -721,7 +820,10 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
                   require_equal: bool = False):
     """The engine at full width in fp32 (TF32 off), kernel routes against
     plain routes, once per cache dtype in ``kv_dtypes``: the first prefill
-    step's logits within ``logit_tol`` of max(1, |logit|), then the greedy
+    step's logits (a 16-token chunk; for RWKV6, whose recurrence takes no
+    chunks, the logits after 8 one-token steps: at the init's zero bonus u
+    the first token's time mix is exactly zero and never reaches the
+    adapters) within ``logit_tol`` of max(1, |logit|), then the greedy
     tokens of 8 requests over 16 steps (required equal with
     ``require_equal``)."""
     import numpy as np
@@ -745,9 +847,12 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
                                                      torch.float32))
                  for r in (4, 8, 16)]
     rng = np.random.default_rng(3)
-    B, C = 8, 16
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, C)), device=dev)
-    n = torch.tensor([16, 16, 9, 16, 3, 16, 16, 1], dtype=torch.int32, device=dev)
+    B = 8
+    C, steps = (1, 8) if cfg.family == "ssm" else (16, 1)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, C * steps)),
+                           device=dev)
+    n = torch.tensor([16, 16, 9, 16, 3, 16, 16, 1] if C == 16
+                     else [1, 1, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
     ids = torch.tensor([aid[i % 4] for i in range(B)], dtype=torch.int32,
                        device=dev)
     valid = torch.arange(C, device=dev)[None, :] < n[:, None]
@@ -757,11 +862,15 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
         lg = {}
         for impl, lora in (("kernel", "kernel"), ("dense", "plain")):
             cache = T.init_cache(cfg, B, 1024, kv, prefill_chunk=C, device=dev)
-            lg[impl], _ = T.decode(cfg, params, cache, {"tokens": toks},
-                                   attach(reg.device_state, ids, impl=lora),
-                                   n_tokens=n, decode_impl=impl)
-        err = check(f"{kv_name} cache: first prefill step logits", lg["kernel"],
-                    lg["dense"], valid, logit_tol)
+            for i in range(steps):
+                lg[impl], cache = T.decode(
+                    cfg, params, cache, {"tokens": toks[:, i * C:(i + 1) * C]},
+                    attach(reg.device_state, ids, impl=lora), n_tokens=n,
+                    decode_impl=impl)
+        what = ("first prefill step logits" if steps == 1
+                else f"logits after {steps} one-token steps")
+        err = check(f"{kv_name} cache: {what}", lg["kernel"], lg["dense"],
+                    valid, logit_tol)
         del lg
         outs = {}
         for impl in ("kernel", "dense"):
@@ -1014,6 +1123,164 @@ def federated_parity(torch):
                            for k, v in agg["svd"].ranks.items()})
     return res
 
+
+
+# -- phase 10: the RWKV6 prefill end to end ----------------------------------
+
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_CALLS = 8, 1024, 3
+
+
+def rwkv_prefill(torch):
+    """``make_prefill_step(use_kernels=True)`` on RWKV6-1.6B at published
+    widths: per call ``wkv6`` once per layer and ``lora_matmul`` once per
+    layer and target; tokens/s, and a profiled window of calls."""
+    from repro_torch.configs import lora_targets
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CONFIGS, make_adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_prefill_step
+    cfg = CONFIGS["rwkv6_1p6b"][0]
+    L, targets = cfg.num_layers, lora_targets(cfg)
+    print(f"phase 10: {cfg.name} prefill at published widths ({L} L, d "
+          f"{cfg.d_model}, {cfg.num_rwkv_heads} heads of {cfg.rwkv_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}), random "
+          f"seeded weights, one rank-16 adapter on {' '.join(targets)}, "
+          f"make_prefill_step(use_kernels=True) on {PREFILL_BATCH} x "
+          f"{PREFILL_SEQ} tokens")
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    params = T.init(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ad = make_adapter(params, targets, 16, gen, T.torch_dtype(cfg.dtype))
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
+                         generator=gen, device=dev)
+    step = make_prefill_step(cfg, use_kernels=True)
+    first = step(params, ad, {"tokens": toks})                  # warm-up
+    torch.cuda.synchronize()
+    print(f"  set-up and warm-up call: {time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    call_ms = []
+    for _ in range(PREFILL_CALLS):
+        t1 = time.perf_counter()
+        lg = step(params, ad, {"tokens": toks})
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(wkv6=PREFILL_CALLS * L,
+                lora_matmul=PREFILL_CALLS * L * len(targets))
+    print(f"  kernels: {json.dumps(counts)} over {PREFILL_CALLS} calls "
+          f"(expected {json.dumps(want)})")
+    if counts != want:
+        fail("phase 10: launch counts do not match the prefill calls")
+    if lg.shape != (PREFILL_BATCH, cfg.vocab_size) or not bool(
+            torch.isfinite(lg).all()):
+        fail(f"phase 10: logits of shape {tuple(lg.shape)}, finite "
+             f"{bool(torch.isfinite(lg).all())}")
+    drift = float((lg.float() - first.float()).abs().max())
+    if drift > 1e-2 * max(1.0, float(first.float().abs().max())):
+        fail(f"phase 10: a repeated call moved the logits by {drift:.3e}")
+    med = statistics.median(call_ms)
+    tok_s = PREFILL_BATCH * PREFILL_SEQ / (med / 1e3)
+    print(f"  prefill call median {med:.2f} ms (host clock, synchronised; "
+          f"{', '.join(f'{m:.2f}' for m in call_ms)}): {tok_s:.0f} prompt "
+          f"tok/s; repeated-call logits drift {drift:.3e}")
+
+    def run(n):
+        for _ in range(n):
+            step(params, ad, {"tokens": toks})
+
+    window = profile_window(torch, run, 2, f"prefill call, {PREFILL_BATCH} x "
+                            f"{PREFILL_SEQ} tokens")
+    del params, ad, first, lg
+    torch.cuda.empty_cache()
+    return {"call_ms": call_ms, "call_ms_median": med, "prefill_tok_s": tok_s,
+            "launches": counts, "repeat_drift": drift,
+            "profiled_prefill": window}, counts
+
+
+# -- phase 12: RWKV6 in fp32, kernel routes against plain routes --------------
+
+def _double(tree):
+    """A parameter or adapter tree with its floating leaves in fp64."""
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_double(v) for v in tree)
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def rwkv_parity(torch):
+    from repro_torch.configs import lora_targets
+    from repro_torch.device import parity_mode
+    from repro_torch.launch.serve import CONFIGS, make_adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.adapters import AdapterRegistry, attach
+    from repro_torch.train.step import make_prefill_step
+    cfg = CONFIGS["rwkv6_1p6b"][0].replace(dtype="float32")
+    print(f"phase 12: {cfg.name} at full width in fp32, kernel routes vs "
+          "plain routes; " + parity_mode())
+    dev = torch.device(DEVICE)
+    # The reference's init, the bonus u at zero (phases 2/3 check the u term
+    # with u ~ N(0, 0.25)).  A bonus u ~ N(0, 0.25) in all 24 layers makes
+    # this random model so ill-conditioned that both fp32 routes land as far
+    # from an fp64 evaluation as from each other; (a) prints each route's
+    # distance to fp64 at this init.
+    params = T.init(cfg, 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    targets = lora_targets(cfg)
+    ad = make_adapter(params, targets, 16, gen, torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen, device=dev)
+    res = {}
+    # (a) fp32 on both routes; they differ in sum order (the wkv6 kernel's
+    # FMAs and its y = r·S + v·Σ r u k against the loop's einsums;
+    # lora_matmul's against two matmuls) through 24 layers: limit 1e-3 of
+    # max(1, |logit|)
+    lk = make_prefill_step(cfg, use_kernels=True)(params, ad, {"tokens": toks})
+    lp = make_prefill_step(cfg, use_kernels=False)(params, ad, {"tokens": toks})
+    res["prefill_logits_max_abs_err"] = check(
+        "(a) prefill step, kernel vs plain route, 4 x 512 tokens: last logits",
+        lk, lp, torch.ones(4, dtype=torch.bool, device=dev), 1e-3)
+    f64, a64 = _double(params), _double(ad)
+    l64 = make_prefill_step(cfg, use_kernels=False)(f64, a64, {"tokens": toks})
+    top = float(l64.abs().max())
+    res["kernel_vs_fp64_rel"] = float((lk.double() - l64).abs().max()) / top
+    res["plain_vs_fp64_rel"] = float((lp.double() - l64).abs().max()) / top
+    print(f"      distance to the plain route in fp64, as a share of max |logit|:"
+          f" kernel route {res['kernel_vs_fp64_rel']:.3e}, plain route "
+          f"{res['plain_vs_fp64_rel']:.3e}")
+    del lk, lp, f64, a64, l64
+    # (c) the kernel prefill against decode fed the same prompt one token
+    # at a time through the registry (bgmv): the reference's own bound for
+    # decode against forward, 2e-4 of max |logit| (tests/test_models.py)
+    n_dec = 256
+    pre = make_prefill_step(cfg, use_kernels=True)(params, ad,
+                                                   {"tokens": toks[:, :n_dec]})
+    reg = AdapterRegistry(ad, page_rank=4, max_rank=16, num_pages=8,
+                          max_adapters=2, device=dev)
+    ids = torch.full((4,), reg.register("r16", ad), dtype=torch.int32, device=dev)
+    state = attach(reg.device_state, ids, impl="kernel")
+    cache = T.init_cache(cfg, 4, n_dec, device=dev)
+    t0 = time.perf_counter()
+    for t in range(n_dec):
+        lg, cache = T.decode(cfg, params, cache, {"tokens": toks[:, t:t + 1]},
+                             state, decode_impl="kernel")
+    torch.cuda.synchronize()
+    rel = float((lg[:, 0] - pre).abs().max()) / float(pre.abs().max())
+    ok = rel <= 2e-4
+    print(f"  (c) kernel prefill vs {n_dec} one-token decode steps "
+          f"({time.perf_counter() - t0:.1f} s): last logits max |Δ| / max "
+          f"|logit| {rel:.3e} (limit 2e-4) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("phase 12: decode disagrees with the kernel prefill")
+    res["decode_vs_prefill_rel_err"] = rel
+    del params, ad, reg, state, cache, pre, lg
+    torch.cuda.empty_cache()
+    # (b) phase 5 on this model: bgmv against its plain version in the
+    # engine (the recurrence is the same on both routes)
+    res["engine"] = engine_parity(torch, "12 (b)", "rwkv6_1p6b",
+                                  require_equal=True)
+    return res
 
 if __name__ == "__main__":
     main()

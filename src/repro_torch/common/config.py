@@ -2,8 +2,8 @@
 ``repro.common.config``'s ``ModelConfig``, ``LoRAConfig``, ``OptimConfig``
 and ``FedConfig``; the port keeps its own so that it never imports the JAX
 package).  Field names and defaults match the reference, so a config prints
-and compares the same in both packages; the port's dense path reads the
-attention, MLP, numerics and LoRA fields."""
+and compares the same in both packages; the port reads the attention, MLA,
+RWKV, MLP, numerics and LoRA fields."""
 from __future__ import annotations
 
 import dataclasses
@@ -62,6 +62,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def num_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -8,6 +8,8 @@ conversion here is a copy without renames.  bfloat16 arrays (numpy's
 ``(0, ...)`` parameters and adapters of DeepSeek-V3's empty MoE segment when
 the config is cut to its dense layers) are accepted and carried across as
 zero-size tensors, so the port's tree keeps the reference's structure.
+Mixed dtypes cross as they are: RWKV6's fp32 ``w0`` and ``u`` beside its
+bf16 weights, its ``(5, d)`` and ``(5, dl, d)`` mixing leaves included.
 
 A reference ``FederatedTrainer``'s state crosses the same way: its
 ``params`` through :func:`params_from_numpy` and its shared ``A_init_full``

@@ -86,6 +86,12 @@ class FederatedTrainer:
                  rank_policy: Any = "static", transport: Any = "fp32",
                  validation: Any = "screen", min_clients: int = 1,
                  device: DeviceLike = None):
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                "federated training of RWKV6 is a later slice of the port: the "
+                "train step runs use_kernels=True and the wkv6 kernel has no "
+                "backward; RWKV6 will train through models.rwkv.wkv_scan as "
+                "in the reference")
         self.device = resolve_device(device)
         self.cfg, self.fed, self.lora, self.optim = cfg, fed, lora, optim
         self.batch_size, self.local_steps = batch_size, local_steps

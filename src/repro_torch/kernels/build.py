@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 _PACKAGE = Path(__file__).resolve().parents[1]
 _ROOT = _PACKAGE.parents[1]           # the checkout holding src/repro_torch
 SOURCES = ("ring_decode", "mla_ring_decode", "bgmv", "lora_matmul",
-           "flash_attention", "adapter_gram")
+           "flash_attention", "adapter_gram", "wkv6")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,7 @@ ARGTYPES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
     "adapter_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "wkv6_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lora_matmul import lora_matmul_cuda
 from repro_torch.kernels.mla_ring_decode import mla_ring_decode_cuda
 from repro_torch.kernels.ring_decode import ring_decode_cuda
+from repro_torch.kernels.wkv6 import wkv6_cuda
 from repro_torch.models.attention_core import flash_torch
 
 
@@ -208,10 +209,43 @@ def adapter_gram(x):
 
 adapter_gram.launches = 0
 
+
+def wkv6(r, k, v, w, u, chunk: int = 256):
+    """RWKV6 WKV recurrence over a whole sequence from a zero state.
+
+    r, k, v: (B,S,H,hd); w: (B,S,H,hd) log-decay; u: (H,hd).  Returns y
+    (B,S,H,hd) fp32.  ``chunk`` is the reference's block of tokens: as
+    there, ``S % min(chunk, S)`` must be 0 (``ValueError`` otherwise); the
+    kernel runs the whole sequence in one launch, so it has no effect on
+    the result.  There is no backward, as in the reference: with grad mode
+    on and an input that requires grad this raises ``NotImplementedError``
+    (RWKV6 trains through ``repro_torch.models.rwkv.wkv_scan``).  r, k and
+    v are read as bf16 when all three are bf16, else as fp32.
+    """
+    S = r.shape[1]
+    c = min(chunk, S)
+    if c < 1 or S % c:
+        raise ValueError(f"wkv6: sequence length {S} is not a multiple of "
+                         f"min(chunk, S) = {c}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+        raise NotImplementedError(
+            "wkv6 has no backward (the reference's kernel has none): "
+            "differentiate through repro_torch.models.rwkv.wkv_scan")
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u)
+    dt = r.dtype if r.dtype == k.dtype == v.dtype == torch.bfloat16 else torch.float32
+    out = wkv6_cuda(*(t.to(dt).contiguous() for t in (r, k, v)),
+                    w.float().contiguous(), u.float().contiguous())
+    wkv6.launches += 1
+    return out
+
+
+wkv6.launches = 0
+
 WRAPPERS = {"ring_decode": ring_decode, "mla_ring_decode": mla_ring_decode,
             "bgmv": bgmv,
             "lora_matmul": lora_matmul, "flash_attention": flash_attention,
-            "adapter_gram": adapter_gram}
+            "adapter_gram": adapter_gram, "wkv6": wkv6}
 
 
 def reset_launch_counts() -> None:

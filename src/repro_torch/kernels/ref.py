@@ -134,3 +134,31 @@ def adapter_gram_ref(x):
     x: (m, r) or, batched, (G, m, r)."""
     xf = x.float()
     return xf.mT @ xf
+
+
+def wkv6_scan(r, k, v, w, u):
+    """The RWKV6 WKV recurrence, a loop over time in fp32
+    (``repro.models.rwkv.wkv_scan``):
+
+        y_t = r_t · (S_{t-1} + u ⊙ k_t ⊗ v_t),   S_t = e^{w_t} ⊙_k S_{t-1} + k_t ⊗ v_t.
+
+    r, k, v: (B,S,H,hd); w: (B,S,H,hd) log-decay (< 0); u: (H,hd).
+    Returns (y (B,S,H,hd), final state (B,H,hd,hd)), both fp32."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[..., None]
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]             # (B,H,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = torch.exp(wf[:, t])[..., None] * state + kv
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((B, 0, H, hd), dtype=torch.float32, device=r.device))
+    return y, state
+
+
+def wkv6_ref(r, k, v, w, u):
+    """RWKV6 recurrence output (``repro.kernels.ref.wkv6_ref``): r, k, v, w
+    (B,S,H,hd) with w the log-decay, u (H,hd).  Returns y (B,S,H,hd) fp32."""
+    return wkv6_scan(r, k, v, w, u)[0]

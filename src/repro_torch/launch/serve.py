@@ -4,18 +4,22 @@ The port's counterpart of ``examples/serve_federated.py`` without the
 training half: one :class:`~repro_torch.serve.engine.ServeEngine` mounted on
 an :class:`~repro_torch.serve.adapters.AdapterRegistry` holding adapters of
 ranks 4, 8 and 16 (random, seeded) on the family's LoRA targets
-(``lora_targets``: ``wq wk wv wo``, or MLA's ``wq_a wq_b wkv_a wkv_b wo``)
+(``lora_targets``: ``wq wk wv wo``, MLA's ``wq_a wq_b wkv_a wkv_b wo``, or
+RWKV6's ``wr wk wv wg wo``)
 serves a wave of requests on mixed adapter ids, the base id 0 included,
 through ``decode_impl="kernel"``.  Part-way through, one adapter name is
 ``swap``-ped to a new version: rows admitted on the old id finish on it, new
 requests go to the new id.  Weights are random (seeded) at the
 configuration's published widths; DeepSeek-V3 is cut to its three dense MLA
-layers (``configs.deepseek_v3_671b.DENSE3``).
+layers (``configs.deepseek_v3_671b.DENSE3``); RWKV6-1.6B runs whole, one
+token per engine step (its recurrent state takes no chunks).
 
     python -m repro_torch.launch.serve                  # Llama-3.2-1B, cuda
     python -m repro_torch.launch.serve --config deepseek_v3_dense3
+    python -m repro_torch.launch.serve --config rwkv6_1p6b
     python -m repro_torch.launch.serve --config smoke --device cpu
     python -m repro_torch.launch.serve --config deepseek_smoke --device cpu
+    python -m repro_torch.launch.serve --config rwkv_smoke --device cpu
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import deepseek_v3_671b, llama3p2_1b, lora_targets
+from repro_torch.configs import (deepseek_v3_671b, llama3p2_1b, lora_targets,
+                                 rwkv6_1p6b)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
@@ -43,9 +48,11 @@ SWAP_AFTER_STEPS = 6
 CONFIGS = {
     "llama3p2_1b": (llama3p2_1b.CONFIG, 1024, 16, (32, 256)),
     "deepseek_v3_dense3": (deepseek_v3_671b.DENSE3, 1024, 16, (32, 256)),
+    "rwkv6_1p6b": (rwkv6_1p6b.CONFIG, 1024, 16, (32, 256)),
     "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24)),
     "deepseek_smoke": (deepseek_v3_671b.SMOKE.replace(first_dense_layers=3),
                        64, 4, (4, 24)),
+    "rwkv_smoke": (rwkv6_1p6b.SMOKE, 64, 4, (4, 24)),
 }
 
 
@@ -71,7 +78,10 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     steps over those steps' time; ``prefill_tok_s`` the prompt tokens over
     the time of the wider (prefill) steps, which also emit tokens for the
     rows already decoding; ``e2e_tok_s`` every generated token over the
-    whole window's host time."""
+    whole window's host time; ``step_tok_s`` the prompt and generated tokens
+    over the steps' time.  An RWKV6 engine steps one
+    token at a time, so all its steps are width-1 steps and its prompts are
+    consumed there."""
     cfg, capacity, prefill_chunk, prompt_lens = CONFIGS[config]
     dev = resolve_device(device)
     dtype = T.torch_dtype(cfg.dtype)
@@ -138,6 +148,8 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
         "prefill_tok_s": prompt_tokens / pre_s if pre else 0.0,
         "decode_tok_s": dec_tokens / dec_s if dec else 0.0,
         "e2e_tok_s": generated / wall,
+        "step_tok_s": ((prompt_tokens + generated) / (pre_s + dec_s)
+                       if steps else 0.0),
         "prefill_step_ms_median": (float(np.median([s["ms"] for s in pre]))
                                    if pre else 0.0),
         "decode_step_ms_median": (float(np.median([s["ms"] for s in dec]))

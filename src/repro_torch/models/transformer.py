@@ -1,5 +1,5 @@
-"""Model assembly for the dense and MLA families (port of the dense and MLA
-paths of ``repro.models.transformer``).
+"""Model assembly for the dense, MLA and RWKV6 families (port of the
+dense, MLA and RWKV paths of ``repro.models.transformer``).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a tuple of
 segments, each a dict of stacked ``(L, ...)`` leaves under the reference's
@@ -10,13 +10,16 @@ DeepSeek-V3's plan is ``[("mla_dense", k), ("mla_moe", L - k)]``.  The port
 has no MoE module yet: a MoE segment with layers raises, and the empty one
 of a config cut to its dense layers (``L == k``) is kept with zero-size
 ``(0, ...)`` leaves, so the trees keep the reference's structure.  MLA runs
-only on the cached decode path so far; ``forward`` raises for it.
+only on the cached decode path so far; ``forward`` raises for it.  RWKV6
+(``family="ssm"``) is one ``("rwkv", L)`` segment: ``forward`` runs the
+whole sequence (the ``wkv6`` kernel with ``use_kernels``), ``decode`` steps
+the recurrent state one token at a time.
 
 Public API:
     layer_plan(cfg)                                 -> [(kind, count)]
     init(cfg, seed, device=None)                    -> params
     embed_inputs(cfg, params, batch)                -> (B, S, d)
-    forward(cfg, params, batch, adapters, ...)      -> (hidden, aux)  [train / eval]
+    forward(cfg, params, batch, adapters, ...)      -> (hidden, aux)  [train / prefill]
     logits(cfg, params, hidden)                     -> (B, S, V)
     init_cache(cfg, batch, capacity, ..., device)   -> cache tuple
     decode(cfg, params, cache, batch, ...)          -> (logits, cache)
@@ -30,6 +33,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as Lyr
+from repro_torch.models import rwkv as Rwkv
 from repro_torch.peft.lora import PagedLoRA
 from repro_torch.serve import kvcache as Kv
 
@@ -42,13 +46,15 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """The reference's segment plan.  Families the port lacks (SSM, hybrid,
+    """The reference's segment plan.  Families the port lacks (hybrid,
     VLM, audio) and MoE segments with layers raise ``NotImplementedError``."""
     L = cfg.num_layers
+    if cfg.family == "ssm":
+        return [("rwkv", L)]
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet: the port serves "
-            "dense models and DeepSeek-V3's dense MLA layers")
+            "dense models, DeepSeek-V3's dense MLA layers and RWKV6")
     if cfg.num_experts:
         kind = "mla_moe" if cfg.use_mla else "moe"
         dense_kind = "mla_dense" if cfg.use_mla else "dense"
@@ -100,6 +106,11 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
         params["lm_head"] = Lyr.dense_init(gen, (d, V), d, dtype)
     blocks = []
     for kind, L in layer_plan(cfg):
+        if kind == "rwkv":
+            blocks.append({"ln1": torch.ones((L, d), dtype=dtype, device=dev),
+                           "ln2": torch.ones((L, d), dtype=dtype, device=dev),
+                           "mix": Rwkv.init_rwkv6(cfg, gen, L, dtype)})
+            continue
         attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
         blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
                "attn": attn_init(cfg, gen, L, dtype),
@@ -122,9 +133,18 @@ def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tens
     return hidden @ head
 
 
-def _block_fwd(cfg: ModelConfig, p: Params, x, a: Dict, use_kernels: bool):
-    """One dense layer over a full sequence."""
+def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
+               use_kernels: bool):
+    """One dense or RWKV6 layer over a full sequence."""
     a = a or {}
+    if kind == "rwkv":
+        h, _ = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                             a.get("mix"), use_kernel=use_kernels)
+        x = x + h
+        h, _ = Rwkv.channel_mix(cfg, p["mix"],
+                                Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                a.get("mix"), use_kernel=use_kernels)
+        return x + h
     h = Lyr.attention_fwd(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
                           a.get("attn"), use_kernel=use_kernels)
     x = x + h
@@ -137,10 +157,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
             adapters: Optional[Dict] = None,
             use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]: (B, S)``.  Returns
-    (final hidden (B,S,d), aux loss), aux being zero for the dense family.
-    ``use_kernels`` routes attention and the LoRA projections through the
-    ``flash_attention`` and ``lora_matmul`` kernels.  The reference's
-    ``remat`` has no counterpart: autograd keeps the activations."""
+    (final hidden (B,S,d), aux loss), aux being zero for the dense and RWKV6
+    families.  ``use_kernels`` routes attention, the WKV recurrence and the
+    LoRA projections through the ``flash_attention``, ``wkv6`` and
+    ``lora_matmul`` kernels.  The reference's ``remat`` has no counterpart:
+    autograd keeps the activations."""
     if cfg.use_mla:
         raise NotImplementedError(
             "the full-sequence MLA forward (mla_fwd / mla_absorbed) is not "
@@ -148,11 +169,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
             "training path is a later slice")
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
-    for seg_i, (_, count) in enumerate(layer_plan(cfg)):
+    for seg_i, (kind, count) in enumerate(layer_plan(cfg)):
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
         for i in range(count):
-            x = _block_fwd(cfg, _layer(seg_p, i), x, _layer(seg_a, i),
+            x = _block_fwd(cfg, kind, _layer(seg_p, i), x, _layer(seg_a, i),
                            use_kernels)
     x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -163,16 +184,21 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: DeviceLike = None) -> Tuple:
     """Cache tuple mirroring the segment plan: per segment a dict of
     stacked rings (``(L, B, cap, K, hd)`` k/v, or MLA's ``(L, B, cap, kvr)``
-    latent and ``(L, B, cap, rope)`` key) and ``(L, B)`` positions.  Sliding
-    windows keep ``prefill_chunk - 1`` spare slots, as in the reference."""
+    latent and ``(L, B, cap, rope)`` key) and ``(L, B)`` positions, or
+    RWKV6's stacked recurrent state (``(L, B, d)`` ``tm_x``/``cm_x`` and
+    ``(L, B, H, hd, hd)`` ``wkv``, fp32; no capacity).  Sliding windows keep
+    ``prefill_chunk - 1`` spare slots, as in the reference."""
     dev = resolve_device(device)
     kv_dtype = kv_dtype or torch_dtype(cfg.dtype)
     if cfg.sliding_window:
         capacity = min(capacity, cfg.sliding_window + max(prefill_chunk, 1) - 1)
     caches = []
     for kind, L in layer_plan(cfg):
-        make = Kv.mla_cache if kind.startswith("mla") else Kv.attn_cache
-        one = make(cfg, batch, capacity, kv_dtype, dev)
+        if kind == "rwkv":
+            one = Rwkv.rwkv6_init_state(cfg, batch, dev)
+        else:
+            make = Kv.mla_cache if kind.startswith("mla") else Kv.attn_cache
+            one = make(cfg, batch, capacity, kv_dtype, dev)
         caches.append({k: torch.zeros((L,) + v.shape, dtype=v.dtype, device=dev)
                        for k, v in one.items()})
     return tuple(caches)
@@ -189,10 +215,36 @@ def _layer(tree: Any, i: int) -> Any:
     return tree
 
 
+def _mask_state_rows(new: Dict, old: Dict, n_tokens) -> Dict:
+    """Keep the old recurrent state for rows with ``n_tokens == 0`` (the
+    n_tokens contract: masked rows leave their cache untouched)."""
+    if n_tokens is None:
+        return new
+    keep = n_tokens > 0
+    return {k: torch.where(keep.view((-1,) + (1,) * (t.dim() - 1)),
+                           t.to(old[k].dtype), old[k])
+            for k, t in new.items()}
+
+
 def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                   n_tokens=None, decode_impl: str = "dense"):
-    """One dense or MLA-dense layer, one token chunk."""
+    """One dense, MLA-dense or RWKV6 layer, one token chunk.  An RWKV6
+    layer takes one token (C = 1) and writes its new state into the
+    cache's buffers in place."""
     a = a or {}
+    if kind == "rwkv":
+        if x.shape[1] != 1:
+            raise ValueError("RWKV decode is a single-token recurrence: "
+                             f"got a chunk of {x.shape[1]} tokens")
+        h, st = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                              a.get("mix"), state=cache)
+        x = x + h
+        h, st2 = Rwkv.channel_mix(cfg, p["mix"],
+                                  Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
+                                  a.get("mix"), state=cache)
+        for k, t in _mask_state_rows({**st, **st2}, cache, n_tokens).items():
+            cache[k].copy_(t)
+        return x + h, cache
     dec_fn = Lyr.mla_decode if kind.startswith("mla") else Lyr.attention_decode
     h, cache = dec_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
                       cache, a.get("attn"), n_tokens=n_tokens,
@@ -211,9 +263,11 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
 
     ``n_tokens: (B,)`` gives the real tokens per row (None = all C; rows
     with 0 leave their cache untouched).  ``decode_impl`` picks the
-    attention interior (``"dense"`` or ``"kernel"``).  The ring buffers are
+    attention interior (``"dense"`` or ``"kernel"``; the RWKV6 recurrence
+    is the same on both).  The ring buffers and recurrent states are
     written in place; the returned cache holds the same buffers and the
-    advanced positions.  Returns (logits (B,C,V), cache)."""
+    advanced positions.  RWKV6 takes C = 1.  Returns (logits (B,C,V),
+    cache)."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     new_caches = []
@@ -229,9 +283,10 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
             c_l = {k: v[i] for k, v in seg_c.items()}
             x, c_l = _block_decode(cfg, kind, _layer(seg_p, i), x, c_l,
                                    _layer(seg_a, i), n_tokens, decode_impl)
-            pos.append(c_l["pos"])
-            length.append(c_l["length"])
+            if "pos" in c_l:
+                pos.append(c_l["pos"])
+                length.append(c_l["length"])
         new_caches.append(dict(seg_c, pos=torch.stack(pos),
-                               length=torch.stack(length)))
+                               length=torch.stack(length)) if pos else seg_c)
     x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits(cfg, params, x), tuple(new_caches)

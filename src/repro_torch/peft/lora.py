@@ -101,6 +101,16 @@ def paged_delta_weight(ad: PagedLoRA) -> torch.Tensor:
     return delta * ad.scale.float()[ad.ids.long()][:, None, None]
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with jnp's promotion: mixed dtypes (an fp32 activation
+    against bf16 weights) compute in the wider one, as the reference's
+    products do."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def lora_proj(x: torch.Tensor, w: torch.Tensor,
               adapter: Optional[Any] = None,
               use_kernel: bool = False) -> torch.Tensor:
@@ -110,14 +120,15 @@ def lora_proj(x: torch.Tensor, w: torch.Tensor,
     3-D ``x`` through the fused ``lora_matmul`` (differentiable in x, A, B
     and scale), as the reference's ``lora.USE_KERNEL`` does."""
     if adapter is None:
-        return x @ w
+        return matmul(x, w)
     if isinstance(adapter, PagedLoRA):
-        return x @ w + paged_lora_delta(x, adapter)
+        return matmul(x, w) + paged_lora_delta(x, adapter)
     if use_kernel and x.dim() == 3:
         return kops.lora_matmul(x, w, adapter["A"], adapter["B"],
                                 adapter["scale"])
     z = x @ adapter["A"].t().to(x.dtype)
-    return x @ w + (z @ adapter["B"].t().to(x.dtype)) * adapter["scale"].to(x.dtype)
+    return matmul(x, w) + ((z @ adapter["B"].t().to(x.dtype))
+                           * adapter["scale"].to(x.dtype))
 
 
 def target_leaves(params: Any, targets: Sequence[str]

@@ -124,8 +124,11 @@ class ServeEngine:
         self.capacity = capacity
         self.decode_impl = decode_impl
         self.seed = seed
+        # RWKV6 (and hybrid) recurrences step one token at a time; attention
+        # families take whole chunks through the cached sequence path
         ring_cap = min(capacity, cfg.sliding_window or capacity)
-        self.chunk = max(1, min(prefill_chunk, ring_cap))
+        self.chunk = (1 if cfg.family in ("ssm", "hybrid")
+                      else max(1, min(prefill_chunk, ring_cap)))
         self.cache = T.init_cache(cfg, B, capacity, kv_dtype,
                                   prefill_chunk=self.chunk, device=dev)
 

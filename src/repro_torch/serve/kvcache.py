@@ -1,5 +1,6 @@
 """Per-slot ring KV caches for batched decode (port of the GQA and MLA
-parts of ``repro.serve.kvcache``).
+parts of ``repro.serve.kvcache``, and its slot resets for every cache kind,
+RWKV6's recurrent state included).
 
 ``pos``/``length`` have shape ``(B,)``: every slot of a continuous-batching
 engine advances its own ring.  Update ops take a whole token chunk
@@ -175,14 +176,7 @@ def mla_cache_update(cache: Dict, c_kv_t, k_rope_t,
 
 def _reset(cache: Any, rows: torch.Tensor) -> Any:
     """Zero, in place, the rows of every leaf where ``rows: (B,)`` is True."""
-    if isinstance(cache, (tuple, list)):
-        for c in cache:
-            _reset(c, rows)
-        return cache
-    for name, leaf in cache.items():
-        if isinstance(leaf, dict):
-            _reset(leaf, rows)
-            continue
+    for name, leaf in _leaves(cache):
         bax = leaf.dim() - CACHE_LEAF_RANKS.get(name, leaf.dim())
         if leaf.dim() == 0 or not 0 <= bax < leaf.dim():
             continue
@@ -194,20 +188,38 @@ def _reset(cache: Any, rows: torch.Tensor) -> Any:
 
 def reset_slots(cache: Any, mask) -> Any:
     """Zero the cache rows of every slot where ``mask: (B,)`` is True, in
-    place: per-slot ``pos``/``length`` restart at 0 and the ring rows are
-    wiped.  Works on one layer's dict, a layer-stacked dict, or the tuple of
+    place: per-slot ``pos``/``length`` restart at 0 and the ring rows and
+    RWKV6 recurrent states are wiped.  Works on one layer's dict, a
+    layer-stacked dict, or the tuple of
     :func:`repro_torch.models.transformer.init_cache`.  Returns ``cache``."""
-    dev = _pos_leaf(cache).device
+    _, dev = _batch_axis(cache)
     return _reset(cache, torch.as_tensor(mask, dtype=torch.bool, device=dev))
 
 
 def reset_slot(cache: Any, i: int) -> Any:
     """Zero batch slot ``i``'s cache rows, in place."""
-    pos = _pos_leaf(cache)
-    return _reset(cache, torch.arange(pos.shape[-1], device=pos.device) == i)
+    B, dev = _batch_axis(cache)
+    return _reset(cache, torch.arange(B, device=dev) == i)
 
 
-def _pos_leaf(cache: Any) -> torch.Tensor:
-    while isinstance(cache, (tuple, list)):
-        cache = cache[0]
-    return cache["pos"]
+def _leaves(cache: Any):
+    """(name, tensor) of every leaf of a cache dict or tuple of dicts."""
+    if isinstance(cache, (tuple, list)):
+        for c in cache:
+            yield from _leaves(c)
+        return
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            yield from _leaves(leaf)
+        else:
+            yield name, leaf
+
+
+def _batch_axis(cache: Any):
+    """(batch size, device) read off the first leaf ``CACHE_LEAF_RANKS``
+    places: any cache kind, with or without ``pos``."""
+    for name, leaf in _leaves(cache):
+        rank = CACHE_LEAF_RANKS.get(name)
+        if rank is not None and leaf.dim() >= rank:
+            return leaf.shape[leaf.dim() - rank], leaf.device
+    raise ValueError("the cache has no leaf with a batch axis")

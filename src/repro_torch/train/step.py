@@ -5,7 +5,9 @@ through the frozen base into the adapter tree only (A, B and the per-layer
 ``scale``, as the reference's ``value_and_grad`` over the whole tree does),
 and AdamW updates those leaves.  ``use_kernels`` runs attention and the
 LoRA projections through the ``flash_attention`` and ``lora_matmul``
-kernels in both steps.
+kernels in both steps.  ``make_prefill_step`` is the full-sequence forward
+that serves a prompt's next-token logits (RWKV6's recurrence through the
+``wkv6`` kernel with ``use_kernels``).
 """
 from __future__ import annotations
 
@@ -113,3 +115,15 @@ def make_eval_step(cfg: ModelConfig, loss_chunk: int = 512,
                                  use_kernels)
         return metrics
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, use_kernels: bool = False):
+    """Returns ``prefill_step(params, adapters, batch) -> (B, V)``: the
+    full-sequence forward over ``batch["tokens"]: (B, S)`` and the logits of
+    the last position, without gradients."""
+    def prefill_step(params, adapters, batch):
+        with torch.no_grad():
+            hidden, _ = T.forward(cfg, params, batch, adapters,
+                                  use_kernels=use_kernels)
+            return T.logits(cfg, params, hidden[:, -1:])[:, 0]
+    return prefill_step

@@ -52,6 +52,10 @@ def test_importing_every_module_leaves_jax_out():
     assert {"repro_torch.configs", "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.kernels.mla_ring_decode"} <= set(MODULES)
     assert (PKG / "kernels" / "csrc" / "mla_ring_decode.cu").is_file()
+    # and the RWKV6 slice's
+    assert {"repro_torch.configs.rwkv6_1p6b", "repro_torch.models.rwkv",
+            "repro_torch.kernels.wkv6"} <= set(MODULES)
+    assert (PKG / "kernels" / "csrc" / "wkv6.cu").is_file()
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
