@@ -10,16 +10,22 @@ Phases (any failure exits non-zero; no exception is caught):
    time).
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with the tolerance stated beside each comparison;
-   ``ring_decode`` also on a one-tile ring (no split, no merge) and at head
-   dims 16, 32 and 128; ``mla_ring_decode`` at DeepSeek-V3's latent widths
-   (bf16 at C 1 and 16, a window, int8 with per-half scales, fp32);
+   ``ring_decode`` also on rings of one and four tiles (one split, no
+   merge), at head dims 16, 32 and 128, with n_tokens ragged across rows
+   at C 16, and at the edges of each of its four routes (8, 12, 16, 20 and
+   64 query rows a KV head); ``mla_ring_decode`` at DeepSeek-V3's latent
+   widths (bf16 at C 1 and 16, a window, int8 with per-half scales, fp32);
    ``bgmv`` at the Llama and the MLA projections; ``lora_matmul``,
    ``flash_attention`` and ``adapter_gram`` at the federated round's
-   shapes, ragged edges included; ``wkv6`` at RWKV6-1.6B's prefill shape
-   (bf16 and fp32) and a ragged sequence.
+   shapes, ragged edges included (``flash_attention`` in bf16 also at hd
+   16 and 32, T > S, group sizes 1, 2, 3 and 8, windows shorter than a
+   tile and longer than S, non-causal); ``wkv6`` at RWKV6-1.6B's prefill
+   shape (bf16 and fp32) and a ragged sequence.
 3. Each kernel's time (median of 50 launches, CUDA events, L2 flushed
    before each), its bound, its plain version's time and a one-call
-   PyTorch yardstick where one exists.
+   PyTorch yardstick where one exists; ``ring_decode``'s device time by
+   kernel at its two main cases (``torch.profiler``: the splits merge in
+   the same launch, so one kernel).
 4. The serving slice end to end: full-width Llama-3.2-1B (random seeded
    weights, bf16) serving 16 requests over three adapters of ranks 4/8/16
    and the base model, with a mid-flight swap, through
@@ -77,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 REPS = 50
 DEVICE = "cuda"
+# the CUDA kernels of src/repro_torch/kernels/csrc, by function name
+PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_kernel|bgmv_kernel|"
+                r"lora_matmul_(bf16|f32)|flash_(bf16|f32)|gram_partial|wkv6_kernel)\b")
 
 
 def fail(msg: str) -> None:
@@ -151,7 +160,7 @@ def main() -> None:
                 f"{key}_ms": rec["ms"]}
 
     kernels = []
-    for name, case in (("ring_decode", "bf16 cache, C=1, B=8 H=32 K=8 hd=64 cap=1024"),
+    for name, case in (("ring_decode", RING_MAIN),
                        ("mla_ring_decode", MLA_MAIN),
                        ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"),
                        ("lora_matmul", LORA_MAIN),
@@ -240,7 +249,8 @@ def check_rows(name, got, want, tol, floor: float = 1e-30):
 
 def kernel_cases(torch):
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ring_decode import splits
+    from repro_torch.kernels.ring_decode import (MIN_TILES, TILE, plan, route,
+                                                 split_tiles)
     from repro_torch.models.attention_core import ring_attend_mask
     from repro_torch.serve.kvcache import quant
     F = torch.nn.functional
@@ -254,32 +264,70 @@ def kernel_cases(torch):
     # ring, a full ring, partial rings, a fresh prefill, an inactive row
     # (n = 0, never written), ragged n and a wrap at pos > 2 cap.  Then a
     # ring of one tile (cap 64: one split, normalised in-block, no merge)
-    # and the other head dims the kernel is built for.
-    B, H, K = 8, 32, 8
+    # and the other head dims the kernel is built for.  Then the redesign's
+    # edges: n_tokens ragged across all rows at C 16; 8 and 12 rows (route
+    # "narrow": a partial 16-row tile), 16 at g 1 (a full one), 20 (route
+    # "tensor": two 16-row tiles, the second partial), 64 at g 8; a ring of
+    # 4 tiles (one split of exactly MIN_TILES); a cap that is not a tile
+    # multiple, wrapped; fp32 at 12 rows (route "rows" with a partial
+    # group); int8 at C 16 with ragged n.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     positions = {1024: [1500, 1024, 300, 16, 0, 700, 2100, 64],
+                 1000: [1500, 1000, 300, 16, 0, 700, 2100, 64],
+                 256: [300, 256, 100, 16, 0, 200, 600, 64],
                  64: [100, 64, 30, 16, 0, 70, 200, 48]}
+    ragged_pos = [1030, 2047, 9, 3, 600, 0, 64, 1100]
+    ragged_n = [16, 9, 3, 1, 16, 0, 12, 7]
     tol = {"float32": 1e-4, "bfloat16": 2e-3, "int8": 1e-4}
     # fp32: sum order across up to 1024 keys; bf16: both sides compute in
-    # fp32 from the same stored bf16 values, margin for exp/sum order;
-    # int8: both dequantize per token in fp32
-    for kv_name, C, window, hd, cap in (
-            ("bfloat16", 1, 0, 64, 1024), ("bfloat16", 16, 0, 64, 1024),
-            ("bfloat16", 1, 256, 64, 1024), ("bfloat16", 16, 256, 64, 1024),
-            ("float32", 1, 0, 64, 1024), ("float32", 16, 0, 64, 1024),
-            ("int8", 1, 0, 64, 1024), ("int8", 16, 0, 64, 1024),
-            ("bfloat16", 1, 0, 64, 64), ("bfloat16", 16, 0, 64, 64),
-            ("int8", 16, 32, 64, 64),
-            ("bfloat16", 1, 0, 128, 1024), ("bfloat16", 16, 0, 128, 1024),
-            ("float32", 16, 0, 128, 1024), ("int8", 1, 0, 128, 1024),
-            ("bfloat16", 16, 0, 16, 1024), ("bfloat16", 16, 0, 32, 1024)):
-        nsplit = splits(B, C, H, K, cap, dev)[0]
-        if (nsplit == 1) != (cap == 64):
-            fail(f"ring_decode: cap {cap}, C={C} runs {nsplit} splits; the "
-                 "checks expect one split exactly where cap = 64")
-        pos = torch.tensor(positions[cap], device=dev)
+    # fp32 from the same stored bf16 values (the tensor-core route's bf16
+    # products are exact in fp32 and P enters P·V as a bf16 hi + lo pair,
+    # ≈ 2^-16 of P), margin for exp/sum order; int8: both dequantize per
+    # token in fp32
+    for kv_name, C, window, hd, cap, H, K, ragged in (
+            ("bfloat16", 1, 0, 64, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 64, 1024, 32, 8, False),
+            ("bfloat16", 1, 256, 64, 1024, 32, 8, False),
+            ("bfloat16", 16, 256, 64, 1024, 32, 8, False),
+            ("float32", 1, 0, 64, 1024, 32, 8, False),
+            ("float32", 16, 0, 64, 1024, 32, 8, False),
+            ("int8", 1, 0, 64, 1024, 32, 8, False),
+            ("int8", 16, 0, 64, 1024, 32, 8, False),
+            ("bfloat16", 1, 0, 64, 64, 32, 8, False),
+            ("bfloat16", 16, 0, 64, 64, 32, 8, False),
+            ("int8", 16, 32, 64, 64, 32, 8, False),
+            ("bfloat16", 1, 0, 128, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 128, 1024, 32, 8, False),
+            ("float32", 16, 0, 128, 1024, 32, 8, False),
+            ("int8", 1, 0, 128, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 16, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 32, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 64, 1024, 32, 8, True),
+            ("bfloat16", 16, 100, 64, 1000, 32, 8, True),
+            ("bfloat16", 2, 0, 64, 1024, 32, 8, False),
+            ("bfloat16", 3, 0, 64, 1000, 32, 8, False),
+            ("bfloat16", 5, 0, 64, 1024, 32, 8, False),
+            ("bfloat16", 16, 0, 64, 1024, 8, 8, False),
+            ("bfloat16", 8, 0, 64, 1024, 32, 4, False),
+            ("bfloat16", 16, 0, 64, 256, 32, 8, False),
+            ("int8", 1, 0, 32, 1000, 32, 8, False),
+            ("float32", 3, 0, 16, 256, 32, 8, True),
+            ("int8", 16, 0, 64, 1024, 32, 8, True)):
+        B = 8
+        how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
+                    getattr(torch, kv_name), H // K * C)
+        nsplit = plan(B, C, H, K, cap, sms, how)[1]
+        if (nsplit == 1) != (cap < 2 * MIN_TILES * TILE):
+            fail(f"ring_decode: cap {cap}, C={C} plans {nsplit} splits; a "
+                 f"split walks at least MIN_TILES = {MIN_TILES} resident "
+                 f"tiles of {TILE} slots, so exactly the rings of fewer than "
+                 f"{2 * MIN_TILES} tiles (cap < {2 * MIN_TILES * TILE}) plan "
+                 "one split here")
+        pos = torch.tensor(ragged_pos if ragged else positions[cap], device=dev)
         length = torch.clamp(pos, max=cap)
-        n = torch.minimum(pos, torch.tensor([C, C, C, C, 0, min(5, C), 1, C],
-                                            device=dev)).to(torch.int32)
+        want_n = ragged_n if ragged else [C, C, C, C, 0, min(5, C), 1, C]
+        n = torch.minimum(pos, torch.tensor(want_n, device=dev).clamp(max=C)
+                          ).to(torch.int32)
         kf = torch.randn(B, cap, K, hd, generator=gen, device=dev)
         vf = torch.randn(B, cap, K, hd, generator=gen, device=dev)
         qdt = torch.float32 if kv_name == "float32" else torch.bfloat16
@@ -297,10 +345,15 @@ def kernel_cases(torch):
         torch.cuda.synchronize()
         valid = torch.arange(C, device=dev)[None, :] < n[:, None]
         case = (f"{'bf16' if kv_name == 'bfloat16' else kv_name} cache, C={C}"
-                f"{f', window={window}' if window else ''}, "
+                f"{f', window={window}' if window else ''}"
+                f"{', ragged n' if ragged else ''}, "
                 f"B={B} H={H} K={K} hd={hd} cap={cap}")
-        err = check(f"ring_decode[{case}; {nsplit} splits]", got, want, valid,
-                    tol[kv_name])
+        per_row = [len([t for t in range(nsplit) if split_tiles(
+            int(pos[b]), int(length[b]), cap, nsplit, t)]) if int(n[b]) > 0 else 0
+            for b in range(B)]
+        err = check(f"ring_decode[{case}; route {how}, grid splits "
+                    f"{nsplit}, per row {per_row}]", got,
+                    want, valid, tol[kv_name])
         ms = gpu_ms(torch, lambda: ops.ring_decode(*args, **kw))
         plain = gpu_ms(torch, lambda: ref.ring_decode_ref(*args, **kw))
         lib = None
@@ -323,6 +376,9 @@ def kernel_cases(torch):
             "ring_decode", case, "src/repro_torch/kernels/csrc/ring_decode.cu",
             "src/repro/kernels/ring_decode.py:115", err, ms, plain, lib,
             nbytes, ops_n, kv_name))
+        if case in (RING_MAIN, RING_PREFILL):
+            records[-1]["device_split"] = ring_split(
+                torch, lambda: ops.ring_decode(*args, **kw))
 
     # bgmv: the Llama path's projections (wq/wo 2048->2048, wk/wv
     # 2048->512) and the MLA path's (wq_b 1536->24576, wkv_a 7168->576,
@@ -375,6 +431,33 @@ def kernel_cases(torch):
             "src/repro/kernels/bgmv.py:55", err, ms, plain, None, nbytes,
             ops_n, dt_name))
     return records
+
+
+RING_MAIN = "bf16 cache, C=1, B=8 H=32 K=8 hd=64 cap=1024"
+RING_PREFILL = "bf16 cache, C=16, B=8 H=32 K=8 hd=64 cap=1024"
+
+
+def ring_split(torch, fn, reps: int = 20) -> dict:
+    """Device time per call by kernel name (``torch.profiler``, L2 flushed
+    before each call): the attention kernel and any second launch it
+    makes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {e.key: e.self_device_time_total / reps
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "elementwise" not in e.key}
+    for name, us in split.items():
+        print(f"    device split: {us:.2f} us per call  {name[:90]}")
+    return split
 
 
 BGMV_RWKV = "fp32 x, bf16 pages, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"
@@ -562,50 +645,61 @@ def train_kernel_cases(torch):
             library="torch.matmul(x, W): base product only"))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
-    # 8 KV heads, hd 64), a window, a ragged S and hd 128.  Each query row
+    # 8 KV heads, hd 64), a window, a ragged S and hd 128.  Then the bf16
+    # kernel's edges: hd 16 and 32 (their own swizzle widths), T > S
+    # (causal), S not a multiple of 64 or of the block's 128 rows, windows
+    # shorter than a key tile and longer than S, group sizes 1, 2 and 8
+    # (rows s·g + j split across blocks), non-causal.  Each query row
     # is held to its own magnitude: a row that averages hundreds of values
     # is ~20x smaller than the first rows, so one limit over the whole
     # output would let an error in the long rows through.  bf16: the kernel
     # rounds its output to bf16 (up to 2^-8 of an entry) and P to bf16
     # before P·V (as the TPU kernel does); the plain version stays fp32:
-    # limit 1e-2 of the row's max |plain| (6.5e-3 measured at most).  fp32:
+    # limit 1e-2 of the row's max |plain| (6.7e-3 measured at most).  fp32:
     # sum order and exp rounding: limit 1e-5 of it (2.3e-6 measured).
-    for dt, B, S, H, K, hd, window in (
-            (torch.bfloat16, 4, 512, 32, 8, 64, 0),
-            (torch.bfloat16, 4, 512, 32, 8, 64, 128),
-            (torch.bfloat16, 4, 500, 32, 8, 64, 0),
-            (torch.bfloat16, 4, 512, 16, 4, 128, 0),
-            (torch.float32, 4, 512, 32, 8, 64, 0),
-            (torch.float32, 2, 300, 16, 4, 128, 100),
-            (torch.float32, 1, 77, 4, 1, 16, 0)):
+    for dt, B, S, T, H, K, hd, causal, window in (
+            (torch.bfloat16, 4, 512, 512, 32, 8, 64, True, 0),
+            (torch.bfloat16, 4, 512, 512, 32, 8, 64, True, 128),
+            (torch.bfloat16, 4, 500, 500, 32, 8, 64, True, 0),
+            (torch.bfloat16, 4, 512, 512, 16, 4, 128, True, 0),
+            (torch.bfloat16, 2, 300, 300, 8, 8, 16, True, 0),
+            (torch.bfloat16, 2, 300, 300, 16, 8, 32, True, 50),
+            (torch.bfloat16, 2, 200, 333, 16, 2, 64, True, 0),
+            (torch.bfloat16, 2, 77, 77, 8, 1, 64, False, 0),
+            (torch.bfloat16, 1, 130, 130, 24, 8, 64, True, 20),
+            (torch.bfloat16, 1, 64, 64, 8, 1, 128, True, 1000),
+            (torch.float32, 4, 512, 512, 32, 8, 64, True, 0),
+            (torch.float32, 2, 300, 300, 16, 4, 128, True, 100),
+            (torch.float32, 1, 77, 77, 4, 1, 16, True, 0)):
         q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, S, K, hd, generator=gen, device=dev).to(dt)
-        got = ops.flash_attention(q, k, v, True, window)
-        want = ref.flash_attention_ref(q, k, v, True, window)
+        k = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v, causal, window)
+        want = ref.flash_attention_ref(q, k, v, causal, window)
         torch.cuda.synchronize()
-        case = (f"{dname[dt]}, causal{f', window={window}' if window else ''}, "
-                f"B={B} S={S} H={H} K={K} hd={hd}")
+        case = (f"{dname[dt]}, {'causal' if causal else 'full'}"
+                f"{f', window={window}' if window else ''}, "
+                f"B={B} S={S}{f' T={T}' if T != S else ''} H={H} K={K} hd={hd}")
         err = check_rows(f"flash_attention[{case}]", got, want,
                          1e-2 if dt == torch.bfloat16 else 1e-5)
-        ms = gpu_ms(torch, lambda: ops.flash_attention(q, k, v, True, window))
-        plain = gpu_ms(torch, lambda: ref.flash_attention_ref(q, k, v, True,
+        ms = gpu_ms(torch, lambda: ops.flash_attention(q, k, v, causal, window))
+        plain = gpu_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal,
                                                               window))
         lib = None
         if not window:      # one SDPA call, on pre-transposed inputs
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
         eb = q.element_size()
         nbytes = eb * (2 * q.numel() + k.numel() + v.numel())
-        ops_n = 4 * B * H * hd * _causal_pairs(S, S, True, window)
+        ops_n = 4 * B * H * hd * _causal_pairs(S, T, causal, window)
         records.append(_record(
             "flash_attention", case,
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:70", err, ms, plain, lib,
             nbytes, ops_n, str(dt).split(".")[-1],
             library=None if window else
-            "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"))
+            f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"))
 
     # adapter_gram: the Gram SVD route's stacks, a bucket of 2 leaves x 16
     # layers, m = 2048 (wq/wo, and every A stack) or 512 (wk/wv B stacks),
@@ -800,16 +894,21 @@ def profile_window(torch, run, steps: int, label: str):
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels, whether or not they are among the top ones
+    port = {k: ms for k, ms in by_kernel.items() if re.search(PORT_KERNELS, k)}
     print(f"  {label}: wall {wall_ms:.3f} ms per step (no profiler); device "
           f"busy {busy:.3f} ms per step (profiler): idle share "
           f"{1 - busy / wall_ms:.3f}")
     for name, ms in top:
         print(f"    device {ms:8.4f} ms/step  {name[:80]}")
+    for name, ms in sorted(port.items(), key=lambda kv: -kv[1]):
+        print(f"    port kernel {ms:8.4f} ms/step  {name[:80]}")
     for name, ms in top_host:
         print(f"    host   {ms:8.4f} ms/step  {name[:80]} (under the profiler)")
     return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
             "idle_share": 1 - busy / wall_ms,
             "top_kernels_ms_per_step": dict(top),
+            "port_kernels_ms_per_step": port,
             "top_host_ops_ms_per_step_profiled": dict(top_host)}
 
 

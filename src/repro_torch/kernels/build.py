@@ -33,8 +33,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 ARGTYPES = {
     "ring_decode_launch": [_P, _I, _L, _L, _L, _P, _P, _I, _L, _L, _L,
-                           _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _P, _P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mla_ring_decode_launch": [_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _I,
                                _P, _P, _L, _L, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -4,7 +4,9 @@
 
 q, k and v are read in their (B, S|T, heads, hd) layouts; the kernel masks
 the ragged last query and key tiles itself, so neither transposed nor
-padded copies are made.
+padded copies are made.  The bf16 kernel's launch geometry is mirrored here
+in plain functions (:func:`bf16_smem_bytes`, :func:`bf16_blocks`) so that
+the CPU tests can check it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,40 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel's constants (kBR, kBN, kStages in the source)
+ROWS_PER_BLOCK = 64       # (query, head) rows s·g + j of one KV group
+KEYS_PER_TILE = 64
+STAGES = 2
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90
+
+
+def bf16_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the bf16 kernel: the block's Q rows, a ring
+    of K and V tiles, the ring's mbarriers and 1 KB of alignment slack."""
+    return (ROWS_PER_BLOCK * hd * 2 + 2 * STAGES * KEYS_PER_TILE * hd * 2
+            + 3 * STAGES * 8 + 1024)
+
+
+def bf16_blocks(B: int, S: int, T: int, H: int, K: int, causal: bool,
+                window: int):
+    """The bf16 kernel's grid, block by block in launch order: (b, KV head,
+    first row s·g + j, first key, number of key tiles).  Causal grids walk
+    the query tiles from the end, so the blocks with the most key tiles
+    start first."""
+    g = H // K
+    n_mt = -(-S * g // ROWS_PER_BLOCK)
+    out = []
+    for idx in range(n_mt * B * K):
+        bk, mi = idx % (B * K), idx // (B * K)
+        mt = n_mt - 1 - mi if causal else mi
+        m0 = mt * ROWS_PER_BLOCK
+        s_lo, s_hi = m0 // g, min(S - 1, (m0 + ROWS_PER_BLOCK - 1) // g)
+        t_end = min(T, s_hi + 1) if causal else T
+        t_begin = (max(0, s_lo - window + 1) // KEYS_PER_TILE * KEYS_PER_TILE
+                   if window else 0)
+        n_tiles = -(-(t_end - t_begin) // KEYS_PER_TILE) if t_end > t_begin else 0
+        out.append((bk // K, bk % K, m0, t_begin, n_tiles))
+    return out
 
 
 def _check(cond: bool, msg: str) -> None:

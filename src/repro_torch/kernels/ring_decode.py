@@ -3,8 +3,10 @@ the Hopper counterpart of ``repro.kernels.ring_decode.ring_decode_kernel``.
 
 The cache is passed in its ``(B, cap, K, hd)`` layout with its strides; the
 kernel masks the ragged last key tile itself, so neither a transposed nor a
-padded copy of the cache is made.  The wrapper splits the ring's key tiles
-across blocks and allocates the fp32 partials the merge step reads.
+padded copy of the cache is made.  The wrapper sizes the grid (:func:`plan`)
+and allocates the fp32 partials and the cached merge counters; the kernel
+splits each row's resident tiles (:func:`split_tiles` mirrors its
+arithmetic) and its last split merges them in the same launch.
 """
 from __future__ import annotations
 
@@ -14,15 +16,94 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64                 # key slots per tile (kBK in the source)
-ROWS_PER_BLOCK = 64       # query rows per block (kRowsMax in the source)
+GROUP_ROWS = {"keys": 8, "narrow": 16, "rows": 32, "tensor": 64}   # query rows a block
+MIN_TILES = 4             # resident tiles a split walks at least
 BLOCKS_PER_SM = 4
+RING_BUDGET = 112 * 1024  # shared bytes the ring of tiles may take
+ROWS_RING_BUDGET = 72 * 1024   # ... on route "rows" (arithmetic-bound)
+SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_TICKETS: dict = {}
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"ring_decode kernel: {msg}")
+
+
+def route(q_dtype, kv_dtype, rows: int) -> str:
+    """How the kernel computes the ``rows`` = g·C query rows of a KV head.
+    bf16 queries and cache take the tensor cores (mma.sync): ``"narrow"``
+    up to 16 rows (each warp on 8 keys of a tile), ``"tensor"`` above
+    (each warp on 16 rows and 32 keys).  Other dtypes take the CUDA cores:
+    ``"keys"`` up to 8 rows (each warp on 8 keys), ``"rows"`` above (each
+    warp on 4 rows).  A block takes ``GROUP_ROWS[route]`` rows."""
+    if q_dtype == kv_dtype == torch.bfloat16:
+        return "narrow" if rows <= GROUP_ROWS["narrow"] else "tensor"
+    return "keys" if rows <= GROUP_ROWS["keys"] else "rows"
+
+
+def plan(B: int, C: int, H: int, K: int, cap: int, sms: int, route_: str):
+    """(row groups, nsplit): the grid is (B·K, nsplit, row groups) of
+    ``GROUP_ROWS[route_]`` query rows; ``nsplit`` is the most splits any
+    (b, kv head, group) may run: enough blocks for about ``BLOCKS_PER_SM``
+    per SM, but never more than the full ring's tiles allow at
+    ``MIN_TILES`` a split.  A one-tile ring runs one split."""
+    groups = -(-(H // K * C) // GROUP_ROWS[route_])
+    tiles = -(-cap // TILE)
+    want = -(-BLOCKS_PER_SM * sms // (B * K * groups))
+    return groups, max(1, min(tiles // MIN_TILES, want))
+
+
+def resident_tiles(pos: int, length: int, cap: int):
+    """The tiles holding a row's resident slots, in the kernel's order (the
+    ring interval of ``length`` slots from ``(pos - length) mod cap``, then
+    its wrapped part), each once."""
+    if length <= 0:
+        return []
+    start = (pos - length) % cap
+    a0, a1 = start // TILE, (min(start + length, cap) - 1) // TILE
+    nb = min((start + length - cap - 1) // TILE + 1, a0) if start + length > cap else 0
+    return list(range(a0, a1 + 1)) + list(range(nb))
+
+
+def split_tiles(pos: int, length: int, cap: int, nsplit: int, split: int):
+    """The tiles block ``split`` of a row walks: the row runs ``max(1,
+    min(nsplit, resident // MIN_TILES))`` splits over its resident tiles in
+    contiguous shares; a split past that count walks none."""
+    tiles = resident_tiles(pos, length, cap)
+    ne = max(1, min(nsplit, len(tiles) // MIN_TILES))
+    if split >= ne:
+        return []
+    return tiles[split * len(tiles) // ne:(split + 1) * len(tiles) // ne]
+
+
+def smem_bytes(hd: int, kv_dtype, route_: str) -> int:
+    """Dynamic shared memory of one block: a ring of 2–4 stages of K and V
+    tiles in their storage dtype, rows padded by 16 bytes (int8 with its
+    scales), reused after the last tile for the warps' partial states; the
+    CUDA-core routes' fp32 queries (and route ``"rows"``' probabilities);
+    a flag."""
+    es = torch.empty((), dtype=kv_dtype).element_size()
+    stage = 2 * TILE * (hd * es + 16) + (2 * TILE * 4 if es == 1 else 0)
+    budget = ROWS_RING_BUDGET if route_ == "rows" else RING_BUDGET
+    stages = min(4, max(2, budget // stage))
+    comb = 8 * 16 * (hd + 4) * 4
+    q_rows = GROUP_ROWS[route_] if route_ in ("keys", "rows") else 0
+    pbuf = GROUP_ROWS["rows"] * TILE * 4 if route_ == "rows" else 0
+    return max(stages * stage, comb) + q_rows * hd * 4 + pbuf + 16
+
+
+def _tickets(dev: torch.device, need: int) -> torch.Tensor:
+    """The merge counters of one device: zeros, allocated once and grown as
+    needed; each launch leaves them zero (the merging block resets its
+    own).  Launches that share them must run in stream order."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < need:
+        t = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[dev] = t
+    return t
 
 
 def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,
@@ -62,7 +143,9 @@ def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,
     pos, length, n_tokens = (t.to(torch.int32).contiguous()
                              for t in (pos, length, n_tokens))
     out = torch.empty((B, C, H, hd), dtype=torch.float32, device=dev)
-    nsplit, per = splits(B, C, H, K, cap, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups, nsplit = plan(B, C, H, K, cap, sms,
+                          route(q.dtype, k.dtype, H // K * C))
     part_o = part_ml = None
     if nsplit > 1:
         part_o = torch.empty((nsplit, B, C, H, hd), dtype=torch.float32, device=dev)
@@ -76,21 +159,9 @@ def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,
         pos.data_ptr(), length.data_ptr(), n_tokens.data_ptr(), out.data_ptr(),
         part_o.data_ptr() if nsplit > 1 else None,
         part_ml.data_ptr() if nsplit > 1 else None,
-        B, C, H, K, hd, cap, int(window), nsplit, per,
+        _tickets(dev, B * K * groups).data_ptr(),
+        B, C, H, K, hd, cap, int(window), nsplit,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_decode kernel launch failed: error {err}")
     return out
-
-
-def splits(B: int, C: int, H: int, K: int, cap: int, dev: torch.device):
-    """(nsplit, tiles per split) for these shapes: split the ring's key
-    tiles across blocks until there are about ``BLOCKS_PER_SM`` blocks per
-    SM.  With ``nsplit == 1`` the kernel normalises in-block and no merge
-    runs."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = B * K * -(-(H // K * C) // ROWS_PER_BLOCK)
-    tiles = -(-cap // TILE)
-    want = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // blocks)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per

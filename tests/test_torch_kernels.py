@@ -92,6 +92,21 @@ def test_ring_decode_gqa_and_mqa(K):
     np.testing.assert_allclose(got[:3], want[:3], **TOL)
 
 
+@pytest.mark.parametrize("window", [0, 9])
+def test_ring_decode_wide_chunk_ragged_and_wrapped(window):
+    """A 16-query chunk (the engine's prefill width) with n_tokens ragged
+    across rows, on rings that are wrapped, exactly full, partial and
+    fresh: the shapes of the CUDA kernel's tensor-core route."""
+    q, k, v = _case(5, B=5, C=16, H=8, K=2, cap=40)
+    pos = np.asarray([57, 40, 21, 16, 93], np.int32)
+    length = np.minimum(pos, 40).astype(np.int32)
+    n = np.asarray([16, 3, 9, 16, 1], np.int32)
+    got, want, pallas = _both(q, k, v, pos, length, n, window=window)
+    valid = np.arange(16)[None, :] < n[:, None]
+    np.testing.assert_allclose(got[valid], want[valid], **TOL)
+    np.testing.assert_allclose(got[valid], pallas[valid], **TOL)
+
+
 def test_ring_decode_int8():
     """int8 cache with per-token scales, quantized by the reference."""
     q, k, v = _case(3, hd=64)

@@ -61,6 +61,9 @@ def test_lora_matmul_forward_and_grads(lead, din, dout, r, scale):
     (2, 40, 4, 1, 16, True, 16),      # window + MQA
     (1, 48, 8, 2, 32, False, 0),      # non-causal, GQA 4x
     (1, 72, 2, 2, 16, False, 20),     # window without causal
+    (1, 200, 8, 1, 16, True, 5),      # g 8, S past 128 (not a 64 multiple), window < a tile
+    (1, 72, 4, 4, 16, True, 500),     # g 1, window longer than S
+    (1, 100, 4, 2, 32, True, 0),      # g 2, ragged S
 ])
 def test_flash_attention_forward_and_grads(B, S, H, K, hd, causal, window):
     rng = np.random.default_rng(S + H + window)
