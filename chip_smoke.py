@@ -20,12 +20,23 @@ Phases (any failure exits non-zero; no exception is caught):
    shapes, ragged edges included (``flash_attention`` in bf16 also at hd
    16 and 32, T > S, group sizes 1, 2, 3 and 8, windows shorter than a
    tile and longer than S, non-causal); ``wkv6`` at RWKV6-1.6B's prefill
-   shape (bf16 and fp32) and a ragged sequence.
+   shape (bf16 and fp32) and a ragged sequence.  The widths the padded
+   tiles opened: ``flash_attention`` and ``ring_decode`` at head dims 56
+   and 96 (ring with bf16, fp32 and int8 caches), ``mla_ring_decode`` at
+   latent 32 + 16, ``wkv6`` at head dim 32; ``lora_matmul`` also at ranks
+   64 and 128 and on its WMMA route (dout 1003).  Then the two SMOKE
+   configs those widths belong to, end to end through the kernels with
+   their launch counts: one ``make_prefill_step(rwkv6_1p6b.SMOKE,
+   use_kernels=True)`` call in fp32 (held to the plain route) and in bf16,
+   and the ``deepseek_smoke`` engine serving phase 4's traffic, held to its
+   plain route as phase 5 does.
 3. Each kernel's time (median of 50 launches, CUDA events, L2 flushed
    before each), its bound, its plain version's time and a one-call
    PyTorch yardstick where one exists; ``ring_decode``'s device time by
    kernel at its two main cases (``torch.profiler``: the splits merge in
-   the same launch, so one kernel).
+   the same launch, so one kernel); for ``lora_matmul``, which no one call
+   computes, the base product alone (``torch.matmul``) and, at its two
+   main shapes, the unfused ``torch.addmm(x W, x Aᵀ, (s·B)ᵀ)``.
 4. The serving slice end to end: full-width Llama-3.2-1B (random seeded
    weights, bf16) serving 16 requests over three adapters of ranks 4/8/16
    and the base model, with a mid-flight swap, through
@@ -85,7 +96,7 @@ REPS = 50
 DEVICE = "cuda"
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
 PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_kernel|bgmv_kernel|"
-                r"lora_matmul_(bf16|f32)|flash_(bf16|f32)|gram_partial|wkv6_kernel)\b")
+                r"lora_matmul_(wgmma|wmma|f32)|flash_(bf16|f32)|gram_partial|wkv6_kernel)\b")
 
 
 def fail(msg: str) -> None:
@@ -125,6 +136,7 @@ def main() -> None:
     report["kernel_cases"] = (kernel_cases(torch) + mla_kernel_cases(torch)
                               + train_kernel_cases(torch)
                               + wkv6_kernel_cases(torch))
+    report["smoke_widths"] = smoke_widths(torch)
     report["e2e"], counts = end_to_end(torch)
     report["parity"] = engine_parity(torch)
     report["federated"], fed_counts = federated_round(torch)
@@ -157,7 +169,8 @@ def main() -> None:
         """The case at another path's shape, beside that path's launches."""
         rec = case_rec(name, case)
         return {f"{key}_case": case, f"{key}_max_abs_err": rec["max_abs_err"],
-                f"{key}_ms": rec["ms"]}
+                f"{key}_ms": rec["ms"], f"{key}_bound_ms": rec["bound_ms"]} | {
+                    f"{key}_{k}": rec[k] for k in LORA_EXTRA if k in rec}
 
     kernels = []
     for name, case in (("ring_decode", RING_MAIN),
@@ -173,6 +186,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "case")}
             | {"launches": counts[name]}
             | ({"library": rec["library"]} if "library" in rec else {})
+            | {k: rec[k] for k in LORA_EXTRA if k in rec}
             | ({"launches_mla_path": mla_counts["bgmv"],
                 "launches_rwkv_path": rwkv_serve_counts["bgmv"]}
                | other_path("rwkv_path", "bgmv", BGMV_RWKV)
@@ -312,7 +326,20 @@ def kernel_cases(torch):
             ("bfloat16", 16, 0, 64, 256, 32, 8, False),
             ("int8", 1, 0, 32, 1000, 32, 8, False),
             ("float32", 3, 0, 16, 256, 32, 8, True),
-            ("int8", 16, 0, 64, 1024, 32, 8, True)):
+            ("int8", 16, 0, 64, 1024, 32, 8, True),
+            # head dims the padded tiles opened: 56 (qwen2-0.5B's SMOKE
+            # config, 7 query heads a KV head here) and 96 (Phi-3-vision, no
+            # grouping), on every route and cache dtype; int8 rows of 56
+            # bytes travel as 8-byte copies
+            ("bfloat16", 1, 0, 56, 1024, 28, 4, False),
+            ("bfloat16", 16, 0, 56, 1024, 28, 4, False),
+            ("bfloat16", 1, 0, 96, 1024, 32, 32, False),
+            ("bfloat16", 16, 0, 96, 1024, 32, 32, False),
+            ("float32", 16, 0, 56, 1024, 28, 4, False),
+            ("float32", 1, 0, 96, 1024, 32, 32, False),
+            ("int8", 1, 0, 56, 1024, 28, 4, False),
+            ("int8", 16, 0, 56, 1000, 28, 4, True),
+            ("int8", 16, 0, 96, 1024, 32, 32, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -467,7 +494,7 @@ MLA_MAIN = "bf16 cache, C=1, B=8 H=128 kvr=512 rope=64 cap=1024"
 def mla_kernel_cases(torch):
     """``mla_ring_decode`` at the MLA path's shapes (B 8, H 128, kvr 512,
     rope 64, ring 1024): bf16 at C 1 and 16, a window of 128, int8 with
-    per-half scales, fp32."""
+    per-half scales, fp32; then at the SMOKE config's widths (32 + 16)."""
     import math
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.mla_ring_decode import splits
@@ -479,8 +506,7 @@ def mla_kernel_cases(torch):
     records = []
     print("phase 2/3: mla_ring_decode against its plain version; times "
           "beside bounds")
-    B, H, kvr, rope, cap = 8, 128, 512, 64, 1024
-    scale = 1.0 / math.sqrt(128 + rope)        # DeepSeek-V3: 1/√(nope+rope)
+    B, cap = 8, 1024
     # rows: wrapped twice, full, partial, a fresh prefill, never written
     # (n = 0), ragged n, wrapped with n = 1, one tile
     pos = torch.tensor([1500, 1024, 300, 16, 0, 700, 2100, 64], device=dev)
@@ -491,10 +517,17 @@ def mla_kernel_cases(torch):
     # dequantized per half in fp32; fp32 products on both sides, TF32 off
     # by default); they differ only in summation order over up to 1024
     # slots and in exp rounding: limit 1e-4 of the row's max |plain|.
-    for kv_name, C, window in (("bfloat16", 1, 0), ("bfloat16", 16, 0),
-                               ("bfloat16", 1, 128), ("bfloat16", 16, 128),
-                               ("int8", 1, 0), ("int8", 16, 0),
-                               ("float32", 1, 0), ("float32", 16, 0)):
+    # (kvr, rope, nope, H): DeepSeek-V3's widths, then its SMOKE config's
+    # latent widths, 32 + 16 (padded to 32 + 32 in the kernel), at 16 heads
+    main = [(512, 64, 128, 128) + c for c in (
+        ("bfloat16", 1, 0), ("bfloat16", 16, 0), ("bfloat16", 1, 128),
+        ("bfloat16", 16, 128), ("int8", 1, 0), ("int8", 16, 0),
+        ("float32", 1, 0), ("float32", 16, 0))]
+    smoke = [(32, 16, 32, 16) + c for c in (
+        ("bfloat16", 1, 0), ("bfloat16", 16, 0), ("int8", 1, 0),
+        ("int8", 16, 0), ("float32", 16, 0))]
+    for kvr, rope, nope, H, kv_name, C, window in main + smoke:
+        scale = 1.0 / math.sqrt(nope + rope)     # DeepSeek-V3: 1/√(nope+rope)
         n = torch.minimum(pos, torch.tensor([C, C, C, C, 0, min(5, C), 1, C],
                                             device=dev)).to(torch.int32)
         q = torch.randn(B, C, H, kvr + rope, generator=gen, device=dev)
@@ -575,6 +608,9 @@ def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
 # -- phases 2 and 3 for the federated round's kernels ------------------------
 
 LORA_MAIN = "bf16, M=2048 din=2048 dout=2048 r=16"
+# lora_matmul's record beside the contract's keys: the route that ran, its
+# tile width, and the yardsticks (no one PyTorch call computes the function)
+LORA_EXTRA = ("kernel_route", "tile_n", "grid", "base_matmul_ms", "unfused_ms")
 LORA_RWKV = "bf16, M=8192 din=2048 dout=2048 r=16"
 FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
 GRAM_MAIN = "fp32, G=32 m=2048 r=64"
@@ -592,6 +628,8 @@ def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
 
 def train_kernel_cases(torch):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lora_matmul import TILE_M
+    from repro_torch.kernels.lora_matmul import plan as lora_plan
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -603,11 +641,17 @@ def train_kernel_cases(torch):
     # lora_matmul: the train step's projections (M = 4 x 512 tokens; wq/wo
     # 2048 -> 2048, wk/wv 2048 -> 512) at the round's client ranks, the
     # RWKV6 prefill's (M = 8 x 1024 tokens, 2048 -> 2048, r 16), and one
-    # ragged M / dout / rank.  bf16: both sides round z and s·B at the same
+    # ragged M / dout / rank; then ranks 64 and 128 (the wgmma route's
+    # widest z and its narrower tiles) and a dout that is not a multiple
+    # of 8 (the wmma route).  bf16: both sides round z and s·B at the same
     # points; the plain version rounds x W and the delta to bf16 before
     # adding, the kernel once at the end, so they differ by up to 2 bf16
     # ulps of the output (an ulp is up to 2^-7 of |y|): limit 2e-2 of
     # max |y|.  fp32 (TF32 off): sum order over din = 2048: limit 1e-4.
+    # No one PyTorch call computes this function: beside the kernel stand
+    # the base product alone (torch.matmul) and the unfused composition
+    # torch.addmm(x W, x Aᵀ, (s·B)ᵀ) at the two main shapes.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dt, M, dout, r in ((torch.bfloat16, 2048, 2048, 16),
                            (torch.bfloat16, 8192, 2048, 16),
                            (torch.bfloat16, 2048, 512, 16),
@@ -617,7 +661,10 @@ def train_kernel_cases(torch):
                            (torch.bfloat16, 1999, 1000, 7),
                            (torch.float32, 2048, 2048, 16),
                            (torch.float32, 2048, 512, 32),
-                           (torch.float32, 1999, 1000, 7)):
+                           (torch.float32, 1999, 1000, 7),
+                           (torch.bfloat16, 2048, 2048, 64),
+                           (torch.bfloat16, 2048, 2048, 128),
+                           (torch.bfloat16, 2048, 1003, 5)):
         din = 2048
         x = torch.randn(M, din, generator=gen, device=dev).to(dt)
         w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
@@ -629,20 +676,32 @@ def train_kernel_cases(torch):
         want = ref.lora_matmul_ref(x, w, a_c, b_s, 1.0)
         torch.cuda.synchronize()
         case = f"{dname[dt]}, M={M} din={din} dout={dout} r={r}"
-        err = check(f"lora_matmul[{case}]", got, want,
+        p = lora_plan(M, din, dout, r, dt, sms)
+        how = p["route"] + (f" {TILE_M}x{p['bn']} tiles, grid {p['grid']}"
+                            if p["bn"] else "")
+        err = check(f"lora_matmul[{case}; route {how}]", got, want,
                     torch.ones(M, dtype=torch.bool, device=dev),
                     2e-2 if dt == torch.bfloat16 else 1e-4)
         ms = gpu_ms(torch, lambda: ops.lora_matmul(x, w, a, b, scale))
         plain = gpu_ms(torch, lambda: ref.lora_matmul_ref(x, w, a_c, b_s, 1.0))
-        lib = gpu_ms(torch, lambda: torch.matmul(x, w))
+        base = gpu_ms(torch, lambda: torch.matmul(x, w))
         eb = x.element_size()
         nbytes = eb * (M * din + din * dout + r * din + dout * r + M * dout)
         ops_n = 2 * M * din * dout + 2 * M * r * (din + dout)
         records.append(_record(
             "lora_matmul", case, "src/repro_torch/kernels/csrc/lora_matmul.cu",
-            "src/repro/kernels/lora_matmul.py:31", err, ms, plain, lib, nbytes,
-            ops_n, str(dt).split(".")[-1],
-            library="torch.matmul(x, W): base product only"))
+            "src/repro/kernels/lora_matmul.py:31", err, ms, plain, None, nbytes,
+            ops_n, str(dt).split(".")[-1]))
+        records[-1].update(kernel_route=p["route"], tile_n=p["bn"],
+                           grid=p["grid"], base_matmul_ms=base)
+        if case in (LORA_MAIN, LORA_RWKV):
+            bt = b_s.t()
+            records[-1]["unfused_ms"] = gpu_ms(
+                torch, lambda: torch.addmm(x @ w, x @ a_c.t(), bt))
+        print(f"    base product torch.matmul(x, W) {base:.4f} ms"
+              + (f", unfused addmm(x W, x Aᵀ, (s·B)ᵀ) "
+                 f"{records[-1]['unfused_ms']:.4f} ms"
+                 if "unfused_ms" in records[-1] else ""))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
     # 8 KV heads, hd 64), a window, a ragged S and hd 128.  Then the bf16
@@ -670,7 +729,17 @@ def train_kernel_cases(torch):
             (torch.bfloat16, 1, 64, 64, 8, 1, 128, True, 1000),
             (torch.float32, 4, 512, 512, 32, 8, 64, True, 0),
             (torch.float32, 2, 300, 300, 16, 4, 128, True, 100),
-            (torch.float32, 1, 77, 77, 4, 1, 16, True, 0)):
+            (torch.float32, 1, 77, 77, 4, 1, 16, True, 0),
+            # head dims the padded tiles opened (same limits): 56 in 64-wide
+            # tiles (g 7, ragged S), 96 in 128-wide ones (Phi-3-vision's 32
+            # heads, no grouping), and hd 8 and 24
+            (torch.bfloat16, 4, 500, 500, 28, 4, 56, True, 0),
+            (torch.bfloat16, 4, 512, 512, 32, 32, 96, True, 0),
+            (torch.bfloat16, 2, 300, 300, 32, 32, 96, True, 64),
+            (torch.bfloat16, 1, 130, 200, 8, 2, 8, False, 0),
+            (torch.bfloat16, 1, 130, 130, 8, 2, 24, True, 0),
+            (torch.float32, 2, 300, 300, 28, 4, 56, True, 64),
+            (torch.float32, 2, 300, 300, 32, 32, 96, True, 0)):
         q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
         k = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
         v = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
@@ -735,7 +804,8 @@ WKV6_MAIN = "bf16 r/k/v, B=8 S=1024 H=32 hd=64"
 
 def wkv6_kernel_cases(torch):
     """``wkv6`` at RWKV6-1.6B's prefill shape (B 8, S 1024, 32 heads of 64)
-    with bf16 and fp32 r/k/v, and a ragged S of 200 (one partial tile)."""
+    with bf16 and fp32 r/k/v, and a ragged S of 200 (one partial tile);
+    then head dim 32 (the SMOKE config's; 64 heads of a 2048-wide model)."""
     from repro_torch.kernels import ops, ref
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -746,9 +816,11 @@ def wkv6_kernel_cases(torch):
     # r·(S + u k v), and the sums run in another order, over a state that
     # carries ~30 tokens (decays e^{-e^{N(-3, 1)}}): each (b, h) row within
     # 1e-4 of max(1, its max |plain|).
-    for dt, B, S in ((torch.bfloat16, 8, 1024), (torch.float32, 8, 1024),
-                     (torch.bfloat16, 8, 200)):
-        H, hd = 32, 64
+    for dt, B, S, H, hd in ((torch.bfloat16, 8, 1024, 32, 64),
+                            (torch.float32, 8, 1024, 32, 64),
+                            (torch.bfloat16, 8, 200, 32, 64),
+                            (torch.bfloat16, 8, 1024, 64, 32),
+                            (torch.float32, 8, 200, 64, 32)):
         r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
                    for _ in range(3))
         w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) - 3)
@@ -776,9 +848,77 @@ def wkv6_kernel_cases(torch):
     return records
 
 
+# -- phase 2, end to end: the SMOKE configs' widths through the kernels -----
+
+SMOKE_PREFILL = (4, 256)          # batch and tokens of the RWKV6 SMOKE call
+
+
+def smoke_widths(torch):
+    """The two SMOKE configs whose widths only the repaired kernels take,
+    driven end to end on the card through the kernel routes, with their
+    launch counts: one ``make_prefill_step(rwkv6_1p6b.SMOKE,
+    use_kernels=True)`` call (head dim 32: ``wkv6``, ``lora_matmul``) held
+    to the plain route, and its bf16 twin; then the ``deepseek_smoke``
+    engine (latent 32 + 16: ``mla_ring_decode``) serving phase 4's traffic
+    through ``decode_impl="kernel"``, and phase 5's check on it."""
+    from repro_torch.configs import lora_targets
+    from repro_torch.configs.rwkv6_1p6b import SMOKE
+    from repro_torch.device import parity_mode
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_prefill_step
+    dev = torch.device(DEVICE)
+    B, S = SMOKE_PREFILL
+    L, targets = SMOKE.num_layers, lora_targets(SMOKE)
+    print(f"phase 2: {SMOKE.name} ({L} L, d {SMOKE.d_model}, "
+          f"{SMOKE.num_rwkv_heads} heads of {SMOKE.rwkv_head_dim}) prefill of "
+          f"{B} x {S} tokens, kernel route vs plain route; " + parity_mode())
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = SMOKE.replace(dtype=dt)
+        params = T.init(cfg, 0, dev)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        ad = make_adapter(params, targets, 16, gen, T.torch_dtype(dt))
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+        ops.reset_launch_counts()
+        got = make_prefill_step(cfg, use_kernels=True)(params, ad, {"tokens": toks})
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want_counts = dict.fromkeys(counts, 0) | {"wkv6": L,
+                                                  "lora_matmul": L * len(targets)}
+        print(f"  {dt}: kernels {json.dumps(counts)} (expected "
+              f"{json.dumps(want_counts)})")
+        if counts != want_counts:
+            fail(f"phase 2: {cfg.name} ({dt}) did not run its kernels")
+        if got.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+            fail(f"phase 2: {cfg.name} ({dt}) logits of shape "
+                 f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        rec = {"launches": counts}
+        if dt == "float32":
+            # phase 12 (a)'s limit: fp32 on both routes (TF32 off), wkv6's
+            # FMAs and the sums in another order (8.5e-5 at full width)
+            want = make_prefill_step(cfg, use_kernels=False)(params, ad,
+                                                             {"tokens": toks})
+            rec["logits_max_abs_err"] = check(
+                f"{cfg.name} fp32 prefill logits, kernel vs plain route", got,
+                want, torch.ones(B, dtype=torch.bool, device=dev), 2e-4)
+        out[f"rwkv_smoke_{dt}"] = rec
+        del params, ad
+    out["deepseek_smoke_e2e"], _ = end_to_end(torch, "2", "deepseek_smoke",
+                                              "its SMOKE widths")
+    # fp32 cache: the routes differ by sum order only (4.9e-6 at reduced
+    # width on the CPU, phase 9's note), so phase 5's limit holds
+    out["deepseek_smoke_parity"] = engine_parity(
+        torch, "2", "deepseek_smoke", ("float32",), 1e-3, require_equal=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 4: the slice end to end ------------------------------------------
 
-def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
+def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
+               widths: str = "published widths"):
     """Serve ``launch.serve``'s traffic on ``config`` through the kernels;
     the attention kernel (``ring_decode``, or ``mla_ring_decode`` for MLA;
     none for RWKV6) must run once per layer per engine step, ``bgmv`` once
@@ -803,7 +943,7 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b"):
         attn = "ring_decode"
         shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
                  f"{cfg.head_dim}")
-    print(f"phase {phase}: {cfg.name} at published widths ({depth}, d "
+    print(f"phase {phase}: {cfg.name} at {widths} ({depth}, d "
           f"{cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}), random seeded weights, decode_impl=kernel")
     ops.reset_launch_counts()

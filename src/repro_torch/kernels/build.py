@@ -40,11 +40,12 @@ ARGTYPES = {
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "bgmv_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _P],
-    "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
     "adapter_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "wkv6_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "wkv6_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 // Causal / windowed grouped-query flash attention, for sm_90a:
 //   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h/g] / √hd  | mask) · v[b, t, h/g]
+// for every head dim hd that is a multiple of 8 from 8 to 128.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention_kernel
 // (the Pallas TPU kernel behind repro.kernels.ops.flash_attention).  Same
@@ -48,6 +49,15 @@
 //     tiles wholly above the diagonal or before the window are skipped.
 // fp32 takes a CUDA-core kernel (64 queries of one head a block, softmax
 // state in shared memory) that serves the parity checks.
+//
+// Head dims: both kernels are built for the tile widths HDP = 16, 32, 64
+// and 128 and take every hd that is a multiple of 8 up to 128 in the
+// next of them (56 and 48 in 64, 96 in 128).  The K/V tensor maps'
+// inner extent is the true hd with a box of HDP, so TMA zero-fills the
+// columns past hd and Q·Kᵀ is unchanged; Q is stored with zeros there;
+// P·V runs at N = HDP and the store drops the columns past hd.  A
+// multiple of 8 keeps every row a multiple of 16 bytes, as TMA's strides
+// and the 16-byte Q and O chunks need.  The scale is the caller's 1/√hd.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +122,7 @@ constexpr int kBN = 64;                       // keys per tile
 constexpr int kStages = 2;                    // K/V ring depth
 constexpr int kWsThreads = kConsumers * 128 + 32;   // + one producer warp
 
-template <int HD>
+template <int HD>        // HD: the padded tile width HDP
 struct Geo {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span (bytes)
   static constexpr int PC = SW / 2;                       // head dims per panel
@@ -245,11 +255,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n16(d, a, db);
 }
 
-template <int HD>
+template <int HD>        // HD: the padded tile width HDP; hd <= HD the true width
 __global__ void __launch_bounds__(kWsThreads, HD == 128 ? 1 : kMinBlocks)
 flash_bf16(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
            const bf16* __restrict__ q, bf16* __restrict__ o, int B, int S, int T,
-           int H, int K, int causal, int window, float scale_log2, int n_mt) {
+           int H, int K, int hd, int causal, int window, float scale_log2, int n_mt) {
   using G = Geo<HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -308,16 +318,18 @@ flash_bf16(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUten
   const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
   constexpr int CH = HD / 8;                 // 16-byte chunks per row
   constexpr int CPP = G::SW / 16;            // chunks per panel row
-  {   // Q rows, swizzled as TMA would place them; all loads in flight at once
+  {   // Q rows, swizzled as TMA would place them, zeros past hd; all loads
+      // in flight at once
     constexpr int NQ = kWgRows * CH / 128;
     uint4 val[NQ];
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       const int c = wt + 128 * i, r = c / CH, ch = c % CH;
       const int pr = m0 + wg * kWgRows + r, s = pr / g, j = pr % g;
-      val[i] = s < S ? *reinterpret_cast<const uint4*>(
-                           q + (((long)b * S + s) * H + kh * g + j) * HD + ch * 8)
-                     : make_uint4(0, 0, 0, 0);
+      val[i] = s < S && ch * 8 < hd
+                   ? *reinterpret_cast<const uint4*>(
+                         q + (((long)b * S + s) * H + kh * g + j) * hd + ch * 8)
+                   : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
@@ -469,20 +481,20 @@ flash_bf16(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUten
   for (int c = wt; c < kWgRows * CH; c += 128) {
     const int r = c / CH, ch = c % CH;
     const int pr = m0 + wg * kWgRows + r, s = pr / g, j = pr % g;
-    if (s >= S) continue;
+    if (s >= S || ch * 8 >= hd) continue;
     const uint32_t off = (ch / CPP) * kBR * G::SW + (wg * kWgRows + r) * G::SW +
                          (ch % CPP) * 16;
-    *reinterpret_cast<uint4*>(o + (((long)b * S + s) * H + kh * g + j) * HD + ch * 8) =
+    *reinterpret_cast<uint4*>(o + (((long)b * S + s) * H + kh * g + j) * hd + ch * 8) =
         *reinterpret_cast<const uint4*>(gbase + swz<G::SW>(off));
   }
 }
 
 // ---------------------------------------------------------------- fp32 ----
-template <int HD>
+template <int HD>        // HD: the padded tile width; columns hd .. HD are zeros
 __global__ void __launch_bounds__(kThreads)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int S, int T, int H,
-          int K, int causal, int window, float scale) {
+          int K, int hd, int causal, int window, float scale) {
   constexpr int LD = HD + 1, LP = kBKV + 1;
   extern __shared__ __align__(16) float fs[];
   float* qs = fs;                    // [kBQ][LD]
@@ -495,14 +507,14 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x, b = bh / H, h = bh % H, kh = h / (H / K);
   const int q0 = blockIdx.y * kBQ, r0 = 16 * warp;
-  const long qstride = (long)H * HD, kstride = (long)K * HD;
-  const float* qb = q + ((long)b * S * H + h) * HD;
-  const float* kb = k + ((long)b * T * K + kh) * HD;
-  const float* vb = v + ((long)b * T * K + kh) * HD;
+  const long qstride = (long)H * hd, kstride = (long)K * hd;
+  const float* qb = q + ((long)b * S * H + h) * hd;
+  const float* kb = k + ((long)b * T * K + kh) * hd;
+  const float* vb = v + ((long)b * T * K + kh) * hd;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int row = e / HD, col = e % HD;
-    qs[row * LD + col] = q0 + row < S ? qb[(q0 + row) * qstride + col] : 0.f;
+    qs[row * LD + col] = q0 + row < S && col < hd ? qb[(q0 + row) * qstride + col] : 0.f;
     os[e] = 0.f;
   }
   for (int e = tid; e < kBQ; e += kThreads) {
@@ -516,7 +528,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int e = tid; e < kBKV * HD; e += kThreads) {
       const int row = e / HD, col = e % HD;
-      const bool in = t0 + row < T;
+      const bool in = t0 + row < T && col < hd;
       ks[row * LD + col] = in ? kb[(t0 + row) * kstride + col] : 0.f;
       vs[row * LD + col] = in ? vb[(t0 + row) * kstride + col] : 0.f;
     }
@@ -549,10 +561,10 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
   }
   __syncwarp();
-  float* ob = o + ((long)b * S * H + h) * HD;
+  float* ob = o + ((long)b * S * H + h) * hd;
   for (int e = lane; e < 16 * HD; e += 32) {
     const int row = r0 + e / HD, col = e % HD;
-    if (q0 + row < S)
+    if (q0 + row < S && col < hd)
       ob[(q0 + row) * qstride + col] = os[row * HD + col] / fmaxf(ml[kBQ + row], 1e-30f);
   }
 }
@@ -581,15 +593,15 @@ EncodeTiled encoder() {
 }
 
 // k or v (B,T,K,hd) bf16 as a 4-D map {hd, K, T, B}; a box is one panel of
-// one KV head over kBN keys
+// one KV head over kBN keys, zero-filled past hd (and past T)
 template <int HD>
-int kv_map(CUtensorMap* map, const void* ptr, int B, int T, int K) {
+int kv_map(CUtensorMap* map, const void* ptr, int B, int T, int K, int hd) {
   using G = Geo<HD>;
   EncodeTiled enc = encoder();
   if (!enc) return -2;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)K, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)K * HD * 2,
-                                 (cuuint64_t)T * K * HD * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)K, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)K * hd * 2,
+                                 (cuuint64_t)T * K * hd * 2};
   const cuuint32_t box[4] = {(cuuint32_t)G::PC, 1, (cuuint32_t)kBN, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw = G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -602,15 +614,15 @@ int kv_map(CUtensorMap* map, const void* ptr, int B, int T, int K) {
   return r == CUDA_SUCCESS ? 0 : -3;
 }
 
-template <int HD>
+template <int HD>        // HD: the padded tile width for head dim hd
 int launch(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-           int S, int T, int H, int K, int causal, int window, float scale,
+           int S, int T, int H, int K, int hd, int causal, int window, float scale,
            cudaStream_t st) {
   if (dtype == 1) {
     using G = Geo<HD>;
     CUtensorMap tk, tv;
-    int rc = kv_map<HD>(&tk, k, B, T, K);
-    if (rc == 0) rc = kv_map<HD>(&tv, v, B, T, K);
+    int rc = kv_map<HD>(&tk, k, B, T, K, hd);
+    if (rc == 0) rc = kv_map<HD>(&tv, v, B, T, K, hd);
     if (rc != 0) return rc;
     const int n_mt = (int)(((long)S * (H / K) + kBR - 1) / kBR);
     cudaError_t err = cudaFuncSetAttribute(
@@ -618,7 +630,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype, int 
     if (err != cudaSuccess) return (int)err;
     flash_bf16<HD><<<n_mt * B * K, kWsThreads, G::SMEM, st>>>(
         tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), B, S, T, H, K,
-        causal, window, scale * 1.4426950408889634f, n_mt);
+        hd, causal, window, scale * 1.4426950408889634f, n_mt);
     return (int)cudaGetLastError();
   }
   if (dtype == 0) {
@@ -630,7 +642,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype, int 
     if (err != cudaSuccess) return (int)err;
     flash_f32<HD><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), S, T, H, K, causal,
+        static_cast<const float*>(v), static_cast<float*>(o), S, T, H, K, hd, causal,
         window, scale);
     return (int)cudaGetLastError();
   }
@@ -640,21 +652,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype, int 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for q, k, v and o alike.  All
-// contiguous and 16-byte aligned; hd in {16, 32, 64, 128}; H a multiple of
-// K.  ``scale`` is 1/√hd as the caller computes it.  Returns a cudaError_t
-// (0 = launched), -1 for a dtype or head dim the kernel does not take, -2
-// when the driver has no cuTensorMapEncodeTiled, -3 when it refuses the map.
+// contiguous and 16-byte aligned; hd a multiple of 8 from 8 to 128, run in
+// the tile width HDP = the next of 16, 32, 64, 128 (flash_attention.py ::
+// padded_hd); H a multiple of K.  ``scale`` is 1/√hd as the caller
+// computes it.  Returns a cudaError_t (0 = launched), -1 for a dtype or
+// head dim the kernel does not take, -2 when the driver has no
+// cuTensorMapEncodeTiled, -3 when it refuses the map.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int dtype, int B, int S, int T, int H,
                                       int K, int hd, int causal, int window,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || T < 1 || K < 1 || H % K != 0) return -1;
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, o, dtype, B, S, T, H, K, causal, window, scale, st);
-    case 32: return launch<32>(q, k, v, o, dtype, B, S, T, H, K, causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, o, dtype, B, S, T, H, K, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, o, dtype, B, S, T, H, K, causal, window, scale, st);
-    default: return -1;
-  }
+  if (hd < 8 || hd > 128 || hd % 8 != 0) return -1;
+  if (hd <= 16) return launch<16>(q, k, v, o, dtype, B, S, T, H, K, hd, causal, window, scale, st);
+  if (hd <= 32) return launch<32>(q, k, v, o, dtype, B, S, T, H, K, hd, causal, window, scale, st);
+  if (hd <= 64) return launch<64>(q, k, v, o, dtype, B, S, T, H, K, hd, causal, window, scale, st);
+  return launch<128>(q, k, v, o, dtype, B, S, T, H, K, hd, causal, window, scale, st);
 }

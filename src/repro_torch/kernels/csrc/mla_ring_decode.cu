@@ -68,6 +68,17 @@
 //   * the TPU wrapper pads cap to a bk multiple (ops.py); here the ragged
 //     last tile is masked in-kernel (slots >= cap are never read and score
 //     -1e30), so no padded or transposed copy of the cache is made.
+// Latent widths: the kernel is built for the padded widths (LATP, ROPEP) =
+// (32, 32), (64, 64), (128, 64), (256, 64) and (512, 64) (a key of a
+// multiple of 64 columns, split over the 8 warps) and takes every latent
+// kvr that is a multiple of 16 up to 512 with every RoPE width that is a
+// multiple of 16 up to 64, in the first pair that holds both
+// (mla_ring_decode.py :: padded_widths): DeepSeek-V3's 512 + 64 as they
+// are, its SMOKE config's 32 + 16 in (32, 32).  A tile row is [c_kv, zeros
+// to LATP | k_rope, zeros to ROPEP], the queries are laid out the same
+// way, so the scores are unchanged; P·V's columns past kvr are zeros and
+// are not stored.  Multiples of 16 keep every row a whole number of
+// 16-byte loads for all three cache dtypes.
 // Not done yet: wgmma with TMA-fed tiles, a bf16 route (one product instead
 // of two or three) where its rounding is acceptable.
 #include <cuda_bf16.h>
@@ -156,7 +167,7 @@ struct Args {
   float* out;        // (B, C, H, kvr)
   float* part_o;     // (nsplit, B, C, H, kvr) unnormalized accumulators
   float* part_ml;    // (nsplit, B, C, H, 2) running max and normalizer
-  int B, C, H, cap, window, nsplit, tiles_per_split;
+  int B, C, H, lat, rope, cap, window, nsplit, tiles_per_split;
   float scale;
 };
 
@@ -213,10 +224,11 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
+// LAT and ROPE are the padded widths; a.lat <= LAT and a.rope <= ROPE the true ones
 template <int LAT, int ROPE, typename KV>
 __global__ void __launch_bounds__(kThreads, 1)
 mla_ring_decode_kernel(const Args a) {
-  constexpr int DQ = LAT + ROPE;                 // key (and query) width
+  constexpr int DQ = LAT + ROPE;                 // padded key (and query) width
   constexpr int KS = DQ + kPad;                  // shared row stride of a slot / query
   constexpr int kVec = 16 / sizeof(KV);          // cache elements per 16-byte load
   constexpr int kC1 = LAT / kVec;                // 16-byte chunks of a c_kv row
@@ -236,6 +248,7 @@ mla_ring_decode_kernel(const Args a) {
   const KV* __restrict__ ckv = static_cast<const KV*>(a.ckv);
   const KV* __restrict__ kr = static_cast<const KV*>(a.kr);
   const int C = a.C, H = a.H, cap = a.cap, window = a.window;
+  const int lat = a.lat, rope = a.rope;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int row_blocks = (C * H + kRows - 1) / kRows;
@@ -268,18 +281,22 @@ mla_ring_decode_kernel(const Args a) {
 
   if (n <= 0) {                                   // inactive row: defined zeros
     if (a.nsplit == 1)
-      for (int i = tid; i < nrows * LAT; i += kThreads) a.out[brow * LAT + i] = 0.f;
+      for (int i = tid; i < nrows * lat; i += kThreads) a.out[brow * lat + i] = 0.f;
     return;
   }
 
-  // queries, a row per warp at a time in 16-byte loads; rows past nrows
-  // are zeros (computed, never written out)
+  // queries, a row per warp at a time in 16-byte loads, laid out as the
+  // tiles are ([latent, zeros to LAT | rope, zeros to ROPE]); rows past
+  // nrows are zeros (computed, never written out)
   for (int r = warp; r < kRows; r += kWarps) {
     const int rr = row0 + r;
     const float* src = a.q + b * a.q_sb + (long)(rr / H) * a.q_sc + (long)(rr % H) * a.q_sh;
-    for (int d = 4 * lane; d < DQ; d += 4 * 32)
+    for (int d = 4 * lane; d < DQ; d += 4 * 32) {
+      const int col = d < LAT ? (d < lat ? d : -1) : (d - LAT < rope ? lat + d - LAT : -1);
       *reinterpret_cast<float4*>(qs + r * KS + d) =
-          r < nrows ? *reinterpret_cast<const float4*>(src + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+          r < nrows && col >= 0 ? *reinterpret_cast<const float4*>(src + col)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 
   const KV* cb = ckv + b * a.ckv_sb;
@@ -299,7 +316,8 @@ mla_ring_decode_kernel(const Args a) {
       const int w = c % kRowChunks;
       raw[p] = make_uint4(0, 0, 0, 0);
       scl[p] = 1.f;
-      if (c < kChunks && s < cap) {
+      if (c < kChunks && s < cap &&
+          (w < kC1 ? w * kVec < lat : (w - kC1) * kVec < rope)) {   // zeros past the widths
         if (w < kC1) {
           raw[p] = *reinterpret_cast<const uint4*>(cb + s * a.ckv_ss + w * kVec);
           if (kQuant) scl[p] = csb[s * a.sc_ss];
@@ -469,14 +487,16 @@ mla_ring_decode_kernel(const Args a) {
       const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
-        *reinterpret_cast<float2*>(a.out + row * LAT + pv_col + 8 * j + 2 * tg) =
-            make_float2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+        if (pv_col + 8 * j < lat)
+          *reinterpret_cast<float2*>(a.out + row * lat + pv_col + 8 * j + 2 * tg) =
+              make_float2(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
     } else {
       const long prow = (long)split * a.B * C * H + row;
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
-        *reinterpret_cast<float2*>(a.part_o + prow * LAT + pv_col + 8 * j + 2 * tg) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+        if (pv_col + 8 * j < lat)
+          *reinterpret_cast<float2*>(a.part_o + prow * lat + pv_col + 8 * j + 2 * tg) =
+              make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
       if (warp % 4 == 0 && tg == 0) {
         a.part_ml[prow * 2] = m_s[r];
         a.part_ml[prow * 2 + 1] = l_s[r];
@@ -519,7 +539,7 @@ int launch(const Args& a, cudaStream_t st) {
   kern<<<grid, kThreads, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return (int)err;
-  merge_splits_kernel<<<a.B * a.C * a.H, LAT, 0, st>>>(a, LAT);
+  merge_splits_kernel<<<a.B * a.C * a.H, a.lat, 0, st>>>(a, a.lat);
   return (int)cudaGetLastError();
 }
 
@@ -538,9 +558,10 @@ int launch_kv(int kv_dtype, const Args& a, cudaStream_t st) {
 // contiguous, the scales' last axis has extent 1 and both scales share
 // strides; cache rows start on 16-byte boundaries.  With nsplit > 1 the
 // caller provides part_o (nsplit,B,C,H,kvr) and part_ml (nsplit,B,C,H,2)
-// fp32 scratch; tiles_per_split·nsplit tiles of 32 slots cover cap.
-// Returns a cudaError_t (0 = launched), or -1 for a latent width / dtype the
-// kernel is not built for (kvr 512, rope 64: DeepSeek-V3's widths).
+// fp32 scratch; tiles_per_split·nsplit tiles of 32 slots cover cap.  kvr
+// is a multiple of 16 up to 512 and rope a multiple of 16 up to 64, run in
+// the first padded pair that holds both.  Returns a cudaError_t (0 =
+// launched), or -1 for a latent width / dtype the kernel does not take.
 extern "C" int mla_ring_decode_launch(
     const float* q, long q_sb, long q_sc, long q_sh, const void* ckv, long ckv_sb,
     long ckv_ss, const void* kr, long kr_sb, long kr_ss, int kv_dtype,
@@ -550,8 +571,14 @@ extern "C" int mla_ring_decode_launch(
     int nsplit, int tiles_per_split, float scale, void* stream) {
   const Args a{q, q_sb, q_sc, q_sh, ckv, ckv_sb, ckv_ss, kr, kr_sb, kr_ss,
                ckv_scale, kr_scale, sc_sb, sc_ss, pos, len, n, out, part_o,
-               part_ml, B, C, H, cap, window, nsplit, tiles_per_split, scale};
+               part_ml, B, C, H, kvr, rope, cap, window, nsplit, tiles_per_split,
+               scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kvr == 512 && rope == 64) return launch_kv<512, 64>(kv_dtype, a, st);
-  return -1;
+  if (kvr < 16 || kvr > 512 || kvr % 16 || rope < 16 || rope > 64 || rope % 16)
+    return -1;
+  if (kvr <= 32 && rope <= 32) return launch_kv<32, 32>(kv_dtype, a, st);
+  if (kvr <= 64) return launch_kv<64, 64>(kv_dtype, a, st);
+  if (kvr <= 128) return launch_kv<128, 64>(kv_dtype, a, st);
+  if (kvr <= 256) return launch_kv<256, 64>(kv_dtype, a, st);
+  return launch_kv<512, 64>(kv_dtype, a, st);
 }

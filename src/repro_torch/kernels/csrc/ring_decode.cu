@@ -53,6 +53,17 @@
 //     in shared memory, after the last tile;
 //   * the cache is read in its (B,cap,K,hd) layout through strides, and the
 //     ragged last tile is masked in-kernel: no transposed or padded copy.
+//
+// Head dims: the routes are built for the tile widths HDP = 16, 32, 64 and
+// 128 and take every hd that is a multiple of 8 up to 128 in the next of
+// them.  The ring stages HDP-wide tiles whose columns past hd are
+// zero-filled by the copies (cp.async with a source size of 0), queries
+// are zeros there too, so scores are unchanged, P·V's extra columns are
+// zeros, and the combine and merge write hd columns.  A row of hd elements
+// is a multiple of 16 bytes for fp32 and bf16; an int8 row whose hd is not
+// a multiple of 16 (hd 56: 56 bytes) starts on an 8-byte boundary only,
+// so such tiles travel as 8-byte copies.  The tensor-core routes keep a
+// build with hd fixed at the tile width for the widths that fill it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -179,6 +190,10 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
@@ -243,11 +258,13 @@ struct Args {
   float* part_o;     // (nsplit, B, C, H, hd) unnormalized accumulators
   float* part_ml;    // (nsplit, B, C, H, 2) running max and normalizer
   int* tickets;      // (B, K, groups) zeros; each merging block resets its own
-  int B, C, H, K, cap, window, nsplit;
+  int B, C, H, K, hd, cap, window, nsplit;
   float scale;
 };
 
-template <int HD, typename KV, typename Q, int ROUTE>
+// HD is the padded tile width; a.hd <= HD the true head dim, or HD itself
+// when EXACT
+template <int HD, typename KV, typename Q, int ROUTE, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 ring_decode_kernel(const Args a) {
   using R = Ring<HD, KV, ROUTE>;
@@ -266,6 +283,7 @@ ring_decode_kernel(const Args a) {
   int* flag = reinterpret_cast<int*>(smem + R::SMEM - 16);
 
   const int C = a.C, H = a.H, K = a.K, cap = a.cap, window = a.window;
+  const int hd = EXACT ? HD : a.hd;
   const int g = H / K;
   const int b = blockIdx.x / K, kh = blockIdx.x % K;
   const int split = blockIdx.y;
@@ -281,7 +299,7 @@ ring_decode_kernel(const Args a) {
 
   if (n <= 0) {                                     // inactive row: defined zeros
     if (split == 0)
-      for (int i = tid; i < nrows * HD; i += kThreads) a.out[row_index(i / HD) * HD + i % HD] = 0.f;
+      for (int i = tid; i < nrows * hd; i += kThreads) a.out[row_index(i / hd) * hd + i % hd] = 0.f;
     return;
   }
   const Resident res = resident(pos, len, cap);
@@ -297,15 +315,34 @@ ring_decode_kernel(const Args a) {
   const float* vsb = R::QUANT ? a.v_scale + b * a.sc_sb + kh * a.sc_sk : nullptr;
   const long kv_ss = a.kv_ss, sc_ss = a.sc_ss;
 
+  // int8 rows whose hd is not a multiple of 16 bytes travel as 8-byte copies
+  const bool narrow = R::QUANT && hd % 16 != 0;
   auto issue = [&](int i, int stage) {              // tile lo + i into a ring stage
     const int s0 = res.tile(lo + i) * kBK;
     const uint32_t kd = ring + stage * R::STAGE, vd = kd + R::TILE;
-    for (int c = tid; c < kBK * R::CH; c += kThreads) {
-      const int j = c / R::CH, ch = c % R::CH, s = s0 + j;
-      const bool ok = s < cap;
-      const long off = ok ? s * kv_ss + ch * R::VEC : 0;
-      cp16(kd + j * R::ROW + ch * 16, kb + off, ok);
-      cp16(vd + j * R::ROW + ch * 16, vb + off, ok);
+    // a thread copies the same chunk of every row it visits (kThreads is a
+    // multiple of the chunks a row holds), zeros past hd
+    if (!narrow) {
+      const int ch = tid % R::CH;
+      const bool col = ch * R::VEC < hd;
+      for (int j = tid / R::CH; j < kBK; j += kThreads / R::CH) {
+        const int s = s0 + j;
+        const bool ok = s < cap && col;
+        const long off = ok ? s * kv_ss + ch * R::VEC : 0;
+        cp16(kd + j * R::ROW + ch * 16, kb + off, ok);
+        cp16(vd + j * R::ROW + ch * 16, vb + off, ok);
+      }
+    } else {
+      constexpr int U = HD * sizeof(KV) / 8;         // 8-byte units per padded row
+      const int u = tid % U;
+      const bool col = u * 8 < hd;
+      for (int j = tid / U; j < kBK; j += kThreads / U) {
+        const int s = s0 + j;
+        const bool ok = s < cap && col;
+        const long off = ok ? s * kv_ss + u * 8 : 0;
+        cp8(kd + j * R::ROW + u * 8, kb + off, ok);
+        cp8(vd + j * R::ROW + u * 8, vb + off, ok);
+      }
     }
     if constexpr (R::QUANT) {
       for (int j = tid; j < kBK; j += kThreads) {
@@ -351,20 +388,23 @@ ring_decode_kernel(const Args a) {
       const int rr = row0 + r;
       return q[b * a.q_sb + (rr % C) * a.q_sc + (kh * g + rr / C) * a.q_sh + d];
     };
+    // zeros past hd, decided per 8 columns (hd is a multiple of 8)
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
       const int d = ks * 16 + c2;
-      qf[ks][0] = pack_raw(qe(ra, d), qe(ra, d + 1));
-      qf[ks][1] = pack_raw(qe(ra + 8, d), qe(ra + 8, d + 1));
-      qf[ks][2] = pack_raw(qe(ra, d + 8), qe(ra, d + 9));
-      qf[ks][3] = pack_raw(qe(ra + 8, d + 8), qe(ra + 8, d + 9));
+      const bool lo = ks * 16 < hd, hi = ks * 16 + 8 < hd;
+      qf[ks][0] = lo ? pack_raw(qe(ra, d), qe(ra, d + 1)) : 0u;
+      qf[ks][1] = lo ? pack_raw(qe(ra + 8, d), qe(ra + 8, d + 1)) : 0u;
+      qf[ks][2] = hi ? pack_raw(qe(ra, d + 8), qe(ra, d + 9)) : 0u;
+      qf[ks][3] = hi ? pack_raw(qe(ra + 8, d + 8), qe(ra + 8, d + 9)) : 0u;
     }
   } else {
     const Q* q = static_cast<const Q*>(a.q);
     for (int i = tid; i < RG * HD; i += kThreads) {
-      const int r = i / HD, rr = row0 + r;
-      qs[i] = r < nrows ? to_f(q[b * a.q_sb + (rr % C) * a.q_sc + (kh * g + rr / C) * a.q_sh + i % HD])
-                        : 0.f;
+      const int r = i / HD, rr = row0 + r, d = i % HD;
+      qs[i] = r < nrows && d < hd
+                  ? to_f(q[b * a.q_sb + (rr % C) * a.q_sc + (kh * g + rr / C) * a.q_sh + d])
+                  : 0.f;
     }
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -692,10 +732,13 @@ ring_decode_kernel(const Args a) {
 
   // combine the warps holding each row: all 8 (kKeys, kNarrow), its one
   // warp (kRows), or the two warps 2 rt, 2 rt + 1 of its 16-row tile
-  // (kTensor); four head dims a thread, as 16-byte loads and stores
+  // (kTensor); four head dims a thread, as 16-byte loads and stores; the
+  // loop walks the padded width (shifts, not divisions) and skips the
+  // columns past hd
   constexpr int V4 = HD / 4;
   for (int i = tid; i < nrows * V4; i += kThreads) {
     const int r = i / V4, d = (i % V4) * 4;
+    if (d >= hd) continue;
     const int w0 = TC ? WPR * (r / 16) : ROUTE == kRows ? r % 8 : 0;
     const int nw = TC ? WPR : ROUTE == kRows ? 1 : kWarps;
     const int slot = TC ? r % 16 : ROUTE == kRows ? r / kWarps : r;
@@ -713,11 +756,11 @@ ring_decode_kernel(const Args a) {
     const long ri = row_index(r);
     if (ne == 1) {
       const float inv = 1.f / fmaxf(L, 1e-30f);
-      *reinterpret_cast<float4*>(a.out + ri * HD + d) =
+      *reinterpret_cast<float4*>(a.out + ri * hd + d) =
           make_float4(O.x * inv, O.y * inv, O.z * inv, O.w * inv);
     } else {
       const long pr = split * rows_total + ri;
-      *reinterpret_cast<float4*>(a.part_o + pr * HD + d) = O;
+      *reinterpret_cast<float4*>(a.part_o + pr * hd + d) = O;
       if (d == 0) *reinterpret_cast<float2*>(a.part_ml + pr * 2) = make_float2(M, L);
     }
   }
@@ -738,6 +781,7 @@ ring_decode_kernel(const Args a) {
   float* __restrict__ out = a.out;
   for (int i = tid; i < nrows * V4; i += kThreads) {
     const int r = i / V4, d = (i % V4) * 4;
+    if (d >= hd) continue;
     const long ri = row_index(r);
     float M = kNegInf, L = 0.f;
     float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -745,7 +789,7 @@ ring_decode_kernel(const Args a) {
     for (int sp = 0; sp < ne; ++sp) {
       const long pr = sp * rows_total + ri;
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(pml + pr * 2));
-      const float4 o = __ldcg(reinterpret_cast<const float4*>(po + pr * HD + d));
+      const float4 o = __ldcg(reinterpret_cast<const float4*>(po + pr * hd + d));
       const float mn = fmaxf(M, ml.x);
       const float w_old = expf(M - mn), w_new = expf(ml.x - mn);
       L = L * w_old + ml.y * w_new;
@@ -756,7 +800,7 @@ ring_decode_kernel(const Args a) {
       M = mn;
     }
     const float inv = 1.f / fmaxf(L, 1e-30f);
-    *reinterpret_cast<float4*>(out + ri * HD + d) =
+    *reinterpret_cast<float4*>(out + ri * hd + d) =
         make_float4(O.x * inv, O.y * inv, O.z * inv, O.w * inv);
   }
   if (tid == 0) *ticket = 0;           // ready for the next launch
@@ -765,7 +809,12 @@ ring_decode_kernel(const Args a) {
 template <int HD, typename KV, typename Q, int ROUTE>
 int launch(const Args& a, cudaStream_t st) {
   constexpr int smem = Ring<HD, KV, ROUTE>::SMEM;
-  auto kern = ring_decode_kernel<HD, KV, Q, ROUTE>;
+  // the tensor-core routes have a build with hd fixed at the tile width:
+  // with hd a runtime value their query-fragment loads cost 3–7% of a
+  // launch at hd 64 (PERF.md)
+  auto kern = ring_decode_kernel<HD, KV, Q, ROUTE, false>;
+  if constexpr (ROUTE == kTensor || ROUTE == kNarrow)
+    if (a.hd == HD) kern = ring_decode_kernel<HD, KV, Q, ROUTE, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -805,7 +854,10 @@ int launch_kv(int q_dtype, int kv_dtype, const Args& a, cudaStream_t st) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (caches only).  Strides
 // are in elements; the last axis of q/k/v is contiguous, the scales' last
-// axis has extent 1, cache rows start on 16-byte boundaries.  The grid is
+// axis has extent 1, cache rows start on 16-byte boundaries (8-byte for an
+// int8 cache whose hd is not a multiple of 16).  hd is a multiple of 8 from
+// 8 to 128, run in the tile width HDP = the next of 16, 32, 64, 128
+// (ring_decode.py :: padded_hd).  The grid is
 // (B·K, nsplit, row groups): a group is 64 rows on the tensor-core route
 // (bf16 q and cache, g·C > 8), else 8.  part_o (nsplit,B,C,H,hd) and
 // part_ml (nsplit,B,C,H,2) are fp32 scratch (unused with nsplit = 1);
@@ -821,13 +873,11 @@ extern "C" int ring_decode_launch(
     int window, int nsplit, void* stream) {
   const Args a{q, q_sb, q_sc, q_sh, k, v, kv_sb, kv_ss, kv_sk, k_scale, v_scale,
                sc_sb, sc_ss, sc_sk, pos, len, n, out, part_o, part_ml, tickets,
-               B, C, H, K, cap, window, nsplit, (float)(1.0 / sqrt((double)hd))};
+               B, C, H, K, hd, cap, window, nsplit, (float)(1.0 / sqrt((double)hd))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_kv<16>(q_dtype, kv_dtype, a, st);
-    case 32: return launch_kv<32>(q_dtype, kv_dtype, a, st);
-    case 64: return launch_kv<64>(q_dtype, kv_dtype, a, st);
-    case 128: return launch_kv<128>(q_dtype, kv_dtype, a, st);
-  }
-  return -1;
+  if (hd < 8 || hd > 128 || hd % 8 != 0) return -1;
+  if (hd <= 16) return launch_kv<16>(q_dtype, kv_dtype, a, st);
+  if (hd <= 32) return launch_kv<32>(q_dtype, kv_dtype, a, st);
+  if (hd <= 64) return launch_kv<64>(q_dtype, kv_dtype, a, st);
+  return launch_kv<128>(q_dtype, kv_dtype, a, st);
 }

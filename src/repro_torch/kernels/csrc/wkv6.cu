@@ -3,7 +3,7 @@
 //   y_t[v] = Σ_k r_t[k] · (S[k,v] + u[k] · k_t[k] · v_t[v])
 //   S[k,v] ← e^{w_t[k]} · S[k,v] + k_t[k] · v_t[v]
 // r, k, v (B,S,H,hd) fp32 or bf16; w (B,S,H,hd) fp32 log-decay; u (H,hd)
-// fp32; out y (B,S,H,hd) fp32.  hd = 64.
+// fp32; out y (B,S,H,hd) fp32.  hd = 64 (RWKV6-1.6B) or 32 (its SMOKE config).
 //
 // Replaces: src/repro/kernels/wkv6.py :: wkv6_kernel (the Pallas TPU kernel
 // behind repro.kernels.ops.wkv6, reached from models/rwkv.py's time_mix on
@@ -30,9 +30,9 @@
 // HBM3, 700 W; PERF.md).
 //
 // What the design does about it:
-//   * the block's 64 threads each keep an 8 × 8 tile of S in registers
-//     for the whole sequence (columns 8·(t/8) .. +7, rows 32·q + 4·(t%8) +
-//     i), so S never touches memory;
+//   * the block's hd threads each keep an 8-row tile of S in registers
+//     for the whole sequence (hd/8 columns hd/8·(t/(hd/8)) + a, rows
+//     hd/2·q + 4·(t%(hd/8)) + i: 8 × 8 at hd 64), so S never touches memory;
 //   * tokens are staged 16 at a time in shared memory (r, k, e^w, v), double
 //     buffered: the next tile's loads are issued before the current tile's
 //     updates and stored after them, so there is one barrier per tile;
@@ -51,14 +51,23 @@
 // shuffle chain and shared loads then stall it (≈ 470 cycles a token
 // against ≈ 240 instructions).  The tensor-core chunked form is the next
 // step.
+//
+// Head dims: the design is templated on hd with hd threads a block, each
+// holding hd elements of S as 8 rows × hd/8 columns.  At hd 64 that is the
+// 8 × 8 tile above; at hd 32 it is 32 threads with 8 rows × 4 columns,
+// chosen over 16 threads with 8 × 8 tiles because 32 threads are one whole
+// warp: each still stages one element of every token, the bonus is one
+// warp's reduction, the row-side loads keep their two float4s, and y's
+// halving takes 2 shuffle steps instead of 3; 16 threads would leave half
+// of each warp idle and need partial-warp shuffles.  The same template
+// does not stretch to hd 128 (64 KB of staged tiles, over the 48 KB of
+// static shared memory) or hd 16 (half a warp).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kHd = 64;            // head dim = threads per block
 constexpr int kTile = 16;          // tokens per staged tile
-constexpr int kWarps = kHd / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -93,16 +102,18 @@ __device__ __forceinline__ void load_tile(Tile<T>& p, const T* __restrict__ r,
   }
 }
 
+template <int HD>                  // head dim = threads per block
 struct Smem {
-  float r[2][kTile][kHd];
-  float k[2][kTile][kHd];
-  float e[2][kTile][kHd];
-  float v[2][kTile][kHd];
+  static constexpr int kWarps = HD / 32;
+  float r[2][kTile][HD];
+  float k[2][kTile][HD];
+  float e[2][kTile][HD];
+  float v[2][kTile][HD];
   float bonus[2][kWarps][kTile];   // per-warp partials of Σ_k r_k u_k k_k
 };
 
-template <typename T>
-__device__ __forceinline__ void store_tile(Smem& sm, const Tile<T>& p, int buf,
+template <int HD, typename T>
+__device__ __forceinline__ void store_tile(Smem<HD>& sm, const Tile<T>& p, int buf,
                                            int tid, float uk) {
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
@@ -119,27 +130,28 @@ __device__ __forceinline__ void store_tile(Smem& sm, const Tile<T>& p, int buf,
   }
 }
 
-// Thread t owns an 8 × 8 tile of S: columns v = 8·(t / 8) + jv and rows
-// k = 32·q + 4·(t % 8) + i (jv < 8, q < 2, i < 4).  Per token it reads 8 r,
-// 8 k, 8 e^w and 8 v from shared memory (eight float4 loads, the eight row
-// groups of a warp on adjacent addresses) for 192 FMAs, and the eight
-// threads of a column group sum their partial y by recursive halving (7
-// shuffles), after which thread t holds y[t].
-template <typename T>
-__global__ void __launch_bounds__(kHd)
+// Thread t owns CW = hd/8 columns v = CW·(t / CW) + jv and 8 rows k =
+// hd/2·q + 4·(t % CW) + i of S (jv < CW, q < 2, i < 4): an 8 × 8 tile at
+// hd 64.  Per token it reads 8 r, 8 k, 8 e^w and CW v from shared memory
+// (float4 loads, the CW row groups of a warp on adjacent addresses) for
+// 24·CW FMAs, and the CW threads of a column group sum their partial y by
+// recursive halving, after which thread t holds y[t].
+template <int HD, typename T>
+__global__ void __launch_bounds__(HD)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ w, const float* __restrict__ u,
             float* __restrict__ y, int S, int H) {
-  __shared__ __align__(16) Smem sm;
+  constexpr int CW = HD / 8;                                // columns a thread = row groups
+  __shared__ __align__(16) Smem<HD> sm;
   const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
-  const int cg = tid >> 3, rg = tid & 7;
-  const long stride_t = (long)H * kHd;                      // one token on
-  const long base = ((long)b * S * H + h) * kHd + tid;      // (b, 0, h, tid)
-  const float uk = u[h * kHd + tid];
+  const int cg = tid / CW, rg = tid % CW;
+  const long stride_t = (long)H * HD;                       // one token on
+  const long base = ((long)b * S * H + h) * HD + tid;       // (b, 0, h, tid)
+  const float uk = u[h * HD + tid];
 
-  float st[8][8];                                           // [jv][4q + i]
+  float st[CW][8];                                          // [jv][4q + i]
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int a = 0; a < CW; ++a)
 #pragma unroll
     for (int c = 0; c < 8; ++c) st[a][c] = 0.f;
 
@@ -156,24 +168,29 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     const int nt = min(kTile, S - t0);
 #pragma unroll 1
     for (int j = 0; j < nt; ++j) {
-      float rr[8], kk[8], ee[8], vv[8];
+      float rr[8], kk[8], ee[8], vv[CW];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const int row = 32 * q + 4 * rg;
+        const int row = HD / 2 * q + 4 * rg;
         *reinterpret_cast<float4*>(rr + 4 * q) =
             *reinterpret_cast<const float4*>(&sm.r[buf][j][row]);
         *reinterpret_cast<float4*>(kk + 4 * q) =
             *reinterpret_cast<const float4*>(&sm.k[buf][j][row]);
         *reinterpret_cast<float4*>(ee + 4 * q) =
             *reinterpret_cast<const float4*>(&sm.e[buf][j][row]);
-        *reinterpret_cast<float4*>(vv + 4 * q) =
-            *reinterpret_cast<const float4*>(&sm.v[buf][j][8 * cg + 4 * q]);
       }
-      // the bonus v_v · Σ_k r_k u_k k_k enters once per column, in row group 0
-      const float bonus = rg == 0 ? sm.bonus[buf][0][j] + sm.bonus[buf][1][j] : 0.f;
-      float yp[8];
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
+      for (int q = 0; q < CW / 4; ++q)
+        *reinterpret_cast<float4*>(vv + 4 * q) =
+            *reinterpret_cast<const float4*>(&sm.v[buf][j][CW * cg + 4 * q]);
+      // the bonus v_v · Σ_k r_k u_k k_k enters once per column, in row group 0
+      float bonus = 0.f;
+      if (rg == 0)
+#pragma unroll
+        for (int wp = 0; wp < Smem<HD>::kWarps; ++wp) bonus += sm.bonus[buf][wp][j];
+      float yp[CW];
+#pragma unroll
+      for (int a = 0; a < CW; ++a) {
         float acc = bonus * vv[a];
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
@@ -182,24 +199,18 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
         }
         yp[a] = acc;
       }
-      // recursive halving over the row groups (lane bits 4, 2, 1): after
+      // recursive halving over the row groups (lane bits CW/2 .. 1): after
       // each step a thread keeps the half of its columns its bit selects
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const bool hi = rg & 4;
-        const float mine = hi ? yp[a + 4] : yp[a], other = hi ? yp[a] : yp[a + 4];
-        yp[a] = mine + __shfl_xor_sync(0xffffffffu, other, 4);
-      }
+      for (int m = CW / 2; m >= 1; m /= 2) {
+        const bool hi = rg & m;
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const bool hi = rg & 2;
-        const float mine = hi ? yp[a + 2] : yp[a], other = hi ? yp[a] : yp[a + 2];
-        yp[a] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+        for (int a = 0; a < m; ++a) {
+          const float mine = hi ? yp[a + m] : yp[a], other = hi ? yp[a] : yp[a + m];
+          yp[a] = mine + __shfl_xor_sync(0xffffffffu, other, m);
+        }
       }
-      const bool hi = rg & 1;
-      const float mine = hi ? yp[1] : yp[0], other = hi ? yp[0] : yp[1];
-      y[base + (long)(t0 + j) * stride_t] =
-          mine + __shfl_xor_sync(0xffffffffu, other, 1);   // column tid
+      y[base + (long)(t0 + j) * stride_t] = yp[0];          // column tid
     }
     // The other buffer was last read in tile it - 1, which every thread
     // finished before the barrier that closed it.
@@ -208,26 +219,34 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T>
+template <int HD, typename T>
 int launch(const void* r, const void* k, const void* v, const float* w, const float* u,
            float* y, int B, int S, int H, cudaStream_t st) {
-  wkv6_kernel<T><<<B * H, kHd, 0, st>>>(static_cast<const T*>(r),
-                                        static_cast<const T*>(k),
-                                        static_cast<const T*>(v), w, u, y, S, H);
+  wkv6_kernel<HD, T><<<B * H, HD, 0, st>>>(static_cast<const T*>(r),
+                                           static_cast<const T*>(k),
+                                           static_cast<const T*>(v), w, u, y, S, H);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dtype(int dtype, const void* r, const void* k, const void* v, const float* w,
+                 const float* u, float* y, int B, int S, int H, cudaStream_t st) {
+  if (dtype == 0) return launch<HD, float>(r, k, v, w, u, y, B, S, H, st);
+  if (dtype == 1) return launch<HD, __nv_bfloat16>(r, k, v, w, u, y, B, S, H, st);
+  return -1;
 }
 
 }  // namespace
 
 // dtype code of r, k, v: 0 = float32, 1 = bfloat16.  All tensors contiguous,
-// head dim 64.  Returns a cudaError_t (0 = launched), or -1 for arguments
-// the kernel does not take.
+// head dim 32 or 64.  Returns a cudaError_t (0 = launched), or -1 for
+// arguments the kernel does not take.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v, int dtype,
                            const float* w, const float* u, float* y, int B, int S,
-                           int H, void* stream) {
+                           int H, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || H < 1) return -1;
-  if (dtype == 0) return launch<float>(r, k, v, w, u, y, B, S, H, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(r, k, v, w, u, y, B, S, H, st);
+  if (hd == 64) return launch_dtype<64>(dtype, r, k, v, w, u, y, B, S, H, st);
+  if (hd == 32) return launch_dtype<32>(dtype, r, k, v, w, u, y, B, S, H, st);
   return -1;
 }

@@ -4,9 +4,11 @@
 
 q, k and v are read in their (B, S|T, heads, hd) layouts; the kernel masks
 the ragged last query and key tiles itself, so neither transposed nor
-padded copies are made.  The bf16 kernel's launch geometry is mirrored here
-in plain functions (:func:`bf16_smem_bytes`, :func:`bf16_blocks`) so that
-the CPU tests can check it.
+padded copies are made.  Every head dim that is a multiple of 8 from 8 to
+128 runs in the next tile width of ``TILE_WIDTHS`` (:func:`padded_hd`):
+the kernel zero-fills the columns past hd in its tiles.  The bf16 kernel's
+launch geometry is mirrored here in plain functions (:func:`bf16_smem_bytes`,
+:func:`bf16_blocks`) so that the CPU tests can check it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+TILE_WIDTHS = (16, 32, 64, 128)          # the widths the kernels are built for
+HEAD_DIMS = tuple(range(8, 129, 8))      # the head dims they take
+HEAD_DIMS_TAKEN = "every head dim that is a multiple of 8 from 8 to 128"
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernel's constants (kBR, kBN, kStages in the source)
 ROWS_PER_BLOCK = 64       # (query, head) rows s·g + j of one KV group
@@ -25,10 +29,23 @@ STAGES = 2
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90
 
 
+def padded_hd(hd: int) -> int:
+    """The tile width head dim ``hd`` runs in: the next of ``TILE_WIDTHS``.
+    Raises ``ValueError`` for a head dim outside ``HEAD_DIMS``: a multiple
+    of 8 keeps every row a multiple of 16 bytes, as TMA's strides and the
+    kernels' 16-byte chunks need."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}; the attention kernels take "
+                         f"{HEAD_DIMS_TAKEN}")
+    return next(w for w in TILE_WIDTHS if w >= hd)
+
+
 def bf16_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of the bf16 kernel: the block's Q rows, a ring
-    of K and V tiles, the ring's mbarriers and 1 KB of alignment slack."""
-    return (ROWS_PER_BLOCK * hd * 2 + 2 * STAGES * KEYS_PER_TILE * hd * 2
+    of K and V tiles (both in the padded width), the ring's mbarriers and
+    1 KB of alignment slack."""
+    w = padded_hd(hd)
+    return (ROWS_PER_BLOCK * w * 2 + 2 * STAGES * KEYS_PER_TILE * w * 2
             + 3 * STAGES * 8 + 1024)
 
 
@@ -68,7 +85,7 @@ def flash_attention_cuda(q, k, v, causal: bool, window: int) -> torch.Tensor:
     T, K = k.shape[1], k.shape[2]
     _check(k.shape[0] == B and k.shape[3] == hd and H % K == 0,
            f"q{tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    _check(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _check(hd in HEAD_DIMS, f"head dim {hd}; the kernel takes {HEAD_DIMS_TAKEN}")
     _check(q.dtype in _CODES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}")
     dev = q.device

@@ -6,6 +6,9 @@ The latent cache is passed in its ``(B, cap, kvr)`` / ``(B, cap, rope)``
 layout with its strides; the kernel masks the ragged last slot tile itself,
 so no padded copy of the cache is made.  The wrapper splits the ring's slot
 tiles across blocks and allocates the fp32 partials the merge step reads.
+The kernel takes every latent width that is a multiple of 16 up to 512 with
+every RoPE width that is a multiple of 16 up to 64, each run in the first
+of ``PADDED_WIDTHS`` that holds it (:func:`padded_widths`).
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ import torch
 
 from repro_torch.kernels import build
 
-LATENT, ROPE = 512, 64    # the widths the kernel is built for (DeepSeek-V3)
+# the (latent, rope) widths the kernel is built for: its 576-wide key is
+# split over 8 warps in 8-column steps, so the sum is a multiple of 64
+PADDED_WIDTHS = ((32, 32), (64, 64), (128, 64), (256, 64), (512, 64))
+WIDTHS_TAKEN = ("a latent width that is a multiple of 16 up to 512 and a "
+                "RoPE width that is a multiple of 16 up to 64")
 TILE = 32                 # latent slots per tile (kBK in the source)
 ROWS_PER_BLOCK = 32       # query rows (t, h) per block (kRows in the source)
 BLOCKS_PER_SM = 2
@@ -23,6 +30,17 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"mla_ring_decode kernel: {msg}")
+
+
+def padded_widths(kvr: int, rope: int):
+    """The (latent, rope) widths the kernel runs ``(kvr, rope)`` in: the
+    first of ``PADDED_WIDTHS`` that holds both (DeepSeek-V3's 512 + 64 as
+    they are; its SMOKE config's 32 + 16 in 32 + 32).  Raises
+    ``ValueError`` outside ``WIDTHS_TAKEN``."""
+    _check(kvr % 16 == 0 and 16 <= kvr <= 512 and rope % 16 == 0
+           and 16 <= rope <= 64,
+           f"latent widths ({kvr}, {rope}); the kernel takes {WIDTHS_TAKEN}")
+    return next(p for p in PADDED_WIDTHS if p[0] >= kvr and p[1] >= rope)
 
 
 def mla_ring_decode_cuda(q_eff, c_kv, k_rope, pos, length, n_tokens,
@@ -39,9 +57,7 @@ def mla_ring_decode_cuda(q_eff, c_kv, k_rope, pos, length, n_tokens,
            and dq == kvr + rope,
            f"q{tuple(q_eff.shape)} does not match the latent cache "
            f"c_kv{tuple(c_kv.shape)} k_rope{tuple(k_rope.shape)}")
-    _check((kvr, rope) == (LATENT, ROPE),
-           f"latent widths ({kvr}, {rope}); the kernel is built for "
-           f"({LATENT}, {ROPE})")
+    padded_widths(kvr, rope)
     _check(q_eff.dtype == torch.float32, f"query dtype {q_eff.dtype}")
     _check(c_kv.dtype in _KV_CODES and k_rope.dtype == c_kv.dtype,
            f"cache dtypes {c_kv.dtype}/{k_rope.dtype}")

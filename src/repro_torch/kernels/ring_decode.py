@@ -6,15 +6,20 @@ kernel masks the ragged last key tile itself, so neither a transposed nor a
 padded copy of the cache is made.  The wrapper sizes the grid (:func:`plan`)
 and allocates the fp32 partials and the cached merge counters; the kernel
 splits each row's resident tiles (:func:`split_tiles` mirrors its
-arithmetic) and its last split merges them in the same launch.
+arithmetic) and its last split merges them in the same launch.  Every head
+dim that is a multiple of 8 from 8 to 128 runs in the next tile width of
+16, 32, 64 and 128 (:func:`padded_hd`), with the columns past hd
+zero-filled in the kernel's tiles; an int8 cache whose rows are not a
+multiple of 16 bytes travels as 8-byte copies (:func:`copy_bytes`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, HEAD_DIMS_TAKEN,
+                                                  padded_hd)
 
-HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64                 # key slots per tile (kBK in the source)
 GROUP_ROWS = {"keys": 8, "narrow": 16, "rows": 32, "tensor": 64}   # query rows a block
 MIN_TILES = 4             # resident tiles a split walks at least
@@ -79,12 +84,19 @@ def split_tiles(pos: int, length: int, cap: int, nsplit: int, split: int):
     return tiles[split * len(tiles) // ne:(split + 1) * len(tiles) // ne]
 
 
+def copy_bytes(hd: int, element_size: int) -> int:
+    """The bytes one ``cp.async`` of a cache row moves: 16, or 8 for an int8
+    cache whose rows (hd bytes) are not a multiple of 16."""
+    return 16 if hd * element_size % 16 == 0 else 8
+
+
 def smem_bytes(hd: int, kv_dtype, route_: str) -> int:
     """Dynamic shared memory of one block: a ring of 2–4 stages of K and V
-    tiles in their storage dtype, rows padded by 16 bytes (int8 with its
-    scales), reused after the last tile for the warps' partial states; the
-    CUDA-core routes' fp32 queries (and route ``"rows"``' probabilities);
-    a flag."""
+    tiles in their storage dtype and padded width, rows padded by 16 bytes
+    (int8 with its scales), reused after the last tile for the warps'
+    partial states; the CUDA-core routes' fp32 queries (and route
+    ``"rows"``' probabilities); a flag."""
+    hd = padded_hd(hd)
     es = torch.empty((), dtype=kv_dtype).element_size()
     stage = 2 * TILE * (hd * es + 16) + (2 * TILE * 4 if es == 1 else 0)
     budget = ROWS_RING_BUDGET if route_ == "rows" else RING_BUDGET
@@ -115,7 +127,7 @@ def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,
            f"shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     _check(k.shape[0] == B and k.shape[3] == hd and H % K == 0,
            f"q{tuple(q.shape)} does not match cache {tuple(k.shape)}")
-    _check(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    _check(hd in HEAD_DIMS, f"head dim {hd}; the kernel takes {HEAD_DIMS_TAKEN}")
     _check(q.dtype in _Q_CODES, f"query dtype {q.dtype}")
     _check(k.dtype in _KV_CODES and v.dtype == k.dtype,
            f"cache dtypes {k.dtype}/{v.dtype}")
@@ -123,10 +135,10 @@ def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,
     _check(q.stride(-1) == 1 and k.stride(-1) == 1 and k.stride() == v.stride(),
            "q/k/v need a contiguous last axis and k, v equal strides")
     es = k.element_size()
-    _check(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
-           and all(st * es % 16 == 0 for st in k.stride()[:3])
-           and hd * es % 16 == 0,
-           "cache rows must start on 16-byte boundaries")
+    unit = copy_bytes(hd, es)
+    _check(k.data_ptr() % unit == 0 and v.data_ptr() % unit == 0
+           and all(st * es % unit == 0 for st in k.stride()[:3]),
+           f"cache rows must start on {unit}-byte boundaries")
     int8 = k.dtype == torch.int8
     _check(int8 == (k_scale is not None) == (v_scale is not None),
            "int8 caches need k_scale and v_scale, float caches none")

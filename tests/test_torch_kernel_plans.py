@@ -1,8 +1,9 @@
-"""The launch arithmetic of the port's redesigned attention kernels, which
-the CUDA sources repeat and the CPU cannot run: ``ring_decode``'s grid,
-its split of each row's resident tiles and its shared-memory size, and
-``flash_attention``'s bf16 grid (rows s·g + j of one KV group per block,
-causal blocks longest first) and shared-memory size.
+"""The launch arithmetic of the port's redesigned kernels, which the CUDA
+sources repeat and the CPU cannot run: ``ring_decode``'s grid, its split of
+each row's resident tiles and its shared-memory size, ``flash_attention``'s
+bf16 grid (rows s·g + j of one KV group per block, causal blocks longest
+first) and shared-memory size, and ``lora_matmul``'s route, tile width,
+persistent schedule and shared-memory size.
 
 Resident tiles are checked against the residency mask itself
 (``ring_slot_positions``, the plain versions' mask); the flash grid
@@ -14,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lora_matmul as lm  # noqa: E402
 from repro_torch.kernels import ring_decode as rd  # noqa: E402
 from repro_torch.models.attention_core import ring_slot_positions  # noqa: E402
 
@@ -97,17 +99,19 @@ def test_ring_route():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("route", ["keys", "rows", "narrow", "tensor"])
 def test_ring_smem_fits(hd, dtype, route):
-    """The ring of tiles (2–4 stages), the reused partial-state area and the
-    queries stay within the 227 KB a block may use, with at least two
-    stages and, for 16-bit and 8-bit caches on the load-bound routes, at
-    least three; route "rows" leaves room for two blocks an SM."""
+    """The ring of tiles (2–4 stages, in the padded tile width), the reused
+    partial-state area and the queries stay within the 227 KB a block may
+    use, with at least two stages and, for 16-bit and 8-bit caches on the
+    load-bound routes, at least three; route "rows" leaves room for two
+    blocks an SM.  Every head dim the kernel takes is checked."""
     es = torch.empty((), dtype=dtype).element_size()
-    stage = 2 * rd.TILE * (hd * es + 16) + (2 * rd.TILE * 4 if es == 1 else 0)
+    w = rd.padded_hd(hd)                 # the tile width hd runs in
+    stage = 2 * rd.TILE * (w * es + 16) + (2 * rd.TILE * 4 if es == 1 else 0)
     budget = rd.ROWS_RING_BUDGET if route == "rows" else rd.RING_BUDGET
     stages = min(4, max(2, budget // stage))
     assert stages >= (3 if es < 4 and route != "rows" else 2)
     assert rd.smem_bytes(hd, dtype, route) <= rd.SMEM_LIMIT
-    if route == "rows" and hd <= 64:
+    if route == "rows" and w <= 64:
         assert 2 * rd.smem_bytes(hd, dtype, route) <= rd.SMEM_LIMIT
 
 
@@ -146,3 +150,75 @@ def test_flash_blocks_cover_rows_and_visible_keys(B, S, T, H, K, causal, window)
     if causal and not window:
         tiles = [blk[4] for blk in blocks]
         assert tiles == sorted(tiles, reverse=True)
+
+
+# -- lora_matmul's wgmma route: route, tile width, persistent schedule ------
+
+@pytest.mark.parametrize("din,dout,dtype,want", [
+    (2048, 2048, torch.bfloat16, "wgmma"),    # the main paths' shapes
+    (2048, 512, torch.bfloat16, "wgmma"),
+    (2048, 1000, torch.bfloat16, "wgmma"),    # dout ragged against the tile
+    (2048, 1003, torch.bfloat16, "wmma"),     # no TMA stride for 1003 columns
+    (2044, 2048, torch.bfloat16, "wmma"),
+    (16, 8, torch.bfloat16, "wgmma"),
+    (2048, 2048, torch.float32, "fp32"),
+])
+def test_lora_route(din, dout, dtype, want):
+    assert lm.route(din, dout, dtype) == want
+
+
+@pytest.mark.parametrize("M,dout,r,bn,grid", [
+    (2048, 2048, 16, 256, 128),    # train step wq/wo, RWKV6 targets: one wave
+    (2048, 2048, 4, 256, 128),
+    (2048, 2048, 32, 128, 132),    # ranks above 16 take at most 128 columns
+    (2048, 512, 16, 64, 128),      # train step wk/wv: 64 tiles at 128 wide
+    (2048, 512, 32, 64, 128),
+    (8192, 2048, 16, 256, 132),    # RWKV6 prefill: 512 tiles, 3.9 waves
+    (2048, 2048, 64, 128, 132),
+    (2048, 2048, 128, 128, 132),
+    (1999, 1000, 7, 128, 128),
+])
+def test_lora_tile_per_main_shape(M, dout, r, bn, grid):
+    p = lm.plan(M, 2048, dout, r, torch.bfloat16, H100_SMS)
+    assert (p["route"], p["bn"], p["grid"]) == ("wgmma", bn, grid)
+    assert p["tiles"] == -(-M // lm.TILE_M) * -(-dout // bn)
+    assert p["stages"] >= 3
+
+
+@pytest.mark.parametrize("M,dout,bn,grid", [
+    (2048, 2048, 256, 128), (8192, 2048, 256, 132), (2048, 512, 64, 128),
+    (1999, 1000, 128, 128), (300, 520, 64, 45), (129, 8, 64, 2),
+    (8192, 2048, 128, 132), (5000, 3000, 128, 132), (128, 64, 64, 1)])
+def test_lora_schedule_covers_every_tile_once(M, dout, bn, grid):
+    """The persistent grid's grouped raster visits every output tile exactly
+    once, and the blocks' shares differ by at most one tile."""
+    shares = lm.schedule(M, dout, bn, grid)
+    tiles = [t for share in shares for t in share]
+    want = {(m, n) for m in range(0, M, lm.TILE_M) for n in range(0, dout, bn)}
+    assert len(tiles) == len(want) and set(tiles) == want
+    sizes = [len(share) for share in shares]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_lora_raster_groups_tile_rows():
+    """Blocks in flight together share x rows and W columns in L2: on a
+    64 × 64-tile grid the first wave's 132 tiles touch 8 tile rows and 17
+    tile columns (25 tiles of operands), where a row-major order would
+    touch 3 rows and all 64 columns (67)."""
+    first = [lm.tile_origin(t, 64, 64, 256) for t in range(H100_SMS)]
+    assert len(set(first)) == H100_SMS
+    assert {m // lm.TILE_M for m, _ in first} == set(range(lm.GROUP_M))
+    assert {n // 256 for _, n in first} == set(range(17))
+
+
+@pytest.mark.parametrize("rp", lm.RANK_PADS)
+@pytest.mark.parametrize("bn", lm.TILE_NS)
+def test_lora_smem_fits(bn, rp):
+    """Every (tile width, padded rank) the plan may choose keeps three or
+    four stages within the 227 KB a block may use; 256 columns are left to
+    ranks of 16 and below."""
+    if bn in lm.tile_widths(rp):
+        assert 3 <= lm.stages(bn, rp) <= lm.MAX_STAGES
+        assert lm.smem_bytes(bn, rp) <= lm.SMEM_LIMIT
+    else:
+        assert bn == 256 and rp > 16

@@ -134,7 +134,12 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
         tops.mla_ring_decode(q.to("meta"), ckv.to("meta"), kr.to("meta"),
                              i.to("meta"), i.to("meta"), i.to("meta"),
                              scale=0.1)
-    with pytest.raises(ValueError, match="built for"):
+    # the SMOKE widths 32 + 16 pass the width check and reach the device
+    # check; 40 + 16 is outside the range the kernel takes
+    with pytest.raises(ValueError, match="CUDA"):
         tops.mla_ring_decode(q[..., :48].to("meta"), ckv[..., :32].to("meta"),
+                             kr[..., :16].to("meta"), i, i, i, scale=0.1)
+    with pytest.raises(ValueError, match="multiple of 16 up to 512"):
+        tops.mla_ring_decode(q[..., :56].to("meta"), ckv[..., :40].to("meta"),
                              kr[..., :16].to("meta"), i, i, i, scale=0.1)
     assert tops.launch_counts()["mla_ring_decode"] == 0

@@ -126,6 +126,9 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     meta = [t.to("meta") for t in (r, k, v, w, u)]
     with pytest.raises(ValueError, match="CUDA"):
         tops.wkv6(*meta)
-    with pytest.raises(ValueError, match="head dim 64"):
+    # hd 32 (the SMOKE config's) reaches the device check; hd 16 is refused
+    with pytest.raises(ValueError, match="CUDA"):
         tops.wkv6(*[t[..., :32] for t in meta[:4]], meta[4][:, :32])
+    with pytest.raises(ValueError, match=r"head dim 16; the kernel takes \(32, 64\)"):
+        tops.wkv6(*[t[..., :16] for t in meta[:4]], meta[4][:, :16])
     assert tops.launch_counts()["wkv6"] == 0
