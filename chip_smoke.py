@@ -20,11 +20,13 @@ Phases (any failure exits non-zero; no exception is caught):
    shapes, ragged edges included (``flash_attention`` in bf16 also at hd
    16 and 32, T > S, group sizes 1, 2, 3 and 8, windows shorter than a
    tile and longer than S, non-causal); ``wkv6`` at RWKV6-1.6B's prefill
-   shape (bf16 and fp32) and a ragged sequence.  The widths the padded
-   tiles opened: ``flash_attention`` and ``ring_decode`` at head dims 56
-   and 96 (ring with bf16, fp32 and int8 caches), ``mla_ring_decode`` at
-   latent 32 + 16, ``wkv6`` at head dim 32; ``lora_matmul`` also at ranks
-   64 and 128 and on its WMMA route (dout 1003).  Then the two SMOKE
+   shape (bf16 and fp32), at strong decay (w = -exp(N(1, 1))) and on a
+   ragged sequence, its launch arithmetic held to the built kernel's.  The
+   widths the padded tiles opened: ``flash_attention`` and ``ring_decode``
+   at head dims 56 and 96 (ring with bf16, fp32 and int8 caches),
+   ``mla_ring_decode`` at latent 32 + 16, ``wkv6`` at head dim 32;
+   ``lora_matmul`` also at ranks 64 and 128 and on its WMMA route (dout
+   1003).  Then the two SMOKE
    configs those widths belong to, end to end through the kernels with
    their launch counts: one ``make_prefill_step(rwkv6_1p6b.SMOKE,
    use_kernels=True)`` call in fp32 (held to the plain route) and in bf16,
@@ -91,7 +93,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
 REPS = 50
 DEVICE = "cuda"
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
@@ -804,47 +806,73 @@ WKV6_MAIN = "bf16 r/k/v, B=8 S=1024 H=32 hd=64"
 
 def wkv6_kernel_cases(torch):
     """``wkv6`` at RWKV6-1.6B's prefill shape (B 8, S 1024, 32 heads of 64)
-    with bf16 and fp32 r/k/v, and a ragged S of 200 (one partial tile);
-    then head dim 32 (the SMOKE config's; 64 heads of a 2048-wide model)."""
+    with bf16 and fp32 r/k/v, and a ragged S of 200 (one partial chunk);
+    then head dim 32 (the SMOKE config's; 64 heads of a 2048-wide model);
+    then the main shape at strong decay.  First the launch arithmetic of
+    ``kernels/wkv6.py`` against the built kernel's shared-memory structs."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
     records = []
     print("phase 2/3: wkv6 against its plain version; times beside bounds")
-    # Both sides compute in fp32 from the same stored values; the kernel
-    # forms y as r·S + v·(Σ r u k) with FMAs, the plain version as
-    # r·(S + u k v), and the sums run in another order, over a state that
-    # carries ~30 tokens (decays e^{-e^{N(-3, 1)}}): each (b, h) row within
-    # 1e-4 of max(1, its max |plain|).
-    for dt, B, S, H, hd in ((torch.bfloat16, 8, 1024, 32, 64),
-                            (torch.float32, 8, 1024, 32, 64),
-                            (torch.bfloat16, 8, 200, 32, 64),
-                            (torch.bfloat16, 8, 1024, 64, 32),
-                            (torch.float32, 8, 200, 64, 32)):
+    for hd in wk.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            built = wk.compiled_smem_bytes(hd, dt)
+            planned = wk.smem_bytes(hd, torch.tensor([], dtype=dt).element_size())
+            if built != planned:
+                fail(f"wkv6: the plan's shared memory at hd {hd} {dt} is "
+                     f"{planned} bytes, the built kernel's {built}")
+    main_plan = wk.plan(8, 1024, 32, 64, torch.bfloat16,
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"  plan at the main shape: {main_plan}")
+    # The kernel sums in another order than the plain scan and forms its
+    # products on the tensor cores in 3xTF32 (~2^-20 of each product's
+    # size; plain TF32 would leave ~2^-11), over a state that carries ~30
+    # tokens (decays e^{-e^{N(-3, 1)}}) or ~2 (e^{-e^{N(1, 1)}}, where
+    # running products of the decays underflow as the true ones do): each
+    # (b, h) row within 1e-4 of max(1, its max |plain|).
+    for dt, B, S, H, hd, mu in ((torch.bfloat16, 8, 1024, 32, 64, -3),
+                                (torch.float32, 8, 1024, 32, 64, -3),
+                                (torch.bfloat16, 8, 200, 32, 64, -3),
+                                (torch.bfloat16, 8, 1024, 64, 32, -3),
+                                (torch.float32, 8, 200, 64, 32, -3),
+                                (torch.bfloat16, 8, 1024, 32, 64, 1)):
         r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
                    for _ in range(3))
-        w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) - 3)
+        w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) + mu)
         u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
         got = ops.wkv6(r, k, v, w, u)
         want = ref.wkv6_ref(r, k, v, w, u)
         torch.cuda.synchronize()
         case = (f"{'bf16' if dt == torch.bfloat16 else 'fp32'} r/k/v, "
-                f"B={B} S={S} H={H} hd={hd}")
+                f"B={B} S={S} H={H} hd={hd}"
+                + (", strong decay w=-exp(N(1,1))" if mu == 1 else ""))
         err = check_rows(f"wkv6[{case}]", *(
             t.permute(0, 2, 1, 3).reshape(B * H, S * hd) for t in (got, want)),
             1e-4, floor=1.0)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"wkv6[{case}]: non-finite output")
         ms = gpu_ms(torch, lambda: ops.wkv6(r, k, v, w, u))
         plain = gpu_ms(torch, lambda: ref.wkv6_ref(r, k, v, w, u))
         n = B * S * H * hd
         nbytes = 3 * n * r.element_size() + 4 * n + 4 * H * hd + 4 * n
-        # 5·hd² + 5·hd operations per token and head: r·S (2hd²), the
-        # update e^w ⊙ S + k ⊗ v (3hd²) and the u-bonus, one dot product
-        # Σ r u k (3hd) times v added to y (2hd); the hd exps are left out
-        ops_n = (5 * hd * hd + 5 * hd) * B * S * H
-        records.append(_record(
+        # the chunked form's tensor-core products, per token and head: r̃·S
+        # and the update Σ k̃ vᵀ (2hd² each), P·V over a chunk (2·C·hd)
+        ops_n = (4 * hd * hd + 2 * wk.CHUNK * hd) * B * S * H
+        rec = _record(
             "wkv6", case, "src/repro_torch/kernels/csrc/wkv6.cu",
             "src/repro/kernels/wkv6.py:47", err, ms, plain, None, nbytes,
-            ops_n, "float32"))
+            ops_n, "tf32")
+        # the sequential form's bound (5·hd² + 5·hd fp32 operations a token
+        # and head on the CUDA cores), the old design's, for the record
+        rec["sequential_bound_ms"] = max(
+            nbytes / HBM_BYTES_PER_S, (5 * hd * hd + 5 * hd) * B * S * H
+            / PEAK_OPS["float32"]) * 1e3
+        print(f"    sequential form's bound {rec['sequential_bound_ms']:.4f} ms")
+        if case == WKV6_MAIN:
+            rec["plan"] = dataclasses.asdict(main_plan)
+        records.append(rec)
     return records
 
 
@@ -1431,11 +1459,15 @@ def rwkv_prefill(torch):
 
     window = profile_window(torch, run, 2, f"prefill call, {PREFILL_BATCH} x "
                             f"{PREFILL_SEQ} tokens")
+    wkv6_ms = sum(ms for name, ms in window["port_kernels_ms_per_step"].items()
+                  if "wkv6_kernel" in name)
+    print(f"  wkv6 device time per call: {wkv6_ms:.3f} ms for {L} launches "
+          "(the sequential kernel's 6.6 ms: PERF.md)")
     del params, ad, first, lg
     torch.cuda.empty_cache()
     return {"call_ms": call_ms, "call_ms_median": med, "prefill_tok_s": tok_s,
             "launches": counts, "repeat_drift": drift,
-            "profiled_prefill": window}, counts
+            "wkv6_ms_per_call": wkv6_ms, "profiled_prefill": window}, counts
 
 
 # -- phase 12: RWKV6 in fp32, kernel routes against plain routes --------------

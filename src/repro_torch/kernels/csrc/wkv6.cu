@@ -9,222 +9,576 @@
 // behind repro.kernels.ops.wkv6, reached from models/rwkv.py's time_mix on
 // the full-sequence forward with use_kernels).  The TPU kernel runs a
 // (B·H, S/chunk) grid with the chunk axis sequential, carrying S in a VMEM
-// scratch from one grid step to the next.  Blocks on Hopper run in no
-// order, so here one block owns one (b, h) pair and walks the whole
-// sequence itself: one launch, and the chunk size has no effect.
+// scratch from one grid step to the next, and steps one token at a time.
+// Blocks on Hopper run in no order, so here one block owns one (b, h) pair
+// and walks the whole sequence itself: one launch, and the wrapper's chunk
+// argument has no effect.
 //
-// What bounds it on the H100 (data-sheet rates 3.35 TB/s, 67 TFLOP/s fp32):
-// at B 8, S 1024, H 32, hd 64 the function moves ≈ 235 MB (r, k, v in bf16,
-// w and y in fp32: 70 µs) and does 5·hd² + 5·hd operations per token and
-// head (r·S, e^w ⊙ S + k ⊗ v, and the bonus as one dot product Σ r u k
-// times v), 5.45 GFLOP in fp32 (81 µs): operations, on the CUDA cores.
-// The columns of S are independent, but each element's update is a chain
-// over time.
-// What limits this kernel in practice is feeding the FMAs: every token
-// needs r, k and e^w of all 64 rows, and a shared-memory broadcast of a
-// float4 costs as much as any other 16-byte-per-lane load.  One thread
-// per column (64 threads, 3 FP32 instructions per float read) and four
-// threads per column both ran at ≈ 470 µs, bound by those loads; giving
-// each thread an 8 × 8 tile of S (24 FP32 instructions per float4) halved
-// the loads per FMA, and the kernel now runs ≈ 275 µs (NVIDIA H100 80GB
-// HBM3, 700 W; PERF.md).
+// The chunked form.  The sequence is cut into chunks of C = 16 tokens.
+// Within a chunk (tokens 0..C-1, d_j = e^{w_j} per channel, S₀ the state
+// entering it):
+//   r̃_t = r_t ⊙ Π_{j<t} d_j           k̃_s = k_s ⊙ Π_{j>s} d_j
+//   P[t][s] = Σ_k r_t[k] k_s[k] Π_{s<j<t} d_j[k]   (s < t)
+//   P[t][t] = Σ_k r_t[k] u[k] k_t[k]               (the bonus)
+//   y_t = r̃_tᵀ S₀ + Σ_{s≤t} P[t][s] v_s
+//   S   ← (Π_j d_j) ⊙ S₀ + Σ_s k̃_s v_sᵀ
+// Every decay is a running product of d inside the chunk (≤ 16 factors of
+// ≤ 1): no e^{-a} and no quotient of two products is ever formed, so
+// nothing overflows, and a factor underflows only where the true one does
+// (exps of differences of cumulative sums lose digits at strong decays:
+// at w = −exp(N(3, 1)) the sums reach −3000, whose fp32 ulp is 2.4e-4; a
+// single d can underflow there, so no quotient of prefix products works).
+// The chunk start is the one reference point and the chunk is the only
+// sub-block: r̃ S₀ and the update Σ k̃ vᵀ cost 2·hd² operations a token each
+// whatever C is, and a longer chunk cut into sub-blocks adds the bridge
+// products between them (≈ 25 k operations a token and head at C 64
+// against ≈ 19 k here).  Splitting this chunk into two sub-blocks of 8
+// with a tensor-core bridge halves the CUDA-core pairs, but measured slower
+// on the H100 (one warp's serial bridge, or the warps' partial sums met by
+// shared-memory atomics, cost more than the pairs saved).  The price of
+// C = 16 is a state hand-off every 16 tokens, which stays in registers.
 //
-// What the design does about it:
-//   * the block's hd threads each keep an 8-row tile of S in registers
-//     for the whole sequence (hd/8 columns hd/8·(t/(hd/8)) + a, rows
-//     hd/2·q + 4·(t%(hd/8)) + i: 8 × 8 at hd 64), so S never touches memory;
-//   * tokens are staged 16 at a time in shared memory (r, k, e^w, v), double
-//     buffered: the next tile's loads are issued before the current tile's
-//     updates and stored after them, so there is one barrier per tile;
-//   * e^w is taken once per element while staging, never in the inner loop;
-//   * the bonus term v_v · Σ_k r_k u_k k_k is one scalar per token: each
-//     warp reduces its half of the sum with shuffles while staging, and it
-//     enters each column once, in row group 0;
-//   * per token a thread reads eight float4s (the eight row groups of a
-//     warp on adjacent addresses: no bank conflict) for 192 FP32
-//     instructions, and the eight threads of a column group sum their
-//     partial y by recursive halving, after which thread t holds y[t] (a
-//     coalesced store);
-//   * a ragged last tile is masked: tokens past S are never computed or
-//     written.
-// B·H = 256 blocks of two warps give each scheduler one warp; the token's
-// shuffle chain and shared loads then stall it (≈ 470 cycles a token
-// against ≈ 240 instructions).  The tensor-core chunked form is the next
-// step.
+// What bounds it on the H100 (data-sheet rates 3.35 TB/s, 495 TFLOP/s
+// TF32): at B 8, S 1024, H 32, hd 64 the function moves ≈ 235 MB (r, k, v
+// in bf16, w and y in fp32: 70.1 µs) and the chunked form's tensor-core
+// products are 4·hd² + 2·C·hd operations a token and head (4.8 GFLOP:
+// 9.8 µs at the TF32 rate, three times that in 3xTF32), so bytes bound it.
+// The sequential form's 5·hd² + 5·hd fp32 operations on the CUDA cores
+// (81.4 µs) were the old design's bound.
 //
-// Head dims: the design is templated on hd with hd threads a block, each
-// holding hd elements of S as 8 rows × hd/8 columns.  At hd 64 that is the
-// 8 × 8 tile above; at hd 32 it is 32 threads with 8 rows × 4 columns,
-// chosen over 16 threads with 8 × 8 tiles because 32 threads are one whole
-// warp: each still stages one element of every token, the bonus is one
-// warp's reduction, the row-side loads keep their two float4s, and y's
-// halving takes 2 shuffle steps instead of 3; 16 threads would leave half
-// of each warp idle and need partial-warp shuffles.  The same template
-// does not stretch to hd 128 (64 KB of staged tiles, over the 48 KB of
-// static shared memory) or hd 16 (half a warp).
+// Design:
+//   * one block of 3·hd threads a (b, h): hd/32 consumer warps hold the
+//     state and run the products of chunk c while 2·hd producer threads
+//     copy, stage and derive chunk c + 1 (warp specialization; named
+//     barriers hand each prepared chunk over, two buffers deep);
+//   * products on the tensor cores with mma.sync m16n8k8 TF32, in 3xTF32
+//     (hi·hi + hi·lo + lo·hi, split_tf32 below): plain TF32 keeps ~3
+//     digits and the limits are 1e-4 of a row.  An operand exact in TF32
+//     needs no lo part: bf16 v is, r̃, k̃, P and S are not.  mma.sync over
+//     wgmma because the state must stay in registers across chunks as an
+//     accumulator and be the A operand of the next product: wgmma TF32
+//     takes both operands K-major from shared memory, which would cost a
+//     16 KB store and load of S every 16 tokens;
+//   * the state lives transposed, Sᵀ (v rows × k columns), in the
+//     accumulators of the consumer warps, 32 value rows (two m-tiles) a
+//     warp, so every fragment of r̃, k̃ and P a warp loads serves two mmas.
+//     yᵀ = Sᵀ r̃ᵀ takes Sᵀ's accumulator registers as its A fragments
+//     directly (k is the reduction axis: the columns {2c, 2c+1} an
+//     accumulator holds are the fragment's columns {c, c+4} once B is read
+//     in the same order), the update Sᵀ ← Sᵀ ⊙ D + Vᵀ k̃ accumulates into
+//     them, and no warp needs another's rows;
+//   * the producers: cp.async fills a ring of raw stages of r, k, v and w,
+//     two chunks ahead (zero-filled past S: a ragged tail has r = k = v = 0
+//     and d = 1, and no y is stored there); a staging pass takes d = e^w
+//     once per element and widens v; a derivation pass, reading r and k
+//     raw, runs the prefix (r̃, Π d) and suffix (k̃) products per channel,
+//     the bonus, and the 120 in-chunk scores on the CUDA cores in fp32: a
+//     thread owns two keys s and 15−s (15 queries between them) over 4
+//     channels, carries k_s ⊙ Π d forward one token at a time, and the hd/4
+//     threads of a key pair sum their partial scores by recursive halving;
+//   * every tile that feeds an mma is stored split (hi, lo) in shared
+//     memory, rows padded so each fragment load is free of bank conflicts.
+// Shared memory: 93 KB a block at hd 64 with bf16 inputs (111 KB fp32),
+// two blocks an SM, so B·H = 256 blocks run in one wave on 132 SMs; at hd
+// 32, 52 KB (53 KB), four an SM (kernels/wkv6.py `plan` repeats this
+// arithmetic, and chip_smoke.py holds it to the built structs).
+//
+// What the measurements showed (NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+// scripts/wkv6_cutouts.py): the kernel runs ≈ 2.2× its bytes bound at the
+// main shape.  Its copies alone (no products, no derivation) take ≈ 69 µs;
+// the consumers or the producers alone on top of them each reach ≈ 95 µs,
+// together ≈ 150: the two roles slow each other on shared issue slots and
+// shared-memory bandwidth rather than overlapping.  The product yᵀ = Sᵀ r̃ᵀ
+// (≈ 42 µs when cut out) and the in-chunk scores (≈ 35 µs) cost most.
+// What paid most on the way: the roles split over warps, consumers of 32
+// rows (not 16), r and k read raw, and the split by integer operations
+// instead of cvt.rna; a raw stage is refilled only after every producer
+// has passed its last reader (an earlier order raced).
+//
+// History: the sequential design (one block of hd threads a (b, h), an
+// 8 × 8 tile of S a thread on the CUDA cores, tokens one at a time) ran
+// 277.0 µs at the main shape (280.7 fp32, 222.9 at hd 32; NVIDIA H100 80GB
+// HBM3, 700 W), paced by shared-memory broadcasts and a shuffle chain per
+// token (≈ 470 cycles a token against ≈ 240 instructions).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 16;          // tokens per staged tile
+constexpr int kC = 16;             // tokens a chunk
+constexpr int kMT = 2;             // m-tiles (16 value rows) a consumer warp
+// threads of a block: hd/32 consumer warps, then 2·hd producer threads
+template <int HD> constexpr int kConsumers = 2 * HD / kMT;
+template <int HD> constexpr int kBlock = kConsumers<HD> + 2 * HD;
+constexpr int kPadQ = 8;           // row pad (floats) of the [token][channel] tiles
+constexpr int kLdP = kC + 4;       // row stride of the score tile
 
+template <int HD, typename T>
+struct Smem {
+  static constexpr int kLd = HD + kPadQ;
+  // r̃ and k̃ stored as (hi, lo) pairs per element, rows padded so that the
+  // consumers' 16-byte (r̃) and 8-byte (k̃) fragment loads meet no conflict
+  static constexpr int kLdQ = 2 * HD + 16, kLdK = 2 * HD + 8;
+  // raw stages: three (two chunks in flight) where two blocks (hd 64) or
+  // four (hd 32) an SM still fit, else two
+  static constexpr int kR = (HD == 32 && sizeof(T) == 4) ? 2 : 3;
+  alignas(16) T raw_r[kR][kC * HD];        // cp.async targets, as stored;
+  alignas(16) T raw_k[kR][kC * HD];        // derive() reads r and k here
+  alignas(16) T raw_v[kR][kC * HD];
+  alignas(16) float raw_w[kR][kC * HD];
+  alignas(16) float d[kC][kLd];            // e^w of the chunk being derived
+  struct Prep {                            // a chunk ready for the products
+    alignas(16) float q[kC][kLdQ];                // r̃, (hi, lo) a channel
+    alignas(16) float k[kC][kLdK];                // k̃, (hi, lo) a channel
+    alignas(16) float vh[kC][kLd], vl[kC][kLd];   // v (lo unused for bf16)
+    alignas(16) float ph[kC][kLdP], pl[kC][kLdP]; // P, zero above the diagonal
+    alignas(16) float dec[HD];                    // Π_j d_j
+  } prep[2];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// named barriers: `bar_sync` waits for n threads, `bar_arrive` counts this
+// warp among them without waiting (release; the waiting side acquires)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// x = hi + lo for the 3xTF32 split.  The tensor cores read the top 19 bits
+// of a tf32 operand, so hi is x itself (read as x truncated to tf32) and lo
+// = x − trunc(x) is exact in fp32 (read truncated in turn): one LOP3 and one
+// FADD, where cvt.rna.tf32.f32 twice expands to about ten instructions.
+// hi·hi + hi·lo + lo·hi keeps ~20 bits of every product; lo·lo (~2^-20
+// relative) is dropped.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+__device__ __forceinline__ void split_store(float x, float* hi, float* lo) {
+  uint32_t h, l;
+  split_tf32(x, h, l);
+  *hi = __uint_as_float(h);
+  *lo = __uint_as_float(l);
+}
+__device__ __forceinline__ void split_store2(float x, float* hilo) {
+  uint32_t h, l;
+  split_tf32(x, h, l);
+  *reinterpret_cast<float2*>(hilo) = make_float2(__uint_as_float(h), __uint_as_float(l));
+}
+
+// d += a · b on the tensor cores, m16n8k8, tf32 inputs, fp32 accumulators.
+// Fragments (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, c = lane % 4:
+//   a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)  of A 16×8;
+//   b0 (k = c, n = g), b1 (k = c + 4, n = g)                      of B 8×8;
+//   d0, d1 (g, 2c + {0, 1}), d2, d3 (g + 8, 2c + {0, 1})          of D 16×8.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a · b in 3xTF32 from pre-split operands, small terms first; with
+// kExactA the a operand is exact in tf32 and its lo part is skipped
+template <bool kExactA>
+__device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  if (!kExactA) mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(a.x << 16), __uint_as_float(a.x & 0xffff0000u),
+                     __uint_as_float(a.y << 16), __uint_as_float(a.y & 0xffff0000u));
+}
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// This thread's lane (element `tid` of each token) of a tile, as stored: a
-// bf16 value is widened only when the tile is written to shared memory,
-// after the current tile's updates, so nothing waits on the loads early.
-template <typename T>
-struct Tile {
-  T r[kTile], k[kTile], v[kTile];
-  float w[kTile];
-};
-
-template <typename T>
-__device__ __forceinline__ void load_tile(Tile<T>& p, const T* __restrict__ r,
-                                          const T* __restrict__ k,
-                                          const T* __restrict__ v,
-                                          const float* __restrict__ w, long base,
-                                          long stride_t, int t0, int S) {
+// cp.async of chunk c's r, k, v and w rows into raw buffer `buf`; rows past
+// S are zero-filled (source size 0, from a valid address)
+template <int HD, typename T>
+__device__ __forceinline__ void issue_chunk(Smem<HD, T>& sm, int buf,
+                                            const T* __restrict__ r,
+                                            const T* __restrict__ k,
+                                            const T* __restrict__ v,
+                                            const float* __restrict__ w, long base,
+                                            long stride_t, int t0, int S, int tid) {
+  constexpr int kThreads = 2 * HD;
+  constexpr int kE = 16 / sizeof(T);                 // elements a 16-byte piece
+  constexpr int kPR = HD / kE;                       // pieces a row of r, k, v
+  static_assert(kC * kPR % kThreads == 0 && kC * HD / 4 % kThreads == 0, "");
 #pragma unroll
-  for (int j = 0; j < kTile; ++j) {
-    if (t0 + j < S) {
-      const long off = base + (long)(t0 + j) * stride_t;
-      p.r[j] = r[off];
-      p.k[j] = k[off];
-      p.v[j] = v[off];
-      p.w[j] = w[off];
-    } else {            // past S: never computed, but e^0 = 1 and k·v = 0
-      p.r[j] = p.k[j] = p.v[j] = T(0.f);
-      p.w[j] = 0.f;
+  for (int it = 0; it < kC * kPR / kThreads; ++it) {
+    const int i = tid + it * kThreads, row = i / kPR, col = (i % kPR) * kE;
+    const bool ok = t0 + row < S;
+    const long off = base + (ok ? (long)(t0 + row) * stride_t + col : 0);
+    cp16(smem_addr(&sm.raw_r[buf][row * HD + col]), r + off, ok);
+    cp16(smem_addr(&sm.raw_k[buf][row * HD + col]), k + off, ok);
+    cp16(smem_addr(&sm.raw_v[buf][row * HD + col]), v + off, ok);
+  }
+  constexpr int kPW = HD / 4;
+#pragma unroll
+  for (int it = 0; it < kC * kPW / kThreads; ++it) {
+    const int i = tid + it * kThreads, row = i / kPW, col = (i % kPW) * 4;
+    const bool ok = t0 + row < S;
+    const long off = base + (ok ? (long)(t0 + row) * stride_t + col : 0);
+    cp16(smem_addr(&sm.raw_w[buf][row * HD + col]), w + off, ok);
+  }
+}
+
+// Staging: raw stage `buf` -> d = e^w (scratch) and v widened, split where
+// it is not exact (prep[pb]); a thread takes four channels of tokens tt and
+// tt + 8, so a row's stores are one contiguous run
+template <int HD, typename T, bool kExactV>
+__device__ __forceinline__ void stage(Smem<HD, T>& sm, int buf, int pb, int tid) {
+  const int c0 = 4 * (tid % (HD / 4));
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int tt = tid / (HD / 4) + 8 * e, src = tt * HD + c0;
+    const float4 x = ld4(&sm.raw_v[buf][src]);
+    if (kExactV) {
+      *reinterpret_cast<float4*>(&sm.prep[pb].vh[tt][c0]) = x;
+    } else {
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      float hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t h, l;
+        split_tf32(xs[i], h, l);
+        hi[i] = __uint_as_float(h);
+        lo[i] = __uint_as_float(l);
+      }
+      *reinterpret_cast<float4*>(&sm.prep[pb].vh[tt][c0]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<float4*>(&sm.prep[pb].vl[tt][c0]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    const float4 wv = ld4(&sm.raw_w[buf][src]);
+    *reinterpret_cast<float4*>(&sm.d[tt][c0]) =
+        make_float4(__expf(wv.x), __expf(wv.y), __expf(wv.z), __expf(wv.w));
+  }
+}
+
+// Sum of 16 partials across the G lanes of an aligned group by recursive
+// halving: afterwards lane cg of the group holds the totals of indices
+// cg·(16/G) + a, a < 16/G, in x[a].
+template <int G>
+__device__ __forceinline__ void halve16(float (&x)[16], int cg) {
+  int n = 16;
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const bool hi = cg & m;
+    n /= 2;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      if (a < n) {
+        const float mine = hi ? x[a + n] : x[a], other = hi ? x[a] : x[a + n];
+        x[a] = mine + __shfl_xor_sync(0xffffffffu, other, m);
+      }
     }
   }
 }
 
-template <int HD>                  // head dim = threads per block
-struct Smem {
-  static constexpr int kWarps = HD / 32;
-  float r[2][kTile][HD];
-  float k[2][kTile][HD];
-  float e[2][kTile][HD];
-  float v[2][kTile][HD];
-  float bonus[2][kWarps][kTile];   // per-warp partials of Σ_k r_k u_k k_k
-};
-
+// Derivation: raw r and k of stage `buf` and d -> prep[pb]: the in-chunk
+// scores and the bonus (key pair p, channel group cg), r̃ and Π d (prefix
+// products, threads < hd), k̃ (suffix products, threads ≥ hd).  Every load
+// comes before the first store, so none waits behind a store it might alias.
 template <int HD, typename T>
-__device__ __forceinline__ void store_tile(Smem<HD>& sm, const Tile<T>& p, int buf,
-                                           int tid, float uk) {
-  const int lane = tid & 31, warp = tid >> 5;
+__device__ __forceinline__ void derive(Smem<HD, T>& sm, int buf, int pb, int tid,
+                                       const float4 uu) {
+  auto& P = sm.prep[pb];
+  const T* rr = sm.raw_r[buf];
+  const T* kk = sm.raw_k[buf];
+  constexpr int kCG = HD / 4;                        // channel groups of 4
+  const int p = tid / kCG, cg = tid % kCG, c0 = 4 * cg;
+  // the bonus Σ_k r_t u k_t of tokens 2p and 2p + 1, on the diagonal of P
+  float bonus[2];
 #pragma unroll
-  for (int j = 0; j < kTile; ++j) {
-    const float rj = to_f(p.r[j]), kj = to_f(p.k[j]);
-    sm.r[buf][j][tid] = rj;
-    sm.k[buf][j][tid] = kj;
-    sm.e[buf][j][tid] = expf(p.w[j]);
-    sm.v[buf][j][tid] = to_f(p.v[j]);
-    float part = rj * uk * kj;
+  for (int e = 0; e < 2; ++e) {
+    const float4 rt = ld4(rr + (2 * p + e) * HD + c0), kt = ld4(kk + (2 * p + e) * HD + c0);
+    bonus[e] = fmaf(rt.x * uu.x, kt.x, fmaf(rt.y * uu.y, kt.y,
+               fmaf(rt.z * uu.z, kt.z, rt.w * uu.w * kt.w)));
+  }
+  // keys p and 15 - p: value i is the pair (t, s) with
+  //   i < 15 - p: s = p, t = p + 1 + i;   15 - p <= i < 15: s = 15 - p, t = i + 1
+  float part[kC];
+  float4 kf = ld4(kk + p * HD + c0);
+  const T* rp = rr + (p + 1) * HD + c0;              // token p + 1 + i, then i + 1
+  const float* dp = &sm.d[p + 1][c0];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (lane == 0) sm.bonus[buf][warp][j] = part;
+  for (int i = 0; i < kC - 1; ++i) {
+    if (i == kC - 1 - p) {                           // the second key, 15 - p
+      kf = ld4(kk + (kC - 1 - p) * HD + c0);
+      rp = rr + HD + c0;                             // rp + i·HD is token i + 1
+      dp = &sm.d[1][c0];
+    }
+    const float4 rt = ld4(rp + i * HD), dt = ld4(dp + i * Smem<HD, T>::kLd);
+    part[i] = fmaf(rt.x, kf.x, fmaf(rt.y, kf.y, fmaf(rt.z, kf.z, rt.w * kf.w)));
+    kf.x *= dt.x; kf.y *= dt.y; kf.z *= dt.z; kf.w *= dt.w;
+  }
+  part[kC - 1] = 0.f;
+  // this thread's channel of r (prefix side) or k (suffix side), and d
+  const int ch = tid % HD;
+  const bool prefix = tid < HD;
+  const T* src = (prefix ? rr : kk) + ch;
+  float xs[kC], ds[kC];
+#pragma unroll
+  for (int t = 0; t < kC; ++t) {
+    xs[t] = to_f(src[t * HD]);
+    ds[t] = sm.d[t][ch];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int m = kCG / 2; m >= 1; m /= 2)
+      bonus[e] += __shfl_xor_sync(0xffffffffu, bonus[e], m);
+  halve16<kCG>(part, cg);
+  if (cg == 0)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      split_store(bonus[e], &P.ph[2 * p + e][2 * p + e], &P.pl[2 * p + e][2 * p + e]);
+#pragma unroll
+  for (int a = 0; a < 16 / kCG; ++a) {
+    const int i = cg * (16 / kCG) + a;
+    if (i < kC - 1) {
+      const bool first = i < kC - 1 - p;
+      const int t = first ? p + 1 + i : i + 1, s = first ? p : kC - 1 - p;
+      split_store(part[a], &P.ph[t][s], &P.pl[t][s]);
+    }
+  }
+  float run = 1.f;
+  if (prefix) {
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      split_store2(xs[t] * run, &P.q[t][2 * ch]);
+      run *= ds[t];
+    }
+    P.dec[ch] = run;
+  } else {
+#pragma unroll
+    for (int s = kC - 1; s >= 0; --s) {
+      split_store2(xs[s] * run, &P.k[s][2 * ch]);
+      run *= ds[s];
+    }
   }
 }
 
-// Thread t owns CW = hd/8 columns v = CW·(t / CW) + jv and 8 rows k =
-// hd/2·q + 4·(t % CW) + i of S (jv < CW, q < 2, i < 4): an 8 × 8 tile at
-// hd 64.  Per token it reads 8 r, 8 k, 8 e^w and CW v from shared memory
-// (float4 loads, the CW row groups of a warp on adjacent addresses) for
-// 24·CW FMAs, and the CW threads of a column group sum their partial y by
-// recursive halving, after which thread t holds y[t].
+// Chunk c's products for consumer warp `wp`, which owns value rows
+// v0 = 32·wp .. v0 + 31 as two m-tiles (every fragment of r̃, k̃ and P it
+// loads serves both):
+//   yᵀ = Sᵀ r̃ᵀ + Vᵀ Pᵀ, stored for tokens < S, then Sᵀ ← Sᵀ ⊙ D + Vᵀ k̃
+template <int HD, typename T, bool kExactV>
+__device__ __forceinline__ void products(Smem<HD, T>& sm, int pb,
+                                         float (&st)[kMT][HD / 8][4],
+                                         float* __restrict__ y, long ybase,
+                                         long stride_t, int t0, int S, int lane,
+                                         int wp) {
+  constexpr int kNT = HD / 8;
+  const auto& P = sm.prep[pb];
+  const int g = lane >> 2, c = lane & 3, v0 = 16 * kMT * wp;
+  // Vᵀ as the A operand (M = value rows, K = tokens), two k-steps
+  uint32_t vah[kMT][2][4], val[kMT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int s0 = 8 * ks + c, vr = v0 + 16 * mt + g;
+      vah[mt][ks][0] = bits(P.vh[s0][vr]);
+      vah[mt][ks][1] = bits(P.vh[s0][vr + 8]);
+      vah[mt][ks][2] = bits(P.vh[s0 + 4][vr]);
+      vah[mt][ks][3] = bits(P.vh[s0 + 4][vr + 8]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) val[mt][ks][i] = 0u;
+      if (!kExactV) {
+        val[mt][ks][0] = bits(P.vl[s0][vr]);
+        val[mt][ks][1] = bits(P.vl[s0][vr + 8]);
+        val[mt][ks][2] = bits(P.vl[s0 + 4][vr]);
+        val[mt][ks][3] = bits(P.vl[s0 + 4][vr + 8]);
+      }
+    }
+  float acc[kMT][2][4];                              // [m-tile][token tile]
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    // accumulator columns 8j + 2c, 8j + 2c + 1 are the fragment's c, c + 4
+    uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      split_tf32(st[mt][j][0], ah[mt][0], al[mt][0]);
+      split_tf32(st[mt][j][2], ah[mt][1], al[mt][1]);
+      split_tf32(st[mt][j][1], ah[mt][2], al[mt][2]);
+      split_tf32(st[mt][j][3], ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      // (hi, lo) of channels 8j + 2c and 8j + 2c + 1
+      const float4 b = *reinterpret_cast<const float4*>(&P.q[8 * nt + g][16 * j + 4 * c]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        mma_3x<false>(acc[mt][nt], ah[mt], al[mt], bits(b.x), bits(b.z), bits(b.y),
+                      bits(b.w));
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int t = 8 * nt + g, s0 = 8 * ks + c;
+      const uint32_t h0 = bits(P.ph[t][s0]), h1 = bits(P.ph[t][s0 + 4]);
+      const uint32_t l0 = bits(P.pl[t][s0]), l1 = bits(P.pl[t][s0 + 4]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        mma_3x<kExactV>(acc[mt][nt], vah[mt][ks], val[mt][ks], h0, h1, l0, l1);
+    }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = t0 + 8 * nt + 2 * c + e;
+        if (tok < S) {
+          float* out = y + ybase + (long)tok * stride_t + v0 + 16 * mt + g;
+          out[0] = acc[mt][nt][e];
+          out[8] = acc[mt][nt][2 + e];
+        }
+      }
+  // Sᵀ ← Sᵀ ⊙ D + Vᵀ k̃  (M = value rows, N = channels 8j.., K = tokens)
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const float2 dd = *reinterpret_cast<const float2*>(&P.dec[8 * j + 2 * c]);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      st[mt][j][0] *= dd.x;
+      st[mt][j][1] *= dd.y;
+      st[mt][j][2] *= dd.x;
+      st[mt][j][3] *= dd.y;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int s0 = 8 * ks + c, ch = 8 * j + g;
+      const float2 b0 = *reinterpret_cast<const float2*>(&P.k[s0][2 * ch]);
+      const float2 b1 = *reinterpret_cast<const float2*>(&P.k[s0 + 4][2 * ch]);
+      const uint32_t h0 = bits(b0.x), h1 = bits(b1.x), l0 = bits(b0.y), l1 = bits(b1.y);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        mma_3x<kExactV>(st[mt][j], vah[mt][ks], val[mt][ks], h0, h1, l0, l1);
+    }
+  }
+}
+
+// Named barriers: 1 + b, chunk in prep[b] ready (producers arrive,
+// consumers wait); 3 + b, prep[b] free (consumers arrive, producers wait);
+// 5, among the producers.
+constexpr int kFull = 1, kEmpty = 3, kProducers = 5;
+
+// The first hd threads (hd/32 warps) are consumers: they hold Sᵀ and run
+// the products.  The other 2·hd are producers: they copy, stage and derive
+// chunk c + 1 while the consumers multiply chunk c.
 template <int HD, typename T>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(kBlock<HD>, 128 / HD)
 wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
             const float* __restrict__ w, const float* __restrict__ u,
             float* __restrict__ y, int S, int H) {
-  constexpr int CW = HD / 8;                                // columns a thread = row groups
-  __shared__ __align__(16) Smem<HD> sm;
+  constexpr int kCons = kConsumers<HD>, kProd = 2 * HD, kAll = kBlock<HD>;
+  constexpr int kR = Smem<HD, T>::kR;
+  constexpr bool kExactV = sizeof(T) == 2;           // bf16 v is exact in tf32
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<HD, T>& sm = *reinterpret_cast<Smem<HD, T>*>(smem_raw);
   const int b = blockIdx.x / H, h = blockIdx.x % H, tid = threadIdx.x;
-  const int cg = tid / CW, rg = tid % CW;
-  const long stride_t = (long)H * HD;                       // one token on
-  const long base = ((long)b * S * H + h) * HD + tid;       // (b, 0, h, tid)
-  const float uk = u[h * HD + tid];
+  const long stride_t = (long)H * HD;                // one token on
+  const long base = ((long)b * S * H + h) * HD;      // (b, 0, h, 0)
+  const int n_chunks = (S + kC - 1) / kC;
 
-  float st[CW][8];                                          // [jv][4q + i]
-#pragma unroll
-  for (int a = 0; a < CW; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) st[a][c] = 0.f;
-
-  Tile<T> p;
-  load_tile(p, r, k, v, w, base, stride_t, 0, S);
-  store_tile(sm, p, 0, tid, uk);
+  // P is zero above its diagonal in both buffers, and never written there
+  for (int i = tid; i < kC * kLdP; i += kAll) {
+    (&sm.prep[0].ph[0][0])[i] = 0.f;
+    (&sm.prep[0].pl[0][0])[i] = 0.f;
+    (&sm.prep[1].ph[0][0])[i] = 0.f;
+    (&sm.prep[1].pl[0][0])[i] = 0.f;
+  }
   __syncthreads();
 
-  const int n_tiles = (S + kTile - 1) / kTile;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1, t0 = it * kTile;
-    const bool more = it + 1 < n_tiles;
-    if (more) load_tile(p, r, k, v, w, base, stride_t, t0 + kTile, S);
-    const int nt = min(kTile, S - t0);
-#pragma unroll 1
-    for (int j = 0; j < nt; ++j) {
-      float rr[8], kk[8], ee[8], vv[CW];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int row = HD / 2 * q + 4 * rg;
-        *reinterpret_cast<float4*>(rr + 4 * q) =
-            *reinterpret_cast<const float4*>(&sm.r[buf][j][row]);
-        *reinterpret_cast<float4*>(kk + 4 * q) =
-            *reinterpret_cast<const float4*>(&sm.k[buf][j][row]);
-        *reinterpret_cast<float4*>(ee + 4 * q) =
-            *reinterpret_cast<const float4*>(&sm.e[buf][j][row]);
-      }
-#pragma unroll
-      for (int q = 0; q < CW / 4; ++q)
-        *reinterpret_cast<float4*>(vv + 4 * q) =
-            *reinterpret_cast<const float4*>(&sm.v[buf][j][CW * cg + 4 * q]);
-      // the bonus v_v · Σ_k r_k u_k k_k enters once per column, in row group 0
-      float bonus = 0.f;
-      if (rg == 0)
-#pragma unroll
-        for (int wp = 0; wp < Smem<HD>::kWarps; ++wp) bonus += sm.bonus[buf][wp][j];
-      float yp[CW];
-#pragma unroll
-      for (int a = 0; a < CW; ++a) {
-        float acc = bonus * vv[a];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          acc = fmaf(rr[c], st[a][c], acc);
-          st[a][c] = fmaf(ee[c], st[a][c], kk[c] * vv[a]);
-        }
-        yp[a] = acc;
-      }
-      // recursive halving over the row groups (lane bits CW/2 .. 1): after
-      // each step a thread keeps the half of its columns its bit selects
-#pragma unroll
-      for (int m = CW / 2; m >= 1; m /= 2) {
-        const bool hi = rg & m;
-#pragma unroll
-        for (int a = 0; a < m; ++a) {
-          const float mine = hi ? yp[a + m] : yp[a], other = hi ? yp[a] : yp[a + m];
-          yp[a] = mine + __shfl_xor_sync(0xffffffffu, other, m);
-        }
-      }
-      y[base + (long)(t0 + j) * stride_t] = yp[0];          // column tid
+  if (tid >= kCons) {                                // producers
+    const int pt = tid - kCons;
+    const float4 uu = ld4(u + h * HD + 4 * (pt % (HD / 4)));
+    for (int c = 0; c < kR - 1; ++c) {
+      if (c < n_chunks) issue_chunk(sm, c, r, k, v, w, base, stride_t, c * kC, S, pt);
+      cp_commit();
     }
-    // The other buffer was last read in tile it - 1, which every thread
-    // finished before the barrier that closed it.
-    if (more) store_tile(sm, p, buf ^ 1, tid, uk);
-    __syncthreads();
+    for (int c = 0; c < n_chunks; ++c) {
+      const int pb = c & 1;
+      if (c >= 2) bar_sync(kEmpty + pb, kAll);       // chunk c - 2 consumed
+      cp_wait<kR - 2>();                             // chunk c has landed
+      bar_sync(kProducers, kProd);
+      // every producer is past derive() of chunk c - 1, the last reader of
+      // raw stage (c - 1) % kR: refill it
+      const int nx = c + kR - 1;
+      if (nx < n_chunks)
+        issue_chunk(sm, nx % kR, r, k, v, w, base, stride_t, nx * kC, S, pt);
+      cp_commit();
+      stage<HD, T, kExactV>(sm, c % kR, pb, pt);
+      bar_sync(kProducers, kProd);
+      derive(sm, c % kR, pb, pt, uu);
+      bar_arrive(kFull + pb, kAll);
+    }
+  } else {                                           // consumers
+    float st[kMT][HD / 8][4];                        // Sᵀ, this warp's rows
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[mt][j][i] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int pb = c & 1;
+      bar_sync(kFull + pb, kAll);
+      products<HD, T, kExactV>(sm, pb, st, y, base, stride_t, c * kC, S, tid & 31,
+                               tid >> 5);
+      if (c + 2 < n_chunks) bar_arrive(kEmpty + pb, kAll);
+    }
   }
 }
 
 template <int HD, typename T>
 int launch(const void* r, const void* k, const void* v, const float* w, const float* u,
            float* y, int B, int S, int H, cudaStream_t st) {
-  wkv6_kernel<HD, T><<<B * H, HD, 0, st>>>(static_cast<const T*>(r),
-                                           static_cast<const T*>(k),
-                                           static_cast<const T*>(v), w, u, y, S, H);
+  constexpr size_t smem = sizeof(Smem<HD, T>);
+  auto kern = wkv6_kernel<HD, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<B * H, kBlock<HD>, smem, st>>>(static_cast<const T*>(r), static_cast<const T*>(k),
+                                        static_cast<const T*>(v), w, u, y, S, H);
   return (int)cudaGetLastError();
 }
 
@@ -238,9 +592,16 @@ int launch_dtype(int dtype, const void* r, const void* k, const void* v, const f
 
 }  // namespace
 
-// dtype code of r, k, v: 0 = float32, 1 = bfloat16.  All tensors contiguous,
-// head dim 32 or 64.  Returns a cudaError_t (0 = launched), or -1 for
-// arguments the kernel does not take.
+// Shared memory a block, for the launch arithmetic's check (kernels/wkv6.py)
+extern "C" long wkv6_smem_bytes(int hd, int dtype) {
+  if (hd == 64) return dtype ? sizeof(Smem<64, __nv_bfloat16>) : sizeof(Smem<64, float>);
+  if (hd == 32) return dtype ? sizeof(Smem<32, __nv_bfloat16>) : sizeof(Smem<32, float>);
+  return -1;
+}
+
+// dtype code of r, k, v: 0 = float32, 1 = bfloat16.  All tensors contiguous
+// and 16-byte aligned, head dim 32 or 64.  Returns a cudaError_t (0 =
+// launched), or -1 for arguments the kernel does not take.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v, int dtype,
                            const float* w, const float* u, float* y, int B, int S,
                            int H, int hd, void* stream) {

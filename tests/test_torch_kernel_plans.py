@@ -3,7 +3,8 @@ sources repeat and the CPU cannot run: ``ring_decode``'s grid, its split of
 each row's resident tiles and its shared-memory size, ``flash_attention``'s
 bf16 grid (rows s·g + j of one KV group per block, causal blocks longest
 first) and shared-memory size, and ``lora_matmul``'s route, tile width,
-persistent schedule and shared-memory size.
+persistent schedule and shared-memory size; ``wkv6``'s grid, chunks,
+shared memory and blocks an SM.
 
 Resident tiles are checked against the residency mask itself
 (``ring_slot_positions``, the plain versions' mask); the flash grid
@@ -17,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm  # noqa: E402
 from repro_torch.kernels import ring_decode as rd  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.models.attention_core import ring_slot_positions  # noqa: E402
 
 H100_SMS = 132
@@ -222,3 +224,47 @@ def test_lora_smem_fits(bn, rp):
         assert lm.smem_bytes(bn, rp) <= lm.SMEM_LIMIT
     else:
         assert bn == 256 and rp > 16
+
+
+# -- wkv6: one block per (b, h), chunks of 16, two prepared chunks in flight --
+
+@pytest.mark.parametrize("dtype,H,hd,want_per_sm", [
+    (torch.bfloat16, 32, 64, 2),    # RWKV6-1.6B prefill: 256 blocks
+    (torch.float32, 32, 64, 2),     # the fp32 parity route
+    (torch.bfloat16, 64, 32, 4),    # the SMOKE config's head dim: 512 blocks
+    (torch.float32, 64, 32, 4),
+])
+def test_wkv6_plan_runs_the_main_shapes_in_one_wave(dtype, H, hd, want_per_sm):
+    """At B 8, S 1024 every (b, h) block is resident at once on 132 SMs:
+    two blocks an SM fit 227 KB of shared memory (232,448 bytes a block, an
+    SM's 233,472 with 1 KB reserved per block) at hd 64, four at hd 32."""
+    p = wk.plan(8, 1024, H, hd, dtype, H100_SMS)
+    assert (p.grid, p.threads, p.chunks) == (8 * H, 3 * hd, 1024 // wk.CHUNK)
+    assert p.blocks_per_sm == want_per_sm
+    assert want_per_sm * (p.smem + wk.BLOCK_RESERVED_BYTES) <= wk.SM_SHARED_BYTES
+    assert p.smem <= wk.MAX_BLOCK_SHARED_BYTES
+    assert p.waves == 1
+
+
+@pytest.mark.parametrize("hd,dtype,built", [
+    (64, torch.bfloat16, 95232), (64, torch.float32, 113664),
+    (32, torch.bfloat16, 52992), (32, torch.float32, 54016),
+])
+def test_wkv6_smem_matches_the_built_structs(hd, dtype, built):
+    """``sizeof(Smem<hd, T>)`` as the kernel built on the H100 reports it
+    (``wkv6_smem_bytes``; chip_smoke.py checks the two agree on the card)."""
+    assert wk.smem_bytes(hd, torch.tensor([], dtype=dtype).element_size()) == built
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 200, 257, 1024])
+def test_wkv6_chunks_cover_the_sequence_once(S):
+    """Chunks of 16 tokens: the last may be ragged (masked in the kernel),
+    and none starts past S."""
+    n = wk.plan(2, S, 4, 64, torch.bfloat16).chunks
+    assert (n - 1) * wk.CHUNK < S <= n * wk.CHUNK
+
+
+@pytest.mark.parametrize("hd", [16, 48, 128])
+def test_wkv6_plan_refuses_other_head_dims(hd):
+    with pytest.raises(ValueError, match=r"the kernel takes \(32, 64\)"):
+        wk.plan(1, 16, 1, hd, torch.float32)

@@ -7,7 +7,9 @@ tests/test_kernels.py runs it), on inputs made with numpy.
 Tolerance rtol = atol = 1e-5 (the reference's own for its kernel against
 its scan): fp32 on both sides, sums taken in another order.  The CUDA
 kernel itself runs only on the card, where ``chip_smoke.py`` holds it
-against this plain version.
+against this plain version; ``wkv6.wkv6_chunked_plain`` replays its
+chunked arithmetic here, against the same references and against the
+recurrence in float64 at weak to strong decays.
 """
 import ml_dtypes
 import numpy as np
@@ -22,6 +24,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import rwkv as jrwkv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import wkv6 as twkv6  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -132,3 +135,66 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError, match=r"head dim 16; the kernel takes \(32, 64\)"):
         tops.wkv6(*[t[..., :16] for t in meta[:4]], meta[4][:, :16])
     assert tops.launch_counts()["wkv6"] == 0
+
+
+# -- the CUDA kernel's chunked form, replayed in plain PyTorch ----------------
+
+SHAPES = [(64, 16), (200, 32), (257, 64)]      # (S, hd): whole, ragged chunks
+
+
+@pytest.mark.parametrize("S,hd", SHAPES)
+def test_chunked_replica_matches_reference_and_pallas(S, hd):
+    """``wkv6.wkv6_chunked_plain`` (the kernel's chunks, running-product
+    decays and reference point) against the reference's scan and its Pallas
+    kernel in interpret mode, at the file's decays."""
+    args = _inputs(S + hd, 2, S, 2, hd)
+    want = np.asarray(jref.wkv6_ref(*map(jnp.asarray, args)))
+    pallas = np.asarray(jops.wkv6(*map(jnp.asarray, args), chunk=S))
+    got = twkv6.wkv6_chunked_plain(*_t(*args)).numpy()
+    assert got.dtype == np.float32 and got.shape == (2, S, 2, hd)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def _scan64(r, k, v, w, u):
+    """The recurrence in float64 (numpy), token by token."""
+    B, S, H, hd = r.shape
+    state = np.zeros((B, H, hd, hd))
+    ys = []
+    for t in range(S):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(np.einsum("bhk,bhkv->bhv", r[:, t], state + u[None, :, :, None] * kv))
+        state = np.exp(w[:, t])[..., None] * state + kv
+    return np.stack(ys, axis=1)
+
+
+@pytest.mark.parametrize("mu", [-3.0, 1.0, 3.0])
+@pytest.mark.parametrize("S,hd", SHAPES)
+def test_chunked_replica_is_fp32_accurate_at_every_decay(S, hd, mu):
+    """w = -exp(N(mu, 1)): at mu = 3 the cumulative log-decays of a chunk
+    reach -3000 and a single e^w can underflow.  The running products keep
+    the fp32 scan's accuracy (~2e-7 of max |y|); exps of differences of
+    cumulative sums lose digits there (up to ~5e-6), so 1e-6 tells them
+    apart."""
+    rng = np.random.default_rng(int(mu) + 7)
+    r, k, v = (rng.normal(size=(2, S, 2, hd)).astype(np.float32) for _ in range(3))
+    w = -np.exp(rng.normal(mu, 1.0, size=(2, S, 2, hd))).astype(np.float32)
+    u = rng.normal(size=(2, hd)).astype(np.float32)
+    want = _scan64(*(a.astype(np.float64) for a in (r, k, v, w, u)))
+    got = twkv6.wkv6_chunked_plain(*_t(r, k, v, w, u)).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("S,hd", SHAPES)
+def test_chunked_replica_finite_at_strong_decay_with_large_inputs(S, hd):
+    """mu = 3 with r, k, v ten times larger: every output finite (no e^{-a},
+    no quotient of decay products), and within 1e-6 of the float64 scan."""
+    rng = np.random.default_rng(S)
+    r, k, v = (10 * rng.normal(size=(1, S, 2, hd)).astype(np.float32) for _ in range(3))
+    w = -np.exp(rng.normal(3.0, 1.0, size=(1, S, 2, hd))).astype(np.float32)
+    u = rng.normal(size=(2, hd)).astype(np.float32)
+    got = twkv6.wkv6_chunked_plain(*_t(r, k, v, w, u)).numpy()
+    assert np.isfinite(got).all()
+    want = _scan64(*(a.astype(np.float64) for a in (r, k, v, w, u)))
+    assert np.abs(got - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
