@@ -43,7 +43,9 @@ Phases (any failure exits non-zero; no exception is caught):
    weights, bf16) serving 16 requests over three adapters of ranks 4/8/16
    and the base model, with a mid-flight swap, through
    ``decode_impl="kernel"``; the kernels' launch counts must equal 16 x
-   (and 16 x 4 x) engine steps; a profiled window of decode steps.
+   (and 16 x 4 x) engine steps; profiled windows of decode steps, one
+   with every row on the base id and one with the rows on the live
+   adapters (phases 8 and 11 as well).
 5. The engine on the card, kernels against plain versions, at full width in
    fp32 with TF32 off: first prefill step's logits within tolerance, and
    the greedy-token agreement over 16 steps.
@@ -97,7 +99,8 @@ PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e1
 REPS = 50
 DEVICE = "cuda"
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
-PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_kernel|bgmv_kernel|"
+PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_(kernel|wgmma)|mla_merge_splits|"
+                r"bgmv_kernel|"
                 r"lora_matmul_(wgmma|wmma|f32)|flash_(bf16|f32)|gram_partial|wkv6_kernel)\b")
 
 
@@ -134,8 +137,9 @@ def main() -> None:
         print(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs)} "
               f"registers per thread, {spills} bytes spilled")
 
-    report = {"card": smi, "ptxas": ptxas}
-    report["kernel_cases"] = (kernel_cases(torch) + mla_kernel_cases(torch)
+    report = {"card": smi, "ptxas": ptxas, "gpu_ms_floor": gpu_floor(torch)}
+    report["kernel_cases"] = (kernel_cases(torch) + bgmv_kernel_cases(torch)
+                              + mla_kernel_cases(torch)
                               + train_kernel_cases(torch)
                               + wkv6_kernel_cases(torch))
     report["smoke_widths"] = smoke_widths(torch)
@@ -177,7 +181,7 @@ def main() -> None:
     kernels = []
     for name, case in (("ring_decode", RING_MAIN),
                        ("mla_ring_decode", MLA_MAIN),
-                       ("bgmv", "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"),
+                       ("bgmv", BGMV_MAIN),
                        ("lora_matmul", LORA_MAIN),
                        ("flash_attention", FLASH_MAIN),
                        ("adapter_gram", GRAM_MAIN),
@@ -209,18 +213,20 @@ def main() -> None:
 
 # -- phases 2 and 3: kernels against their plain versions, and their times ----
 
-def gpu_ms(torch, fn) -> float:
+def gpu_ms(torch, fn, cold: bool = True) -> float:
     """Median device time of ``fn`` over REPS launches.  Before each launch
     the 50 MB L2 is flushed (the decode path reads each layer's cache and
-    adapter pages once per step, cold) and the stream is held busy with a
-    sleep, so the host's enqueue cost falls inside the sleep and the event
-    pair encloses only the device work."""
+    adapter pages once per step, cold; ``cold=False`` skips the flush, for
+    the warm time) and the stream is held busy with a sleep, so the host's
+    enqueue cost falls inside the sleep and the event pair encloses only
+    the device work."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -230,6 +236,17 @@ def gpu_ms(torch, fn) -> float:
         times.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in times)
+
+
+def gpu_floor(torch) -> dict:
+    """The floor under :func:`gpu_ms`: an empty kernel (``torch.cuda._sleep``
+    of 0 cycles) timed the same way, cold and warm.  A bound of 0.1–3 µs is
+    read against this, the least one launch costs."""
+    floor = {"ms": gpu_ms(torch, lambda: torch.cuda._sleep(0)),
+             "warm_ms": gpu_ms(torch, lambda: torch.cuda._sleep(0), cold=False)}
+    print(f"  gpu_ms floor (empty kernel): {floor['ms']:.4f} ms cold, "
+          f"{floor['warm_ms']:.4f} ms warm")
+    return floor
 
 
 def check(name, got, want, valid, tol):
@@ -409,27 +426,50 @@ def kernel_cases(torch):
             records[-1]["device_split"] = ring_split(
                 torch, lambda: ops.ring_decode(*args, **kw))
 
-    # bgmv: the Llama path's projections (wq/wo 2048->2048, wk/wv
-    # 2048->512) and the MLA path's (wq_b 1536->24576, wkv_a 7168->576,
-    # not a multiple of the 256-column tile, wo 16384->7168); rows on
-    # adapters of ranks 0 (base), 3, 8, 16
-    P, pr, Pmax = 32, 4, 4
-    rank = torch.tensor([0, 3, 8, 16, 0], dtype=torch.int32, device=dev)
-    table = torch.randperm(P, generator=gen, device=dev)[:20].reshape(5, 4)
-    table = table.to(torch.int32)
-    scale = torch.tensor([0.0, 2.0, 2.0, 2.0, 0.0], device=dev)
+    return records
+
+
+BGMV_MAIN = "bf16, C=1, B=8 din=2048 dout=2048 pr=4 Pmax=4"
+
+
+def bgmv_kernel_cases(torch):
+    """``bgmv`` at the serving paths' shapes: the Llama path's projections
+    (wq/wo 2048->2048, wk/wv 2048->512), the MLA path's (wq_b 1536->24576,
+    wkv_a 7168->576, not a multiple of 64 columns a block, wo
+    16384->7168) and the RWKV6 path's fp32 x on bf16 pages; rows on
+    adapters of ranks 0 (base), 3, 8, 16.  Then ranks 30, 32 and 64 over
+    pages of 4 (up to 16 pages, several groups of 4 ranks and 8-wide
+    n-tiles, a partial last page) at C = 16 beside the base id.  Each case
+    is timed cold (L2 flushed) and warm."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bgmv import plan
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    records = []
+    print("phase 2/3: bgmv against its plain version; times cold and warm "
+          "beside bounds")
+    pr = 4
     ids = torch.tensor([0, 1, 2, 3, 1, 2, 3, 0], dtype=torch.int32, device=dev)
-    for dt_name, C, din, dout in (
-            ("bfloat16", 1, 2048, 2048), ("bfloat16", 1, 2048, 512),
-            ("bfloat16", 16, 2048, 2048), ("bfloat16", 16, 2048, 512),
-            ("float32", 1, 2048, 2048), ("float32", 16, 2048, 512),
-            ("bfloat16", 1, 1536, 24576), ("bfloat16", 16, 1536, 24576),
-            ("bfloat16", 1, 7168, 576), ("bfloat16", 16, 7168, 576),
-            ("bfloat16", 1, 16384, 7168), ("bfloat16", 16, 16384, 7168),
-            ("float32", 16, 7168, 576), ("float32/bfloat16", 1, 2048, 2048)):
+    cases = [(dt, C, din, dout, (0, 3, 8, 16, 0), 4) for dt, C, din, dout in (
+        ("bfloat16", 1, 2048, 2048), ("bfloat16", 1, 2048, 512),
+        ("bfloat16", 16, 2048, 2048), ("bfloat16", 16, 2048, 512),
+        ("float32", 1, 2048, 2048), ("float32", 16, 2048, 512),
+        ("bfloat16", 1, 1536, 24576), ("bfloat16", 16, 1536, 24576),
+        ("bfloat16", 1, 7168, 576), ("bfloat16", 16, 7168, 576),
+        ("bfloat16", 1, 16384, 7168), ("bfloat16", 16, 16384, 7168),
+        ("float32", 16, 7168, 576), ("float32/bfloat16", 1, 2048, 2048))]
+    cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
+        ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
+        ("float32/bfloat16", 2048, 2048))]
+    for dt_name, C, din, dout, ranks, Pmax in cases:
         # "x/pages": an RWKV6 bf16 decode feeds r/k/v/g's fp32 inputs
         dt_name, _, page_name = dt_name.partition("/")
         dt, pdt = getattr(torch, dt_name), getattr(torch, page_name or dt_name)
+        rank = torch.tensor(ranks, dtype=torch.int32, device=dev)
+        P = 32 if Pmax == 4 else 96           # pool pages; 5 table rows of Pmax
+        table = torch.randperm(P, generator=gen, device=dev)[:5 * Pmax]
+        table = table.reshape(5, Pmax).to(torch.int32)
+        scale = torch.tensor([0.0, 2.0, 2.0, 2.0, 0.0], device=dev)
         x = torch.randn(8, C, din, generator=gen, device=dev).to(dt)
         a = (torch.randn(P, pr, din, generator=gen, device=dev) * 0.05).to(pdt)
         b = (torch.randn(P, dout, pr, generator=gen, device=dev) * 0.05).to(pdt)
@@ -445,10 +485,16 @@ def kernel_cases(torch):
                 if page_name else
                 f"{'bf16' if dt_name == 'bfloat16' else dt_name}")
         case += f", C={C}, B=8 din={din} dout={dout} pr={pr} Pmax={Pmax}"
-        err = check(f"bgmv[{case}]", got, want,
+        if Pmax != 4:
+            case += f", ranks {'/'.join(str(r) for r in ranks[1:4])}"
+        p = plan(C, din, dout, pr, Pmax, dt, pdt)
+        err = check(f"bgmv[{case}; route {p.route}, tile {p.tile_n}, "
+                    f"{p.clusters} cluster(s) a row, {p.nchunk} chunks of "
+                    f"{p.kc}]", got, want,
                     torch.ones(8, dtype=torch.bool, device=dev),
                     1e-4 if dt_name == "float32" else 2e-3)
         ms = gpu_ms(torch, lambda: ops.bgmv(*args))
+        warm = gpu_ms(torch, lambda: ops.bgmv(*args), cold=False)
         plain = gpu_ms(torch, lambda: ref.bgmv_ref(*args))
         distinct = sorted(set(ids.tolist()))
         r_rows = [int(rank[i]) for i in ids.tolist()]
@@ -458,7 +504,7 @@ def kernel_cases(torch):
         records.append(_record(
             "bgmv", case, "src/repro_torch/kernels/csrc/bgmv.cu",
             "src/repro/kernels/bgmv.py:55", err, ms, plain, None, nbytes,
-            ops_n, dt_name))
+            ops_n, dt_name, warm=warm))
     return records
 
 
@@ -496,10 +542,13 @@ MLA_MAIN = "bf16 cache, C=1, B=8 H=128 kvr=512 rope=64 cap=1024"
 def mla_kernel_cases(torch):
     """``mla_ring_decode`` at the MLA path's shapes (B 8, H 128, kvr 512,
     rope 64, ring 1024): bf16 at C 1 and 16, a window of 128, int8 with
-    per-half scales, fp32; then at the SMOKE config's widths (32 + 16)."""
+    per-half scales, fp32; then at the SMOKE config's widths (32 + 16);
+    then bf16 at C 1 and 16 on a ring that holds as many slots as the
+    engine's do (32–288 resident of 1024).  Each case is timed cold (L2
+    flushed) and warm."""
     import math
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.mla_ring_decode import splits
+    from repro_torch.kernels.mla_ring_decode import route, splits
     from repro_torch.models.attention_core import ring_attend_mask
     from repro_torch.serve.kvcache import quant
     F = torch.nn.functional
@@ -511,8 +560,6 @@ def mla_kernel_cases(torch):
     B, cap = 8, 1024
     # rows: wrapped twice, full, partial, a fresh prefill, never written
     # (n = 0), ragged n, wrapped with n = 1, one tile
-    pos = torch.tensor([1500, 1024, 300, 16, 0, 700, 2100, 64], device=dev)
-    length = torch.clamp(pos, max=cap)
     # Each query row is held to its own magnitude (a row averaging
     # hundreds of slots is several times smaller than one averaging a few).
     # Both sides compute in fp32 from the same stored values (bf16 and int8
@@ -528,7 +575,13 @@ def mla_kernel_cases(torch):
     smoke = [(32, 16, 32, 16) + c for c in (
         ("bfloat16", 1, 0), ("bfloat16", 16, 0), ("int8", 1, 0),
         ("int8", 16, 0), ("float32", 16, 0))]
-    for kvr, rope, nope, H, kv_name, C, window in main + smoke:
+    # the engine's rings: phase 8's prompts of 16-256 tokens plus 32 new
+    engine = [(512, 64, 128, 128, "bfloat16", c, 0, "engine") for c in (1, 16)]
+    engine_pos = torch.tensor([288, 32, 100, 200, 0, 150, 64, 250], device=dev)
+    for kvr, rope, nope, H, kv_name, C, window, *ring in main + smoke + engine:
+        pos = engine_pos if ring else torch.tensor(
+            [1500, 1024, 300, 16, 0, 700, 2100, 64], device=dev)
+        length = torch.clamp(pos, max=cap)
         scale = 1.0 / math.sqrt(nope + rope)     # DeepSeek-V3: 1/√(nope+rope)
         n = torch.minimum(pos, torch.tensor([C, C, C, C, 0, min(5, C), 1, C],
                                             device=dev)).to(torch.int32)
@@ -549,11 +602,15 @@ def mla_kernel_cases(torch):
         valid = torch.arange(C, device=dev)[None, :] < n[:, None]
         name = {"bfloat16": "bf16"}.get(kv_name, kv_name)
         case = (f"{name} cache, C={C}{f', window={window}' if window else ''}, "
-                f"B={B} H={H} kvr={kvr} rope={rope} cap={cap}")
-        nsplit = splits(B, C, H, cap, dev)[0]
-        err = check_rows(f"mla_ring_decode[{case}; {nsplit} splits]",
-                         got[valid], want[valid], 1e-4)
+                f"B={B} H={H} kvr={kvr} rope={rope} cap={cap}"
+                f"{', engine ring (32-288 resident)' if ring else ''}")
+        how = route(ckv.dtype, kvr, rope)
+        nsplit = splits(B, C, H, cap, dev, how)[0]
+        err = check_rows(f"mla_ring_decode[{case}; route {how}, {nsplit} "
+                         "splits]", got[valid], want[valid], 1e-4)
         ms = gpu_ms(torch, lambda: ops.mla_ring_decode(*args, **kw))
+        warm = gpu_ms(torch, lambda: ops.mla_ring_decode(*args, **kw),
+                      cold=False)
         plain = gpu_ms(torch, lambda: ref.mla_ring_decode_ref(
             *args[:6], scale, window, cs, rs))
         qpos = (pos - n)[:, None] + torch.arange(C, device=dev)[None, :]
@@ -584,12 +641,13 @@ def mla_kernel_cases(torch):
             nbytes, ops_n, kv_name,
             library=None if lib is None else
             "scaled_dot_product_attention(attn_mask=ring mask, "
-            "enable_gqa=True), K = 1"))
+            "enable_gqa=True), K = 1", warm=warm))
+        records[-1]["kernel_route"] = how
     return records
 
 
 def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
-            dtype, library=None):
+            dtype, library=None, warm=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_n / PEAK_OPS[dtype] * 1e3
     rec = {"name": name, "route": "cuda", "source": source,
@@ -600,7 +658,10 @@ def _record(name, case, source, replaces, err, ms, plain, lib, nbytes, ops_n,
            "bytes": nbytes, "ops": ops_n}
     if library is not None:
         rec["library"] = library
-    print(f"  {name}[{case}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+    if warm is not None:
+        rec["warm_ms"] = warm
+    print(f"  {name}[{case}]: kernel {ms:.4f} ms"
+          f"{'' if warm is None else f' (warm {warm:.4f})'}, plain {plain:.4f} ms, "
           f"library {'-' if lib is None else f'{lib:.4f} ms'}, "
           f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
           f"{nbytes / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP)")
@@ -983,7 +1044,8 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
     want = dict.fromkeys(counts, 0)
     want["bgmv"] = L * (len(lora_targets(cfg)) - cfg.use_mla) * steps
     if attn:
-        want[attn] = L * steps
+        want[attn] = L * steps * (mla_launches_a_call(out["engine"])
+                                  if cfg.use_mla else 1)
     print(f"  kernels: {json.dumps(counts)} over {steps} engine steps "
           f"(expected {json.dumps(want)})")
     if counts != want:
@@ -1017,24 +1079,50 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
           f"{stats['wall_s']:.2f} s; prompt and generated tokens over the "
           f"steps' time {stats['step_tok_s']:.1f} tok/s")
     window = profile_decode(torch, out["engine"])
+    live = [i for i in ids if i and out["engine"].registry.is_live(i)]
+    window_live = profile_decode(torch, out["engine"], adapter_ids=live)
     del out
     torch.cuda.empty_cache()
-    return dict(stats, launches=counts, profiled_decode=window), counts
+    return dict(stats, launches=counts, profiled_decode=window,
+                profiled_decode_adapters=window_live), counts
 
 
-def profile_decode(torch, eng, steps: int = 10):
+def mla_launches_a_call(eng) -> int:
+    """Kernels one ``mla_ring_decode`` call of ``eng``'s steps launches
+    (``mla_ring_decode.launches``): route ``"mma"`` (the SMOKE widths) adds
+    its merge kernel where it splits the ring, at width 1 and at the
+    prefill chunk alike on the engines here."""
+    from repro_torch.kernels import mla_ring_decode as mla
+    ckv = next(c["c_kv"] for c in eng.cache if "c_kv" in c)
+    _, B, cap, kvr = ckv.shape
+    how = mla.route(ckv.dtype, kvr, eng.cfg.qk_rope_head_dim)
+    per = {mla.launches(how, mla.splits(B, C, eng.cfg.num_heads, cap,
+                                        ckv.device, how)[0])
+           for C in {1, eng.chunk}}
+    if len(per) != 1:
+        fail(f"mla_ring_decode launches a call differ by step width: {per}")
+    return per.pop()
+
+
+def profile_decode(torch, eng, steps: int = 10, adapter_ids=(0,)):
     """Where a decode step's time goes: ``steps`` width-1 engine steps of a
     fresh full batch, once under ``torch.profiler`` (device time by kernel)
-    and once without it (wall time per step)."""
+    and once without it (wall time per step).  The batch's rows cycle over
+    ``adapter_ids``: by default all on the base id, so every ``bgmv``
+    launch takes its rank-0 exit; the engine's live adapters make its rows
+    do the shrink and expand."""
     from repro_torch.serve.engine import SamplingParams
 
     for i in range(eng.B):
         eng.submit(list(range(1 + i, 17 + i)),
-                   SamplingParams(max_tokens=2 * steps + 4))
+                   SamplingParams(max_tokens=2 * steps + 4),
+                   adapter_id=adapter_ids[i % len(adapter_ids)])
     eng.run_steps(2)                       # admission and the prefill step
     torch.cuda.synchronize()
+    rows = ("base id" if tuple(adapter_ids) == (0,) else
+            f"adapter ids {'/'.join(map(str, adapter_ids))}")
     out = profile_window(torch, eng.run_steps, steps,
-                         f"decode step, {steps} steps x {eng.B} rows")
+                         f"decode step, {steps} steps x {eng.B} rows on {rows}")
     eng.run()
     return out
 

@@ -37,9 +37,12 @@ ARGTYPES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mla_ring_decode_launch": [_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _I,
                                _P, _P, _L, _L, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _P],
+    "mla_ring_decode_max_clusters": [_I, _P],
     "bgmv_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P],
     "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -113,8 +116,10 @@ def load(name: str) -> ctypes.CDLL:
         if not lib_path.exists():
             build_all()
         lib = ctypes.CDLL(str(lib_path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ARGTYPES[f"{name}_launch"]
-        fn.restype = ctypes.c_int
+        for sym, argtypes in ARGTYPES.items():
+            if sym.startswith(f"{name}_"):
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]

@@ -73,9 +73,9 @@ def mla_ring_decode(q_eff, c_kv, k_rope, pos, length, n_tokens=None, *,
     if q_eff.device.type == "cpu":
         return ref.mla_ring_decode_ref(q_eff, c_kv, k_rope, pos, length,
                                        n_tokens, scale, window, **kw)
-    out = mla_ring_decode_cuda(q_eff.float(), c_kv, k_rope, pos, length,
-                               n_tokens, scale, window, **kw)
-    mla_ring_decode.launches += 1
+    out, kernels = mla_ring_decode_cuda(q_eff.float(), c_kv, k_rope, pos,
+                                        length, n_tokens, scale, window, **kw)
+    mla_ring_decode.launches += kernels     # route "mma" may add its merge
     return out
 
 

@@ -4,7 +4,9 @@ each row's resident tiles and its shared-memory size, ``flash_attention``'s
 bf16 grid (rows s·g + j of one KV group per block, causal blocks longest
 first) and shared-memory size, and ``lora_matmul``'s route, tile width,
 persistent schedule and shared-memory size; ``wkv6``'s grid, chunks,
-shared memory and blocks an SM.
+shared memory and blocks an SM; ``bgmv``'s clusters, din chunks, column
+tiles and shared memory; ``mla_ring_decode``'s routes, query-row blocks,
+resident-tile splits and shared memory.
 
 Resident tiles are checked against the residency mask itself
 (``ring_slot_positions``, the plain versions' mask); the flash grid
@@ -15,8 +17,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import bgmv as bg  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lora_matmul as lm  # noqa: E402
+from repro_torch.kernels import mla_ring_decode as mla  # noqa: E402
 from repro_torch.kernels import ring_decode as rd  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.models.attention_core import ring_slot_positions  # noqa: E402
@@ -268,3 +272,182 @@ def test_wkv6_chunks_cover_the_sequence_once(S):
 def test_wkv6_plan_refuses_other_head_dims(hd):
     with pytest.raises(ValueError, match=r"the kernel takes \(32, 64\)"):
         wk.plan(1, 16, 1, hd, torch.float32)
+
+
+# -- bgmv: clusters of 8 share a row's z; chunks of din, tiles of dout --------
+
+BF, F32 = torch.bfloat16, torch.float32
+BGMV_DTYPES = [(BF, BF), (F32, F32), (F32, BF), (BF, F32)]
+# the serving paths' projections: Llama wq/wo and wk/wv, MLA wq_b, wkv_a, wo
+BGMV_SHAPES = [(2048, 2048), (2048, 512), (1536, 24576), (7168, 576),
+               (16384, 7168)]
+
+
+@pytest.mark.parametrize("x_dt,p_dt", BGMV_DTYPES)
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("din,dout", BGMV_SHAPES)
+def test_bgmv_din_chunks_cover_din_once(x_dt, p_dt, C, din, dout):
+    """The cluster's blocks shrink disjoint chunks of din that together
+    cover it once, as evenly as whole chunks allow; at the main shapes'
+    rank 16 a block walks at most four chunks."""
+    p = bg.plan(C, din, dout, 4, 4, x_dt, p_dt)
+    got = sorted(r for q in range(bg.CLUSTER) for r in bg.din_chunks(p, din, q))
+    assert got[0][0] == 0 and got[-1][1] == din
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert all(d1 > d0 for d0, d1 in got)
+    assert p.kc % 64 == 0 and p.nchunk == len(got)
+    per = [len(bg.din_chunks(p, din, q)) for q in range(bg.CLUSTER)]
+    assert max(per) - min(per) <= 1
+    assert max(per) <= 4
+
+
+@pytest.mark.parametrize("dout", [512, 576, 2048, 7168, 24576])
+@pytest.mark.parametrize("x_dt,p_dt", BGMV_DTYPES)
+@pytest.mark.parametrize("Pmax", [4, 16])
+def test_bgmv_column_tiles_cover_dout_once(dout, x_dt, p_dt, Pmax):
+    """Tiles of a multiple of 64 columns, at most TILE_MAX, cover dout once
+    over the row's CLUSTER·clusters blocks; the last tile of the last
+    cluster is the only one that may be short or empty."""
+    p = bg.plan(16, 2048, dout, 4, Pmax, x_dt, p_dt)
+    assert p.tile_n % 64 == 0 and 64 <= p.tile_n <= bg.TILE_MAX
+    tiles = [bg.column_tile(p, dout, blk) for blk in range(bg.CLUSTER * p.clusters)]
+    cols = [c for c0, c1 in tiles for c in range(c0, c1)]
+    assert cols == list(range(dout))
+    # no cluster is all padding
+    assert (p.clusters - 1) * bg.CLUSTER * p.tile_n < dout
+    assert p.tile_n * 4 * Pmax * torch.empty((), dtype=p_dt).element_size() \
+        <= max(bg.B_TILE_BUDGET, 64 * 4 * Pmax * 4)
+
+
+def test_bgmv_cluster_is_portable():
+    assert 1 <= bg.CLUSTER <= 8           # the portable cluster size
+
+
+@pytest.mark.parametrize("x_dt,p_dt", BGMV_DTYPES)
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("Pmax", [4, 16])
+@pytest.mark.parametrize("din,dout", BGMV_SHAPES)
+def test_bgmv_smem_fits(x_dt, p_dt, C, Pmax, din, dout):
+    """Every dtype pair at C 1 and 16, ranks 16 and 64 (pages of 4), at each
+    serving projection: the B tile, two stages, the cluster's partial z's
+    and z, and the page ids fit the 227 KB a block may use."""
+    p = bg.plan(C, din, dout, 4, Pmax, x_dt, p_dt)
+    xe = torch.empty((), dtype=x_dt).element_size()
+    pe = torch.empty((), dtype=p_dt).element_size()
+    stage = p.x_rows * (p.kc * xe + bg.PAD) + p.r_pad * (p.kc * pe + bg.PAD)
+    assert p.smem == (p.tile_n * 4 * Pmax * pe + 2 * stage
+                      + (bg.CLUSTER + 1) * p.c_pad * p.r_pad * 4
+                      + -(-4 * Pmax // 16) * 16)
+    assert p.smem <= bg.SMEM_LIMIT == 232_448
+    assert (p.c_pad, p.r_pad) == (16, 4 * Pmax)
+
+
+def test_bgmv_route():
+    assert [bg.route(BF, BF, c) for c in (1, 4, 7, 8, 16)] == [
+        "fma", "fma", "fma", "mma", "mma"]
+    assert {bg.route(x, p, 16) for x, p in BGMV_DTYPES[1:]} == {"fma"}
+    assert bg.plan(16, 2048, 2048, 4, 4, BF, BF).x_rows == 16
+    assert bg.plan(3, 2048, 2048, 4, 4, BF, BF).x_rows == 3
+
+
+def test_bgmv_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        bg.plan(4096, 2048, 2048, 4, 16, F32, F32)
+
+
+# -- mla_ring_decode: 64 query rows a block, splits of the resident tiles -----
+
+@pytest.mark.parametrize("C,H", [(1, 128), (16, 128), (1, 16), (16, 16),
+                                 (3, 16), (5, 7)])
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_mla_blocks_cover_every_row_once(C, H, route):
+    blocks = mla.row_blocks(C, H, route)
+    rows = [r for blk in range(blocks) for r in mla.block_rows(C, H, route, blk)]
+    assert rows == [(t, h) for t in range(C) for h in range(H)]
+    assert all(len(mla.block_rows(C, H, route, blk)) == mla.ROWS_PER_BLOCK[route]
+               for blk in range(blocks - 1))
+
+
+@pytest.mark.parametrize("cap", [1, 31, 32, 33, 100, 256, 1000, 1024])
+def test_mla_resident_tiles_are_the_tiles_holding_resident_slots(cap):
+    for pos, length in _states(cap):
+        _, resident = ring_slot_positions(torch.tensor([pos]),
+                                          torch.tensor([length]), cap)
+        slots = np.flatnonzero(resident[0].numpy())
+        want = sorted(set((slots // mla.TILE).tolist()))
+        got = mla.resident_tiles(pos, length, cap)
+        assert len(got) == len(set(got)), (pos, length, got)
+        assert sorted(got) == want, (pos, length)
+
+
+@pytest.mark.parametrize("cap", [32, 100, 288, 1000, 1024])
+@pytest.mark.parametrize("nsplit", [1, 2, 6, 7, 8])
+def test_mla_splits_cover_each_resident_tile_once(cap, nsplit):
+    """Every resident tile is walked by exactly one split of the cluster;
+    the splits that walk any are the first min(nsplit, resident) ones and
+    their shares differ by at most one tile."""
+    for pos, length in _states(cap):
+        tiles = mla.resident_tiles(pos, length, cap)
+        shares = [mla.split_tiles(pos, length, cap, nsplit, s)
+                  for s in range(nsplit)]
+        assert [t for sh in shares for t in sh] == tiles, (pos, length)
+        busy = [len(sh) for sh in shares if sh]
+        ne = mla.active_splits(pos, length, cap, nsplit)
+        assert ne == max(1, min(nsplit, len(tiles)))
+        assert len(busy) == min(nsplit, len(tiles))
+        assert all(shares[s] for s in range(len(busy)))      # the first ones
+        if busy:
+            assert max(busy) - min(busy) <= 1
+
+
+def test_mla_route():
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    assert mla.route(bf, 512, 64) == "wgmma"      # DeepSeek-V3's bf16 cache
+    assert mla.route(i8, 512, 64) == "mma"
+    assert mla.route(f32, 512, 64) == "mma"
+    assert mla.route(bf, 32, 16) == "mma"         # the SMOKE config's widths
+    assert mla.route(bf, 448, 64) == "mma"
+
+
+@pytest.mark.parametrize("kvr,rope", [(512, 64), (32, 16), (64, 64), (128, 64),
+                                      (256, 64), (400, 16)])
+def test_mla_smem_fits(kvr, rope):
+    """Route "mma" at every padded width, route "wgmma" at 512 + 64: within
+    the 227 KB a block may use; route "wgmma"'s fp32 query rows land raw
+    in its query parts' space, and its merge buffer (64 × 520 fp32) fits
+    that space too."""
+    assert mla.smem_bytes("mma", kvr, rope) <= mla.SMEM_LIMIT
+    assert mla.smem_bytes("wgmma") <= mla.SMEM_LIMIT
+    assert 64 * 520 * 4 <= mla.Q_PARTS * 64 * 576 * 2 == 64 * 576 * 4
+
+
+@pytest.mark.parametrize("B,C,fit,want", [
+    (8, 1, {8: 15, 7: 15, 6: 16}, 6),   # fewer than 16 clusters of 7 or 8 fit
+    (8, 1, {8: 16}, 8),                 # 16 row blocks a wave at 8 splits
+    (8, 16, {}, 1),                     # 256 row blocks fill the card alone
+    (1, 1, {8: 15}, 8),                 # 2 row blocks: 8 splits fit
+    (8, 4, {}, 2),                      # 64 row blocks: 2 splits, one wave
+])
+def test_mla_wgmma_splits(B, C, fit, want):
+    """Splits of a row block's resident tiles: enough blocks to cover the
+    SMs, at most SPLIT_MAX, fewer while the row blocks' clusters would not
+    all be resident at once."""
+    nsplit, per = mla.splits(B, C, 128, 1024, H100_SMS, "wgmma",
+                             fit=lambda n: fit.get(n, 10 ** 6))
+    assert nsplit == want
+    assert nsplit * per >= 1024 // mla.TILE
+
+
+def test_mla_mma_splits_keep_their_arithmetic():
+    """Route "mma" splits the full ring's tiles as before (32-row blocks,
+    about two blocks an SM)."""
+    assert mla.splits(8, 1, 128, 1024, H100_SMS) == (8, 4)
+    assert mla.splits(8, 16, 128, 1024, H100_SMS) == (1, 32)
+
+
+def test_mla_launches_a_call():
+    """One launch a call, except route "mma" with splits, which adds its
+    merge kernel (the launch counter counts both)."""
+    assert mla.launches("wgmma", 8) == 1
+    assert mla.launches("mma", 8) == 2             # fp32 / int8 / SMOKE at C 1
+    assert mla.launches("mma", 1) == 1             # C 16: no split

@@ -25,6 +25,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.serve.kvcache import quant as jquant  # noqa: E402
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import mla_ring_decode as tmla  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
@@ -143,3 +144,45 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
         tops.mla_ring_decode(q[..., :56].to("meta"), ckv[..., :40].to("meta"),
                              kr[..., :16].to("meta"), i, i, i, scale=0.1)
     assert tops.launch_counts()["mla_ring_decode"] == 0
+
+
+# -- the route-"wgmma" arithmetic, replicated in plain PyTorch ---------------
+
+SPLIT_POS = np.asarray([150, 100, 37, 0], np.int32)     # wrapped, full, partial, empty
+
+
+@pytest.mark.parametrize("seed,C,window,nsplit,hot", [
+    (20, 1, 0, 1, False),
+    (21, 1, 0, 3, False),
+    (22, 16, 0, 2, False),
+    (23, 16, 24, 3, False),
+    (24, 1, 0, 4, True),
+    (25, 16, 0, 1, True),
+])
+def test_split_replica_keeps_fp32_results(seed, C, window, nsplit, hot):
+    """``mla_split_plain`` — route "wgmma"'s arithmetic: the fp32 queries as
+    bf16 hi + lo parts against the bf16 cache, P as a bf16 hi + lo pair,
+    tiles of 32 slots split over the cluster and merged — against the reference's fp32 decode and the
+    Pallas kernel in interpret mode, within 1e-4 of each output row's max
+    |reference|.  A ring of 4 tiles (the last ragged) holds rows wrapped,
+    full, partial and empty; ``hot`` scales one batch row's queries by 10."""
+    cap = 100
+    q, c_kv, k_rope = _inputs(seed, C, cap=cap)
+    if hot:
+        q[1] *= 10.0
+    ckv, kr, _, _ = _cache("bfloat16", c_kv, k_rope)
+    pos = SPLIT_POS
+    length = np.minimum(pos, cap).astype(np.int32)
+    n = np.minimum(pos, C).astype(np.int32)
+    t = [tensor_from_numpy(a, "cpu") for a in (q, ckv, kr, pos, length, n)]
+    got = tmla.mla_split_plain(*t, SCALE, window, nsplit=nsplit).numpy()
+    j = [jnp.asarray(a) for a in (q, ckv, kr, pos, length, n)]
+    kw = dict(window=window)
+    want = np.asarray(jref.mla_ring_decode_ref(*j[:6], SCALE, **kw))
+    pallas = np.asarray(jops.mla_ring_decode(*j[:6], scale=SCALE, bk=8, **kw))
+    valid = np.arange(C)[None, :] < n[:, None]
+    assert not got[~valid].any()                  # the empty row is zeros
+    for ref_out in (want, pallas):
+        g, w = got[valid], ref_out[valid]         # (rows, H, kvr)
+        rel = np.abs(g - w).max(-1) / np.abs(w).max(-1)
+        assert rel.max() <= 1e-4, rel.max()
