@@ -17,7 +17,9 @@ Phases (any failure exits non-zero; no exception is caught):
    widths (bf16 at C 1 and 16, a window, int8 with per-half scales, fp32);
    ``bgmv`` at the Llama and the MLA projections; ``lora_matmul``,
    ``flash_attention`` and ``adapter_gram`` at the federated round's
-   shapes, ragged edges included (``flash_attention`` in bf16 also at hd
+   shapes, ragged edges included (``adapter_gram`` also on A stacks read
+   where they lie, at the delta route's r 512, twice for equal bits;
+   ``flash_attention`` in bf16 also at hd
    16 and 32, T > S, group sizes 1, 2, 3 and 8, windows shorter than a
    tile and longer than S, non-causal); ``wkv6`` at RWKV6-1.6B's prefill
    shape (bf16 and fp32), at strong decay (w = -exp(N(1, 1))) and on a
@@ -54,7 +56,9 @@ Phases (any failure exits non-zero; no exception is caught):
    4 sampled a round, 4 local steps of 4 × 512 tokens, the Gram SVD route)
    through ``FederatedTrainer``; eval loss, kept ranks, wire bytes, round
    and finalize times, train-step times and tokens/s per round; launch
-   counts held to what the code implies; a profiled window of train steps.
+   counts held to what the code implies; a profiled window of train steps
+   and one of FLoRIST finalizes (no copy before an A stack's
+   ``adapter_gram``).
 7. The federated path on the card in fp32 with TF32 off, at full width and
    4 layers: two train steps on the kernel route against the plain route
    (loss, adapters, ``scale``), and one FLoRIST finalize on the Gram route
@@ -101,7 +105,7 @@ DEVICE = "cuda"
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
 PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_(kernel|wgmma)|mla_merge_splits|"
                 r"bgmv_kernel|"
-                r"lora_matmul_(wgmma|wmma|f32)|flash_(bf16|f32)|gram_partial|wkv6_kernel)\b")
+                r"lora_matmul_(wgmma|wmma|f32)|flash_(bf16|f32)|gram_mma|wkv6_kernel)\b")
 
 
 def fail(msg: str) -> None:
@@ -199,7 +203,9 @@ def main() -> None:
                if name == "bgmv" else {})
             | ({"launches_rwkv_prefill": rwkv_counts["lora_matmul"]}
                | other_path("rwkv_prefill", "lora_matmul", LORA_RWKV)
-               if name == "lora_matmul" else {}))
+               if name == "lora_matmul" else {})
+            | (other_path("a_stack", "adapter_gram", GRAM_A)
+               if name == "adapter_gram" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -833,31 +839,121 @@ def train_kernel_cases(torch):
             library=None if window else
             f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"))
 
-    # adapter_gram: the Gram SVD route's stacks, a bucket of 2 leaves x 16
-    # layers, m = 2048 (wq/wo, and every A stack) or 512 (wk/wv B stacks),
-    # r = Σ r_k up to 128, and a tail m.  fp32 FMAs on both sides (TF32
-    # off), sums in another order over m rows: limit 1e-4 of max |xᵀx|.
-    # xᵀx is symmetric, so the function needs only its r(r+1)/2 distinct
-    # entries, m multiply-adds each: G·m·r·(r+1) operations for the bound.
-    for G, m, r in ((32, 2048, 64), (32, 2048, 16), (32, 2048, 128),
-                    (32, 512, 16), (32, 512, 64), (32, 512, 128),
-                    (32, 2000, 60)):
-        x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
+    records += gram_kernel_cases(torch)
+    return records
+
+
+GRAM_A = "fp32, A stack (G, r, n) read as its transposed view, G=32 r=64 n=2048"
+
+
+def gram_kernel_cases(torch):
+    """``adapter_gram`` through ``ops.adapter_gram``: the Gram SVD route's B
+    stacks (a bucket of 2 leaves x 16 layers, m = 2048 for wq/wo and 512
+    for wk/wv, r = Σ r_k up to 128, a tail m), its A stacks (stored (G, r,
+    n), passed as the transposed view that ``gram_svd`` takes: the kernel
+    reads them in place), the delta route's large r, and ragged edges (r 5
+    and 12, rows that are not 16-byte multiples, K under one slice, r > 128
+    with off-diagonal tiles).  The kernel runs 3xTF32 on the tensor cores
+    (lo·lo dropped, ~2^-20 of each product), the plain version fp32 FMAs
+    (TF32 off), sums in another order over m rows: limit 1e-4 of max
+    |xᵀx|.  Two calls on the same input must give the same bits (no
+    atomics; fixed summing order), and the result must be exactly
+    symmetric.  xᵀx needs only its r(r+1)/2 distinct entries, m
+    multiply-adds each: G·m·r·(r+1) operations; ``bound_ms`` holds them to
+    the fp32 rate of the CUDA cores (the function's type), and
+    ``bound_3xtf32_ms`` to the tensor cores' TF32 rate for the three
+    products the kernel does instead.  Beside the kernel: warm (no L2
+    flush) time, ``torch.bmm``, reading x once (``x.sum()``), and for the A
+    stacks the old path, a contiguous copy of the view and then the kernel.
+    The plan's shared memory is held to the built kernel's, and its
+    cluster to the clusters the card holds at once."""
+    from repro_torch.kernels import adapter_gram as ag
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = []
+    for tile, layout, strips in ((32, "col", 1), (64, "col", 1), (128, "col", 1),
+                                 (128, "col", 2), (32, "row", 1), (64, "row", 1),
+                                 (128, "row", 1), (128, "row", 2)):
+        want = ag.smem_bytes(tile, layout, strips)
+        got = ag.compiled_smem_bytes(tile, layout, strips)
+        if got != want:
+            fail(f"adapter_gram.smem_bytes({tile}, {layout}, {strips}) = {want}, "
+                 f"the built kernel's is {got}")
+    held = build_fn("adapter_gram", "adapter_gram_max_clusters", 8)
+    for G, m, r, layout, timed in ((32, 2048, 64, "col", True), (32, 2048, 16, "col", True),
+                                   (32, 2048, 128, "col", True), (32, 512, 16, "col", True),
+                                   (32, 512, 64, "col", True), (32, 512, 128, "col", True),
+                                   (32, 2000, 60, "col", True), (32, 2048, 64, "row", True),
+                                   (32, 2048, 128, "row", True), (4, 2048, 512, "col", True),
+                                   (3, 70, 5, "col", False), (2, 1001, 12, "row", False),
+                                   (2, 100, 40, "col", False), (1, 8, 200, "col", False),
+                                   (2, 300, 130, "row", False), (5, 257, 96, "col", False)):
+        if layout == "col":
+            x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
+            stored, lib = x, (lambda x=x: torch.bmm(x.mT, x))
+            case = f"fp32, G={G} m={m} r={r}"
+        else:
+            stored = torch.randn(G, r, m, generator=gen, device=dev) * 0.05
+            x = stored.mT
+            lib = (lambda a=stored: torch.bmm(a, a.mT))
+            case = (f"fp32, A stack (G, r, n) read as its transposed view, "
+                    f"G={G} r={r} n={m}")
+        p = ag.plan(G, m, r, layout)
         got = ops.adapter_gram(x)
+        again = ops.adapter_gram(x)
         want = ref.adapter_gram_ref(x)
         torch.cuda.synchronize()
-        case = f"fp32, G={G} m={m} r={r}"
-        err = check(f"adapter_gram[{case}]", got, want,
+        err = check(f"adapter_gram[{case}; tile {p.tile}, cluster {p.cluster}, "
+                    f"{p.per} x {p.rows} rows a block]", got, want,
                     torch.ones(G, dtype=torch.bool, device=dev), 1e-4)
+        if not torch.equal(got, again):
+            fail(f"adapter_gram[{case}]: two calls on the same input differ")
+        if not torch.equal(got, got.mT):
+            fail(f"adapter_gram[{case}]: the result is not exactly symmetric")
+        n_held = held(G, m, r, ag.LAYOUTS.index(layout), p.tile, p.cluster, p.per,
+                      p.smem)
+        if p.cluster > 1 and G * p.tiles > n_held:
+            fail(f"adapter_gram[{case}]: {G * p.tiles} clusters of {p.cluster}, "
+                 f"the card holds {n_held} at once")
+        if not timed:
+            continue
         ms = gpu_ms(torch, lambda: ops.adapter_gram(x))
+        warm = gpu_ms(torch, lambda: ops.adapter_gram(x), cold=False)
         plain = gpu_ms(torch, lambda: ref.adapter_gram_ref(x))
-        lib = gpu_ms(torch, lambda: torch.bmm(x.mT, x))
         nbytes = 4 * (G * m * r + G * r * r)
-        records.append(_record(
-            "adapter_gram", case, "src/repro_torch/kernels/csrc/adapter_gram.cu",
-            "src/repro/kernels/adapter_gram.py:41", err, ms, plain, lib, nbytes,
-            G * m * r * (r + 1), "float32", library="torch.bmm(x.mT, x)"))
+        ops_n = G * m * r * (r + 1)
+        rec = _record("adapter_gram", case, "src/repro_torch/kernels/csrc/adapter_gram.cu",
+                      "src/repro/kernels/adapter_gram.py:41", err, ms, plain,
+                      gpu_ms(torch, lib), nbytes, ops_n, "float32",
+                      library="torch.bmm(x.mT, x)" if layout == "col"
+                      else "torch.bmm(a, a.mT) on the stored a", warm=warm)
+        rec.update(kernel_route=p.route, tile=p.tile, cluster=p.cluster,
+                   rows_per_block=p.rows_per_block, clusters_held=n_held,
+                   same_bits=True, read_once_ms=gpu_ms(torch, lambda: stored.sum()),
+                   bound_3xtf32_ms=max(nbytes / HBM_BYTES_PER_S,
+                                       3 * ops_n / PEAK_OPS["tf32"]) * 1e3)
+        line = (f"    3xTF32 bound {rec['bound_3xtf32_ms']:.4f} ms; reading x once "
+                f"(x.sum()) {rec['read_once_ms']:.4f} ms")
+        if layout == "row":
+            rec["copy_then_kernel_ms"] = gpu_ms(
+                torch, lambda: ag.adapter_gram_cuda(x.contiguous(), "col"))
+            line += (f"; the old path, a contiguous copy then the kernel, "
+                     f"{rec['copy_then_kernel_ms']:.4f} ms")
+        print(line)
+        records.append(rec)
     return records
+
+
+def build_fn(name: str, symbol: str, n_int: int):
+    """A plain C function of a built kernel library taking ``n_int`` ints
+    and returning an int."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = getattr(build.load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * n_int
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # -- phases 2 and 3 for the RWKV6 prefill's kernel ----------------------------
@@ -1127,10 +1223,12 @@ def profile_decode(torch, eng, steps: int = 10, adapter_ids=(0,)):
     return out
 
 
-def profile_window(torch, run, steps: int, label: str):
+def profile_window(torch, run, steps: int, label: str, before: str = ""):
     """``run(steps)`` once under ``torch.profiler`` (device time by kernel,
     host time by operator) and once without it (wall time per step); the
-    idle share is 1 - device busy / wall."""
+    idle share is 1 - device busy / wall.  With ``before`` (a regex of
+    kernel names), also (the device kernel that ran just before, the
+    kernel) for each launch of a matching kernel, in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1148,6 +1246,12 @@ def profile_window(torch, run, steps: int, label: str):
         elif e.self_cpu_time_total > 0:                # host operators
             by_op[e.key] = e.self_cpu_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
+    preceded = []
+    if before:
+        kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        preceded = [(kern[i - 1].name if i else "", e.name)
+                    for i, e in enumerate(kern) if re.search(before, e.name)]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     top_host = sorted(by_op.items(), key=lambda kv: -kv[1])[:8]
     # the port's own kernels, whether or not they are among the top ones
@@ -1161,11 +1265,14 @@ def profile_window(torch, run, steps: int, label: str):
         print(f"    port kernel {ms:8.4f} ms/step  {name[:80]}")
     for name, ms in top_host:
         print(f"    host   {ms:8.4f} ms/step  {name[:80]} (under the profiler)")
-    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
-            "idle_share": 1 - busy / wall_ms,
-            "top_kernels_ms_per_step": dict(top),
-            "port_kernels_ms_per_step": port,
-            "top_host_ops_ms_per_step_profiled": dict(top_host)}
+    out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+           "idle_share": 1 - busy / wall_ms,
+           "top_kernels_ms_per_step": dict(top),
+           "port_kernels_ms_per_step": port,
+           "top_host_ops_ms_per_step_profiled": dict(top_host)}
+    if before:
+        out["kernel_before_each"] = preceded
+    return out
 
 
 # -- phase 5: the engine, kernels against plain versions --------------------
@@ -1352,10 +1459,59 @@ def federated_round(torch):
     run(1)
     window = profile_window(torch, run, 3,
                             f"train step, {FED_BATCH} x {FED_SEQ} tokens, r=16")
+    finalize = profile_finalize(torch, tr.aggregator, buckets)
     del tr, state
     torch.cuda.empty_cache()
-    return {"rounds": rounds, "launches": counts,
-            "profiled_train_step": window}, counts
+    return {"rounds": rounds, "launches": counts, "profiled_train_step": window,
+            "profiled_finalize": finalize}, counts
+
+
+def profile_finalize(torch, agg, buckets: int, n: int = 3):
+    """The last round's FLoRIST finalize again, ``n`` times, profiled: the
+    aggregator keeps its stacks until the next ``begin_round``, so each call
+    runs the Gram route on the round's real shapes (16 layers, wq wk wv wo
+    in two buckets, Σ r_k of the round's clients).  Prints wall, device busy
+    and idle share, the top device and host operations, ``adapter_gram``'s
+    device time a finalize, and the kernels before its launches: an A
+    stack's launch must follow no copy (its transposed view is read where
+    it lies)."""
+    from repro_torch.kernels import ops
+
+    def run(k):
+        for _ in range(k):
+            agg.finalize()
+    run(1)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["adapter_gram"]
+    out = profile_window(torch, run, n,
+                         f"FLoRIST finalize (Gram route, {buckets} buckets, "
+                         f"clients of ranks {agg.client_ranks}), per finalize",
+                         before=r"\bgram_mma\b")
+    launched = ops.launch_counts()["adapter_gram"] - before
+    if launched != 2 * n * 2 * buckets:          # the profiled run and the timed one
+        fail(f"finalize window: {launched} adapter_gram launches, expected "
+             f"{4 * n * buckets}")
+    # the profiler names the build: gram_mma<NB, ROWL, ...>, ROWL true for
+    # an A stack read where it lies (the row layout)
+    prev = out.pop("kernel_before_each")
+    a_prev = [p for p, k in prev if re.search(r"gram_mma<\d+, true", k)]
+    out["kernel_before_a_stack"] = sorted(set(a_prev))
+    out["kernel_before_b_stack"] = sorted({p for p, k in prev
+                                           if re.search(r"gram_mma<\d+, false", k)})
+    print("    kernel before each A stack's adapter_gram: "
+          + "; ".join(p[:70] for p in out["kernel_before_a_stack"]))
+    print("    kernel before each B stack's adapter_gram: "
+          + "; ".join(p[:70] for p in out["kernel_before_b_stack"]))
+    if not a_prev:
+        fail("finalize window: the profile shows no A stack's adapter_gram launch")
+    if any(re.search("copy", p, re.I) for p in a_prev):
+        fail("finalize window: a copy kernel runs in front of an A stack's "
+             "adapter_gram launch")
+    out["adapter_gram_ms_per_finalize"] = sum(
+        ms for k, ms in out["port_kernels_ms_per_step"].items() if "gram_mma" in k)
+    print(f"    adapter_gram device time {out['adapter_gram_ms_per_finalize']:.4f} ms "
+          f"a finalize")
+    return out
 
 
 # -- phase 7: the federated path, kernels against plain routes, fp32 ---------

@@ -47,7 +47,7 @@ ARGTYPES = {
                            _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
-    "adapter_gram_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "adapter_gram_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "wkv6_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -79,14 +79,14 @@ def _target(name: str) -> Tuple[Path, Path]:
     return src, build_dir() / f"lib{name}-{digest}.so"
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every source that has no up-to-date library, one ``nvcc``
-    process per source, all started together.  Returns the compiler's
+def build_all(names: Tuple[str, ...] = SOURCES) -> Dict[str, str]:
+    """Compile every source of ``names`` that has no up-to-date library,
+    one ``nvcc`` process per source, all started together.  Returns the compiler's
     output per source built (``-Xptxas -v``: registers, shared memory,
     spills); raises with that output if a build fails."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         src, lib = _target(name)
         if lib.exists():
             continue
@@ -114,7 +114,7 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _, lib_path = _target(name)
         if not lib_path.exists():
-            build_all()
+            build_all((name,))
         lib = ctypes.CDLL(str(lib_path))
         for sym, argtypes in ARGTYPES.items():
             if sym.startswith(f"{name}_"):

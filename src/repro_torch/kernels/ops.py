@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.adapter_gram import adapter_gram_cuda
+from repro_torch.kernels.adapter_gram import operand as gram_operand
 from repro_torch.kernels.bgmv import bgmv_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lora_matmul import lora_matmul_cuda
@@ -198,11 +199,13 @@ flash_attention.launches = 0
 
 def adapter_gram(x):
     """``xᵀx`` in fp32 for x (m, r), or per batch entry for x (G, m, r) in
-    one launch; the tail panel is masked in the kernel."""
+    one launch; rows past m are masked in the kernel.  A transposed view
+    of a contiguous wide stack (``a.mT`` of a (G, r, n) tensor) is read
+    where it lies, without a copy (``adapter_gram.operand``)."""
     if x.device.type == "cpu":
         return ref.adapter_gram_ref(x)
-    x3 = x.float().contiguous()
-    out = adapter_gram_cuda(x3 if x.dim() == 3 else x3[None])
+    stored, layout = gram_operand((x if x.dim() == 3 else x[None]).float())
+    out = adapter_gram_cuda(stored, layout)
     adapter_gram.launches += 1
     return out if x.dim() == 3 else out[0]
 

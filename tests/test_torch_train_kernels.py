@@ -20,7 +20,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels.adapter_gram import ROWS, TARGET_BLOCKS, TILE, panels  # noqa: E402
 
 
 def _t(a, grad=False):
@@ -96,19 +95,6 @@ def test_adapter_gram(shape):
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
-
-
-@pytest.mark.parametrize("G,m,r,want", [
-    (32, 2048, 64, (224, 10)), (32, 512, 16, (32, 16)), (1, 70, 5, (32, 3)),
-    (2, 2048, 512, (672, 4)), (132, 40, 8, (32, 2)), (32, 2048, 128, (672, 4))])
-def test_adapter_gram_panels_cover_m(G, m, r, want):
-    """The panel split covers every row once, in 32-row multiples, and
-    gives the card at least TARGET_BLOCKS blocks where m allows it."""
-    rows, n = panels(G, m, r)
-    assert (rows, n) == want
-    assert rows % ROWS == 0 and (n - 1) * rows < m <= n * rows
-    blocks = G * (-(-r // TILE)) ** 2
-    assert blocks * n >= min(TARGET_BLOCKS, blocks * -(-m // ROWS))
 
 
 def test_wrappers_take_plain_version_only_for_cpu_tensors():
