@@ -84,6 +84,20 @@ Phases (any failure exits non-zero; no exception is caught):
     route against its plain route, (b) phase 5 on this model, (c) the
     kernel prefill's last logits against ``decode`` fed the same prompt one
     token at a time (registry adapter, ``bgmv``).
+13. The paper's five methods (FLoRIST, FedIT, FFA-LoRA, FLoRA, FlexLoRA),
+    two rounds each, through ``FederatedTrainer`` on TinyLlama-1.1B at
+    published widths and full depth (random seeded weights, bf16, built
+    once for the five trainers): LoRA r 16 on ``wq``/``wv``, 8
+    Dirichlet(0.5) clients, 4 a round, 4 local steps of 4 × 512 tokens,
+    the ``bf16`` wire, FLoRIST on the Gram route.  Launch counts (22 · 2 ·
+    steps ``lora_matmul``, 22 · (steps + 1) ``flash_attention``, 2 ·
+    buckets ``adapter_gram`` for FLoRIST and none for the others), wire
+    bytes equal to 2 × the analytic counts, each method's kept ranks,
+    FFA's frozen A bit for bit, FLoRA's merge and re-init, finite losses;
+    (b) every finalize in fp32 on the card against the CPU (products
+    within 1e-4 · max(1, |ΔW|)); the Table 4 counterpart's device times.
+    Phase 2 holds ``lora_matmul`` (2048 → 256) and ``flash_attention``
+    (32 H / 4 KV) at this path's shapes.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -170,6 +184,7 @@ def main() -> None:
     counts["wkv6"] = rwkv_counts["wkv6"]
     report["rwkv_e2e"], rwkv_serve_counts = end_to_end(torch, "11", "rwkv6_1p6b")
     report["rwkv_parity"] = rwkv_parity(torch)
+    report["tinyllama"], tiny_counts = tinyllama_methods(torch)
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -205,7 +220,13 @@ def main() -> None:
                | other_path("rwkv_prefill", "lora_matmul", LORA_RWKV)
                if name == "lora_matmul" else {})
             | (other_path("a_stack", "adapter_gram", GRAM_A)
-               if name == "adapter_gram" else {}))
+               if name == "adapter_gram" else {})
+            | ({"launches_tinyllama_path": tiny_counts[name]}
+               if name in tiny_counts else {})
+            | (other_path("tinyllama_path", name, LORA_TINY)
+               if name == "lora_matmul" else {})
+            | (other_path("tinyllama_path", name, FLASH_TINY)
+               if name == "flash_attention" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -708,7 +729,8 @@ def train_kernel_cases(torch):
     dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
     # lora_matmul: the train step's projections (M = 4 x 512 tokens; wq/wo
-    # 2048 -> 2048, wk/wv 2048 -> 512) at the round's client ranks, the
+    # 2048 -> 2048, wk/wv 2048 -> 512; TinyLlama's wv 2048 -> 256, two
+    # column tiles on the persistent grid) at the round's client ranks, the
     # RWKV6 prefill's (M = 8 x 1024 tokens, 2048 -> 2048, r 16), and one
     # ragged M / dout / rank; then ranks 64 and 128 (the wgmma route's
     # widest z and its narrower tiles) and a dout that is not a multiple
@@ -724,6 +746,7 @@ def train_kernel_cases(torch):
     for dt, M, dout, r in ((torch.bfloat16, 2048, 2048, 16),
                            (torch.bfloat16, 8192, 2048, 16),
                            (torch.bfloat16, 2048, 512, 16),
+                           (torch.bfloat16, 2048, 256, 16),
                            (torch.bfloat16, 2048, 2048, 4),
                            (torch.bfloat16, 2048, 2048, 32),
                            (torch.bfloat16, 2048, 512, 32),
@@ -773,7 +796,8 @@ def train_kernel_cases(torch):
                  if "unfused_ms" in records[-1] else ""))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
-    # 8 KV heads, hd 64), a window, a ragged S and hd 128.  Then the bf16
+    # 8 KV heads, hd 64; TinyLlama's 32 over 4, 8 query heads a KV head),
+    # a window, a ragged S and hd 128.  Then the bf16
     # kernel's edges: hd 16 and 32 (their own swizzle widths), T > S
     # (causal), S not a multiple of 64 or of the block's 128 rows, windows
     # shorter than a key tile and longer than S, group sizes 1, 2 and 8
@@ -787,6 +811,7 @@ def train_kernel_cases(torch):
     # sum order and exp rounding: limit 1e-5 of it (2.3e-6 measured).
     for dt, B, S, T, H, K, hd, causal, window in (
             (torch.bfloat16, 4, 512, 512, 32, 8, 64, True, 0),
+            (torch.bfloat16, 4, 512, 512, 32, 4, 64, True, 0),
             (torch.bfloat16, 4, 512, 512, 32, 8, 64, True, 128),
             (torch.bfloat16, 4, 500, 500, 32, 8, 64, True, 0),
             (torch.bfloat16, 4, 512, 512, 16, 4, 128, True, 0),
@@ -1796,6 +1821,458 @@ def rwkv_parity(torch):
     res["engine"] = engine_parity(torch, "12 (b)", "rwkv6_1p6b",
                                   require_equal=True)
     return res
+
+
+# -- phase 13: the paper's five methods on TinyLlama-1.1B ---------------------
+
+TINY_TARGETS = ("wq", "wv")          # the paper's setting and Table 3's
+TINY_RANK = 16
+TINY_ROUNDS = 2
+LORA_TINY = "bf16, M=2048 din=2048 dout=256 r=16"
+FLASH_TINY = "bf16, causal, B=4 S=512 H=32 K=4 hd=64"
+SIGMA_0, RHO = 2048.0, 0.85          # phase 13 (b)'s known spectrum of ΔW
+
+
+def tinyllama_methods(torch):
+    """Two rounds of each of the paper's five methods (FLoRIST, FedIT,
+    FFA-LoRA, FLoRA, FlexLoRA) through ``FederatedTrainer`` on
+    TinyLlama-1.1B at published widths and full depth (random seeded
+    weights, bf16, built once and shared by the five trainers), LoRA on
+    ``wq`` and ``wv``, 8 Dirichlet(0.5) clients of rank 16, 4 a round, 4
+    local steps of 4 x 512 tokens, the ``bf16`` wire, FLoRIST on the Gram
+    route.  Per method and round: eval loss and accuracy, kept ranks, wire
+    bytes beside 2 x the analytic counts (must be equal), round wall,
+    finalize, median train step, the host spans of the rest of the round
+    (downlink: ``server_to_clients``, its encode, count and decode; the
+    clients' ``client_init``; ``merge_lora``; the eval step; each between
+    two ``synchronize`` calls), launches (must match the code).  Then
+    FFA's global A against the frozen init (bit for bit), FLoRA's merged
+    base and re-init, (b) every finalize on the card against the CPU in
+    fp32, and the Table 4 counterpart."""
+    import collections
+
+    import repro_torch.core.federated as fed_mod
+    from repro_torch.common.config import LoRAConfig
+    from repro_torch.configs.tinyllama_1p1b import CONFIG
+    from repro_torch.data.synthetic import make_eval_data, make_federated_data
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = CONFIG
+    L = cfg.num_layers
+    t_phase = time.perf_counter()
+    print(f"phase 13: the paper's five methods, {TINY_ROUNDS} rounds each, on "
+          f"{cfg.name} at published widths ({L} L, d {cfg.d_model}, "
+          f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; random seeded "
+          f"weights), LoRA r {TINY_RANK} on {'/'.join(TINY_TARGETS)}, 8 "
+          f"Dirichlet(0.5) clients, 4 a round, 4 local steps of {FED_BATCH} x "
+          f"{FED_SEQ} tokens, bf16 wire, FLoRIST on the Gram route")
+    t0 = time.perf_counter()
+    params = T.init(cfg, 0, DEVICE)
+    clients = make_federated_data(num_clients=8, seq_len=FED_SEQ,
+                                  vocab=cfg.vocab_size, alpha=0.5, seed=0)
+    ev = make_eval_data(num_samples=16, seq_len=FED_SEQ, vocab=cfg.vocab_size)
+    torch.cuda.synchronize()
+    print(f"  set-up (weights and data, once for the five): "
+          f"{time.perf_counter() - t0:.1f} s")
+    lora = LoRAConfig(rank=TINY_RANK, alpha=float(TINY_RANK), targets=TINY_TARGETS)
+    spans = collections.Counter()                # host secs a round, by span
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[name] += time.perf_counter() - t
+            return out
+        return call
+
+    merge_lora = fed_mod.merge_lora
+    fed_mod.merge_lora = timed("merge", merge_lora)
+    try:
+        methods = tiny_rounds(torch, cfg, params, clients, ev, lora, spans, timed)
+    finally:
+        fed_mod.merge_lora = merge_lora
+    counts = {k: v for k, v in ops.launch_counts().items()
+              if k in ("lora_matmul", "flash_attention", "adapter_gram")}
+    print(f"  launches over the five methods: {json.dumps(counts)}")
+    del params
+    torch.cuda.empty_cache()
+    parity = methods_parity(torch)
+    table4 = table4_counterpart(torch)
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 13: {secs:.1f} s")
+    return {"methods": methods, "launches": counts, "parity": parity,
+            "table4": table4, "phase_s": secs}, counts
+
+
+def tiny_rounds(torch, cfg, params, clients, ev, lora, spans, timed):
+    """Phase 13's rounds: ``TINY_ROUNDS`` of each method in ``METHODS``,
+    checked as :func:`tinyllama_methods` says; ``spans`` collects the
+    host spans that ``timed`` wraps."""
+    import numpy as np
+    from repro_torch.common.config import FedConfig, OptimConfig
+    from repro_torch.core.aggregators import METHODS, adapter_leaf_paths, get_path
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.core.runtime import SequentialRunner
+    from repro_torch.kernels import ops
+    from repro_torch.peft.lora import match_rank
+    L = cfg.num_layers
+    methods = {}
+    ops.reset_launch_counts()
+    for method in METHODS:
+        fed = FedConfig(num_clients=8, clients_per_round=4,
+                        homogeneous_rank=TINY_RANK, dirichlet_alpha=0.5,
+                        tau=0.9, method=method, seed=0)
+        runner = SequentialRunner(record_steps=True)
+        tr = FederatedTrainer(cfg, fed, lora, OptimConfig(lr=3e-4),
+                              clients=clients, eval_data=ev,
+                              batch_size=FED_BATCH, local_steps=4,
+                              seq_len=FED_SEQ, svd_method="gram", runner=runner,
+                              transport="bf16", params=params, device=DEVICE)
+        tr.transport.server_to_clients = timed("downlink",
+                                               tr.transport.server_to_clients)
+        tr.aggregator.client_init = timed("client_init", tr.aggregator.client_init)
+        tr._eval = timed("eval", tr._eval)
+        rounds = []
+        for rnd in range(TINY_ROUNDS):
+            before, n_log = ops.launch_counts(), len(runner.step_log())
+            spans.clear()
+            rec = tr.run_round(rnd)
+            spent = dict(spans)
+            after = ops.launch_counts()
+            step_ms = [e["ms"] for e in runner.step_log()[n_log:]]
+            steps = len(step_ms)
+            dims = tr.aggregator.dims
+            buckets = len({(n, m) for _, n, m in dims.values()})
+            want = {"lora_matmul": L * len(TINY_TARGETS) * steps,
+                    "flash_attention": L * (steps + 1),          # + one eval step
+                    "adapter_gram": 2 * buckets if method == "florist" else 0}
+            got = {k: after[k] - before[k] for k in want}
+            ranks = tr.global_state.ranks
+            r_sum = sum(tr.aggregator.client_ranks)
+            print(f"  {method} round {rnd}: eval loss {rec.eval_loss:.4f} acc "
+                  f"{rec.eval_acc:.4f}; upload {rec.upload_bytes} B (2 x "
+                  f"{rec.upload_params} params), download {rec.download_bytes} B "
+                  f"(2 x {rec.download_params}); wall {rec.wall_secs:.2f} s, "
+                  f"finalize {rec.finalize_secs * 1e3:.1f} ms; {steps} train "
+                  f"steps, median {statistics.median(step_ms):.2f} ms (CUDA events)")
+            print(f"    host spans: " + ", ".join(
+                f"{k} {spent.get(k, 0.0):.3f} s" for k in
+                ("downlink", "client_init", "merge", "eval"))
+                + f"; train steps {sum(step_ms) / 1e3:.3f} s (CUDA events)")
+            for path, ps in ranks.items():
+                print(f"    kept ranks {'/'.join(map(str, path))}: "
+                      f"{ps if len(set(ps)) > 1 else f'{ps[0]} x {len(ps)}'}")
+            print(f"    launches {json.dumps(got)}; expected {json.dumps(want)}")
+            if got != want:
+                fail(f"phase 13 {method} round {rnd}: launch counts {got} != {want}")
+            if (rec.upload_bytes != 2 * rec.upload_params
+                    or rec.download_bytes != 2 * rec.download_params):
+                fail(f"phase 13 {method} round {rnd}: wire bytes differ from "
+                     "the analytic 2-byte counts")
+            if not np.isfinite(rec.eval_loss):
+                fail(f"phase 13 {method} round {rnd}: eval loss {rec.eval_loss}")
+            for path, ps in ranks.items():
+                _, n, m = dims[path]
+                ok = {"fedit": all(p == TINY_RANK for p in ps),
+                      "ffa": all(p == TINY_RANK for p in ps),
+                      "flora": all(p == r_sum for p in ps),
+                      "flexlora": all(p == min(TINY_RANK, n, m) for p in ps),
+                      "florist": all(1 <= p <= r_sum for p in ps)}[method]
+                if len(ps) != L or not ok:
+                    fail(f"phase 13 {method} round {rnd}: kept ranks of {path} "
+                         f"are {ps}")
+            if method == "flora" and rnd == 0:
+                # the stack was merged into the base; clients start over at B = 0
+                moved = [not torch.equal(get_path(tr.params, ("blocks", 0, "attn", t)),
+                                         get_path(params, ("blocks", 0, "attn", t)))
+                         for t in TINY_TARGETS]
+                init = tr.aggregator.client_init(tr.global_state, TINY_RANK,
+                                                 tr.A_init_full)
+                a0 = match_rank(tr.A_init_full, TINY_RANK)
+                fresh = all(not torch.as_tensor(get_path(init, p)["B"]).any()
+                            and torch.equal(get_path(init, p)["A"],
+                                            get_path(a0, p)["A"])
+                            for p in adapter_leaf_paths(init))
+                print(f"    base weights moved by the merge: {moved}; clients "
+                      f"start round 1 at B = 0 and the shared A: {fresh}")
+                if not all(moved) or not fresh:
+                    fail("phase 13 flora: the merge or the re-init did not happen")
+            rounds.append({"record": dataclasses.asdict(rec),
+                           "ranks": {"/".join(map(str, k)): v for k, v in ranks.items()},
+                           "train_step_ms": step_ms,
+                           "train_step_ms_median": statistics.median(step_ms),
+                           "spans_s": spent,
+                           "launches": got})
+        if method == "ffa":
+            g = tr.global_state.global_adapters
+            same = all(torch.equal(torch.as_tensor(get_path(g, p)["A"]),
+                                   get_path(tr.A_init_full, p)["A"])
+                       for p in adapter_leaf_paths(g))
+            print(f"    global A after round {TINY_ROUNDS - 1} equals the frozen "
+                  f"init bit for bit: {same}")
+            if not same:
+                fail("phase 13 ffa: the global A moved off the frozen init")
+        methods[method] = rounds
+        del tr
+        torch.cuda.empty_cache()
+    return methods
+
+
+def parity_trees(kind):
+    """Phase 13 (b)'s client trees at TinyLlama's leaf shapes (wq 2048 ->
+    2048, wv 2048 -> 256; 4 clients of rank 16, numpy fp32, from seed 13):
+    ``(clients, w, a_init, levels)``, with w the clients' weights and
+    a_init an FFA A init.
+
+    ``"known"``: each layer's clients hold disjoint columns of one
+    orthonormal pair, B at ``levels`` and A divided by w_k, so ΔW = Σ w_k
+    B_k A_k has the known spectrum SIGMA_0 · RHO^i, i < 64.
+    ``"gaussian"``: i.i.d. standard normal B_k and A_k (``levels`` None),
+    whose clustered spectra put the cuts inside clusters."""
+    import numpy as np
+    from repro_torch.configs.tinyllama_1p1b import CONFIG
+    L, d, K, R = CONFIG.num_layers, CONFIG.d_model, 4, TINY_RANK
+    shapes = {"wq": (d, CONFIG.num_heads * CONFIG.head_dim),
+              "wv": (d, CONFIG.num_kv_heads * CONFIG.head_dim)}  # (n_in, m_out)
+    rng = np.random.default_rng(13)
+    w = rng.dirichlet(np.ones(K))
+    ones = np.ones(L, np.float32)
+    if kind == "known":
+        levels = SIGMA_0 * RHO ** np.arange(K * R)
+        bases = {name: [(np.linalg.qr(rng.normal(size=(m, K * R)))[0],
+                         np.linalg.qr(rng.normal(size=(n, K * R)))[0])
+                        for _ in range(L)] for name, (n, m) in shapes.items()}
+        # client k: columns k, k + K, ... of each layer's bases
+        clients = [{"blocks": {0: {"attn": {name: {
+            "B": np.stack([qb[:, k::K] * levels[k::K] for qb, _ in bases[name]]
+                          ).astype(np.float32),
+            "A": np.stack([qa[:, k::K].T / w[k] for _, qa in bases[name]]
+                          ).astype(np.float32),
+            "scale": ones} for name in shapes}}}} for k in range(K)]
+    elif kind == "gaussian":
+        levels = None
+        clients = [{"blocks": {0: {"attn": {name: {
+            "B": rng.normal(size=(L, m, R)).astype(np.float32),
+            "A": rng.normal(size=(L, R, n)).astype(np.float32),
+            "scale": ones} for name, (n, m) in shapes.items()}}}}
+            for _ in range(K)]
+    else:
+        raise ValueError(kind)
+    a_init = {"blocks": {0: {"attn": {name: {
+        "A": rng.normal(size=(L, R, n)).astype(np.float32)}
+        for name, (n, m) in shapes.items()}}}}
+    return clients, w, a_init, levels
+
+
+def exact_svd(clients, w, name, layer):
+    """The fp64 SVD of ΔW = Σ w_k B_k A_k of one leaf's layer, exact through
+    QR of the stacks: ``(u (m, Σr), s (Σr,), v (n, Σr))``; rank-p cut
+    ``(u[:, :p] * s[:p]) @ v[:, :p].T``."""
+    import numpy as np
+    leaves = [c["blocks"][0]["attn"][name] for c in clients]
+    bs = np.concatenate([lf["B"][layer].astype(np.float64) for lf in leaves], 1)
+    as_ = np.concatenate([wk * lf["A"][layer].astype(np.float64)
+                          for wk, lf in zip(w, leaves)], 0)
+    qb, rb = np.linalg.qr(bs)
+    qa, ra = np.linalg.qr(as_.T)
+    u, s, vt = np.linalg.svd(rb @ ra.T)
+    return qb @ u, s, qa @ vt.T
+
+
+PARITY_CASES = (("florist (svd)", "florist", {"svd_method": "svd"}),
+                ("florist (gram)", "florist", {"svd_method": "gram"}),
+                ("fedit", "fedit", {}), ("ffa", "ffa", {}),
+                ("flora", "flora", {}), ("flexlora", "flexlora", {}))
+
+
+def parity_finalize(torch, method, kw, data, dev):
+    """One aggregator's finalize on ``data`` (:func:`parity_trees`) on
+    ``dev``: A and B as numpy off the wire, scale a tensor, FFA handed the
+    A init.  Returns (AggResult, seconds to a synchronized finish)."""
+    from repro_torch.core.aggregators import make_aggregator
+    clients, w, a_init, _ = data
+    kw = dict(kw)
+    if method == "ffa":
+        kw["A_init"] = {"blocks": {0: {"attn": {
+            n: {"A": torch.as_tensor(leaf["A"], device=dev)}
+            for n, leaf in a_init["blocks"][0]["attn"].items()}}}}
+    arriving = [{"blocks": {0: {"attn": {n: {
+        "A": leaf["A"], "B": leaf["B"],
+        "scale": torch.as_tensor(leaf["scale"], device=dev)}
+        for n, leaf in c["blocks"][0]["attn"].items()}}}} for c in clients]
+    t0 = time.perf_counter()
+    res = make_aggregator(method, **kw).aggregate(arriving, w)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def tree_products(torch, res, dtype=None):
+    """The products B·A of ``res``'s global tree and of its per-client
+    trees, in ``dtype`` (fp32 by default) on the trees' device:
+    ``[{leaf path: (L, m, n)}]``."""
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    dtype = dtype or torch.float32
+    trees = [res.global_adapters] + list(res.per_client or [])
+    return [{p: torch.matmul(torch.as_tensor(get_path(t, p)["B"]).to(dtype),
+                             torch.as_tensor(get_path(t, p)["A"]).to(dtype))
+             for p in adapter_leaf_paths(t)} for t in trees]
+
+
+def fp64_distance(torch, res, exact, full_global):
+    """max over ``res``'s trees, leaves and layers of |B·A − ΔW's fp64 SVD
+    cut at the tree's rank| / max |ΔW|, in fp64 on the trees' device: the
+    global tree at its kept ranks (at full rank where ``full_global``:
+    FlexLoRA's global tree is the full SVD), per-client trees at
+    ``TINY_RANK``.  ``exact``: leaf name -> [:func:`exact_svd`] by layer."""
+    worst = 0.0
+    for i, tree in enumerate(tree_products(torch, res, torch.float64)):
+        for path, prod in tree.items():
+            for l, factors in enumerate(exact[path[-1]]):
+                u, s, v = (torch.as_tensor(f, device=prod.device) for f in factors)
+                p = (len(s) if full_global else res.ranks[path][l]) if i == 0 \
+                    else TINY_RANK
+                p = min(p, len(s))
+                dw = (u * s) @ v.T
+                want = (u[:, :p] * s[:p]) @ v[:, :p].T
+                worst = max(worst, float((prod[l] - want).abs().max()
+                                         / dw.abs().max()))
+    return worst
+
+
+def methods_parity(torch):
+    """(b): each of the five finalizes (FLoRIST on both SVD routes), fed the
+    same numpy client trees at TinyLlama's leaf shapes (4 clients of rank
+    16; wq 2048 -> 2048, wv 2048 -> 256), in fp32 (TF32 off) on the card
+    (cuSOLVER, ``adapter_gram``) and on the CPU (LAPACK, the plain Gram
+    product).
+
+    First on :func:`parity_trees` "known": ΔW = Σ w_k B_k A_k has the known
+    spectrum SIGMA_0 · RHO^i, i < 64, which decays as trained adapters' do,
+    and every cut (FLoRIST's τ 0.9, FlexLoRA's rank 16) sits on a 15% gap.
+    Kept ranks must be equal (FLoRIST's the known energy rank), the
+    products B·A of the global trees and of FlexLoRA's per-client trees
+    within 1e-4 · max(1, |ΔW|) (ΔW the CPU's product: fp32 sums in another
+    order, and the Gram route squares the condition number), and both
+    sides' spectra within 1e-4 of σ_1 of the known one above the Gram
+    route's resolution.  Then :func:`gaussian_parity`."""
+    import numpy as np
+    from repro_torch.configs.tinyllama_1p1b import CONFIG
+    from repro_torch.device import parity_mode
+    K, R = 4, TINY_RANK
+    print(f"phase 13 (b): every finalize on the card against the CPU, fp32, "
+          f"{K} clients of rank {R} at {CONFIG.name}'s leaf shapes, ΔW's spectrum "
+          f"{SIGMA_0:g} x {RHO}^i; " + parity_mode())
+    data = parity_trees("known")
+    levels = data[3]
+    energy = np.cumsum(levels ** 2) / np.sum(levels ** 2)
+    p_known = int(np.searchsorted(energy.astype(np.float32), np.float32(0.9)) + 1)
+
+    def spectrum_err(res):
+        """max over leaves and layers of |σ_i - known_i| / σ_1, for the σ
+        above the Gram route's resolution σ_1·√(Σr·eps)."""
+        worst = 0.0
+        for sps in res.spectra.values():
+            for sp in sps:
+                sp = np.asarray(sp)[:K * R]
+                big = levels > 2 * levels[0] * np.sqrt(K * R * np.finfo(np.float32).eps)
+                worst = max(worst, float(np.abs(sp - levels)[big].max() / levels[0]))
+        return worst
+
+    out = {"known_florist_rank": p_known}
+    for label, method, kw in PARITY_CASES:
+        gpu, t_gpu = parity_finalize(torch, method, kw, data, DEVICE)
+        cpu, t_cpu = parity_finalize(torch, method, kw, data, "cpu")
+        if gpu.ranks != cpu.ranks:
+            fail(f"phase 13 (b) {label}: kept ranks differ between the card "
+                 f"and the CPU: {gpu.ranks} vs {cpu.ranks}")
+        if method == "florist" and any(p != p_known for ps in cpu.ranks.values()
+                                       for p in ps):
+            fail(f"phase 13 (b) {label}: kept ranks {cpu.ranks}, the known "
+                 f"energy rank is {p_known}")
+        worst, worst_rel = 0.0, 0.0
+        for pg, pc in zip(tree_products(torch, gpu), tree_products(torch, cpu)):
+            for p in pc:
+                dw = pc[p]
+                err = float((pg[p].cpu() - dw).abs().max())
+                lim = 1e-4 * max(1.0, float(dw.abs().max()))
+                worst = max(worst, err / lim)
+                worst_rel = max(worst_rel, err / float(dw.abs().max()))
+        sp_err = ((spectrum_err(gpu), spectrum_err(cpu)) if gpu.spectra else None)
+        n_trees = 1 + len(gpu.per_client or [])
+        ok = worst <= 1.0 and (sp_err is None or max(sp_err) <= 1e-4)
+        print(f"  {label}: {n_trees} tree{'s' if n_trees > 1 else ''}, ranks "
+              f"equal{f' ({p_known} a layer, as known)' if method == 'florist' else ''}; "
+              f"max |Δ(B·A)| {worst * 1e-4:.2e} of max(1, |ΔW|) (limit 1e-4; "
+              f"{worst_rel:.2e} of max |ΔW|)"
+              + (f"; spectra off the known by {sp_err[0]:.2e} (card) and "
+                 f"{sp_err[1]:.2e} (CPU) of σ_1 (limit 1e-4)" if sp_err else "")
+              + f"; finalize {t_gpu:.2f} s on the card (first call), {t_cpu:.2f} s "
+              f"on the CPU {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"phase 13 (b) {label}: the card's finalize disagrees with the CPU's")
+        out[label] = {"err_over_limit": worst, "rel_err": worst_rel,
+                      "spectrum_err": sp_err, "card_s": t_gpu, "cpu_s": t_cpu}
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    out["gaussian"] = gaussian_parity(torch)
+    return out
+
+
+def gaussian_parity(torch):
+    """(b) on :func:`parity_trees` "gaussian": i.i.d. Gaussian factors give
+    clustered spectra, so FLoRIST's τ cut and FlexLoRA's rank-16 cut fall
+    inside clusters, where a truncated product moves by the route's fp32
+    error over a small gap and the card and the CPU need not agree to
+    1e-4.  So each side is held to ΔW's fp64 SVD (:func:`exact_svd`) cut at
+    the same ranks: the kept ranks must be equal and the card no further
+    from fp64 than twice the CPU (LAPACK, the reference's route)."""
+    data = parity_trees("gaussian")
+    exact = {n: [exact_svd(data[0], data[1], n, l)
+                 for l in range(len(data[0][0]["blocks"][0]["attn"][n]["B"]))]
+             for n in ("wq", "wv")}
+    print("phase 13 (b): the same on i.i.d. Gaussian client trees (cuts inside "
+          "spectral clusters), each side held to ΔW's fp64 SVD at the same ranks")
+    out = {}
+    for label, method, kw in PARITY_CASES:
+        if method not in ("florist", "flexlora"):
+            continue                    # no truncation: equal sums above
+        gpu, t_gpu = parity_finalize(torch, method, kw, data, DEVICE)
+        cpu, t_cpu = parity_finalize(torch, method, kw, data, "cpu")
+        full = method == "flexlora"
+        err = (fp64_distance(torch, gpu, exact, full),
+               fp64_distance(torch, cpu, exact, full))
+        ok = gpu.ranks == cpu.ranks and err[0] <= 2 * err[1]
+        print(f"  {label}: ranks {'equal' if gpu.ranks == cpu.ranks else 'DIFFER'}; "
+              f"max |B·A − fp64| {err[0]:.2e} (card) and {err[1]:.2e} (CPU) of "
+              f"max |ΔW| (card limit 2 x the CPU's); finalize {t_gpu:.2f} s on the "
+              f"card, {t_cpu:.2f} s on the CPU {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"phase 13 (b) {label}: on Gaussian trees the card is further "
+                 "from the fp64 SVD than twice the CPU, or its ranks differ")
+        out[label] = {"fp64_err_card": err[0], "fp64_err_cpu": err[1],
+                      "card_s": t_gpu, "cpu_s": t_cpu}
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def table4_counterpart(torch):
+    """``repro_torch.benchmarks.table4_server_flops`` on the card: the
+    elapsed time (between two CUDA events, host syncs inside) of FLoRIST's
+    core and of FlexLoRA's dense ΔW plus SVD on one 2048 x 2048 layer (K 10,
+    R 16), analytic FLOPs beside; the ratio, claiming nothing."""
+    from repro_torch.benchmarks import table4_server_flops as t4
+    print("phase 13: Table 4 counterpart (elapsed time between CUDA events; "
+          "analytic FLOPs)")
+    rows = t4.run(device=DEVICE)
+    for r in rows:
+        print(f"  {r['name']},{r['us_per_call']},{r['derived']}")
+    return rows
+
 
 if __name__ == "__main__":
     main()

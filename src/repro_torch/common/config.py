@@ -70,6 +70,62 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Analytic total parameter count (embedding + blocks + head), the
+        reference's formula (Table 3's Full-FT row)."""
+        d, ff, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        n = V * d                      # embedding
+        if not self.tie_embeddings:
+            n += d * V                 # lm head
+        n += d                         # final norm
+        per_layer = 2 * d              # ln1, ln2
+        if self.family == "ssm":       # rwkv6 block
+            hd = self.rwkv_head_dim
+            per_layer += 5 * d * d + d * d          # r,k,v,g,o + w proj
+            per_layer += 2 * self.rwkv_decay_lora * d * 5   # ddlerp loras
+            per_layer += 2 * (d // hd) * hd          # time_first/decay base
+            per_layer += d * ff + ff * d + d * d     # channel mix
+        elif self.family == "hybrid":
+            raise NotImplementedError(
+                "param_count of the hybrid family is not ported yet (the "
+                "Mamba2-and-hybrid slice of the port)")
+        else:
+            per_layer += self._attn_params()
+            per_layer += self._mlp_params()
+        return n + L * per_layer
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.use_mla:
+            qr, kvr = self.q_lora_rank, self.kv_lora_rank
+            nope, rope, vd = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                              self.v_head_dim)
+            H = self.num_heads
+            return (d * qr + qr * H * (nope + rope)
+                    + d * (kvr + rope) + kvr * H * (nope + vd)
+                    + H * vd * d + qr + kvr)
+        H, K, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        n = d * H * hd + 2 * d * K * hd + H * hd * d
+        if self.qkv_bias:
+            n += H * hd + 2 * K * hd
+        if self.qk_norm:
+            n += 2 * hd
+        return n
+
+    def _mlp_params(self) -> int:
+        d, ff = self.d_model, self.d_ff
+        dense = 3 * d * ff            # swiglu gate/up/down
+        if self.num_experts:
+            e_ff = self.moe_d_ff or ff
+            moe = self.num_experts * 3 * d * e_ff + d * self.num_experts
+            moe += self.num_shared_experts * 3 * d * e_ff
+            # deepseek: first_dense_layers use the dense MLP; average it in
+            if self.first_dense_layers:
+                frac = self.first_dense_layers / self.num_layers
+                return int(frac * dense + (1 - frac) * moe)
+            return moe
+        return dense
+
 
 @dataclass(frozen=True)
 class LoRAConfig:

@@ -137,9 +137,11 @@ def fresh_client_adapters(a_init_full: Dict, rank: int) -> Dict:
 @dataclasses.dataclass
 class AggResult:
     method: str
-    global_adapters: Dict                    # unified tree
+    global_adapters: Optional[Dict]          # unified tree (None-able)
+    per_client: Optional[List[Dict]]         # flexlora: tailored trees
     ranks: Dict[Tuple, List[int]]            # leaf path -> per-layer rank
-    spectra: Dict[Tuple, List[np.ndarray]]   # leaf path -> per-layer σ
+    spectra: Dict[Tuple, List[np.ndarray]]   # leaf path -> per-layer σ (florist/flex)
+    merge_into_base: bool = False            # flora semantics
 
     def total_download_rank(self) -> int:
         return int(sum(sum(v) for v in self.ranks.values()))
@@ -163,6 +165,9 @@ class Aggregator:
     name: str = "?"
     #: FFA-style methods train only B locally (A frozen).
     trains_b_only: bool = False
+    #: strategies that must be handed the frozen shared init (``A_init``)
+    #: before finalize; the trainer hands it over explicitly.
+    needs_a_init: bool = False
     #: weight of the broadcast rank in the paper's efficiency denominator
     download_rank_factor: float = 1.0
 
@@ -226,8 +231,9 @@ class Aggregator:
     def client_init(self, global_state: Optional[AggResult], rank: int,
                     a_init_full: Dict) -> Dict:
         """Adapters a rank-``rank`` client resumes from this round: the
-        global adapters truncated or zero-padded to the rank (Alg. 1);
-        round 1: B = 0, A = the shared init."""
+        global adapters truncated or zero-padded to the rank (Alg. 1;
+        FlexLoRA's global tree is its full SVD sorted by σ, so this is its
+        per-client cut); round 1: B = 0, A = the shared init."""
         from repro_torch.peft.lora import match_rank
 
         if global_state is None:
@@ -281,7 +287,7 @@ class Aggregator:
 _REGISTRY: Dict[str, Type[Aggregator]] = {}
 
 #: methods of the reference that this port does not carry yet
-NOT_PORTED = ("fedit", "ffa", "flora", "flexlora", "florist_sharded")
+NOT_PORTED = ("florist_sharded",)
 
 
 def register_aggregator(name: str):
@@ -304,8 +310,8 @@ def get_aggregator_class(name: str) -> Type[Aggregator]:
     except KeyError:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"aggregation method {name!r} is not ported yet (later "
-                "runtime-breadth slice of the port)") from None
+                f"aggregation method {name!r} is not ported yet (the "
+                "multi-device slice of the port)") from None
         raise ValueError(
             f"unknown aggregation method {name!r} "
             f"(registered: {sorted(_REGISTRY)})") from None

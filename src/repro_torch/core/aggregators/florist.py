@@ -8,13 +8,16 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.aggregators.base import (AggResult, Aggregator,
                                                adapter_leaf_paths,
                                                bucket_by_shape, fold_scale,
                                                get_path, register_aggregator,
                                                set_path)
-from repro_torch.core.svd import florist_core_batched, florist_core_delta_batched
+from repro_torch.core.svd import (florist_core_batched,
+                                  florist_core_delta_batched,
+                                  florist_core_stacked)
 
 
 @register_aggregator("florist")
@@ -36,17 +39,15 @@ class FloristAggregator(Aggregator):
     spectra and per-layer ranks come to the host in one transfer, where the
     zero-padded factors are cut to each leaf's largest kept rank.
 
-    ``pipeline="loop"`` (the reference's per-layer oracle) is not ported.
+    ``pipeline="loop"`` is the reference's per-(leaf, layer) oracle: one
+    :func:`~repro_torch.core.svd.florist_core_stacked` and one host sync a
+    layer, for equivalence tests; it forces the stacked stream.
     """
 
     def __init__(self, tau=0.9, svd_method: str = "svd", max_rank: int = 0,
                  pipeline: str = "batched", stream: str = "auto",
                  flush_every: int = 64):
-        if pipeline == "loop":
-            raise NotImplementedError(
-                "FloristAggregator(pipeline='loop') is not ported yet (later "
-                "runtime-breadth slice of the port); use 'batched'")
-        if pipeline != "batched":
+        if pipeline not in ("batched", "loop"):
             raise ValueError(pipeline)
         if stream not in ("auto", "stacked", "delta"):
             raise ValueError(stream)
@@ -54,7 +55,8 @@ class FloristAggregator(Aggregator):
         self.svd_method = svd_method
         self.max_rank = max_rank
         self.pipeline = pipeline
-        self.stream = stream
+        # the loop oracle iterates the stacked lists directly
+        self.stream = "stacked" if pipeline == "loop" else stream
         self.flush_every = max(1, int(flush_every))
         self.peak_pending_blocks = 0
         super().__init__()
@@ -140,9 +142,11 @@ class FloristAggregator(Aggregator):
                                  "scale": self._ref_scales[path]})
             rank_rec[path] = ps
             spectra[path] = [np.asarray(s) for s in blk[:, :r]]
-        return AggResult(self.name, out, rank_rec, spectra)
+        return AggResult(self.name, out, None, rank_rec, spectra)
 
     def _finalize(self) -> AggResult:
+        if self.pipeline == "loop":
+            return self._finalize_loop()
         inter = self._settle()
         stacks = {p: v[1:] for p, v in inter.items() if v[0] == "stack"}
         deltas = {p: v[1:] for p, v in inter.items() if v[0] == "delta"}
@@ -165,6 +169,33 @@ class FloristAggregator(Aggregator):
                 sl = slice(i * L, (i + 1) * L)
                 device[path] = (Bg[sl], Ag[sl], sp[sl], pr[sl])
         return self._materialize(device)
+
+    def _finalize_loop(self) -> AggResult:
+        """The per-(leaf, layer) loop: one core call and one host sync a
+        layer; ragged ranks zero-padded to the leaf's largest."""
+        out: Dict = {}
+        rank_rec: Dict[Tuple, List[int]] = {}
+        spectra: Dict[Tuple, List[np.ndarray]] = {}
+        for path, acc in self._state.items():
+            stacked = acc["stacked"]
+            B_stack = torch.cat(acc["B"], dim=-1)          # (L, m, Σr)
+            A_stack = torch.cat(acc["A"], dim=-2)          # (L, Σr, n)
+            layers = zip(B_stack, A_stack) if stacked else [(B_stack, A_stack)]
+            res = [florist_core_stacked(b, a, self.tau, self.svd_method,
+                                        self.max_rank) for b, a in layers]
+            ps = [o.p for o in res]
+            p_max = max(ps)
+            if stacked:
+                Bg = torch.stack([F.pad(o.B_g, (0, p_max - o.p)) for o in res])
+                Ag = torch.stack([F.pad(o.A_g, (0, 0, 0, p_max - o.p))
+                                  for o in res])
+            else:
+                Bg, Ag = res[0].B_g, res[0].A_g
+            set_path(out, path, {"A": Ag, "B": Bg,
+                                 "scale": self._ref_scales[path]})
+            rank_rec[path] = ps
+            spectra[path] = [o.spectrum.cpu().numpy() for o in res]
+        return AggResult(self.name, out, None, rank_rec, spectra)
 
     def server_flops(self, dims, client_ranks, agg_ranks=None) -> int:
         from repro_torch.core.costs import SVD_CONST

@@ -3,14 +3,17 @@ paper §4.1 setup).
 
 One round: the ``sync`` scheduler samples clients from the trainer's numpy
 rng; the ``sequential`` runner fine-tunes each client's LoRA adapters; each
-trained tree crosses the measured ``fp32`` wire and the validation gate
-into the streaming aggregator; ``finalize`` runs the FLoRIST SVD pipeline;
-the global adapters are broadcast (clients resume from the decoded
-broadcast) and evaluated merged into the base.
+trained tree crosses the measured wire (``fp32`` or ``bf16``) and the
+validation gate into the streaming aggregator, which owns the method's
+semantics (FLoRIST, FedIT, FFA-LoRA, FLoRA, FlexLoRA: client re-init,
+frozen A, merge into the base, per-client cuts).  Broadcast methods
+evaluate the server's exact aggregate merged into the base, and clients
+resume from the decoded broadcast; FLoRA folds the decoded stack into the
+base itself and evaluates that.
 
 The train and eval steps run attention and the LoRA projections through
 the ``flash_attention`` and ``lora_matmul`` kernels, and ``svd_method=
-"gram"`` runs the server's Gram products through ``adapter_gram`` (the
+"gram"`` runs FLoRIST's Gram products through ``adapter_gram`` (the
 kernels on the card, their plain versions on the CPU).  The reference
 reaches those kernels only through launcher flags; its default route
 computes the same functions and the parity tests hold the two together.
@@ -68,11 +71,15 @@ class FederatedTrainer:
     """Composition of runner + scheduler + aggregator + transport + gate.
 
     ``runner`` / ``scheduler`` / ``rank_policy`` / ``transport`` /
-    ``validation`` take a registered name or an instance.  Parameters come
-    from ``T.init`` with a torch generator seeded by ``fed.seed``; the
-    shared A init (``A_init_full``) likewise.  A caller holding a
-    reference trainer's state overwrites ``params`` and ``A_init_full``
-    with it (:mod:`repro_torch.convert`) before the first round.
+    ``validation`` take a registered name or an instance.  The base weights
+    are ``params`` where given (shared, never written: FLoRA's merge makes
+    new leaves), else ``T.init`` with ``fed.seed``; the shared A init
+    (``A_init_full``) comes from a torch generator seeded by ``fed.seed +
+    1``.  A caller holding a reference trainer's state overwrites
+    ``params`` and ``A_init_full`` with it (:mod:`repro_torch.convert`)
+    before the first round.  An aggregator that ``needs_a_init`` (FFA) and
+    was built without its own ``A_init`` is handed ``A_init_full`` at the
+    start of every round, so it sees such an overwrite.
     """
 
     def __init__(self, cfg: ModelConfig, fed: FedConfig, lora: LoRAConfig,
@@ -85,7 +92,7 @@ class FederatedTrainer:
                  runner: Any = "sequential", scheduler: Any = "sync",
                  rank_policy: Any = "static", transport: Any = "fp32",
                  validation: Any = "screen", min_clients: int = 1,
-                 device: DeviceLike = None):
+                 params: Optional[Dict] = None, device: DeviceLike = None):
         if cfg.family == "ssm":
             raise NotImplementedError(
                 "federated training of RWKV6 is a later slice of the port: the "
@@ -100,7 +107,8 @@ class FederatedTrainer:
         self.gate: ValidationGate = make_validator(
             validation, min_clients=min_clients)
         self.rng = np.random.default_rng(fed.seed)
-        self.params = T.init(cfg, fed.seed, self.device)
+        self.params = params if params is not None else \
+            T.init(cfg, fed.seed, self.device)
         self.targets = targets or lora.targets
         self.client_ranks = fed.client_ranks()
         self.max_rank = max(self.client_ranks)
@@ -112,6 +120,8 @@ class FederatedTrainer:
             make_aggregator(fed.method, **accepted_config(fed.method, dict(
                 tau=fed.tau, svd_method=svd_method,
                 zero_padding=fed.zero_padding)))
+        self._hand_a_init = (self.aggregator.needs_a_init
+                             and getattr(self.aggregator, "A_init", None) is None)
         self.runner: ClientRunner = make_runner(runner)
         self.scheduler: RoundScheduler = make_scheduler(scheduler)
         self.rank_policy: RankPolicy = make_rank_policy(rank_policy)
@@ -147,6 +157,8 @@ class FederatedTrainer:
     # -- main loop ------------------------------------------------------------
     def run_round(self, rnd: int) -> RoundRecord:
         t0 = time.perf_counter()
+        if self._hand_a_init:
+            self.aggregator.A_init = self.A_init_full
         plan = self.scheduler.plan(rnd, self)
         self.rank_policy.assign(rnd, plan, self)
         ranks = [t.rank for t in plan.tasks]
@@ -175,12 +187,22 @@ class FederatedTrainer:
         n_down = len(plan.tasks)
         down = self.aggregator.download_params(agg, dims, n_down, ranks)
 
-        # downlink through the measured wire: clients resume from the
-        # decoded broadcast; the server evaluates its exact aggregate
+        # downlink through the measured wire: what the clients resume from
+        # next round is the decoded broadcast
         bcast, download_bytes = self.transport.server_to_clients(
             agg, self.aggregator, n_down)
-        eval_params = merge_lora(self.params, agg.global_adapters)
-        agg.global_adapters = bcast
+        if agg.merge_into_base:
+            # FLoRA: every client folds the broadcast stack into its base, so
+            # the merge consumes the decoded wire tensors, codec included
+            if bcast is not None:
+                agg.global_adapters = bcast
+            self.params = merge_lora(self.params, agg.global_adapters)
+            eval_params = self.params
+        else:
+            # broadcast methods: the server evaluates its exact aggregate
+            eval_params = merge_lora(self.params, agg.global_adapters)
+            if bcast is not None:
+                agg.global_adapters = bcast
         self.global_state = agg
 
         m = self._eval(eval_params, None, self.eval_batch)
@@ -205,10 +227,14 @@ class FederatedTrainer:
     def _degraded_round(self, rnd: int, t0: float, gstats,
                         upload_bytes: int) -> RoundRecord:
         """Quorum failure: the previous global state is kept (the half-filled
-        accumulator is never finalized) and the record says so."""
+        accumulator is never finalized) and the record says so.  A state
+        already merged into the base (FLoRA) is not merged again."""
         gs = self.global_state
-        eval_params = (merge_lora(self.params, gs.global_adapters)
-                       if gs is not None else self.params)
+        if gs is not None and gs.global_adapters is not None \
+                and not gs.merge_into_base:
+            eval_params = merge_lora(self.params, gs.global_adapters)
+        else:
+            eval_params = self.params
         m = self._eval(eval_params, None, self.eval_batch)
         rec = RoundRecord(
             round=rnd,

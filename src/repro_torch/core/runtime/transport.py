@@ -5,15 +5,19 @@ The analytic cost model in :mod:`repro_torch.core.costs` counts
 *parameters*; this module puts actual **bytes** on a simulated wire so the
 two can be cross-checked per round:
 
-* :class:`Codec` — array serialization; the ``fp32`` codec (an exact cast)
-  is ported, ``bf16`` and ``int8`` wait for a later slice;
+* :class:`Codec` — array serialization: ``fp32`` (an exact cast) and
+  ``bf16`` (round to nearest even, the paper's 2-byte accounting); ``int8``
+  waits for a later slice;
 * :class:`AdapterPayload` — one serialized adapter tree: per-leaf encoded
   blocks with CRC-32 checksums (out of band: they do not count as wire
   bytes) and the measured byte total.  Downlinks honour the recorded
   per-layer ranks: a rank-``p_l`` layer ships only its first ``p_l``
   rows/columns, so zero padding never travels;
 * :class:`Transport` — encode → count bytes → decode.  What the receiving
-  side uses is the decoded tree (host numpy leaves), as in the reference.
+  side uses is the decoded tree (host numpy leaves), as in the reference:
+  clients resume from the decoded broadcast, and merge-into-base methods
+  (FLoRA) fold the decoded stack into the base.  Per-client methods
+  (FlexLoRA) ship each client's own tree.
 
 ``scale`` never travels: it is an O(L) header re-derived locally.  Local
 DP on the uplink and the fault plan's retries are not ported yet.
@@ -67,6 +71,7 @@ class Codec:
     """Array serializer.  ``decode(encode(x))`` returns fp32 numpy."""
 
     name: str = "?"
+    bytes_per_param: float = 4.0
 
     def encode(self, arr: Any) -> EncodedArray:
         raise NotImplementedError
@@ -88,19 +93,45 @@ class Fp32Codec(Codec):
         return np.frombuffer(enc.data, np.float32).reshape(enc.shape).copy()
 
 
-_CODECS = {"fp32": Fp32Codec}
+class Bf16Codec(Codec):
+    """Cast to bfloat16, rounding to nearest even (the paper's 2-byte
+    accounting).  The bytes equal the reference's ``ml_dtypes`` cast bit
+    for bit, NaN included (a quiet NaN that keeps its sign)."""
+    name = "bf16"
+    bytes_per_param = 2.0
+
+    def encode(self, arr) -> EncodedArray:
+        a = np.ascontiguousarray(arr, np.float32)
+        bits = torch.from_numpy(a).to(torch.bfloat16).view(torch.int16) \
+            .numpy().view(np.uint16)
+        nan = np.isnan(a)
+        if nan.any():
+            bits = np.where(nan, (a.view(np.uint32) >> 16 & 0x8000) | 0x7FC0,
+                            bits).astype(np.uint16)
+        return EncodedArray(bits.tobytes(), a.shape)
+
+    def decode(self, enc: EncodedArray) -> np.ndarray:
+        bits = np.frombuffer(enc.data, np.uint16).reshape(enc.shape)
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+_CODECS = {"fp32": Fp32Codec, "bf16": Bf16Codec}
 
 
 def make_codec(name: str) -> Codec:
-    if name in ("bf16", "int8"):
+    if name == "int8":
         raise NotImplementedError(
-            f"codec {name!r} is not ported yet (later runtime-breadth slice "
-            "of the port); use 'fp32'")
+            "codec 'int8' is not ported yet (the wire-codecs-and-DP slice "
+            "of the port); use 'fp32' or 'bf16'")
     try:
         return _CODECS[name]()
     except KeyError:
         raise ValueError(f"unknown codec {name!r} "
                          f"(registered: {sorted(_CODECS)})") from None
+
+
+def available_codecs() -> List[str]:
+    return sorted(_CODECS)
 
 
 def _host(arr: Any) -> np.ndarray:
@@ -153,8 +184,8 @@ class AdapterPayload:
 
     def unpack_into(self, tree: Dict, codec: Codec) -> Dict:
         """A tree shaped like ``tree`` with every wire array replaced by its
-        decoded bytes (numpy, on the host); non-wire entries (``scale``)
-        pass through from ``tree``.  Every block's CRC-32 is checked and
+        decoded bytes (numpy, on the host); non-wire entries (``scale``, a
+        frozen FFA ``A``) pass through from ``tree``.  Every block's CRC-32 is checked and
         the decoded shapes are held to ``tree``'s: ragged per-layer blocks
         must cover every layer with ranks within the reference rank
         dimension."""
@@ -235,12 +266,26 @@ class Transport:
         return payload.unpack_into(adapters, self.codec), payload.num_bytes
 
     def server_to_clients(self, agg, aggregator, num_receivers: int
-                          ) -> Tuple[Dict, int]:
-        """Broadcast one round's global tree (ragged per-layer ranks) to
-        ``num_receivers`` clients.  Returns the decoded global tree (what
-        clients resume from) and the total downlink bytes."""
-        payload = AdapterPayload.pack(agg.global_adapters, self.codec,
-                                      _wire_fn(aggregator), ranks=agg.ranks)
+                          ) -> Tuple[Optional[Dict], int]:
+        """Downlink one round's result to ``num_receivers`` clients.
+
+        Broadcast methods ship the global tree (ragged per-layer ranks:
+        zero padding stays home) once per receiver; per-client methods
+        (FlexLoRA) ship each tailored tree once.  Returns the decoded global
+        tree (what clients resume from; ``None`` without one) and the total
+        downlink bytes."""
+        wire = _wire_fn(aggregator)
+        if agg.per_client is not None:
+            nbytes = sum(AdapterPayload.pack(t, self.codec, wire).num_bytes
+                         for t in agg.per_client)
+            if agg.global_adapters is None:
+                return None, nbytes
+            payload = AdapterPayload.pack(agg.global_adapters, self.codec, wire)
+            return payload.unpack_into(agg.global_adapters, self.codec), nbytes
+        if agg.global_adapters is None:
+            return None, 0
+        payload = AdapterPayload.pack(agg.global_adapters, self.codec, wire,
+                                      ranks=agg.ranks)
         decoded = payload.unpack_into(agg.global_adapters, self.codec)
         return decoded, payload.num_bytes * num_receivers
 

@@ -16,9 +16,9 @@ Given client adapters ``B_k ∈ R^{m×r_k}``, ``A_k ∈ R^{r_k×n}`` and weights
 with ``p`` from the energy threshold (Eq. 6):
     p = min { p : Σ_{i≤p} σ_i² / Σ_i σ_i² ≥ τ }.
 
-Two thin-SVD backends: ``svd`` (LAPACK / cuSOLVER divide and conquer) and
-``gram`` (eigh of the r×r Gram matrix, whose Gram product is the
-``adapter_gram`` kernel on the card).  The reference's ``vmap`` becomes a
+Two thin-SVD backends: ``svd`` (LAPACK on the CPU, cuSOLVER in fp64 on
+the card) and ``gram`` (eigh of the r×r Gram matrix, whose Gram product is
+the ``adapter_gram`` kernel on the card; the eigh solves in fp64 there).  The reference's ``vmap`` becomes a
 leading batch axis: every function here takes one matrix or a stack of
 them, and the ``*_batched`` cores are the same functions on stacks.
 """
@@ -37,14 +37,35 @@ class SVDResult(NamedTuple):
     vt: torch.Tensor
 
 
+#: How a CUDA tensor's SVDs and the Gram route's eigh solve: the working
+#: dtype (factors cast back) and the default cuSOLVER driver of
+#: ``torch.linalg.svd`` (None: PyTorch's, ``gesvdj``).  In fp32, cuSOLVER's
+#: Jacobi solvers stopped up to 1.5e-4 of σ_1 (``eigh``: 1.3e-5 of λ_max)
+#: off fp64 on an H100, and truncated products on clustered spectra moved
+#: 3-7x further from fp64 than LAPACK's; in fp64 they are nearer than
+#: LAPACK's (``PERF.md``; ``scripts/svd_accuracy.py``).
+CUDA_SOLVE_DTYPE = torch.float64
+CUDA_SVD_DRIVER = None
+
+
 def thin_svd(x: torch.Tensor, method: str = "svd") -> SVDResult:
     """Thin SVD of x (..., m, n), any aspect.  method: 'svd' | 'gram'."""
     if method == "svd":
-        u, s, vt = torch.linalg.svd(x, full_matrices=False)
-        return SVDResult(u, s, vt)
+        if not x.is_cuda:
+            return SVDResult(*torch.linalg.svd(x, full_matrices=False))
+        u, s, vt = torch.linalg.svd(x.to(CUDA_SOLVE_DTYPE), full_matrices=False,
+                                    driver=CUDA_SVD_DRIVER)
+        return SVDResult(u.to(x.dtype), s.to(x.dtype), vt.to(x.dtype))
     if method == "gram":
         return gram_svd(x)
     raise ValueError(method)
+
+
+def thin_svd_batched(x: torch.Tensor, method: str = "svd") -> SVDResult:
+    """Thin SVD over a stack of equal-shaped matrices x (L, m, n) in one
+    batched call (the reference's jitted ``vmap``; :func:`thin_svd` already
+    takes the batch axis)."""
+    return thin_svd(x, method)
 
 
 def _gram_matrix(x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +87,8 @@ def gram_svd(x: torch.Tensor) -> SVDResult:
         r = gram_svd(x.mT)
         return SVDResult(r.vt.mT, r.s, r.u.mT)
     g = _gram_matrix(x)                                # (..., n, n)
-    w, v = torch.linalg.eigh(g)                        # ascending
+    w, v = torch.linalg.eigh(g.to(CUDA_SOLVE_DTYPE) if g.is_cuda else g)
+    w, v = w.to(g.dtype), v.to(g.dtype)                # ascending
     w = w.flip(-1)
     v = v.flip(-1)
     s = torch.sqrt(torch.clamp(w, min=0.0))

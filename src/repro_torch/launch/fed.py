@@ -3,8 +3,11 @@ of ``repro.launch.fed`` for the flags this slice supports.
 
   PYTHONPATH=src python -m repro_torch.launch.fed --method florist \
       --rounds 10 [--heter] [--tau 0.9] [--clients 100] [--sample 10] \
-      [--svd gram] [--device cpu]
+      [--svd gram] [--codec bf16] [--device cpu]
 
+``--method`` takes any registered aggregation strategy (the paper's five:
+``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``); ``--codec``
+any ported wire codec.
 It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
 without ``--device cpu`` it raises.  The model is the reference launcher's
 small dense config (``--layers``, ``--d-model``), and heterogeneous ranks
@@ -20,6 +23,7 @@ from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
 from repro_torch.core.aggregators import available_aggregators
 from repro_torch.core.federated import FederatedTrainer
+from repro_torch.core.runtime import available_codecs
 from repro_torch.device import resolve_device
 
 
@@ -36,6 +40,7 @@ def main(argv=None):
     ap.add_argument("--heter", action="store_true")
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--svd", default="svd", choices=["svd", "gram"])
+    ap.add_argument("--codec", default="fp32", choices=available_codecs())
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--out", default="")
@@ -55,10 +60,12 @@ def main(argv=None):
     fed = FedConfig(num_clients=c, clients_per_round=args.sample,
                     num_rounds=args.rounds, method=args.method, tau=args.tau,
                     dirichlet_alpha=args.alpha, heterogeneous=args.heter,
-                    rank_distribution=dist)
+                    rank_distribution=dist,
+                    zero_padding=args.heter and args.method in ("fedit", "ffa"))
     tr = FederatedTrainer(cfg, fed, LoRAConfig(rank=16, alpha=16.0),
                           OptimConfig(lr=3e-4), local_steps=args.local_steps,
-                          svd_method=args.svd, device=device)
+                          svd_method=args.svd, transport=args.codec,
+                          device=device)
     hist = tr.run(args.rounds, verbose=True)
     if args.out:
         with open(args.out, "w") as f:

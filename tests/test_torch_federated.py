@@ -121,7 +121,7 @@ def test_transport_bytes_match_reference():
     # a downlink of ragged per-layer ranks: zero padding never travels
     ranks = {("blocks", 0, "attn", n): [3, 8] for n in LEAVES}
     jr = JAggResult("florist", jtree, None, ranks, {})
-    r = AggResult("florist", adapters_from_numpy(tree, "cpu"), ranks, {})
+    r = AggResult("florist", adapters_from_numpy(tree, "cpu"), None, ranks, {})
     jdown, jb = JTransport("fp32").server_to_clients(jr, jagg, 3)
     down, b = Transport("fp32").server_to_clients(r, agg, 3)
     assert b == jb
@@ -220,10 +220,12 @@ def test_validation_gate_screen():
 
 
 def test_unported_names_raise_not_implemented():
-    for make in (lambda: make_aggregator("fedit"), lambda: make_runner("cohort"),
-                 lambda: make_scheduler("async"), lambda: make_codec("bf16"),
+    from repro_torch.configs import get_config
+    for make in (lambda: make_aggregator("florist_sharded"),
+                 lambda: make_runner("cohort"),
+                 lambda: make_scheduler("async"), lambda: make_codec("int8"),
                  lambda: ValidationGate("full"),
-                 lambda: FloristAggregator(pipeline="loop")):
+                 lambda: get_config("qwen2-0.5b")):
         with pytest.raises(NotImplementedError, match="not ported"):
             make()
 
@@ -274,7 +276,7 @@ def test_costs_match_reference():
     ranks = {("blocks", 0, "attn", n): [3, 5] for n in LEAVES}
     dims = {("blocks", 0, "attn", n): (L, nn, m) for n, (nn, m) in LEAVES.items()}
     jr = JAggResult("florist", None, None, ranks, {})
-    tr = AggResult("florist", {}, ranks, {})
+    tr = AggResult("florist", {}, None, ranks, {})
     assert tcosts.download_params("florist", tr, dims, 3, [4, 8]) == \
         jcosts.download_params("florist", jr, dims, 3, [4, 8])
     assert tcosts.mb(123456) == jcosts.mb(123456)

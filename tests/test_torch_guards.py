@@ -56,6 +56,16 @@ def test_importing_every_module_leaves_jax_out():
     assert {"repro_torch.configs.rwkv6_1p6b", "repro_torch.models.rwkv",
             "repro_torch.kernels.wkv6"} <= set(MODULES)
     assert (PKG / "kernels" / "csrc" / "wkv6.cu").is_file()
+    # and the baseline aggregators', the cost model's, TinyLlama's and the
+    # paper-table benchmarks'
+    assert {"repro_torch.core.aggregators.fedit",
+            "repro_torch.core.aggregators.ffa",
+            "repro_torch.core.aggregators.flora",
+            "repro_torch.core.aggregators.flexlora",
+            "repro_torch.core.aggregation", "repro_torch.core.costs",
+            "repro_torch.configs.tinyllama_1p1b", "repro_torch.benchmarks",
+            "repro_torch.benchmarks.table3_comm_cost",
+            "repro_torch.benchmarks.table4_server_flops"} <= set(MODULES)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
