@@ -27,10 +27,10 @@ Phases (any failure exits non-zero; no exception is caught):
    widths the padded tiles opened: ``flash_attention`` and ``ring_decode``
    at head dims 56 and 96 (ring with bf16, fp32 and int8 caches),
    ``mla_ring_decode`` at latent 32 + 16, ``wkv6`` at head dim 32;
-   ``lora_matmul`` also at ranks 64 and 128 and on its WMMA route (dout
-   1003).  Then the two SMOKE
-   configs those widths belong to, end to end through the kernels with
-   their launch counts: one ``make_prefill_step(rwkv6_1p6b.SMOKE,
+   ``lora_matmul`` also at ranks 64 and 128, on its WMMA route (dout
+   1003) and at TinyLlama's ``wv`` (2048 → 256) at ranks 4 and 64.  Then
+   the two SMOKE configs those widths belong to, end to end through the
+   kernels with their launch counts: one ``make_prefill_step(rwkv6_1p6b.SMOKE,
    use_kernels=True)`` call in fp32 (held to the plain route) and in bf16,
    and the ``deepseek_smoke`` engine serving phase 4's traffic, held to its
    plain route as phase 5 does.
@@ -98,12 +98,38 @@ Phases (any failure exits non-zero; no exception is caught):
     within 1e-4 · max(1, |ΔW|)); the Table 4 counterpart's device times.
     Phase 2 holds ``lora_matmul`` (2048 → 256) and ``flash_attention``
     (32 H / 4 KV) at this path's shapes.
+14. The paper's evaluation at full width, through the port's own modules
+    (``repro_torch.benchmarks``, each module's ``bench_fed`` replaced by a
+    recorder that is ``bench_trainer`` plus the same rounds) on
+    TinyLlama-1.1B at published widths and full depth (random seeded
+    weights, bf16, built once), LoRA on ``wq``/``wv``, 4 local steps of 4
+    × 512 tokens, the bench's 20 clients (5 a round) and rank mix
+    ``((4, 8), (8, 4), (16, 4), (32, 2), (64, 2))``, τ 0.9, the ``fp32``
+    wire, the ``svd`` route: (a) Table 2's heterogeneous arm, two rounds
+    of each method (FedIT and FFA zero-padded): finite losses, FLoRIST's
+    ranks in [1, Σ r_k], FedIT's and FFA's the round's largest client
+    rank, bytes exactly 4 × the analytic counts and the upload 140,800 ·
+    Σ r_k parameters (B alone for FFA), exact ``lora_matmul`` and
+    ``flash_attention`` launches; per round wall, finalize, median step
+    (by client rank), kept and download ranks; and FLoRIST's finalize at
+    the mix's widest round (Σ r_k 208); (b) Fig 6 (the same call as (a)'s
+    FLoRIST row), Fig 2 (one round at τ 1.0), Fig 5 (two rounds at each
+    τ, homogeneous rank 8); (c) Table 2's rows at the bench's own config
+    (fp32, both arms, two rounds) on the card against the CPU: names,
+    kept and download ranks and ``most_efficient`` equal, losses within
+    1e-4 · max(1, |loss|); (d) ``agg_bench`` at its non-smoke shape, the
+    Gram rows' ``adapter_gram`` launches exact; (e) the quickstart and
+    serve-federated examples: every request served, both adapter versions
+    in flight after the swap, ``ring_decode`` and ``bgmv`` once a layer
+    (a target) an engine step.  Phase 2 also holds ``lora_matmul`` at
+    TinyLlama's ``wv`` at this phase's smallest and largest client ranks.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -116,6 +142,7 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
 REPS = 50
 DEVICE = "cuda"
+CARD = "the card"                # nvidia-smi's name and power limit, set by main
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
 PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_(kernel|wgmma)|mla_merge_splits|"
                 r"bgmv_kernel|"
@@ -140,6 +167,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi)                       # card name and power limit, as nvidia-smi gives them
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device 0: {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -185,6 +214,7 @@ def main() -> None:
     report["rwkv_e2e"], rwkv_serve_counts = end_to_end(torch, "11", "rwkv6_1p6b")
     report["rwkv_parity"] = rwkv_parity(torch)
     report["tinyllama"], tiny_counts = tinyllama_methods(torch)
+    report["paper_eval"], eval_counts = paper_evaluation(torch)
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -223,7 +253,11 @@ def main() -> None:
                if name == "adapter_gram" else {})
             | ({"launches_tinyllama_path": tiny_counts[name]}
                if name in tiny_counts else {})
+            | ({"launches_paper_eval_path": eval_counts[name]}
+               if name in eval_counts else {})
             | (other_path("tinyllama_path", name, LORA_TINY)
+               | other_path("tinyllama_r4", name, LORA_TINY_R4)
+               | other_path("tinyllama_r64", name, LORA_TINY_R64)
                if name == "lora_matmul" else {})
             | (other_path("tinyllama_path", name, FLASH_TINY)
                if name == "flash_attention" else {}))
@@ -734,11 +768,13 @@ def train_kernel_cases(torch):
     # RWKV6 prefill's (M = 8 x 1024 tokens, 2048 -> 2048, r 16), and one
     # ragged M / dout / rank; then ranks 64 and 128 (the wgmma route's
     # widest z and its narrower tiles) and a dout that is not a multiple
-    # of 8 (the wmma route).  bf16: both sides round z and s·B at the same
-    # points; the plain version rounds x W and the delta to bf16 before
-    # adding, the kernel once at the end, so they differ by up to 2 bf16
-    # ulps of the output (an ulp is up to 2^-7 of |y|): limit 2e-2 of
-    # max |y|.  fp32 (TF32 off): sum order over din = 2048: limit 1e-4.
+    # of 8 (the wmma route); then TinyLlama's wv at phase 14's smallest and
+    # largest client ranks, 4 and 64 (wq's 2048 -> 2048 at both is above).
+    # bf16: both sides round z and s·B at the same points; the plain version
+    # rounds x W and the delta to bf16 before adding, the kernel once at
+    # the end, so they differ by up to 2 bf16 ulps of the output (an ulp is
+    # up to 2^-7 of |y|): limit 2e-2 of max |y|.  fp32 (TF32 off): sum
+    # order over din = 2048: limit 1e-4.
     # No one PyTorch call computes this function: beside the kernel stand
     # the base product alone (torch.matmul) and the unfused composition
     # torch.addmm(x W, x Aᵀ, (s·B)ᵀ) at the two main shapes.
@@ -756,7 +792,9 @@ def train_kernel_cases(torch):
                            (torch.float32, 1999, 1000, 7),
                            (torch.bfloat16, 2048, 2048, 64),
                            (torch.bfloat16, 2048, 2048, 128),
-                           (torch.bfloat16, 2048, 1003, 5)):
+                           (torch.bfloat16, 2048, 1003, 5),
+                           (torch.bfloat16, 2048, 256, 4),
+                           (torch.bfloat16, 2048, 256, 64)):
         din = 2048
         x = torch.randn(M, din, generator=gen, device=dev).to(dt)
         w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
@@ -1829,6 +1867,10 @@ TINY_TARGETS = ("wq", "wv")          # the paper's setting and Table 3's
 TINY_RANK = 16
 TINY_ROUNDS = 2
 LORA_TINY = "bf16, M=2048 din=2048 dout=256 r=16"
+# phase 14's client ranks at TinyLlama's wv (wq's 2048 -> 2048 at r 4 and 64
+# are cases of their own above)
+LORA_TINY_R4 = "bf16, M=2048 din=2048 dout=256 r=4"
+LORA_TINY_R64 = "bf16, M=2048 din=2048 dout=256 r=64"
 FLASH_TINY = "bf16, causal, B=4 S=512 H=32 K=4 hd=64"
 SIGMA_0, RHO = 2048.0, 0.85          # phase 13 (b)'s known spectrum of ΔW
 
@@ -2272,6 +2314,394 @@ def table4_counterpart(torch):
     for r in rows:
         print(f"  {r['name']},{r['us_per_call']},{r['derived']}")
     return rows
+
+
+# -- phase 14: the paper's evaluation at full width ---------------------------
+
+EVAL_ROUNDS = 2                      # Table 2's arm, Figs 6 and 5 a τ
+
+
+def paper_evaluation(torch):
+    """The reference's paper-evaluation layer run through the port's own
+    modules (``repro_torch.benchmarks.table2_accuracy_efficiency``,
+    ``fig6_layerwise_rank``, ``fig2_spectrum``, ``fig5_rank_vs_tau``) on
+    TinyLlama-1.1B at published widths and full depth (random seeded
+    weights, bf16, built once and shared through ``params=``), LoRA on
+    ``wq``/``wv``, 4 local steps of 4 x 512 tokens, the bench's 20 clients
+    (5 a round) and rank mix, τ 0.9, the fp32 wire and the ``svd`` route:
+    (a) Table 2's heterogeneous arm, (b) Figs 6, 2 and 5, then (c) Table 2's
+    rows at the bench's own config on the card against the CPU, (d)
+    ``agg_bench`` and (e) the quickstart and serve-federated examples.
+    Each module's ``bench_fed`` is replaced by :class:`BenchRecorder`,
+    which is ``bench_trainer`` plus the same rounds, timed and checked."""
+    from repro_torch.benchmarks import (fig2_spectrum, fig5_rank_vs_tau,
+                                        fig6_layerwise_rank,
+                                        table2_accuracy_efficiency)
+    from repro_torch.common.config import LoRAConfig
+    from repro_torch.configs.tinyllama_1p1b import CONFIG
+    from repro_torch.data.synthetic import make_eval_data, make_federated_data
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = CONFIG
+    t_phase = time.perf_counter()
+    print(f"phase 14: the paper's evaluation on {CARD} ({cfg.name} at published "
+          f"widths: {cfg.num_layers} L, d {cfg.d_model}, {cfg.num_heads} H / "
+          f"{cfg.num_kv_heads} KV, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; random seeded weights), LoRA on "
+          f"{'/'.join(TINY_TARGETS)}, 20 Dirichlet(0.5) clients of ranks 4-64, "
+          f"5 a round, 4 local steps of {FED_BATCH} x {FED_SEQ} tokens, τ 0.9, "
+          f"fp32 wire, svd route")
+    t0 = time.perf_counter()
+    params = T.init(cfg, 0, DEVICE)
+    clients = make_federated_data(num_clients=20, seq_len=FED_SEQ,
+                                  vocab=cfg.vocab_size, alpha=0.5, seed=0)
+    ev = make_eval_data(num_samples=16, seq_len=FED_SEQ, vocab=cfg.vocab_size)
+    torch.cuda.synchronize()
+    print(f"  set-up (weights and data, once for the phase): "
+          f"{time.perf_counter() - t0:.1f} s")
+    bench = dict(cfg=cfg, lora=LoRAConfig(rank=8, alpha=8.0, targets=TINY_TARGETS),
+                 batch_size=FED_BATCH, seq_len=FED_SEQ, params=params,
+                 clients=clients, eval_data=ev, device=DEVICE)
+    rec = BenchRecorder(torch, cfg)
+    mods = (table2_accuracy_efficiency, fig6_layerwise_rank, fig2_spectrum,
+            fig5_rank_vs_tau)
+    saved = [m.bench_fed for m in mods]
+    out = {}
+    ops.reset_launch_counts()
+    try:
+        for m in mods:
+            m.bench_fed = rec
+        print(f"phase 14 (a): Table 2, heterogeneous arm, {EVAL_ROUNDS} rounds "
+              f"of each method (FedIT and FFA zero-padded)")
+        rows = table2_accuracy_efficiency.run(arms=(True,), rounds=EVAL_ROUNDS,
+                                              **bench)
+        out["table2"] = print_rows(rows)
+        wins = rows[-1]["derived"].split("florist_wins=")[1]
+        print(f"  florist_wins={wins} (printed, not required: random weights)")
+        out["widest_finalize"] = widest_finalize(torch, cfg)
+        print("phase 14 (b): Fig 6 (the same call as (a)'s FLoRIST row), Fig 2 "
+              "(one round at τ 1.0), Fig 5 (two rounds a τ, homogeneous rank 8)")
+        out["fig6"] = print_rows(fig6_layerwise_rank.run(**bench))
+        rec.memo.clear()
+        out["fig2"] = print_rows(fig2_spectrum.run(**bench))
+        out["fig5"] = print_rows(fig5_rank_vs_tau.run(**bench))
+    finally:
+        for m, f in zip(mods, saved):
+            m.bench_fed = f
+    counts = {k: v for k, v in ops.launch_counts().items()
+              if k in ("lora_matmul", "flash_attention", "adapter_gram")}
+    print(f"  launches over (a) and (b): {json.dumps(counts)}")
+    out["runs"], out["launches"] = rec.runs, counts
+    del params, bench, rec
+    torch.cuda.empty_cache()
+    out["bench_parity"] = bench_parity(torch)
+    out["agg_bench"] = agg_bench_card(torch)
+    out["examples"] = examples_card(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 14: {out['phase_s']:.1f} s on {CARD}")
+    return out, counts
+
+
+WIDEST_RANKS = (64, 64, 32, 32, 16)   # the bench mix's largest Σ r_k, 208
+
+
+def widest_finalize(torch, cfg):
+    """FLoRIST's finalize (svd route, fp64 solves) at the rank mix's widest
+    round, five clients of ranks 64, 64, 32, 32 and 16 (Σ r_k 208: the wv
+    stacks are 256 x 208), on numpy client trees at TinyLlama's leaf
+    shapes; a sampled round need not reach it.  Kept ranks must lie in
+    [1, 208] and B·A be finite; the warm finalize is timed."""
+    import numpy as np
+    from repro_torch.core.aggregators import make_aggregator
+    L, d = cfg.num_layers, cfg.d_model
+    shapes = {"wq": (d, cfg.num_heads * cfg.head_dim),
+              "wv": (d, cfg.num_kv_heads * cfg.head_dim)}     # (n_in, m_out)
+    rng = np.random.default_rng(14)
+    w = rng.dirichlet(np.ones(len(WIDEST_RANKS)))
+    ones = torch.ones(L, device=DEVICE)
+    trees = [{"blocks": {0: {"attn": {name: {
+        "A": (rng.normal(size=(L, r, n)) * 0.02).astype(np.float32),
+        "B": (rng.normal(size=(L, m, r)) * 0.02).astype(np.float32),
+        "scale": ones} for name, (n, m) in shapes.items()}}}}
+        for r in WIDEST_RANKS]
+    secs = []
+    for _ in range(2):                      # cold, then warm
+        agg = make_aggregator("florist", tau=0.9, svd_method="svd")
+        t = time.perf_counter()
+        res = agg.aggregate(trees, w)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    r_sum = sum(WIDEST_RANKS)
+    ranks = [p for ps in res.ranks.values() for p in ps]
+    finite = all(bool(torch.isfinite(torch.as_tensor(lf["B"]) @ torch.as_tensor(
+        lf["A"])).all()) for lf in res.global_adapters["blocks"][0]["attn"].values())
+    print(f"  FLoRIST finalize at Σ r_k {r_sum} (client ranks {list(WIDEST_RANKS)}, "
+          f"svd route, numpy trees at {cfg.name}'s wq/wv shapes): {secs[0] * 1e3:.1f} ms "
+          f"cold, {secs[1] * 1e3:.1f} ms warm; kept ranks {min(ranks)}-{max(ranks)}")
+    if not finite or not all(1 <= p <= r_sum for p in ranks):
+        fail(f"phase 14 (a): the finalize at Σ r_k {r_sum} kept ranks "
+             f"{min(ranks)}-{max(ranks)} or gave non-finite factors")
+    return {"r_sum": r_sum, "cold_s": secs[0], "warm_s": secs[1],
+            "ranks": {"/".join(map(str, k)): v for k, v in res.ranks.items()}}
+
+
+def print_rows(rows):
+    for r in rows:
+        print(f"  {r['name']},{r.get('us_per_call', '')},{r.get('derived', '')}")
+    return rows
+
+
+class BenchRecorder:
+    """Stands in for ``bench_fed`` in phase 14: ``bench_trainer`` with a
+    step-logging runner, then the same rounds one by one, each printed and
+    checked (finite eval loss; FLoRIST's kept ranks in [1, Σ r_k]; FedIT's
+    and FFA's global rank the zero padding's, the round's largest client
+    rank; wire bytes exactly 4 x the analytic counts, and the upload 22 ·
+    Σ r_k · (2048 + 2048 + 256 + 2048) parameters, B alone for FFA; the
+    launches of ``lora_matmul`` and ``flash_attention`` exact, none of
+    ``adapter_gram`` on the svd route).  A FLoRIST call that was already
+    made returns its result again (``memo``): Fig 6 makes Table 2's call."""
+
+    def __init__(self, torch, cfg):
+        self.torch, self.cfg = torch, cfg
+        self.memo, self.runs = {}, []
+
+    def __call__(self, method, *, rounds=0, heterogeneous=False, tau=0.9, **kw):
+        from repro_torch.benchmarks import common
+        from repro_torch.core.runtime import SequentialRunner
+        from repro_torch.kernels import ops
+        key = (method, heterogeneous, tau, rounds)
+        if key in self.memo:
+            print(f"  {method} (heterogeneous={heterogeneous}, τ {tau}, "
+                  f"{rounds} rounds): the call made above, its trainer reused")
+            return self.memo[key]
+        cfg, L = self.cfg, self.cfg.num_layers
+        runner = SequentialRunner(record_steps=True)
+        tr = common.bench_trainer(method, heterogeneous=heterogeneous, tau=tau,
+                                  runner=runner, **kw)
+        per_rank = cfg.d_model + cfg.num_heads * cfg.head_dim \
+            + cfg.d_model + cfg.num_kv_heads * cfg.head_dim      # wq + wv
+        b_only = cfg.num_heads * cfg.head_dim + cfg.num_kv_heads * cfg.head_dim
+        label = f"{method} {'het' if heterogeneous else 'hom'} τ {tau}"
+        for rnd in range(rounds):
+            before, n_log = ops.launch_counts(), len(runner.step_log())
+            r = tr.run_round(rnd)
+            after = ops.launch_counts()
+            log = runner.step_log()[n_log:]
+            step_ms = [e["ms"] for e in log]
+            ranks_k = list(tr.aggregator.client_ranks)
+            r_sum = sum(ranks_k)
+            by_rank = {}
+            for e, rk in zip(log, [tr.client_ranks[e["client"]] for e in log]):
+                by_rank.setdefault(rk, []).append(e["ms"])
+            want = {"lora_matmul": L * len(TINY_TARGETS) * len(step_ms),
+                    "flash_attention": L * (len(step_ms) + 1),
+                    "adapter_gram": 0}
+            got = {k: after[k] - before[k] for k in want}
+            ranks = tr.global_state.ranks
+            up_want = L * r_sum * (b_only if method == "ffa" else per_rank)
+            print(f"  {label} round {rnd}: eval loss {r.eval_loss:.4f} acc "
+                  f"{r.eval_acc:.4f}; client ranks {ranks_k} (Σ {r_sum}); wall "
+                  f"{r.wall_secs:.2f} s, finalize {r.finalize_secs * 1e3:.1f} ms, "
+                  f"{len(step_ms)} steps, median {statistics.median(step_ms):.2f} ms "
+                  f"(by client rank: " + ", ".join(
+                      f"r{k} {statistics.median(v):.1f}"
+                      for k, v in sorted(by_rank.items())) + "); download rank "
+                  f"{r.download_rank:.0f}; upload {r.upload_bytes} B (4 x "
+                  f"{r.upload_params}), download {r.download_bytes} B (4 x "
+                  f"{r.download_params})")
+            print("    kept ranks " + "; ".join(
+                f"{'/'.join(map(str, p))} {min(ps)}-{max(ps)}"
+                for p, ps in ranks.items()) + f"; launches {json.dumps(got)}")
+            where = f"phase 14 {label} round {rnd}"
+            if got != want:
+                fail(f"{where}: launch counts {got} != {want}")
+            if (r.upload_bytes != 4 * r.upload_params
+                    or r.download_bytes != 4 * r.download_params
+                    or r.upload_params != up_want):
+                fail(f"{where}: wire bytes or upload count differ from the "
+                     f"analytic ones (upload params {r.upload_params}, "
+                     f"expected {up_want})")
+            if not math.isfinite(r.eval_loss):
+                fail(f"{where}: eval loss {r.eval_loss}")
+            for path, ps in ranks.items():
+                ok = {"fedit": lambda p: p == max(ranks_k),
+                      "ffa": lambda p: p == max(ranks_k),
+                      "florist": lambda p: 1 <= p <= r_sum}.get(
+                          method, lambda p: True)
+                if len(ps) != L or not all(ok(p) for p in ps):
+                    fail(f"{where}: kept ranks of {path} are {ps}")
+            self.runs.append({
+                "method": method, "heterogeneous": heterogeneous, "tau": tau,
+                "round": rnd, "record": dataclasses.asdict(r),
+                "client_ranks": ranks_k,
+                "ranks": {"/".join(map(str, k)): v for k, v in ranks.items()},
+                "train_step_ms": step_ms,
+                "train_step_ms_by_rank": by_rank, "launches": got})
+        result = (tr.history, tr)
+        if method == "florist":
+            self.memo[key] = result
+        return result
+
+
+def tree_to(tree, device):
+    """An adapter or params tree (dicts, tuples of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def bench_parity(torch):
+    """(c): Table 2's rows at the bench's own config (``BENCH_MODEL``, fp32)
+    for both arms at two rounds, on the card (kernel routes, TF32 off) and
+    on the CPU (plain routes), from the same weights and A init (made on
+    the CPU).  Row names, kept and download ranks and ``most_efficient``
+    must be equal, and each round's eval loss within 1e-4 · max(1, |loss|)
+    (phase 7's federated path, fp32 sums in another order)."""
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks import table2_accuracy_efficiency as t2
+    from repro_torch.device import parity_mode
+    print("phase 14 (c): Table 2 at the bench config (bench-tiny, fp32), both "
+          "arms, 2 rounds, card against CPU; " + parity_mode())
+    base = {}
+    for heter in (False, True):
+        tr = common.bench_trainer("florist", heterogeneous=heter, device="cpu")
+        base[heter] = (tr.params, tr.A_init_full)
+
+    def on(dev):
+        got = {}
+
+        def bench_fed(method, *, rounds=0, heterogeneous=False, **kw):
+            params, a_init = base[heterogeneous]
+            tr = common.bench_trainer(method, heterogeneous=heterogeneous,
+                                      params=tree_to(params, dev), device=dev,
+                                      **kw)
+            tr.A_init_full = tree_to(a_init, dev)
+            hist = tr.run(rounds)
+            got[(method, heterogeneous)] = (hist, tr.global_state.ranks)
+            return hist, tr
+
+        saved = t2.bench_fed
+        t2.bench_fed = bench_fed
+        try:
+            t = time.perf_counter()
+            rows = t2.run(rounds=2)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            return rows, got, time.perf_counter() - t
+        finally:
+            t2.bench_fed = saved
+
+    card, card_runs, t_card = on(DEVICE)
+    cpu, cpu_runs, t_cpu = on("cpu")
+    worst = 0.0
+    for key, (hist, ranks) in cpu_runs.items():
+        c_hist, c_ranks = card_runs[key]
+        if c_ranks != ranks:
+            fail(f"phase 14 (c) {key}: kept ranks differ, card {c_ranks} CPU {ranks}")
+        for a, b in zip(c_hist, hist):
+            if a.download_rank != b.download_rank:
+                fail(f"phase 14 (c) {key}: download rank {a.download_rank} != "
+                     f"{b.download_rank}")
+            err = abs(a.eval_loss - b.eval_loss) / max(1.0, abs(b.eval_loss))
+            worst = max(worst, err)
+    for a, b in zip(card, cpu):
+        print(f"  card {a['name']},{a['us_per_call']},{a['derived']}")
+        print(f"  CPU  {b['name']},{b['us_per_call']},{b['derived']}")
+    same = ([r["name"] for r in card] == [r["name"] for r in cpu]
+            and all(a["derived"].split("down_rank=")[-1] == b["derived"].split(
+                "down_rank=")[-1] for a, b in zip(card, cpu))
+            and all(a["derived"].split(";")[0] == b["derived"].split(";")[0]
+                    for a, b in zip(card, cpu) if a["name"].endswith("efficient")))
+    ok = same and worst <= 1e-4
+    print(f"  rows, kept and download ranks and most_efficient "
+          f"{'equal' if same else 'DIFFER'}; eval losses within {worst:.2e} of "
+          f"max(1, |loss|) (limit 1e-4); {t_card:.1f} s on the card, {t_cpu:.1f} s "
+          f"on the CPU {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("phase 14 (c): the card's bench rows disagree with the CPU's")
+    return {"card": card, "cpu": cpu, "loss_rel_err": worst,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def agg_bench_card(torch):
+    """(d): ``repro_torch.benchmarks.agg_bench`` at its non-smoke shape (3
+    leaves x 8 layers, m 256, n 192, client ranks 4/8/16) on the card; the
+    Gram rows must launch ``adapter_gram`` twice a (leaf, layer) a round
+    (loop) or twice a bucket of equal-shaped leaves (batched, one bucket),
+    the svd rows never."""
+    from repro_torch.benchmarks import agg_bench
+    from repro_torch.kernels import ops
+    print(f"phase 14 (d): agg_bench on {CARD} (3 leaves x 8 layers, m 256, "
+          "n 192, client ranks 4/8/16, τ 0.9; ms a round, median of 5)")
+    launches, layers = {}, 8
+    time_round = agg_bench.time_round
+
+    def counted(agg, trees, weights, *, warmup, iters):
+        before = ops.launch_counts()["adapter_gram"]
+        ms = time_round(agg, trees, weights, warmup=warmup, iters=iters)
+        rounds = warmup + iters
+        n = ops.launch_counts()["adapter_gram"] - before
+        want = 0 if agg.svd_method == "svd" else rounds * 2 * (
+            len(trees[0]) * layers if agg.pipeline == "loop" else 1)
+        launches[f"{agg.pipeline}/{agg.svd_method}"] = n
+        if n != want:
+            fail(f"phase 14 (d) {agg.pipeline}/{agg.svd_method}: adapter_gram "
+                 f"launched {n} times, expected {want}")
+        return ms
+
+    agg_bench.time_round = counted
+    try:
+        report = agg_bench.run(layers=layers, device=DEVICE,
+                               log=lambda s: print("  " + s))
+    finally:
+        agg_bench.time_round = time_round
+    ms = {f"{r['pipeline']}/{r['svd_method']}": r["ms_per_round"]
+          for r in report["results"]}
+    print(f"  batched/loop: svd {ms['batched/svd'] / ms['loop/svd']:.3f}, gram "
+          f"{ms['batched/gram'] / ms['loop/gram']:.3f}; adapter_gram launches "
+          f"{json.dumps(launches)} over 6 rounds a route")
+    return dict(report, adapter_gram_launches=launches)
+
+
+def examples_card(torch):
+    """(e): the quickstart and serve-federated examples on the card.  Every
+    request served with all its tokens, both adapter versions in flight in
+    one batch after the swap, and ``ring_decode`` / ``bgmv`` launched L and
+    L x 4 times an engine step."""
+    from repro_torch.examples import quickstart, serve_federated
+    print("phase 14 (e): examples/quickstart and examples/serve_federated on the card")
+    t0 = time.perf_counter()
+    tr = quickstart.main(["--device", DEVICE])
+    t_quick = time.perf_counter() - t0
+    losses = [h.eval_loss for h in tr.history]
+    if not all(math.isfinite(x) for x in losses) or not tr.global_state.ranks:
+        fail(f"phase 14 (e) quickstart: eval losses {losses}")
+    t0 = time.perf_counter()
+    out = serve_federated.main(["--device", DEVICE])
+    t_serve = time.perf_counter() - t0
+    eng = out["engine"]
+    L = eng.cfg.num_layers
+    n_targets = len(out["trainer"].targets)
+    want = {"ring_decode": L * eng.steps_run,
+            "bgmv": L * n_targets * eng.steps_run}
+    served = len(out["outputs"]) == 4 and all(
+        len(t) == 12 for t in out["outputs"].values())
+    both = len(out["in_flight"][-1]) == 2
+    print(f"  quickstart {t_quick:.1f} s (3 rounds, eval losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}); serve_federated "
+          f"{t_serve:.1f} s: {len(out['outputs'])} of 4 requests served, ids "
+          f"in flight after the swap {out['in_flight'][-1]}, launches "
+          f"{json.dumps(out['launches'])} over {eng.steps_run} engine steps "
+          f"(expected {json.dumps(want)})")
+    if not served or not both or out["launches"] != want:
+        fail("phase 14 (e): serve_federated did not serve every request, mix "
+             "both adapter versions or launch its kernels once a layer a step")
+    return {"quickstart_s": t_quick, "quickstart_losses": losses,
+            "serve_s": t_serve, "steps": eng.steps_run,
+            "launches": out["launches"], "in_flight": out["in_flight"]}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
-"""Counterparts of the reference's paper-table benchmarks
-(``benchmarks/table3_comm_cost.py``, ``benchmarks/table4_server_flops.py``),
-run as ``python -m repro_torch.benchmarks.<name>``."""
+"""Counterparts of the reference's paper-table and figure benchmarks
+(``benchmarks/table2_accuracy_efficiency.py`` … ``fig7_tau_vs_quality.py``,
+``agg_bench.py``, ``run.py``), run as ``python -m
+repro_torch.benchmarks.<name>``; their shared settings are in
+:mod:`repro_torch.benchmarks.common`."""
 from typing import Dict, List
 
 

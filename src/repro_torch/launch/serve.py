@@ -1,7 +1,9 @@
 """Serve several FLoRIST global adapters of different ranks from one engine.
 
-The port's counterpart of ``examples/serve_federated.py`` without the
-training half: one :class:`~repro_torch.serve.engine.ServeEngine` mounted on
+The deploy half of ``examples/serve_federated.py`` at published widths
+(:mod:`repro_torch.examples.serve_federated` ports the whole round →
+publish → serve loop on a tiny model): one
+:class:`~repro_torch.serve.engine.ServeEngine` mounted on
 an :class:`~repro_torch.serve.adapters.AdapterRegistry` holding adapters of
 ranks 4, 8 and 16 (random, seeded) on the family's LoRA targets
 (``lora_targets``: ``wq wk wv wo``, MLA's ``wq_a wq_b wkv_a wkv_b wo``, or

@@ -150,10 +150,12 @@ def attention_fwd(cfg: ModelConfig, p: Params, x, adapters=None,
     return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
 
 
-def _check_decode_impl(decode_impl: str) -> None:
+def check_decode_impl(decode_impl: str) -> None:
     if decode_impl == "streamed":
         raise NotImplementedError(
-            "decode_impl='streamed' is not ported yet; use 'dense' or 'kernel'")
+            "decode_impl='streamed' is not ported yet (ROADMAP.md Queue 1 "
+            "item 2, the engine burst as one dispatch); use 'dense' or "
+            "'kernel'")
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode_impl {decode_impl!r}")
 
@@ -171,7 +173,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
     Returns (out (B,C,d), new_cache); the cache's ring buffers are written
     in place.
     """
-    _check_decode_impl(decode_impl)
+    check_decode_impl(decode_impl)
     B, C, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
@@ -265,7 +267,7 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
     per tile).  Both agree on valid query positions ``t < n_tokens[b]``.
     Returns (out (B,C,d), new_cache); the ring buffers are written in place.
     """
-    _check_decode_impl(decode_impl)
+    check_decode_impl(decode_impl)
     B, C, _ = x.shape
     H = cfg.num_heads
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim

@@ -37,7 +37,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import DECODE_IMPLS
+from repro_torch.models.layers import check_decode_impl
 from repro_torch.serve import kvcache as Kv
 from repro_torch.serve.adapters import AdapterRegistry, attach
 
@@ -105,8 +105,7 @@ class ServeEngine:
                  registry: Optional[AdapterRegistry] = None,
                  lora_impl: Optional[str] = None, device: DeviceLike = None,
                  record_steps: bool = False):
-        if decode_impl not in DECODE_IMPLS:
-            raise ValueError(f"unknown decode_impl {decode_impl!r}")
+        check_decode_impl(decode_impl)
         if registry is not None and adapters is not None:
             raise ValueError("pass a single-tenant adapter tree OR a "
                              "multi-tenant registry, not both")

@@ -66,6 +66,17 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.configs.tinyllama_1p1b", "repro_torch.benchmarks",
             "repro_torch.benchmarks.table3_comm_cost",
             "repro_torch.benchmarks.table4_server_flops"} <= set(MODULES)
+    # and the paper-evaluation layer's and the examples'
+    assert {"repro_torch.benchmarks.common",
+            "repro_torch.benchmarks.table2_accuracy_efficiency",
+            "repro_torch.benchmarks.fig2_spectrum",
+            "repro_torch.benchmarks.fig5_rank_vs_tau",
+            "repro_torch.benchmarks.fig6_layerwise_rank",
+            "repro_torch.benchmarks.fig7_tau_vs_quality",
+            "repro_torch.benchmarks.agg_bench", "repro_torch.benchmarks.run",
+            "repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.threshold_sweep",
+            "repro_torch.examples.serve_federated"} <= set(MODULES)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -87,7 +98,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         "scale": torch.ones(1)}}}}}
     mla = DSMOKE.replace(first_dense_layers=3, d_model=64, vocab_size=64)
     mla_params = T.init(mla, 0, device="cpu")
+    from repro_torch.benchmarks.agg_bench import main as agg_bench
+    from repro_torch.benchmarks.common import bench_trainer
+    from repro_torch.examples import quickstart, serve_federated
     calls = [lambda: T.init(cfg, 0), lambda: T.init_cache(cfg, 2, 8),
+             lambda: bench_trainer("florist"),
+             lambda: agg_bench(["--smoke", "--layers", "1"]),
+             lambda: quickstart.main([]), lambda: serve_federated.main([]),
              lambda: ServeEngine(cfg, params),
              lambda: AdapterRegistry(template),
              lambda: params_from_numpy({"x": [1.0]}),
