@@ -44,10 +44,14 @@ Phases (any failure exits non-zero; no exception is caught):
 4. The serving slice end to end: full-width Llama-3.2-1B (random seeded
    weights, bf16) serving 16 requests over three adapters of ranks 4/8/16
    and the base model, with a mid-flight swap, through
-   ``decode_impl="kernel"``; the kernels' launch counts must equal 16 x
-   (and 16 x 4 x) engine steps; profiled windows of decode steps, one
-   with every row on the base id and one with the rows on the live
-   adapters (phases 8 and 11 as well).
+   ``decode_impl="kernel"``, the engine's steps and bursts replayed as
+   CUDA graphs; the kernels' launch counts (replays add what each capture
+   counted) must equal 16 x (and 16 x 4 x) the engine steps plus the
+   steps the graphs' warm-ups ran; profiled windows of decode steps, with
+   every row on the base id and with the rows on the live adapters, each
+   through ``run_steps`` and as bursts of 8 (phases 2, 8 and 11 as
+   well), each window's counted launches equal to the port's kernels its
+   replays ran by the profiler trace (the fullest traced replay a call).
 5. The engine on the card, kernels against plain versions, at full width in
    fp32 with TF32 off: first prefill step's logits within tolerance, and
    the greedy-token agreement over 16 steps.
@@ -123,10 +127,26 @@ Phases (any failure exits non-zero; no exception is caught):
     in flight after the swap, ``ring_decode`` and ``bgmv`` once a layer
     (a target) an engine step.  Phase 2 also holds ``lora_matmul`` at
     TinyLlama's ``wv`` at this phase's smallest and largest client ranks.
+15. The engine's graphs, the streamed route and the benches: (a) phase 4's
+    traffic twice (a swap in each, one sampled request) on the graphed
+    engine and on the same built step functions run uncaptured, on
+    Llama-3.2-1B and on DeepSeek-V3-dense3: every
+    request's tokens equal bit for bit, launches exact, captures unchanged
+    by the second pass and its swap; (b) ``decode_impl="streamed"``
+    against the dense route in fp32 (TF32 off) on Llama-3.2-1B and
+    DeepSeek-V3-dense3, fp32 caches at 1e-3 and int8 caches at 5e-3 of
+    max(1, |logit|) (Llama's int8 streamed route against the kernel
+    route, which dequantizes in fp32 as it does); (c) the decode windows
+    of phases 4, 8 and 11 side by side (wall, device busy, idle share a
+    step, through ``run_steps`` and as bursts) beside the numbers from
+    before the graphs; (d) ``kernel_bench`` and ``serve_bench`` at their
+    defaults.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
 """
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -147,6 +167,16 @@ CARD = "the card"                # nvidia-smi's name and power limit, set by mai
 PORT_KERNELS = (r"\b(ring_decode_kernel|mla_ring_decode_(kernel|wgmma)|mla_merge_splits|"
                 r"bgmv_kernel|"
                 r"lora_matmul_(wgmma|wmma|f32)|flash_(bf16|f32)|gram_mma|wkv6_kernel)\b")
+# the same kernels by the ops wrapper whose counter counts them
+KERNELS_OF = {
+    "ring_decode": r"\bring_decode_kernel\b",
+    "mla_ring_decode": r"\b(mla_ring_decode_(kernel|wgmma)|mla_merge_splits)\b",
+    "bgmv": r"\bbgmv_kernel\b",
+    "lora_matmul": r"\blora_matmul_(wgmma|wmma|f32)\b",
+    "flash_attention": r"\bflash_(bf16|f32)\b",
+    "adapter_gram": r"\bgram_mma\b",
+    "wkv6": r"\bwkv6_kernel\b",
+}
 
 
 def fail(msg: str) -> None:
@@ -215,6 +245,7 @@ def main() -> None:
     report["rwkv_parity"] = rwkv_parity(torch)
     report["tinyllama"], tiny_counts = tinyllama_methods(torch)
     report["paper_eval"], eval_counts = paper_evaluation(torch)
+    report["phase15"] = phase15(torch, report)
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -1165,48 +1196,62 @@ def smoke_widths(torch):
 
 # -- phase 4: the slice end to end ------------------------------------------
 
+def serve_launches(cfg, eng, steps: int) -> dict:
+    """The launches ``steps`` engine steps of ``eng`` make: the attention
+    kernel (``ring_decode``, or ``mla_ring_decode`` for MLA; none for
+    RWKV6) once per layer, ``bgmv`` once per layer per bgmv-routed target
+    (every LoRA target but MLA's ``wkv_b``, which is folded into the
+    absorbed weights instead), the same at every step width."""
+    from repro_torch.configs import lora_targets
+    from repro_torch.kernels import ops
+    L = cfg.num_layers
+    want = dict.fromkeys(ops.WRAPPERS, 0)
+    want["bgmv"] = L * (len(lora_targets(cfg)) - cfg.use_mla) * steps
+    if cfg.use_mla:
+        want["mla_ring_decode"] = L * steps * mla_launches_a_call(eng)
+    elif cfg.family != "ssm":
+        want["ring_decode"] = L * steps
+    return want
+
+
 def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
                widths: str = "published widths"):
-    """Serve ``launch.serve``'s traffic on ``config`` through the kernels;
-    the attention kernel (``ring_decode``, or ``mla_ring_decode`` for MLA;
-    none for RWKV6) must run once per layer per engine step, ``bgmv`` once
-    per layer per bgmv-routed target (every LoRA target but MLA's ``wkv_b``,
-    which is folded into the absorbed weights instead)."""
-    from repro_torch.configs import lora_targets
+    """Serve ``launch.serve``'s traffic on ``config`` through the kernels,
+    the engine's steps and bursts as CUDA graphs; the launches must be
+    :func:`serve_launches` of the engine steps plus the steps its graphs'
+    warm-ups ran.  Then decode windows (phase 15 (c)): 16 steps through
+    ``run_steps`` (a graph replay and a poll a step) and as two bursts of 8
+    (a replay and a poll a burst), on base-id rows and on rows on the live
+    adapters, each on a fresh batch, the wall the median of 5 windows."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import CONFIGS, MAX_TOKENS, N_REQUESTS, serve
     cfg = CONFIGS[config][0]
     depth = f"{cfg.num_layers} L"
     if cfg.use_mla:
-        attn = "mla_ring_decode"
         shape = (f"{cfg.num_heads} H, q_lora {cfg.q_lora_rank}, kv_lora "
                  f"{cfg.kv_lora_rank}, qk nope/rope {cfg.qk_nope_head_dim}/"
                  f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}")
         depth = f"depth cut to its {cfg.num_layers} dense MLA layers"
     elif cfg.family == "ssm":
-        attn = None
         shape = (f"{cfg.num_rwkv_heads} heads of {cfg.rwkv_head_dim}, decay "
                  f"LoRA {cfg.rwkv_decay_lora}; one token per engine step")
     else:
-        attn = "ring_decode"
         shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
                  f"{cfg.head_dim}")
     print(f"phase {phase}: {cfg.name} at {widths} ({depth}, d "
           f"{cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}), random seeded weights, decode_impl=kernel")
+          f"{cfg.dtype}), random seeded weights, decode_impl=kernel, graphed")
     ops.reset_launch_counts()
     out = serve(config, device=DEVICE, log=lambda s: print("  " + s))
     counts = ops.launch_counts()
     stats = out["stats"]
-    steps = out["engine"].steps_run
-    L = cfg.num_layers
-    want = dict.fromkeys(counts, 0)
-    want["bgmv"] = L * (len(lora_targets(cfg)) - cfg.use_mla) * steps
-    if attn:
-        want[attn] = L * steps * (mla_launches_a_call(out["engine"])
-                                  if cfg.use_mla else 1)
-    print(f"  kernels: {json.dumps(counts)} over {steps} engine steps "
-          f"(expected {json.dumps(want)})")
+    eng = out["engine"]
+    steps = eng.steps_run
+    want = serve_launches(cfg, eng, steps + eng.warmup_steps)
+    print(f"  kernels: {json.dumps(counts)} over {steps} engine steps and "
+          f"{eng.warmup_steps} warm-up steps before {sum(eng.trace_counts.values())} "
+          f"captures {sorted(map(str, eng.trace_counts))} (expected "
+          f"{json.dumps(want)})")
     if counts != want:
         fail(f"phase {phase}: launch counts do not match the engine steps")
     res = out["results"]
@@ -1233,17 +1278,24 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
            else "every step one token wide (prompts consumed one token a step)")
     print(f"  {pre}; decode {stats['decode_tok_s']:.1f} tok/s ({stats['decode_tokens']} tokens "
           f"over {stats['decode_steps']} steps, median "
-          f"{stats['decode_step_ms_median']:.3f} ms); end to end "
-          f"{stats['e2e_tok_s']:.1f} generated tok/s over a wall of "
+          f"{stats['decode_step_ms_median']:.3f} ms, bursts of 8 timed as one); "
+          f"end to end {stats['e2e_tok_s']:.1f} generated tok/s over a wall of "
           f"{stats['wall_s']:.2f} s; prompt and generated tokens over the "
           f"steps' time {stats['step_tok_s']:.1f} tok/s")
-    window = profile_decode(torch, out["engine"])
-    live = [i for i in ids if i and out["engine"].registry.is_live(i)]
-    window_live = profile_decode(torch, out["engine"], adapter_ids=live)
-    del out
+    live = [i for i in ids if i and eng.registry.is_live(i)]
+    windows = {}
+    for key, ad, poll, n in (("profiled_decode", (0,), 1, 16),
+                             ("profiled_decode_adapters", live, 1, 16),
+                             ("profiled_burst", (0,), 8, 16),
+                             ("profiled_burst_adapters", live, 8, 16)):
+        windows[key] = profile_decode(torch, eng, n, adapter_ids=ad,
+                                      poll_every=poll, reps=5)
+    captures = {str(k): v for k, v in eng.trace_counts.items()}
+    warmup = eng.warmup_steps
+    del out, eng
     torch.cuda.empty_cache()
-    return dict(stats, launches=counts, profiled_decode=window,
-                profiled_decode_adapters=window_live), counts
+    return dict(stats, launches=counts, warmup_steps=warmup,
+                captures=captures, **windows), counts
 
 
 def mla_launches_a_call(eng) -> int:
@@ -1263,45 +1315,152 @@ def mla_launches_a_call(eng) -> int:
     return per.pop()
 
 
-def profile_decode(torch, eng, steps: int = 10, adapter_ids=(0,)):
+def profile_decode(torch, eng, steps: int = 10, adapter_ids=(0,),
+                   poll_every: int = 1, reps: int = 1):
     """Where a decode step's time goes: ``steps`` width-1 engine steps of a
-    fresh full batch, once under ``torch.profiler`` (device time by kernel)
-    and once without it (wall time per step).  The batch's rows cycle over
+    fresh full batch (``run_steps``; with ``poll_every > 1`` as bursts of
+    that many steps, one graph replay and one poll a burst), once under
+    ``torch.profiler`` (device time by kernel) and ``reps`` times without
+    it (wall time per step, the median); each window starts on a fresh
+    batch whose prompts are consumed.  The batch's rows cycle over
     ``adapter_ids``: by default all on the base id, so every ``bgmv``
     launch takes its rank-0 exit; the engine's live adapters make its rows
     do the shrink and expand."""
     from repro_torch.serve.engine import SamplingParams
 
-    for i in range(eng.B):
-        eng.submit(list(range(1 + i, 17 + i)),
-                   SamplingParams(max_tokens=2 * steps + 4),
-                   adapter_id=adapter_ids[i % len(adapter_ids)])
-    eng.run_steps(2)                       # admission and the prefill step
-    torch.cuda.synchronize()
+    def fresh_batch():
+        eng.run()                          # what the last window left
+        for i in range(eng.B):
+            eng.submit(list(range(1 + i, 17 + i)),
+                       SamplingParams(max_tokens=steps + 4),
+                       adapter_id=adapter_ids[i % len(adapter_ids)])
+        eng.run_steps(1 + -(-16 // eng.chunk))   # admission and the prompts
+        torch.cuda.synchronize()
+
+    logged = [0]
+
+    def calls():
+        """The engine's calls since the last read, each ((width, steps),
+        device ms): one graph replay a call, a burst of n steps one call."""
+        log = eng.step_log()
+        new, logged[0] = log[logged[0]:], len(log)
+        out, i = [], 0
+        while i < len(new):
+            s = new[i]
+            out.append(((s["width"], s["burst"]), s["ms"] * s["burst"]))
+            i += s["burst"]
+        return out
+
+    def run(n):
+        eng.run_steps(n, poll_every)
+
+    def run_witnessed(n):
+        """``run(n)``; every row, active throughout, must emit ``n`` tokens:
+        each call ran on the card."""
+        g0 = eng._state["gen_count"].clone()
+        run(n)
+        short = int((eng._state["gen_count"] - g0 != n).sum())
+        if short:
+            fail(f"decode window: {short} of {eng.B} rows emitted fewer than "
+                 f"{n} tokens in {n} steps")
+
     rows = ("base id" if tuple(adapter_ids) == (0,) else
             f"adapter ids {'/'.join(map(str, adapter_ids))}")
-    out = profile_window(torch, eng.run_steps, steps,
-                         f"decode step, {steps} steps x {eng.B} rows on {rows}")
+    how = f"bursts of {poll_every}" if poll_every > 1 else "run_steps"
+    out = profile_window(torch, run, steps,
+                         f"decode step ({how}), {steps} steps x {eng.B} rows "
+                         f"on {rows}" + (f", wall the median of {reps}"
+                                         if reps > 1 else ""),
+                         setup=fresh_batch, reps=reps, calls=calls,
+                         run_profiled=run_witnessed)
     eng.run()
-    return out
+    return dict(out, how=how)
 
 
-def profile_window(torch, run, steps: int, label: str, before: str = ""):
+def wrapper_of(kernel: str):
+    """The ops wrapper whose counter counts a device kernel of this name
+    (``KERNELS_OF``), or None for a kernel that is not the port's."""
+    return next((w for w, pat in KERNELS_OF.items() if re.search(pat, kernel)),
+                None)
+
+
+def replay_launches(made, launch_ids, kernels):
+    """The port's launches a window of engine calls made, by wrapper, read
+    from its profiler trace, and the calls whose replay the trace shows
+    short.  ``made``: the calls, each by its graph (one replay a call), all
+    of one graph; ``launch_ids``: the correlation ids of the trace's
+    ``cudaGraphLaunch`` calls; ``kernels``: (correlation id, wrapper) of
+    each of the port's kernels in the trace.  Every replay of a graph runs
+    the same kernels, and a trace can lose records but never adds any, so
+    each call launched what the fullest traced replay holds (the largest
+    count of each wrapper's kernels over the replays)."""
+    if len(set(made)) > 1:
+        raise ValueError(f"a window of calls of several graphs: {sorted(set(made))}")
+    per = {cid: collections.Counter() for cid in launch_ids}
+    for cid, wrapper in kernels:
+        if cid in per:
+            per[cid][wrapper] += 1
+    full = collections.Counter()
+    for got in per.values():
+        full |= got
+    short = len(made) - sum(got == full for got in per.values())
+    return {w: n * len(made) for w, n in full.items()}, short
+
+
+# idle seconds inside the profiler before and after a profiled run: device
+# records near the profiler's start or stop can fall out of its trace
+# (scripts/trace_loss.py)
+TRACE_MARGIN_S = 0.05
+
+
+def profile_window(torch, run, steps: int, label: str, before: str = "",
+                   setup=None, reps: int = 1, calls=None, run_profiled=None):
     """``run(steps)`` once under ``torch.profiler`` (device time by kernel,
-    host time by operator) and once without it (wall time per step); the
-    idle share is 1 - device busy / wall.  With ``before`` (a regex of
-    kernel names), also (the device kernel that ran just before, the
-    kernel) for each launch of a matching kernel, in order."""
+    host time by operator; ``run_profiled`` in its place if given) and
+    ``reps`` times without it (wall time per step, the median); the idle
+    share is 1 - device busy / wall.  ``setup()``, if given, runs untimed
+    before each of them.  With ``before`` (a regex of kernel names), also
+    (the device kernel that ran just before, the kernel) for each launch of
+    a matching kernel, in order.  ``calls`` (an engine's calls since its
+    last read, each (graph, device ms) by the step log's CUDA events)
+    splits the idle into the time inside the calls (their ms - busy: graph
+    launch and the gaps between a graph's kernels) and between them (wall -
+    their ms: the host's poll and bookkeeping), medians over the ``reps``;
+    and it holds the launch counters' increase over the profiled run equal
+    to the port's kernels its trace shows the calls' replays ran
+    (:func:`replay_launches`): the counters of a graph's replays are added
+    by bookkeeping, the trace sees the kernels run.  The profiled run sits
+    ``TRACE_MARGIN_S`` inside the profiler's start and stop."""
+    from repro_torch.kernels import ops
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if setup:
+        setup()
+    if calls:
+        calls()                          # drop the calls setup() made
+    counted0 = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        (run_profiled or run)(steps)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    counted = ops.launch_delta(counted0, ops.launch_counts())
+    made = [k for k, _ in calls()] if calls else []
+    walls, replays = [], []
+    for _ in range(reps):
+        if setup:
+            setup()
+        if calls:
+            calls()                      # drop the calls setup() made
+        t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(steps)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+        if calls:
+            replays.append(sum(ms for _, ms in calls()) / steps)
+    wall_ms = statistics.median(walls)
     by_kernel, by_op = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:          # kernels and copies
@@ -1333,6 +1492,32 @@ def profile_window(torch, run, steps: int, label: str, before: str = ""):
            "top_kernels_ms_per_step": dict(top),
            "port_kernels_ms_per_step": port,
            "top_host_ops_ms_per_step_profiled": dict(top_host)}
+    if replays:
+        call_ms = statistics.median(replays)
+        out.update(call_ms_per_step=call_ms,
+                   idle_in_calls_share=(call_ms - busy) / wall_ms,
+                   idle_between_calls_share=(wall_ms - call_ms) / wall_ms)
+        print(f"    idle inside the engine calls {(call_ms - busy) / wall_ms:.3f} "
+              f"(calls {call_ms:.3f} ms per step by CUDA events, median of "
+              f"{reps}), between them {(wall_ms - call_ms) / wall_ms:.3f}")
+    if calls:
+        events = prof.events()
+        launches = [e.id for e in events if e.device_type == DeviceType.CPU
+                    and e.name == "cudaGraphLaunch"]
+        kernels = [(e.id, w) for e in events if e.device_type == DeviceType.CUDA
+                   and (w := wrapper_of(e.name))]
+        traced, short = replay_launches(made, launches, kernels)
+        seen = collections.Counter(w for _, w in kernels)
+        print(f"    launches in the profiled run: counted {json.dumps(counted)}, "
+              f"{len(made)} calls of what the fullest traced replay holds "
+              f"{json.dumps(traced)} ({len(launches)} replays traced, {short} "
+              f"short; kernels in the trace {json.dumps(seen)})")
+        if counted != traced:
+            fail(f"{label}: the launch counters rose by {counted} while the "
+                 f"{len(made)} calls' replays ran {traced} launches of the "
+                 f"port's kernels by the trace")
+        out.update(launches_counted_and_traced=counted,
+                   replays_short_in_trace=short)
     if before:
         out["kernel_before_each"] = preceded
     return out
@@ -1340,11 +1525,39 @@ def profile_window(torch, run, steps: int, label: str, before: str = ""):
 
 # -- phase 5: the engine, kernels against plain versions --------------------
 
+@contextlib.contextmanager
+def decode_route(impl: str):
+    """The ``decode_impl`` of a route name of :func:`engine_parity`, with
+    ``"plain-kernel"`` the kernel route whose ``ring_decode`` is the
+    kernel's plain version (``ref.ring_decode_ref``: every score in fp32,
+    an int8 cache dequantized whole in fp32) for the block's duration."""
+    from repro_torch.kernels import ops, ref
+    if impl != "plain-kernel":
+        yield impl
+        return
+
+    def plain(q, k, v, pos, length, n_tokens=None, window=0, k_scale=None,
+              v_scale=None):
+        return ref.ring_decode_ref(q, k, v, pos, length, n_tokens,
+                                   window=window, k_scale=k_scale,
+                                   v_scale=v_scale)
+
+    kernel = ops.ring_decode
+    ops.ring_decode = plain
+    try:
+        yield "kernel"
+    finally:
+        ops.ring_decode = kernel
+
+
 def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
                   kv_dtypes=("float32",), logit_tol: float = 1e-3,
-                  require_equal: bool = False):
-    """The engine at full width in fp32 (TF32 off), kernel routes against
-    plain routes, once per cache dtype in ``kv_dtypes``: the first prefill
+                  require_equal: bool = False,
+                  routes=(("kernel", "kernel"), ("dense", "plain"))):
+    """The engine at full width in fp32 (TF32 off), the first of ``routes``
+    (``(decode_impl, lora_impl)``: by default the kernel routes) against
+    the second (the plain routes), once per cache dtype in ``kv_dtypes``:
+    the first prefill
     step's logits (a 16-token chunk; for RWKV6, whose recurrence takes no
     chunks, the logits after 8 one-token steps: at the init's zero bonus u
     the first token's time mix is exactly zero and never reaches the
@@ -1359,7 +1572,8 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
     from repro_torch.peft.lora import init_lora
     from repro_torch.serve.adapters import AdapterRegistry, attach
     from repro_torch.serve.engine import SamplingParams, ServeEngine
-    print(f"phase {phase}: engine on the card, kernels vs plain versions, "
+    (got, _), (ref, _) = routes
+    print(f"phase {phase}: engine on the card, {got} vs {ref} routes, "
           f"{CONFIGS[config][0].name} at full width in fp32; " + parity_mode())
     cfg = CONFIGS[config][0].replace(dtype="float32")
     dev = torch.device(DEVICE)
@@ -1385,40 +1599,43 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
     for kv_name in kv_dtypes:
         kv = getattr(torch, kv_name)
         lg = {}
-        for impl, lora in (("kernel", "kernel"), ("dense", "plain")):
+        for impl, lora in routes:
             cache = T.init_cache(cfg, B, 1024, kv, prefill_chunk=C, device=dev)
-            for i in range(steps):
-                lg[impl], cache = T.decode(
-                    cfg, params, cache, {"tokens": toks[:, i * C:(i + 1) * C]},
-                    attach(reg.device_state, ids, impl=lora), n_tokens=n,
-                    decode_impl=impl)
+            with decode_route(impl) as how:
+                for i in range(steps):
+                    lg[impl], cache = T.decode(
+                        cfg, params, cache,
+                        {"tokens": toks[:, i * C:(i + 1) * C]},
+                        attach(reg.device_state, ids, impl=lora), n_tokens=n,
+                        decode_impl=how)
         what = ("first prefill step logits" if steps == 1
                 else f"logits after {steps} one-token steps")
-        err = check(f"{kv_name} cache: {what}", lg["kernel"], lg["dense"],
+        err = check(f"{kv_name} cache: {what}", lg[got], lg[ref],
                     valid, logit_tol)
         del lg
         outs = {}
-        for impl in ("kernel", "dense"):
-            eng = ServeEngine(cfg, params, registry=reg, batch_slots=B,
-                              capacity=1024, kv_dtype=kv, prefill_chunk=C,
-                              decode_impl=impl, device=dev)
-            prng = np.random.default_rng(4)
-            uids = [eng.submit(prng.integers(1, cfg.vocab_size,
-                                             int(prng.integers(32, 65))).tolist(),
-                               SamplingParams(max_tokens=16),
-                               adapter_id=aid[i % 4])
-                    for i in range(B)]
-            res = eng.run()
+        for impl, lora in routes:
+            with decode_route(impl) as how:
+                eng = ServeEngine(cfg, params, registry=reg, batch_slots=B,
+                                  capacity=1024, kv_dtype=kv, prefill_chunk=C,
+                                  decode_impl=how, lora_impl=lora, device=dev)
+                prng = np.random.default_rng(4)
+                uids = [eng.submit(prng.integers(1, cfg.vocab_size,
+                                                 int(prng.integers(32, 65))).tolist(),
+                                   SamplingParams(max_tokens=16),
+                                   adapter_id=aid[i % 4])
+                        for i in range(B)]
+                res = eng.run()
             outs[impl] = [res[u] for u in uids]
             del eng
-        pairs = [(a, b) for ra, rb in zip(outs["kernel"], outs["dense"])
+        pairs = [(a, b) for ra, rb in zip(outs[got], outs[ref])
                  for a, b in zip(ra, rb)]
         agree = sum(a == b for a, b in pairs) / max(1, len(pairs))
         print(f"  {kv_name} cache: greedy-token agreement over 16 steps x {B} "
               f"requests: {agree:.4f} ({sum(a == b for a, b in pairs)}/"
               f"{len(pairs)})")
         if require_equal and (agree != 1.0 or len(pairs) != 16 * B):
-            fail(f"phase {phase}: the kernel and plain engines' greedy tokens "
+            fail(f"phase {phase}: the {got} and {ref} engines' greedy tokens "
                  f"differ ({kv_name} cache)")
         results[kv_name] = {"logits_max_abs_err": err, "greedy_agreement": agree}
     del params, reg
@@ -2685,8 +2902,8 @@ def examples_card(torch):
     eng = out["engine"]
     L = eng.cfg.num_layers
     n_targets = len(out["trainer"].targets)
-    want = {"ring_decode": L * eng.steps_run,
-            "bgmv": L * n_targets * eng.steps_run}
+    steps = eng.steps_run + eng.warmup_steps     # graphs' warm-ups included
+    want = {"ring_decode": L * steps, "bgmv": L * n_targets * steps}
     served = len(out["outputs"]) == 4 and all(
         len(t) == 12 for t in out["outputs"].values())
     both = len(out["in_flight"][-1]) == 2
@@ -2695,6 +2912,7 @@ def examples_card(torch):
           f"{t_serve:.1f} s: {len(out['outputs'])} of 4 requests served, ids "
           f"in flight after the swap {out['in_flight'][-1]}, launches "
           f"{json.dumps(out['launches'])} over {eng.steps_run} engine steps "
+          f"and {eng.warmup_steps} warm-up steps "
           f"(expected {json.dumps(want)})")
     if not served or not both or out["launches"] != want:
         fail("phase 14 (e): serve_federated did not serve every request, mix "
@@ -2702,6 +2920,170 @@ def examples_card(torch):
     return {"quickstart_s": t_quick, "quickstart_losses": losses,
             "serve_s": t_serve, "steps": eng.steps_run,
             "launches": out["launches"], "in_flight": out["in_flight"]}
+
+
+
+# -- phase 15: the engine's graphs, the streamed route, the benches ----------
+
+def graph_parity(torch, config: str = "llama3p2_1b"):
+    """(a) ``launch.serve``'s traffic (16 requests, one sampled, a swap)
+    twice on one engine, graphed and then on the same built functions run
+    uncaptured: every request's tokens equal bit for bit, the launches
+    exactly :func:`serve_launches` of the steps and warm-up steps, and the
+    graphed engine's captures unchanged by the second pass and its swap."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as S
+    cfg = S.CONFIGS[config][0]
+    print(f"phase 15 (a): {cfg.name}, phase 4's traffic twice (a swap in "
+          "each), graphed engine vs its step functions uncaptured")
+    runs = {}
+    for name in ("graphed", "uncaptured"):
+        setup = S.build(config, device=DEVICE)
+        eng = setup["engine"]
+        if name == "uncaptured":
+            # the built step and burst functions run as they are on the
+            # card: no warm-up and no capture (captures happen at a
+            # shape's first call, so none has happened yet)
+            eng._capture = lambda entry: None
+        ops.reset_launch_counts()
+        passes, captures = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = S.traffic(setup, log=lambda s: None)
+            torch.cuda.synchronize()
+            passes.append({"results": out["results"], "swap": out["swap"],
+                           "wall_s": time.perf_counter() - t0,
+                           "decode_step_ms_median": out["stats"]["decode_step_ms_median"]})
+            captures.append(dict(eng.trace_counts))
+        counts = ops.launch_counts()
+        want = serve_launches(cfg, eng, eng.steps_run + eng.warmup_steps)
+        print(f"  {name}: walls {passes[0]['wall_s']:.2f} / {passes[1]['wall_s']:.2f} s, "
+              f"{eng.steps_run} steps + {eng.warmup_steps} warm-up; launches "
+              f"{json.dumps(counts)} (expected {json.dumps(want)}); "
+              f"{'captures' if name == 'graphed' else 'builds'} "
+              f"{ {str(k): v for k, v in captures[1].items()} }")
+        if counts != want:
+            fail(f"phase 15 (a): {name} launch counts do not match the steps")
+        if captures[0] != captures[1]:
+            fail(f"phase 15 (a): {name} captured again in the second pass "
+                 f"({captures[0]} -> {captures[1]})")
+        runs[name] = {"passes": passes, "launches": counts,
+                      "steps": eng.steps_run, "warmup_steps": eng.warmup_steps,
+                      "trace_counts": {str(k): v for k, v in captures[1].items()}}
+        del setup, eng, out
+        torch.cuda.empty_cache()
+    for i in range(2):
+        a = runs["graphed"]["passes"][i]["results"]
+        b = runs["uncaptured"]["passes"][i]["results"]
+        sampled = 2 + i * S.N_REQUESTS        # the pass's second request
+        if a != b or len(a) != S.N_REQUESTS or sampled not in a:
+            diff = sorted(u for u in set(a) | set(b) if a.get(u) != b.get(u))
+            fail(f"phase 15 (a): pass {i + 1}'s tokens differ between the "
+                 f"graphed and uncaptured engines for uids {diff}")
+        print(f"  pass {i + 1}: {len(a)} requests' tokens equal bit for bit "
+              f"(sampled uid {sampled}: {a[sampled][:6]}...)")
+    for r in runs.values():
+        for p in r["passes"]:
+            del p["results"]
+    return runs
+
+
+def streamed_parity(torch):
+    """(b) the streamed route against the dense route at full width in fp32
+    (TF32 off): phase 5's check on Llama-3.2-1B and DeepSeek-V3-dense3.
+    fp32 caches at phase 5's 1e-3 of max(1, |logit|).  int8 caches at phase
+    9's 5e-3: a layer's output differs by sum order (~1e-7 of itself) and
+    that flips the int8 rounding of a few cache elements the next layers
+    read (2.9e-3 on MLA at reduced width on the CPU).  Llama's dense route
+    rounds a dequantized int8 cache to bf16 (1.7e-2 there), so its int8
+    streamed route is held to the plain version of the kernel route
+    (``"plain-kernel"``: the whole cache dequantized in fp32, as the
+    streamed route dequantizes its blocks) and, as a second witness, to
+    the kernel route itself."""
+    out = {}
+    streamed = ("streamed", "plain")
+    for config in ("llama3p2_1b", "deepseek_v3_dense3"):
+        out[config] = {"float32": engine_parity(
+            torch, "15 (b)", config, ("float32",), 1e-3,
+            routes=(streamed, ("dense", "plain")))}
+        refs = ((("plain-kernel", "plain"), ("kernel", "kernel"))
+                if config == "llama3p2_1b" else (("dense", "plain"),))
+        for ref in refs:
+            key = "int8" if ref is refs[0] else f"int8_against_{ref[0]}"
+            out[config][key] = engine_parity(torch, "15 (b)", config,
+                                             ("int8",), 5e-3,
+                                             routes=(streamed, ref))
+            out[config][key]["against"] = ref[0]
+    return out
+
+
+# PERF.md section 5's decode windows from before the engine's graphs
+# (H100 80GB HBM3 at 700 W; 10 steps of the Python loop of steps):
+# wall ms, busy ms, idle share a step
+WINDOWS_BEFORE = {
+    "llama3p2_1b": {"base id": (36.2, 4.04, 0.889), "live": (48.1, 4.31, 0.910)},
+    "deepseek_v3_dense3": {"base id": (13.6, 8.96, 0.341)},
+    "rwkv6_1p6b": {"base id": (55.5, 12.33, 0.778), "live": (62.4, 12.86, 0.794)},
+}
+
+
+def engine_windows(report):
+    """(c) the decode windows phases 4, 8 and 11 profiled, side by side:
+    wall per step, device busy and idle share through ``run_steps`` (one
+    graph replay and one poll a step) and through bursts of 8 (one replay
+    and one poll a burst), on base-id rows and live rows, beside PERF.md's
+    numbers from before the graphs."""
+    print(f"phase 15 (c): decode windows on {CARD} (wall ms / busy ms / idle "
+          "share a step)")
+    out = {}
+    for key, config in (("e2e", "llama3p2_1b"), ("mla_e2e", "deepseek_v3_dense3"),
+                        ("rwkv_e2e", "rwkv6_1p6b")):
+        rec = report[key]
+        rows = {}
+        for rows_on, suffix in (("base id", ""), ("live", "_adapters")):
+            for how, win in (("run_steps", "profiled_decode"),
+                             ("bursts", "profiled_burst")):
+                w = rec[win + suffix]
+                rows[f"{rows_on}, {how}"] = (w["wall_ms_per_step"],
+                                             w["device_busy_ms_per_step"],
+                                             w["idle_share"])
+        before = WINDOWS_BEFORE[config]
+        for name, (wall, busy, idle) in rows.items():
+            b = before.get(name.split(",")[0])
+            print(f"  {config:20s} {name:20s} {wall:8.3f} / {busy:7.3f} / "
+                  f"{idle:.3f}" + (f"   (before: {b[0]} / {b[1]} / {b[2]})"
+                                   if b else ""))
+        out[config] = {"after": rows, "before_graphs": before}
+    return out
+
+
+def benches(torch):
+    """(d) ``kernel_bench`` and ``serve_bench`` once each at their
+    defaults, on the card."""
+    from repro_torch.benchmarks import kernel_bench, serve_bench
+    print("phase 15 (d): repro_torch.benchmarks.kernel_bench and serve_bench "
+          "at their defaults")
+    t0 = time.perf_counter()
+    kb = kernel_bench.report(device=DEVICE, log=lambda s: print("  " + s))
+    t1 = time.perf_counter()
+    sb = serve_bench.bench(serve_bench.parse_args([]), device=DEVICE,
+                           log=lambda s: print("  " + s))
+    t2 = time.perf_counter()
+    print(f"  kernel_bench {t1 - t0:.1f} s, serve_bench {t2 - t1:.1f} s")
+    return {"kernel_bench": kb, "serve_bench": sb,
+            "kernel_bench_s": t1 - t0, "serve_bench_s": t2 - t1}
+
+
+def phase15(torch, report):
+    t0 = time.perf_counter()
+    out = {"graph_parity": {c: graph_parity(torch, c)
+                            for c in ("llama3p2_1b", "deepseek_v3_dense3")},
+           "streamed_parity": streamed_parity(torch),
+           "windows": engine_windows(report),
+           "benches": benches(torch)}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 15: {out['phase_s']:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

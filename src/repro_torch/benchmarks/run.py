@@ -4,11 +4,12 @@
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--only table3,fig5] [--fast] [--device cpu]
 
-``kernels`` (the reference's ``kernel_bench.py``) is not ported yet: with
-``--only kernels`` it raises ``NotImplementedError``; a run without
-``--only`` skips it, says so on stderr and does not count it as a failure.
-The reference's closing roofline table, read from its XLA dry-run
-records, has no counterpart (``ROADMAP.md`` Queue 1 item 10).
+``kernels`` is :mod:`repro_torch.benchmarks.kernel_bench` (the kernels
+through ``ops`` beside their plain versions, the dense / streamed / kernel
+decode routes, and the serve step's live-memory check).  An unknown
+``--only`` tag raises ``ValueError``.  The reference's closing roofline
+table, read from its XLA dry-run records, has no counterpart (``ROADMAP.md``
+Queue 1 item 10).
 ``agg_bench`` stays a script of its own, as in the reference.  Every
 module runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -27,16 +28,10 @@ MODULES = [
     ("fig2", "repro_torch.benchmarks.fig2_spectrum"),
     ("fig5", "repro_torch.benchmarks.fig5_rank_vs_tau"),
     ("fig6", "repro_torch.benchmarks.fig6_layerwise_rank"),
-    ("kernels", None),
+    ("kernels", "repro_torch.benchmarks.kernel_bench"),
     ("table2", "repro_torch.benchmarks.table2_accuracy_efficiency"),
     ("fig7", "repro_torch.benchmarks.fig7_tau_vs_quality"),
 ]
-NOT_PORTED = {
-    "kernels": "benchmarks/kernel_bench.py is not ported yet (ROADMAP.md "
-               "Queue 1 item 2: its decode section times "
-               "decode_impl='streamed' against the dense route); "
-               "chip_smoke.py phases 2-3 time the port's kernels",
-}
 
 
 def main(argv=None) -> None:
@@ -49,16 +44,15 @@ def main(argv=None) -> None:
     if args.fast:
         os.environ["BENCH_FAST"] = "1"
     only = set(args.only.split(",")) if args.only else None
-    for tag in sorted((only or set()) & set(NOT_PORTED)):
-        raise NotImplementedError(NOT_PORTED[tag])
+    unknown = sorted((only or set()) - {tag for tag, _ in MODULES})
+    if unknown:
+        raise ValueError(f"unknown --only {unknown}; the modules are "
+                         f"{[tag for tag, _ in MODULES]}")
 
     print("name,us_per_call,derived")
     failures = []
     for tag, modname in MODULES:
         if only and tag not in only:
-            continue
-        if modname is None:
-            print(f"#{tag} skipped: {NOT_PORTED[tag]}", file=sys.stderr)
             continue
         t0 = time.time()
         try:

@@ -1,0 +1,302 @@
+"""Serving-engine throughput: the eager per-token loop against the graphed
+engine (port of the reference's ``benchmarks/serve_bench.py``).
+
+Arms over the same continuous-batching workload (temperature 0.8, top-k
+20, top-p 0.95):
+
+  * ``eager``      — the seed engine's loop (:class:`EagerLoop`): one token
+                     a step through ``make_serve_step``, host-side per-row
+                     sampling (eager ops and an ``int()`` sync a row);
+  * ``jit_chunk1`` — the engine with chunked prefill off (width 1);
+  * ``jit_chunkN`` — the engine with chunked prefill (whole prompt chunks
+                     through the cached sequence path);
+  * ``jit_chunkN_streamed`` — the same engine with ``decode_impl=
+                     "streamed"`` (online softmax over kv blocks).
+
+"jit" keeps the reference's names: here it is the engine whose steps and
+bursts run as CUDA graphs on the card (on the CPU the same functions run
+uncaptured).  Each arm serves the workload twice and keeps the faster
+pass; the engine's ``trace_counts`` (graph captures; builds on the CPU)
+must not change after the first pass.
+
+The ``multi_adapter`` axis serves the workload through an
+``AdapterRegistry`` with 1 / 8 / 32 live adapters of mixed ranks, requests
+round-robin across them, with a ``swap`` between the passes: churn must
+not capture again.  The ``mesh`` axis is not ported (``ROADMAP.md`` Queue 1
+item 9) and is reported as skipped.  Runs on ``cuda`` unless ``--device
+cpu`` is given::
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.serve_bench [--smoke] \\
+        [--json BENCH_serve.json] [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.configs import lora_targets
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.peft.lora import init_lora
+from repro_torch.serve.adapters import AdapterRegistry
+from repro_torch.serve.engine import SamplingParams, ServeEngine
+from repro_torch.train.step import make_serve_step
+
+SMOKE_MODEL = ModelConfig(name="servebench-tiny", family="dense", num_layers=2,
+                          d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                          d_ff=128, vocab_size=256, dtype="float32")
+FULL_MODEL = ModelConfig(name="servebench-small", family="dense", num_layers=4,
+                         d_model=128, num_heads=8, num_kv_heads=4, head_dim=16,
+                         d_ff=256, vocab_size=512, dtype="float32")
+MESH_SKIPPED = ("tensor-parallel serving (ServeEngine(mesh=...)) is not "
+                "ported yet (ROADMAP.md Queue 1 item 9, multi-device)")
+
+
+def _seed_sample_logits(logits, params: SamplingParams, gen: torch.Generator):
+    """The seed engine's per-row sampler: Python-branching eager operations
+    (each its own launch) per slot per token."""
+    if params.temperature <= 0.0:
+        return logits.argmax()
+    logits = logits / params.temperature
+    ninf = float("-inf")
+    if params.top_k:
+        kth = torch.topk(logits, params.top_k).values[-1]
+        logits = torch.where(logits < kth, ninf, logits)
+    if params.top_p < 1.0:
+        sorted_logits = logits.sort(descending=True).values
+        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+        cutoff_idx = torch.searchsorted(
+            cum, torch.tensor([params.top_p], device=logits.device), side="left")
+        cutoff = sorted_logits[cutoff_idx.clamp(max=logits.shape[0] - 1)]
+        logits = torch.where(logits < cutoff, ninf, logits)
+    return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=gen)[0]
+
+
+class EagerLoop:
+    """The seed engine's hot loop, kept as the measured baseline: one model
+    step a TOKEN, host-side per-row sampling and a host sync per row —
+    everything the engine's graphed step does on the device."""
+
+    def __init__(self, cfg, params, batch_slots, capacity, seed=0,
+                 device: DeviceLike = None):
+        self.cfg, self.params = cfg, params
+        self.B = batch_slots
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.cache = T.init_cache(cfg, batch_slots, capacity,
+                                  T.torch_dtype(cfg.dtype), device=self.device)
+        self._step = make_serve_step(cfg)
+        self.slots = [None] * batch_slots
+        self._pending = []
+        self._last = np.zeros((batch_slots, 1), np.int64)
+        self._left = {}
+
+    def submit(self, prompt, params):
+        self._pending.append([len(self._pending) + 1, list(prompt), params, []])
+        return self._pending[-1][0]
+
+    def run(self, max_steps=10000):
+        results = {}
+        for _ in range(max_steps):
+            for i in range(self.B):
+                if self.slots[i] is None and self._pending:
+                    req = self._pending.pop(0)
+                    self.slots[i] = req
+                    self._left[i] = list(req[1])
+            if all(s is None for s in self.slots) and not self._pending:
+                break
+            toks = self._last.copy()
+            feeding = [False] * self.B
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    toks[i, 0] = 0
+                elif self._left.get(i):
+                    toks[i, 0] = self._left[i].pop(0)
+                    feeding[i] = True
+            logits, self.cache = self._step(
+                self.params, None, self.cache,
+                {"tokens": torch.as_tensor(toks, device=self.device)})
+            for i, req in enumerate(self.slots):
+                if req is None or (feeding[i] and self._left.get(i)):
+                    continue
+                tok = int(_seed_sample_logits(logits[i], req[2], self.gen))
+                req[3].append(tok)
+                self._last[i, 0] = tok
+                if len(req[3]) >= req[2].max_tokens:
+                    results[req[0]] = req[3]
+                    self.slots[i] = None
+        return results
+
+
+def workload(engine, n_req, prompt_len, gen, rng, adapter_ids=None):
+    """Submit ``n_req`` sampled requests and serve them: (seconds, tokens).
+    Temperature sampling is the production path: the eager loop pays ~8
+    launches and a host sync a slot a token for it, the graphed step
+    nothing extra."""
+    sp = SamplingParams(temperature=0.8, top_k=20, top_p=0.95, max_tokens=gen)
+    uids = []
+    for r in range(n_req):
+        p = rng.integers(1, engine.cfg.vocab_size, prompt_len).tolist()
+        if adapter_ids:
+            uids.append(engine.submit(p, sp,
+                                      adapter_id=adapter_ids[r % len(adapter_ids)]))
+        else:
+            uids.append(engine.submit(p, sp))
+    t0 = time.perf_counter()
+    out = engine.run()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.perf_counter() - t0
+    return dt, sum(len(out[u]) for u in uids)
+
+
+def multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev,
+                       log: Callable = print):
+    """1 / 8 / 32 live mixed-rank adapters through one engine each: tok/s
+    per arm and the captures, with a ``swap`` between the warm-up pass and
+    the timed pass: registry churn must not capture again."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    template = init_lora(params, lora_targets(cfg), 4, 8.0, g)
+    ranks = [4, 8, 2, 6]
+    axis = {}
+    for n_ad in (1, 8, 32):
+        reg = AdapterRegistry(template, page_rank=4, num_pages=2 * n_ad + 6,
+                              max_adapters=n_ad + 3, max_rank=8, device=dev)
+        ids = [reg.register(f"t{j}", init_lora(params, lora_targets(cfg),
+                                               ranks[j % len(ranks)], 8.0, g))
+               for j in range(n_ad)]
+        eng = ServeEngine(cfg, params, batch_slots=args.slots,
+                          capacity=capacity, prefill_chunk=args.chunk,
+                          registry=reg, device=dev)
+        dt, total = workload(eng, args.requests, args.prompt_len, gen, rng,
+                             adapter_ids=ids)
+        warm = dict(eng.trace_counts)
+        ids[0] = reg.swap("t0", init_lora(params, lora_targets(cfg), 8, 8.0, g))
+        dt2, _ = workload(eng, args.requests, args.prompt_len, gen, rng,
+                          adapter_ids=ids)
+        if dict(eng.trace_counts) != warm:
+            raise AssertionError(f"multi_adapter[{n_ad}]: registry churn "
+                                 f"captured again ({warm} -> {eng.trace_counts})")
+        dt = min(dt, dt2)
+        axis[f"adapters_{n_ad}"] = {
+            "wall_s": round(dt, 4), "tokens": total,
+            "tok_per_s": round(total / dt, 2), "live_adapters": n_ad,
+            "ranks": [ranks[j % len(ranks)] for j in range(min(n_ad, 4))],
+            "trace_counts": {str(k): v for k, v in warm.items()},
+        }
+        log(f"multi_adapter[{n_ad:2d}]     {total:5d} tokens in {dt:7.3f}s "
+            f"({total / dt:8.1f} tok/s)")
+    t1 = axis["adapters_1"]["tok_per_s"]
+    t32 = axis["adapters_32"]["tok_per_s"]
+    axis["slowdown_32_vs_1"] = round(t1 / t32, 2)
+    axis["retraces_stable_under_churn"] = True
+    log(f"multi-adapter slowdown (32 vs 1 live): {t1 / t32:.2f}x")
+    return axis
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--smoke", action="store_true",
+                    help="small config + few iters (CI)")
+    ap.add_argument("--json", default="", help="write results to this path")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="serving-realistic prompts: prefill dominates the "
+                         "step count unless it is chunked")
+    ap.add_argument("--gen", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu; never falls back")
+    return ap.parse_args(argv)
+
+
+def bench(args, device: DeviceLike = None, log: Callable = print) -> Dict:
+    """Every arm and axis; returns the reference's report."""
+    dev = resolve_device(device if device is not None else args.device)
+    cfg = SMOKE_MODEL if args.smoke else FULL_MODEL
+    gen = args.gen or (32 if args.smoke else 48)
+    capacity = args.prompt_len + gen + 8
+    rng = np.random.default_rng(0)
+    params = T.init(cfg, 0, dev)
+
+    def mk(kind):
+        if kind == "eager":
+            return EagerLoop(cfg, params, args.slots, capacity, device=dev)
+        chunk = 1 if kind == "jit_chunk1" else args.chunk
+        impl = "streamed" if kind.endswith("_streamed") else "dense"
+        return ServeEngine(cfg, params, batch_slots=args.slots,
+                           capacity=capacity, prefill_chunk=chunk,
+                           decode_impl=impl, device=dev)
+
+    arms = ["eager", "jit_chunk1", f"jit_chunk{args.chunk}",
+            f"jit_chunk{args.chunk}_streamed"]
+    results, trace_counts = {}, {}
+    for kind in arms:
+        e = mk(kind)
+        # the first pass captures this engine's graphs, the second is warm;
+        # every arm reports its faster pass
+        dt, total = workload(e, args.requests, args.prompt_len, gen, rng)
+        before = dict(e.trace_counts) if isinstance(e, ServeEngine) else None
+        dt2, _ = workload(e, args.requests, args.prompt_len, gen, rng)
+        dt = min(dt, dt2)
+        if before is not None:
+            if e.trace_counts != before:
+                raise AssertionError(f"{kind}: captured again after the first "
+                                     f"pass ({before} -> {e.trace_counts})")
+            trace_counts[kind] = before
+        results[kind] = {"wall_s": round(dt, 4), "tokens": total,
+                         "tok_per_s": round(total / dt, 2),
+                         "decode_impl": ("streamed" if kind.endswith("_streamed")
+                                         else "dense")}
+        log(f"{kind:20s} {total:5d} tokens in {dt:7.3f}s "
+            f"({total / dt:8.1f} tok/s)")
+        del e
+
+    jit1 = results["jit_chunk1"]["tok_per_s"]
+    jitN = results[f"jit_chunk{args.chunk}"]["tok_per_s"]
+    jitS = results[f"jit_chunk{args.chunk}_streamed"]["tok_per_s"]
+    speedup = jitN / results["eager"]["tok_per_s"]
+    log(f"speedup (graphed+chunked vs eager loop): {speedup:.2f}x")
+    log(f"chunked prefill vs width-1: {jitN / jit1:.2f}x")
+    log(f"streamed decode vs dense: {jitS / jitN:.2f}x")
+    log(f"captures (stable across passes): {trace_counts}")
+    multi = multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev, log)
+    log(f"mesh axis skipped: {MESH_SKIPPED}")
+    backend = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return {
+        "config": {"model": cfg.name, "batch_slots": args.slots,
+                   "requests": args.requests, "prompt_len": args.prompt_len,
+                   "gen": gen, "prefill_chunk": args.chunk,
+                   "smoke": bool(args.smoke), "backend": backend},
+        "results": results,
+        "decode_impl_axis": {
+            "dense": jitN, "streamed": jitS,
+            "speedup_streamed_vs_dense": round(jitS / jitN, 2)},
+        "multi_adapter_axis": multi,
+        "mesh_axis": {"skipped": MESH_SKIPPED},
+        "speedup_jit_vs_eager": round(speedup, 2),
+        "speedup_chunked_vs_width1": round(jitN / jit1, 2),
+        "trace_counts": {arm: {str(k): v for k, v in c.items()}
+                         for arm, c in trace_counts.items()},
+    }
+
+
+def main(argv=None) -> Dict:
+    args = parse_args(argv)
+    report = bench(args)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"wrote {args.json}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,13 @@ both generations of the adapter serve side by side in one batch; registry
 churn only rewrites fixed-shape device pools.
 
 The engine decodes through ``decode_impl="kernel"`` (``ring_decode`` and
-``bgmv`` on the card) by default; ``"dense"`` runs the plain routes.  The
-reference's default ``"streamed"`` is not ported yet and raises
-``NotImplementedError``, as does ``--mesh N > 0`` (tensor-parallel serving).
-Nothing is traced in the port, so the last line reports the serving
-kernels' launches per engine step where the reference reports its trace
-counts.  Runs on ``cuda`` unless ``--device cpu`` is given.
+``bgmv`` on the card) by default; ``"dense"`` runs the plain routes and
+``"streamed"`` the reference's default, flash-decoding over kv blocks in
+plain PyTorch.  ``--mesh N > 0`` (tensor-parallel serving) is not ported
+yet and raises ``NotImplementedError``.  The last line reports the serving
+kernels' launches per engine step and the engine's graph captures, where
+the reference reports its trace counts.  Runs on ``cuda`` unless
+``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_federated [--rounds 2] \
       [--requests-per-round 2] [--batch-slots 4] [--temperature 0.0] \
@@ -55,7 +56,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--decode-impl", default="kernel",
                     choices=["dense", "streamed", "kernel"],
                     help="serving attention interior (kernel = ring_decode "
-                         "and bgmv on the card; streamed is not ported yet)")
+                         "and bgmv on the card)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="model-parallel devices for the serve mesh "
                          "(0 = no mesh, single device; not ported yet)")
@@ -133,10 +134,12 @@ def main(argv=None) -> dict:
              for i in sorted(set(served_by.values()))}
     print(f"served {len(outputs)} requests across adapter versions {by_id} "
           f"over {args.batch_slots} slots")
-    per_step = {k: v / max(eng.steps_run, 1) for k, v in launches.items()}
+    per_step = {k: v / max(eng.steps_run + eng.warmup_steps, 1)
+                for k, v in launches.items()}
     print(f"serving-kernel launches per engine step across {args.rounds} "
-          f"publishes ({eng.steps_run} steps): {per_step} (hot-swap never "
-          f"changes a shape)")
+          f"publishes ({eng.steps_run} steps, {eng.warmup_steps} before "
+          f"captures): {per_step}; captures {eng.trace_counts} (hot-swap "
+          f"never changes a shape)")
     return {"engine": eng, "trainer": trainer, "registry": registry,
             "outputs": outputs, "served_by": served_by,
             "in_flight": in_flight_after, "launches": launches}

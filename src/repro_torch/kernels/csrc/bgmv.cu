@@ -48,7 +48,7 @@
 //     pairs take the CUDA cores in fp32, a group of lanes per (query row,
 //     rank) dotting 16-byte chunks of both rows (faster than a 16-row mma
 //     tile that is mostly padding).  Partial sums meet in shared memory
-//     through atomics;
+//     in a fixed order (the same bits every run);
 //   * the expand: a thread per output column holds 4 ranks of B at a time
 //     in registers (one vector load where pr is a multiple of 4) against 8
 //     query rows of z broadcast from shared memory; stores are coalesced
@@ -272,18 +272,24 @@ bgmv_kernel(const Args a) {
     const unsigned char* sa = sx + a.x_rows * xs;
     if constexpr (MMA) {
       // warp jobs: (m-tile, n-tile) items × k-groups; each job accumulates
-      // its k-steps in registers and adds them to z once
+      // its k-steps in registers and adds them to z once.  The k-groups of
+      // an item add in the order kg = 0, 1, ... (a barrier between them),
+      // so z has the same bits every run; shared-memory atomics would sum
+      // in the order the warps arrive.  With kw > 1 every job fits in one
+      // pass of the warps, so the barriers are reached by the whole block.
       const int mt = a.c_pad / 16, nt = (r_b + 7) / 8, ks = a.kc / 16;
       const int items = mt * nt;
       const int kw = items >= kWarps ? 1 : kWarps / items;
       const int g = lane / 4, t = lane % 4;
-      for (int job = warp; job < items * kw; job += kWarps) {
+      for (int job0 = 0; job0 < items * kw; job0 += kWarps) {
+        const int job = job0 + warp;
+        const bool has = job < items * kw;
         const int item = job / kw, kg = job % kw;
         const int m = item / nt, n = item % nt;
         const unsigned char* xr = sx + (16 * m + g) * xs + 4 * t;
         const unsigned char* ar = sa + (8 * n + g) * as + 4 * t;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = kg; k < ks; k += kw) {
+        for (int k = kg; has && k < ks; k += kw) {
           const int ko = 32 * k;                 // 16 bf16 a k-step
           mma_bf16(acc, *reinterpret_cast<const uint32_t*>(xr + ko),
                    *reinterpret_cast<const uint32_t*>(xr + 8 * xs + ko),
@@ -293,10 +299,15 @@ bgmv_kernel(const Args a) {
                    *reinterpret_cast<const uint32_t*>(ar + ko + 16));
         }
         float* z0 = zp + (16 * m + g) * RZ + 8 * n + 2 * t;
-        atomicAdd(z0, acc[0]);
-        atomicAdd(z0 + 1, acc[1]);
-        atomicAdd(z0 + 8 * RZ, acc[2]);
-        atomicAdd(z0 + 8 * RZ + 1, acc[3]);
+        for (int turn = 0; turn < kw; ++turn) {
+          if (has && kg == turn) {
+            z0[0] += acc[0];
+            z0[1] += acc[1];
+            z0[8 * RZ] += acc[2];
+            z0[8 * RZ + 1] += acc[3];
+          }
+          if (kw > 1) __syncthreads();
+        }
       }
     } else {
       // a group of tpp lanes per (query row, rank) pair; the loop is uniform

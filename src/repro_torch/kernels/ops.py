@@ -5,7 +5,11 @@ CPU tensor takes the plain PyTorch version in :mod:`repro_torch.kernels.ref`.
 There is no fallback from one to the other.  Each wrapper counts its kernel
 launches in a plain integer attribute (``ring_decode.launches``,
 ``bgmv.launches``, ...), so a run can show that its path went through the
-kernels.  The wrappers drop the reference's block-size arguments (``bk``,
+kernels.  A CUDA graph replays its launches without calling a wrapper, so
+a capture records the counts its Python calls added (:func:`launch_delta`;
+the capture itself launches nothing) and takes them back, and every replay
+adds them (:func:`add_launches`).  The wrappers drop the reference's
+block-size arguments (``bk``,
 ``bm``/``bn``, ``bq``/``bk``): those are tuning knobs of the TPU kernels,
 and the CUDA kernels' tiles are fixed in their sources.
 
@@ -258,3 +262,17 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """The launches counted between two :func:`launch_counts` readings,
+    kernels that did not launch left out."""
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` × ``delta`` to the counters (a graph's replays; a
+    negative ``times`` takes a capture's Python calls back)."""
+    for name, n in delta.items():
+        WRAPPERS[name].launches += times * n

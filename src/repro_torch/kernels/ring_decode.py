@@ -30,6 +30,7 @@ SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on sm_90
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _TICKETS: dict = {}
+_RETIRED: list = []       # outgrown counters that captured graphs may hold
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -107,15 +108,38 @@ def smem_bytes(hd: int, kv_dtype, route_: str) -> int:
     return max(stages * stage, comb) + q_rows * hd * 4 + pbuf + 16
 
 
-def _tickets(dev: torch.device, need: int) -> torch.Tensor:
-    """The merge counters of one device: zeros, allocated once and grown as
-    needed; each launch leaves them zero (the merging block resets its
-    own).  Launches that share them must run in stream order."""
+def tickets_bound(B: int, C: int, H: int, K: int) -> int:
+    """Merge counters a call of these shapes may need at most (B·K·groups
+    at the narrowest group of rows)."""
+    return B * K * -(-(H // K * C) // min(GROUP_ROWS.values()))
+
+
+def reserve_tickets(dev: torch.device, need: int) -> torch.Tensor:
+    """Make the device's merge counters hold at least ``need`` and return
+    them.  A CUDA graph keeps the address it captured, so a caller that
+    captures launches reserves for its largest call first; a buffer that
+    is outgrown stays allocated (in ``_RETIRED``) for graphs that hold it."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
     t = _TICKETS.get(dev)
     if t is None or t.numel() < need:
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(need, 1024), dtype=torch.int32, device=dev)
         _TICKETS[dev] = t
     return t
+
+
+def _tickets(dev: torch.device, need: int) -> torch.Tensor:
+    """The merge counters of one device: zeros, allocated once and grown
+    outside a capture only; each launch leaves them zero (the merging block
+    resets its own).  Launches that share them must run in stream order."""
+    t = _TICKETS.get(dev)
+    if (t is None or t.numel() < need) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"ring_decode: {need} merge counters are not reserved on {dev}; "
+            "call ring_decode.reserve_tickets before capturing a graph")
+    return reserve_tickets(dev, need)
 
 
 def ring_decode_cuda(q, k, v, pos, length, n_tokens, window: int,

@@ -70,20 +70,10 @@ def make_adapter(params: Dict, targets: Sequence[str], rank: int,
     return ad
 
 
-def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
-          log: Callable = print) -> Dict[str, Any]:
-    """Build the model (random weights from ``SEED``) and the registry,
-    serve ``N_REQUESTS`` requests with a mid-flight swap, and return the
-    results with the engine and the step statistics.
-
-    Token rates: ``decode_tok_s`` counts the tokens emitted by width-1
-    steps over those steps' time; ``prefill_tok_s`` the prompt tokens over
-    the time of the wider (prefill) steps, which also emit tokens for the
-    rows already decoding; ``e2e_tok_s`` every generated token over the
-    whole window's host time; ``step_tok_s`` the prompt and generated tokens
-    over the steps' time.  An RWKV6 engine steps one
-    token at a time, so all its steps are width-1 steps and its prompts are
-    consumed there."""
+def build(config: str = "llama3p2_1b", *,
+          device: DeviceLike = None) -> Dict[str, Any]:
+    """The model (random weights from ``SEED``), the registry with
+    adapters of ``RANKS`` and the engine of ``config``."""
     cfg, capacity, prefill_chunk, prompt_lens = CONFIGS[config]
     dev = resolve_device(device)
     dtype = T.torch_dtype(cfg.dtype)
@@ -99,12 +89,35 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
                       capacity=capacity, prefill_chunk=prefill_chunk,
                       max_tokens_cap=MAX_TOKENS, decode_impl="kernel",
                       seed=SEED, device=dev, record_steps=True)
+    return {"cfg": cfg, "params": params, "registry": registry, "ids": ids,
+            "engine": eng, "gen": gen, "targets": targets, "dtype": dtype,
+            "prompt_lens": prompt_lens}
 
+
+def traffic(setup: Dict[str, Any], log: Callable = print) -> Dict[str, Any]:
+    """Serve ``N_REQUESTS`` requests on ``setup`` (from :func:`build`) with a
+    mid-flight swap of ``r8``, and return the results and the statistics of
+    this call's steps.  Calling it again on the same setup serves the same
+    prompts again (and swaps again).
+
+    Token rates: ``decode_tok_s`` counts the tokens emitted by width-1
+    steps over those steps' time; ``prefill_tok_s`` the prompt tokens over
+    the time of the wider (prefill) steps, which also emit tokens for the
+    rows already decoding; ``e2e_tok_s`` every generated token over the
+    whole window's host time; ``step_tok_s`` the prompt and generated tokens
+    over the steps' time.  A burst's width-1 steps each carry the burst's
+    time split evenly (``step_log``).  An RWKV6 engine steps one token at a
+    time, so all its steps are width-1 steps and its prompts are consumed
+    there."""
+    cfg, eng, registry = setup["cfg"], setup["engine"], setup["registry"]
+    ids, gen, prompt_lens = setup["ids"], setup["gen"], setup["prompt_lens"]
+    params, targets, dtype = setup["params"], setup["targets"], setup["dtype"]
     rng = np.random.default_rng(SEED)
     cycle = [0] + list(ids.values())
     n_late = N_REQUESTS // 4                       # submitted after the swap
     served_by: Dict[int, int] = {}
     prompt_tokens = 0
+    logged = len(eng.step_log())
 
     def submit(i: int, aid: int) -> None:
         nonlocal prompt_tokens
@@ -118,21 +131,22 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
                          adapter_id=aid)
         served_by[uid] = aid
 
+    steps0 = eng.steps_run
     t0 = time.perf_counter()
     for i in range(N_REQUESTS - n_late):
         submit(i, cycle[i % len(cycle)])
     results = eng.run_steps(SWAP_AFTER_STEPS)
     swap_name = f"r{RANKS[len(RANKS) // 2]}"
     old_id = ids[swap_name]
-    new_id = registry.swap(swap_name, make_adapter(
+    new_id = ids[swap_name] = registry.swap(swap_name, make_adapter(
         params, targets, RANKS[len(RANKS) // 2], gen, dtype))
     in_flight = sorted({served_by[s.uid] for s in eng.slots if s is not None})
     log(f"swap {swap_name}: id {old_id} -> {new_id} after "
-        f"{eng.steps_run} steps; ids in flight {in_flight}")
+        f"{eng.steps_run - steps0} steps; ids in flight {in_flight}")
     for i in range(N_REQUESTS - n_late, N_REQUESTS):
         submit(i, new_id)
     results.update(eng.run(max_steps=100_000))
-    steps = eng.step_log()                         # synchronises the card
+    steps = eng.step_log()[logged:]                # synchronises the card
     wall = time.perf_counter() - t0
 
     pre = [s for s in steps if s["width"] > 1]
@@ -142,7 +156,7 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     dec_tokens = sum(s["emitted"] for s in dec)
     generated = sum(len(v) for v in results.values())
     stats = {
-        "steps": eng.steps_run, "prefill_steps": len(pre),
+        "steps": eng.steps_run - steps0, "prefill_steps": len(pre),
         "decode_steps": len(dec), "prompt_tokens": prompt_tokens,
         "generated_tokens": generated, "decode_tokens": dec_tokens,
         "prefill_step_tokens": sum(s["emitted"] for s in pre),
@@ -159,6 +173,13 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     }
     return {"engine": eng, "registry": registry, "results": results,
             "served_by": served_by, "swap": (old_id, new_id), "stats": stats}
+
+
+def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
+          log: Callable = print) -> Dict[str, Any]:
+    """:func:`build` then :func:`traffic` once: the results with the engine
+    and the step statistics."""
+    return traffic(build(config, device=device), log)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

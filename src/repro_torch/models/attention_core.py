@@ -1,6 +1,9 @@
 """Attention cores (port of ``repro.models.attention_core``): ring-buffer
-masks for decode attention, and ``flash_torch``, the chunked online-softmax
-attention of full sequences (``flash_jax``).
+masks for decode attention, the streamed decode route
+(``ring_flash_decode``, ``mla_ring_flash_decode``: an online softmax over
+kv blocks of the ring, the reference's XLA flash-decoding), and
+``flash_torch``, the chunked online-softmax attention of full sequences
+(``flash_jax``).
 
 Slot ``s`` of a row's ring holds absolute position
 ``p_abs = last - (last - s) mod cap`` with ``last = pos - 1``.  The modulo is
@@ -58,6 +61,128 @@ def ring_block_mask(pos: torch.Tensor, length: torch.Tensor,
     if window:
         m &= p_abs[:, None, :] > (qpos[:, :, None] - window)
     return m
+
+
+def _streamed_ring_attend(qf: torch.Tensor, kv_block, pos, length, n_tokens,
+                          cap: int, bk: int, nb: int, dv: int, window: int,
+                          scale: float) -> torch.Tensor:
+    """Online softmax over the ring cache's kv blocks.
+
+    qf: (B,C,K,g,dq) fp32; ``kv_block(start) -> (k (B,bk,K,dq), v
+    (B,bk,K,dv))`` fp32 (an int8 cache is dequantized per block inside the
+    callback, never whole).  Live scores are O(B·H·C·bk), never O(cap).
+    Returns (B,C,H,dv) fp32."""
+    B, C, K, g, _ = qf.shape
+    dev = qf.device
+    m_run = torch.full((B, K, g, C), NEG_INF, device=dev)
+    l_run = torch.zeros((B, K, g, C), device=dev)
+    acc = torch.zeros((B, K, g, C, dv), device=dev)
+    for ib in range(nb):
+        start = ib * bk
+        kb, vb = kv_block(start)
+        s = torch.einsum("bckgd,bxkd->bkgcx", qf, kb) * scale    # (B,K,g,C,bk)
+        msk = ring_block_mask(pos, length, n_tokens, cap, start, bk, C,
+                              window)                            # (B,C,bk)
+        s = torch.where(msk[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgcx,bxkd->bkgcd", p, vb)
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]        # (B,K,g,C,dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, K * g, dv)
+
+
+def _block_slice(x: torch.Tensor, start: int, bk: int) -> torch.Tensor:
+    return x[:, start:start + bk]
+
+
+def _pad_cap(arrs, cap: int, bk: int):
+    """Pad the slot axis (axis 1) of every tensor to a ``bk`` multiple,
+    keeping its dtype (an int8 cache stays int8); padded slots are masked
+    by ``s < cap`` in :func:`ring_block_mask`."""
+    pad = (-cap) % bk
+    if pad == 0:
+        return arrs
+    return [None if a is None else
+            torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+            for a in arrs]
+
+
+def _n_or_full(n_tokens, B: int, C: int, device) -> torch.Tensor:
+    if n_tokens is None:
+        return torch.full((B,), C, dtype=torch.int32, device=device)
+    return n_tokens.to(torch.int32)
+
+
+def ring_flash_decode(q, k, v, pos, length, n_tokens=None, *, window: int = 0,
+                      scale=None, block: int = 128, k_scale=None,
+                      v_scale=None) -> torch.Tensor:
+    """Streamed flash-decoding over a GQA ring cache (the reference's
+    ``ring_flash_decode``, plain PyTorch as it is plain XLA there).
+
+    q: (B,C,H,hd); k/v: (B,cap,K,hd) raw cache storage, int8 with per-token
+    (B,cap,K,1) scales dequantized per block; pos/length: (B,) ring state
+    AFTER the chunk write; ``n_tokens: (B,)`` real query tokens (None = C).
+    The residency, causal and window mask is formed per kv block of
+    ``bk = min(block, cap)`` slots, so neither a (B,C,cap) mask, a
+    (B,H,C,cap) score tensor nor a full-precision cache copy is live.
+    Returns (B,C,H,hd) fp32."""
+    B, C, H, dq = q.shape
+    cap, K = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = H // K
+    if scale is None:
+        scale = 1.0 / math.sqrt(dq)
+    n = _n_or_full(n_tokens, B, C, q.device)
+    bk = min(block, cap)
+    nb = -(-cap // bk)
+    k, v, k_scale, v_scale = _pad_cap([k, v, k_scale, v_scale], cap, bk)
+    qf = q.float().reshape(B, C, K, g, dq)
+
+    def kv_block(start):
+        kb = _block_slice(k, start, bk).float()
+        vb = _block_slice(v, start, bk).float()
+        if k_scale is not None:
+            kb = kb * _block_slice(k_scale, start, bk)
+            vb = vb * _block_slice(v_scale, start, bk)
+        return kb, vb
+
+    return _streamed_ring_attend(qf, kv_block, pos, length, n, cap, bk, nb,
+                                 dv, window, scale)
+
+
+def mla_ring_flash_decode(q_eff, c_kv, k_rope, pos, length, n_tokens=None, *,
+                          scale: float, window: int = 0, block: int = 128,
+                          c_kv_scale=None, k_rope_scale=None) -> torch.Tensor:
+    """Streamed absorbed-MLA decode over the latent ring cache: MQA of the
+    absorbed queries q_eff (B,C,H,kvr+rope) against ``[c_kv | k_rope]``
+    with the latent ``c_kv`` (kvr wide) as the values.  c_kv: (B,cap,kvr),
+    k_rope: (B,cap,rope) raw storage, int8 with (B,cap,1) per-half scales
+    dequantized per block.  ``scale`` is the un-absorbed 1/√(nope+rope).
+    Returns out_lat (B,C,H,kvr) fp32; the caller applies the absorbed
+    V-projection."""
+    B, C, H, dq = q_eff.shape
+    cap, kvr = c_kv.shape[1], c_kv.shape[2]
+    n = _n_or_full(n_tokens, B, C, q_eff.device)
+    bk = min(block, cap)
+    nb = -(-cap // bk)
+    c_kv, k_rope, c_kv_scale, k_rope_scale = _pad_cap(
+        [c_kv, k_rope, c_kv_scale, k_rope_scale], cap, bk)
+    qf = q_eff.float().reshape(B, C, 1, H, dq)                # MQA: K 1, g H
+
+    def kv_block(start):
+        ckv = _block_slice(c_kv, start, bk).float()
+        kr = _block_slice(k_rope, start, bk).float()
+        if c_kv_scale is not None:
+            ckv = ckv * _block_slice(c_kv_scale, start, bk)
+            kr = kr * _block_slice(k_rope_scale, start, bk)
+        kb = torch.cat([ckv, kr], dim=-1)[:, :, None, :]
+        return kb, ckv[:, :, None, :]
+
+    return _streamed_ring_attend(qf, kv_block, pos, length, n, cap, bk, nb,
+                                 kvr, window, scale)
 
 
 def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,

@@ -18,13 +18,16 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.attention_core import flash_torch, ring_attend_mask
+from repro_torch.models.attention_core import (flash_torch,
+                                              mla_ring_flash_decode,
+                                              ring_attend_mask,
+                                              ring_flash_decode)
 from repro_torch.peft.lora import PagedLoRA, lora_proj, paged_delta_weight
 from repro_torch.serve.kvcache import (cache_kv, cache_update, dequant,
                                        mla_cache_update)
 
 Params = Dict[str, Any]
-DECODE_IMPLS = ("dense", "kernel")
+DECODE_IMPLS = ("dense", "streamed", "kernel")
 
 
 def dense_init(generator: torch.Generator, shape, in_dim: int,
@@ -151,11 +154,6 @@ def attention_fwd(cfg: ModelConfig, p: Params, x, adapters=None,
 
 
 def check_decode_impl(decode_impl: str) -> None:
-    if decode_impl == "streamed":
-        raise NotImplementedError(
-            "decode_impl='streamed' is not ported yet (ROADMAP.md Queue 1 "
-            "item 2, the engine burst as one dispatch); use 'dense' or "
-            "'kernel'")
     if decode_impl not in DECODE_IMPLS:
         raise ValueError(f"unknown decode_impl {decode_impl!r}")
 
@@ -167,9 +165,12 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
     x: (B,C,d); cache: {"k", "v": (B,cap,K,hd), "pos", "length": (B,)};
     ``n_tokens: (B,)`` real tokens per row (rows with 0 leave their cache
     untouched).  ``decode_impl``: ``"dense"`` (full (B,H,C,cap) scores and
-    the dense ring mask; int8 caches dequantized to bf16) or ``"kernel"``
-    (:func:`repro_torch.kernels.ops.ring_decode`; int8 dequantized per tile
-    in fp32).  Both agree on valid query positions ``t < n_tokens[b]``.
+    the dense ring mask; int8 caches dequantized to bf16), ``"streamed"``
+    (:func:`~repro_torch.models.attention_core.ring_flash_decode`: an online
+    softmax over kv blocks, int8 dequantized per block in fp32) or
+    ``"kernel"`` (:func:`repro_torch.kernels.ops.ring_decode`; int8
+    dequantized per tile in fp32).  All agree on valid query positions
+    ``t < n_tokens[b]``.
     Returns (out (B,C,d), new_cache); the cache's ring buffers are written
     in place.
     """
@@ -195,10 +196,11 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
         n = (torch.full((B,), C, dtype=torch.int32, device=x.device)
              if n_tokens is None else n_tokens.to(torch.int32))
         int8 = cache["k"].dtype == torch.int8
-        o = kops.ring_decode(q, cache["k"], cache["v"], cache["pos"],
-                             cache["length"], n, window=cfg.sliding_window,
-                             k_scale=cache["k_scale"] if int8 else None,
-                             v_scale=cache["v_scale"] if int8 else None)
+        fn = kops.ring_decode if decode_impl == "kernel" else ring_flash_decode
+        o = fn(q, cache["k"], cache["v"], cache["pos"], cache["length"], n,
+               window=cfg.sliding_window,
+               k_scale=cache["k_scale"] if int8 else None,
+               v_scale=cache["v_scale"] if int8 else None)
     o = o.reshape(B, C, H * hd).to(x.dtype)
     a = adapters or {}
     return lora_proj(o, p["wo"], a.get("wo")), cache
@@ -262,9 +264,11 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
     folds each row's own delta into the absorbed weights
     (:func:`paged_delta_weight`); a classic one folds into the shared weight.
     ``decode_impl``: ``"dense"`` (full scores and the dense ring mask; int8
-    dequantized whole in fp32) or ``"kernel"``
+    dequantized whole in fp32), ``"streamed"``
+    (:func:`~repro_torch.models.attention_core.mla_ring_flash_decode`; int8
+    halves dequantized per block) or ``"kernel"``
     (:func:`repro_torch.kernels.ops.mla_ring_decode`; int8 halves dequantized
-    per tile).  Both agree on valid query positions ``t < n_tokens[b]``.
+    per tile).  All agree on valid query positions ``t < n_tokens[b]``.
     Returns (out (B,C,d), new_cache); the ring buffers are written in place.
     """
     check_decode_impl(decode_impl)
@@ -313,7 +317,9 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
         n = (torch.full((B,), C, dtype=torch.int32, device=x.device)
              if n_tokens is None else n_tokens.to(torch.int32))
         q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)   # (B,C,H,kvr+rope)
-        out_lat = kops.mla_ring_decode(
+        fn = (kops.mla_ring_decode if decode_impl == "kernel"
+              else mla_ring_flash_decode)
+        out_lat = fn(
             q_eff, cache["c_kv"], cache["k_rope"], cache["pos"],
             cache["length"], n, scale=scale, window=cfg.sliding_window,
             c_kv_scale=cache["c_kv_scale"] if int8 else None,

@@ -263,8 +263,8 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
 
     ``n_tokens: (B,)`` gives the real tokens per row (None = all C; rows
     with 0 leave their cache untouched).  ``decode_impl`` picks the
-    attention interior (``"dense"`` or ``"kernel"``; the RWKV6 recurrence
-    is the same on both).  The ring buffers and recurrent states are
+    attention interior (``"dense"``, ``"streamed"`` or ``"kernel"``; the
+    RWKV6 recurrence is the same on all three).  The ring buffers and recurrent states are
     written in place; the returned cache holds the same buffers and the
     advanced positions.  RWKV6 takes C = 1.  Returns (logits (B,C,V),
     cache)."""

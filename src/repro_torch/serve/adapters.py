@@ -53,6 +53,13 @@ def adapter_leaves(node: Any, path=()):
             yield from adapter_leaves(v, path + (i,))
 
 
+def is_device_state(adapters: Any) -> bool:
+    """Whether ``adapters`` is a registry device-state dict (pools and
+    tables) rather than a single-tenant adapter tree."""
+    return (isinstance(adapters, dict) and "pools" in adapters
+            and "table" in adapters and "rank" in adapters)
+
+
 def attach(device_state: Dict[str, Any], ids: torch.Tensor,
            impl: str = "kernel") -> Any:
     """The adapter tree a decode step consumes: every pool leaf becomes a

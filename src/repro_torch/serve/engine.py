@@ -12,34 +12,42 @@ cache rows are wiped on admission).  Every engine step
   * applies stop / max-token completion (the stop token is not emitted) and
     writes emitted tokens into an on-device output buffer.
 
-A step is a sequence of device operations with no host synchronisation;
-the host only admits requests, picks the step width (the prefill chunk while
-any slot is prefilling, else a burst of ``poll_every`` width-1 steps) and
-reads the completion flags once per burst.
+A step is a sequence of device operations with no host synchronisation
+that writes into the engine's own tensors (:func:`_build_engine_step`), and
+a decode burst is ``poll_every`` of them (:func:`_build_engine_burst`).  On
+the card each shape is captured once into a CUDA graph and replayed, so a
+step or a burst is one host call; on the CPU the same functions run as they
+are.  The host only admits requests, picks the shape (the prefill chunk
+while any slot is prefilling, else a burst of ``poll_every`` width-1 steps)
+and reads the completion flags once per burst.
 
-Sampling noise comes from one ``torch.Generator`` per sampling request,
-seeded from ``(seed, uid)``: outputs are invariant to slot placement and
-admission order.  The streams are not the reference's ``fold_in`` streams.
+Sampling noise is a counter-based hash of each slot's key, set at admission
+from ``(seed, uid)``, its draw counter and the vocabulary index
+(:func:`gumbel_noise`): outputs are invariant to slot placement and
+admission order, and a graph replays them.  The streams are not the
+reference's ``fold_in`` streams.
 
 With ``record_steps=True`` the engine logs every step's width, its time
-(CUDA events on the card, so no host synchronisation per step) and the
-number of tokens it emitted; :meth:`ServeEngine.step_log` reads the log.
+(CUDA events around each replay on the card, a burst's time split evenly
+over its steps) and the number of tokens it emitted (written by the step
+into a device buffer); :meth:`ServeEngine.step_log` reads the log.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import check_decode_impl
 from repro_torch.serve import kvcache as Kv
-from repro_torch.serve.adapters import AdapterRegistry, attach
+from repro_torch.serve.adapters import AdapterRegistry, attach, is_device_state
 
 
 @dataclasses.dataclass
@@ -68,13 +76,14 @@ def sample_token(logits: torch.Tensor, temperature: torch.Tensor,
     ``temperature <= 0``, else a draw from the temperature-scaled
     distribution restricted by top-k and then top-p (on the top-k-filtered,
     renormalised distribution).  ``gumbel`` (B, V) is Gumbel(0, 1) noise:
-    ``argmax(masked + gumbel)`` is a categorical draw."""
+    ``argmax(masked + gumbel)`` is a categorical draw.  No host copy: it
+    runs inside a captured graph."""
     V = logits.shape[-1]
+    ninf = float("-inf")
     lf = logits.float()
     greedy = lf.argmax(dim=-1)
     lt = lf / temperature.clamp_min(1e-6)[:, None]
     sorted_lt = lt.sort(dim=-1, descending=True).values
-    ninf = torch.tensor(float("-inf"), device=lf.device)
     kth = sorted_lt.gather(1, (top_k - 1).clamp(0, V - 1)[:, None])[:, 0]
     kth = torch.where(top_k > 0, kth, ninf)
     sorted_f = torch.where(sorted_lt < kth[:, None], ninf, sorted_lt)
@@ -87,15 +96,149 @@ def sample_token(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(temperature <= 0.0, greedy, sampled)
 
 
-def _request_seed(seed: int, uid: int) -> int:
+_M32 = 0xFFFFFFFF
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xor-shift and multiply rounds) of int64
+    values in [0, 2^32).  Both multipliers are below 2^31, so every product
+    stays below 2^63: the bits are the same on the CPU and the card."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(keys: torch.Tensor, draws: torch.Tensor, V: int) -> torch.Tensor:
+    """(B, V) Gumbel(0, 1) noise, a counter-based hash of each row's
+    ``(key, draw)`` and the vocabulary index: a function of those alone, so
+    a request's stream does not depend on its slot, its batch or a graph.
+    The uniform has 24 bits, (h + 1/2) / 2^24, never 0 or 1."""
+    row = mix32(keys ^ mix32(draws & _M32))                        # (B,)
+    col = mix32(torch.arange(V, dtype=torch.int64, device=keys.device))
+    h = mix32((row[:, None] + col[None, :]) & _M32)                # (B, V)
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def request_key(seed: int, uid: int) -> int:
+    """A request's sampling key in [0, 2^32), from ``(seed, uid)``."""
     return int(np.random.SeedSequence((seed, uid)).generate_state(1)[0])
+
+
+def _build_engine_step(cfg: ModelConfig, width: int, stochastic: bool = True,
+                       decode_impl: str = "dense", lora_impl: str = "plain"):
+    """One engine step of token ``width`` as a function ``step(params,
+    adapters, cache, state, emitted=None, i=0)`` that writes its results
+    into the tensors it was given: the cache's ring buffers, recurrent
+    states and ``pos``/``length``, and the slot state's ``active``,
+    ``last_token``, ``consumed``, ``gen_count``, ``out_buf`` and ``draws``
+    (and ``emitted[i]``, the tokens the step emitted, when given).  It
+    allocates nothing that outlives it and makes no host synchronisation,
+    so a CUDA graph can capture it.  ``stochastic=False`` is the greedy-only
+    variant (a plain argmax, no noise, no draws).  ``adapters`` is a
+    single-tenant adapter tree or a registry's device state, attached
+    against ``state["adapter_ids"]`` with ``lora_impl``."""
+    C = width
+
+    def step(params, adapters, cache, state, emitted=None, i: int = 0):
+        if is_device_state(adapters):
+            adapters = attach(adapters, state["adapter_ids"], impl=lora_impl)
+        active = state["active"]
+        t = torch.arange(C, device=active.device)[None, :]
+        consumed, plen = state["consumed"], state["prompt_len"]
+        remaining = (plen - consumed).clamp_min(0)
+        prefilling = active & (remaining > 0)
+        n_pre = remaining.clamp_max(C)
+        pcap = state["prompt_buf"].shape[1]
+        gidx = (consumed[:, None] + t).clamp(0, pcap - 1)
+        pre_toks = state["prompt_buf"].gather(1, gidx)
+        dec_toks = torch.nn.functional.pad(state["last_token"][:, None], (0, C - 1))
+        toks = torch.where(prefilling[:, None], pre_toks, dec_toks)
+        n_tok = torch.where(prefilling, n_pre,
+                            active.to(torch.int64)).to(torch.int32)
+
+        lg, new_cache = T.decode(cfg, params, cache, {"tokens": toks}, adapters,
+                                 n_tokens=n_tok, decode_impl=decode_impl)
+        Kv.write_positions(cache, new_cache)
+        last = (n_tok.long() - 1).clamp(0, C - 1)
+        logits = lg.gather(1, last[:, None, None].expand(-1, 1, lg.shape[-1]))[:, 0]
+
+        consumed = consumed + torch.where(prefilling, n_pre, 0)
+        do_sample = active & (consumed >= plen)
+        if stochastic:
+            tok = sample_token(logits, state["temperature"], state["top_k"],
+                               state["top_p"],
+                               gumbel_noise(state["keys"], state["draws"],
+                                            logits.shape[-1]))
+            state["draws"].add_(do_sample.to(torch.int64))
+        else:
+            tok = logits.argmax(dim=-1)
+
+        hit_stop = tok == state["stop_token"]
+        emit = do_sample & ~hit_stop
+        gc = state["gen_count"]
+        out_buf = state["out_buf"]
+        at = gc.clamp(0, out_buf.shape[1] - 1)[:, None]
+        out_buf.scatter_(1, at, torch.where(emit[:, None], tok[:, None],
+                                            out_buf.gather(1, at)))
+        gc_new = gc + emit.to(torch.int64)
+        finished = do_sample & (hit_stop | (gc_new >= state["max_tokens"]))
+        state["last_token"].copy_(torch.where(emit, tok, state["last_token"]))
+        state["consumed"].copy_(consumed)
+        state["gen_count"].copy_(gc_new)
+        state["active"].copy_(active & ~finished)
+        if emitted is not None:
+            emitted[i].copy_(emit.sum())
+
+    return step
+
+
+def _build_engine_burst(cfg: ModelConfig, steps: int, stochastic: bool = True,
+                        decode_impl: str = "dense", lora_impl: str = "plain"):
+    """``steps`` width-1 engine steps as one function over the same
+    arguments as :func:`_build_engine_step` (``emitted[i]`` for step
+    ``i``).  Finished and inactive rows no-op (``n_tokens = 0``), so a
+    fixed burst is safe when a slot completes mid-burst."""
+    step = _build_engine_step(cfg, 1, stochastic, decode_impl, lora_impl)
+
+    def burst(params, adapters, cache, state, emitted=None):
+        for i in range(steps):
+            step(params, adapters, cache, state, emitted, i)
+
+    return burst
+
+
+@dataclasses.dataclass
+class _EngineFn:
+    """A built engine function of ``steps`` steps, with its emitted-count
+    buffer; on the card its graph and the launches its capture counted."""
+    fn: Callable
+    steps: int
+    emitted: Optional[torch.Tensor]
+    graph: Any = None
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class ServeEngine:
     """One model, B slots, one ring cache, a registry of adapters or a
     single-tenant adapter tree.  ``decode_impl`` picks the attention
-    interior (``"dense"`` | ``"kernel"``); ``lora_impl`` the paged LoRA
-    delta (``"kernel"`` with the kernel interior, else ``"plain"``)."""
+    interior (``"dense"`` | ``"streamed"`` | ``"kernel"``); ``lora_impl``
+    the paged LoRA delta (``"kernel"`` with the kernel interior, else
+    ``"plain"``).
+
+    Every tensor a step reads or writes (params, adapters or the registry's
+    pools and tables, the cache and the slot state) keeps its address for
+    the engine's life; admission, ``reset_slot`` and registry churn write
+    into them.  On the card each step shape (width 1 or the prefill chunk,
+    greedy or sampled) and each burst shape (``poll_every`` width-1 steps)
+    is captured once into a CUDA graph, all in one memory pool, and
+    replayed after that; a capture that fails raises.  On the CPU the same
+    built functions run uncaptured.  ``trace_counts`` counts the captures
+    (builds on the CPU) by ``(width, "greedy" | "sampled")`` and
+    ``("burst{n}", mode)``; ``warmup_steps`` the steps run (with every row
+    inactive) before captures, outside ``steps_run``."""
 
     def __init__(self, cfg: ModelConfig, params: Any, adapters: Any = None,
                  batch_slots: int = 4, capacity: int = 256,
@@ -149,30 +292,45 @@ class ServeEngine:
             "top_p": z(torch.float32, fill=1.0),
             "max_tokens": z(i64),
             "stop_token": z(i64, fill=-1),
+            "keys": z(i64),                     # request_key(seed, uid)
+            "draws": z(i64),                    # noise draws taken
             "adapter_ids": z(torch.int32),     # slot -> adapter id (0 = base)
         }
-        self._gens: List[Optional[torch.Generator]] = [None] * B
         self.slots: List[Optional[Request]] = [None] * B
         self._pending: List[Request] = []
         self._uid = 0
         self._host_left: Dict[int, int] = {}    # slot -> prompt tokens left
         self.steps_run = 0                      # engine steps, bursts included
-        # (width, start, end, tokens emitted) per step while recording
+        self.warmup_steps = 0                   # steps run before captures
+        self.trace_counts: Dict[Any, int] = {}
+        self._fns: Dict[Any, _EngineFn] = {}
+        # (width, start, end, emitted counts, steps) per call while recording
         self._steps: Optional[List] = [] if record_steps else None
+        if dev.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(dev)
+            self._tickets = self._reserve_tickets()
 
     # -- public API -----------------------------------------------------------
     def step_log(self) -> List[Dict[str, Any]]:
-        """Every recorded step as ``{"width", "ms", "emitted"}``: its token
-        width, its time (device time between CUDA events on the card, host
-        time on the CPU) and the tokens it emitted.  Synchronises once."""
+        """Every recorded step as ``{"width", "ms", "emitted", "burst"}``:
+        its token width, its time (device time between CUDA events around
+        the graph's replay on the card, host time on the CPU), the tokens
+        it emitted, and the steps of its call: a burst of ``n`` steps is
+        timed as one and each of its steps gets ``ms`` = the burst's time /
+        n, marked ``"burst": n`` (1 for a step timed alone).  Synchronises
+        once."""
         if self._steps is None:
             raise RuntimeError("the engine was built without record_steps=True")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return [{"width": C,
-                 "ms": (a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
-                        else (b - a) * 1e3),
-                 "emitted": int(n)} for C, a, b, n in self._steps]
+        out = []
+        for C, a, b, emitted, n in self._steps:
+            ms = (a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
+                  else (b - a) * 1e3)
+            out.extend({"width": C, "ms": ms / n, "emitted": int(e), "burst": n}
+                       for e in emitted.tolist())
+        return out
 
     def submit(self, prompt: List[int],
                params: Optional[SamplingParams] = None,
@@ -206,7 +364,6 @@ class ServeEngine:
         Kv.reset_slot(self.cache, i)
         self._state["active"][i] = False
         self._state["adapter_ids"][i] = 0
-        self._gens[i] = None
         self.slots[i] = None
         self._host_left.pop(i, None)
 
@@ -215,7 +372,7 @@ class ServeEngine:
         """Run until every submitted request completes (or ``max_steps``
         engine steps elapse; stragglers are reported with their partial
         output and freed).  Pure-decode phases run ``poll_every`` width-1
-        steps back to back and read the completion flags once."""
+        steps as one burst and read the completion flags once."""
         results: Dict[int, List[int]] = {}
         steps = 0
         while steps < max_steps:
@@ -225,9 +382,7 @@ class ServeEngine:
             prefilling = self._prefilling()
             if (not prefilling and poll_every > 1
                     and max_steps - steps >= poll_every):
-                stochastic = self._stochastic()
-                for _ in range(poll_every):
-                    self._step(1, stochastic)
+                self._burst(poll_every)
                 steps += poll_every
                 self._poll(results)
             else:
@@ -243,73 +398,110 @@ class ServeEngine:
         self._drain(results)
         return results
 
-    def run_steps(self, steps: int) -> Dict[int, List[int]]:
+    def run_steps(self, steps: int, poll_every: int = 1) -> Dict[int, List[int]]:
         """Advance exactly ``steps`` engine steps without draining; returns
-        the requests that completed."""
+        the requests that completed.  With ``poll_every > 1`` pure-decode
+        stretches run as bursts of that many steps (as :meth:`run` does),
+        polled once a burst."""
         results: Dict[int, List[int]] = {}
-        for _ in range(steps):
+        done = 0
+        while done < steps:
             self._admit()
             if all(s is None for s in self.slots) and not self._pending:
                 break
-            self._engine_step()
+            if (poll_every > 1 and not self._prefilling()
+                    and steps - done >= poll_every):
+                self._burst(poll_every)
+                done += poll_every
+            else:
+                self._engine_step()
+                done += 1
             self._poll(results)
         return results
 
     # -- internals -------------------------------------------------------------
-    def _adapters(self):
+    def _adapters_arg(self):
+        """A step's ``adapters``: the registry's device state (attached in
+        the step against the slots' adapter ids) or the engine's tree."""
         if self.registry is not None:
-            return attach(self.registry.device_state,
-                          self._state["adapter_ids"], impl=self.lora_impl)
+            return self.registry.device_state
         return self.adapters
 
-    def _step(self, C: int, stochastic: bool) -> None:
+    def _reserve_tickets(self):
+        """``ring_decode``'s merge counters for the engine's largest call,
+        before any capture (a graph keeps the address it captured)."""
+        cfg = self.cfg
+        if self.decode_impl != "kernel" or cfg.use_mla or cfg.family == "ssm":
+            return None
+        from repro_torch.kernels import ring_decode
+        dev = next(c["k"].device for c in self.cache if "k" in c)
+        return ring_decode.reserve_tickets(dev, ring_decode.tickets_bound(
+            self.B, self.chunk, cfg.num_heads, cfg.num_kv_heads))
+
+    def _mode(self) -> str:
+        return "sampled" if self._stochastic() else "greedy"
+
+    def _step(self, C: int) -> None:
         """One engine step of token width ``C``; device work only."""
+        mode = self._mode()
+        self._call((C, mode), lambda: _build_engine_step(
+            self.cfg, C, mode == "sampled", self.decode_impl, self.lora_impl),
+            1, C)
+
+    def _burst(self, n: int) -> None:
+        """``n`` width-1 steps as one call (one graph replay on the card)."""
+        mode = self._mode()
+        self._call((f"burst{n}", mode), lambda: _build_engine_burst(
+            self.cfg, n, mode == "sampled", self.decode_impl, self.lora_impl),
+            n, 1)
+
+    def _call(self, key, build: Callable, steps: int, width: int) -> None:
+        entry = self._fns.get(key)
+        if entry is None:
+            emitted = (torch.zeros(steps, dtype=torch.int64, device=self.device)
+                       if self._steps is not None else None)
+            entry = _EngineFn(build(), steps, emitted)
+            if self.device.type == "cuda":
+                self._capture(entry)
+            self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
+            self._fns[key] = entry
         start = self._mark() if self._steps is not None else None
-        st = self._state
-        dev = self.device
-        active = st["active"]
-        t = torch.arange(C, device=dev)[None, :]
-        consumed, plen = st["consumed"], st["prompt_len"]
-        remaining = (plen - consumed).clamp_min(0)
-        prefilling = active & (remaining > 0)
-        n_pre = remaining.clamp_max(C)
-        pcap = st["prompt_buf"].shape[1]
-        gidx = (consumed[:, None] + t).clamp(0, pcap - 1)
-        pre_toks = st["prompt_buf"].gather(1, gidx)
-        dec_toks = torch.nn.functional.pad(st["last_token"][:, None], (0, C - 1))
-        toks = torch.where(prefilling[:, None], pre_toks, dec_toks)
-        n_tok = torch.where(prefilling, n_pre,
-                            active.to(torch.int64)).to(torch.int32)
-
-        lg, self.cache = T.decode(self.cfg, self.params, self.cache,
-                                  {"tokens": toks}, self._adapters(),
-                                  n_tokens=n_tok, decode_impl=self.decode_impl)
-        last = (n_tok.long() - 1).clamp(0, C - 1)
-        logits = lg.gather(1, last[:, None, None].expand(-1, 1, lg.shape[-1]))[:, 0]
-
-        consumed = consumed + torch.where(prefilling, n_pre, 0)
-        do_sample = active & (consumed >= plen)
-        if stochastic:
-            tok = sample_token(logits, st["temperature"], st["top_k"],
-                               st["top_p"], self._gumbel(logits.shape[-1]))
+        if entry.graph is not None:
+            entry.graph.replay()
+            ops.add_launches(entry.launches)
         else:
-            tok = logits.argmax(dim=-1)
-
-        hit_stop = tok == st["stop_token"]
-        emit = do_sample & ~hit_stop
-        gc = st["gen_count"]
-        ocap = st["out_buf"].shape[1]
-        sel = ((torch.arange(ocap, device=dev)[None, :]
-                == gc.clamp(0, ocap - 1)[:, None]) & emit[:, None])
-        out_buf = torch.where(sel, tok[:, None], st["out_buf"])
-        gc = gc + emit.long()
-        finished = do_sample & (hit_stop | (gc >= st["max_tokens"]))
-        self._state = dict(st, active=active & ~finished,
-                           last_token=torch.where(emit, tok, st["last_token"]),
-                           consumed=consumed, gen_count=gc, out_buf=out_buf)
-        self.steps_run += 1
+            entry.fn(self.params, self._adapters_arg(), self.cache,
+                     self._state, entry.emitted)
+        self.steps_run += steps
         if start is not None:
-            self._steps.append((C, start, self._mark(), emit.sum()))
+            self._steps.append((width, start, self._mark(),
+                                entry.emitted.clone(), steps))
+
+    def _capture(self, entry: _EngineFn) -> None:
+        """Warm ``entry.fn`` up on a side stream with every row inactive
+        (``n_tokens = 0`` leaves the cache and the state as they are; the
+        kernels' builds, cached launch queries and library workspaces come
+        into being), then capture it into a CUDA graph in the engine's pool
+        and record the launches the capture's Python calls counted: the
+        capture launches nothing, each replay launches them."""
+        st = self._state
+        args = (self.params, self._adapters_arg(), self.cache, st, entry.emitted)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            active = st["active"].clone()
+            st["active"].fill_(False)
+            entry.fn(*args)
+            self.warmup_steps += entry.steps
+            before = ops.launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                entry.fn(*args)
+            entry.launches = ops.launch_delta(before, ops.launch_counts())
+            ops.add_launches(entry.launches, -1)
+            st["active"].copy_(active)
+        main.wait_stream(self._stream)
+        entry.graph = graph
 
     def _mark(self):
         if self.device.type != "cuda":
@@ -317,19 +509,6 @@ class ServeEngine:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
-
-    def _gumbel(self, V: int) -> torch.Tensor:
-        """(B, V) Gumbel noise: each sampling slot draws from its request's
-        own generator (one draw per step it is resident), greedy slots get
-        zeros (their token is the argmax whatever the noise)."""
-        rows = []
-        for g in self._gens:
-            if g is None:
-                rows.append(torch.zeros(V, device=self.device))
-            else:
-                u = torch.rand(V, generator=g, device=self.device)
-                rows.append(-torch.log(-torch.log(u.clamp_min(1e-20))))
-        return torch.stack(rows)
 
     def _admit(self):
         admitted = []
@@ -369,14 +548,16 @@ class ServeEngine:
         put("max_tokens", [r.params.max_tokens for r in reqs])
         put("stop_token", [r.params.stop_token for r in reqs])
         put("adapter_ids", [r.adapter_id for r in reqs])
-        for i, req in admitted:
-            self._gens[i] = (torch.Generator(device=dev).manual_seed(
-                _request_seed(self.seed, req.uid))
-                if req.params.temperature > 0.0 else None)
+        # per-request noise streams: a function of (seed, uid) only, so
+        # sampling is invariant to slot placement
+        put("keys", [request_key(self.seed, r.uid) for r in reqs])
+        put("draws", [0] * len(reqs))
 
     def _stochastic(self) -> bool:
         """Whether any outstanding request samples; if none does, the step
-        takes a plain argmax and draws no noise."""
+        takes a plain argmax and draws no noise.  A sampled request keeps
+        the engine in the sampled variant for its whole life, so its draws
+        never depend on mode switches."""
         outstanding = self._pending + [s for s in self.slots if s is not None]
         return any(r.params.temperature > 0.0 for r in outstanding)
 
@@ -387,7 +568,7 @@ class ServeEngine:
     def _engine_step(self, width: Optional[int] = None):
         if width is None:
             width = self.chunk if self._prefilling() else 1
-        self._step(width, self._stochastic())
+        self._step(width)
         for i in range(self.B):
             if self.slots[i] is not None and self._host_left.get(i, 0) > 0:
                 self._host_left[i] = max(0, self._host_left[i] - width)
@@ -412,7 +593,6 @@ class ServeEngine:
             req.done = True
             results[req.uid] = req.generated
             self.slots[i] = None
-            self._gens[i] = None
             self._host_left.pop(i, None)
 
     def _drain(self, results: Dict[int, List[int]]):

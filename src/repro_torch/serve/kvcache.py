@@ -174,6 +174,17 @@ def mla_cache_update(cache: Dict, c_kv_t, k_rope_t,
                 length=torch.clamp(cache["length"] + n, max=cap))
 
 
+def write_positions(cache, new) -> None:
+    """Copy the advanced ``pos``/``length`` of ``new`` (the tuple of
+    per-segment dicts that :func:`repro_torch.models.transformer.decode`
+    returns) into ``cache``'s own tensors, which then keep their addresses
+    (a CUDA graph replays the addresses it captured)."""
+    for seg, nxt in zip(cache, new):
+        for name in ("pos", "length"):
+            if name in seg and nxt[name] is not seg[name]:
+                seg[name].copy_(nxt[name])
+
+
 def _reset(cache: Any, rows: torch.Tensor) -> Any:
     """Zero, in place, the rows of every leaf where ``rows: (B,)`` is True."""
     for name, leaf in _leaves(cache):

@@ -7,7 +7,8 @@ and AdamW updates those leaves.  ``use_kernels`` runs attention and the
 LoRA projections through the ``flash_attention`` and ``lora_matmul``
 kernels in both steps.  ``make_prefill_step`` is the full-sequence forward
 that serves a prompt's next-token logits (RWKV6's recurrence through the
-``wkv6`` kernel with ``use_kernels``).
+``wkv6`` kernel with ``use_kernels``); ``make_serve_step`` the chunked
+decode step against a ring cache that serves a batch's next-token logits.
 """
 from __future__ import annotations
 
@@ -127,3 +128,34 @@ def make_prefill_step(cfg: ModelConfig, use_kernels: bool = False):
                                   use_kernels=use_kernels)
             return T.logits(cfg, params, hidden[:, -1:])[:, 0]
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, decode_impl: str = "dense",
+                    lora_impl: str = "plain"):
+    """Chunked decode against a per-slot cache: ``serve_step(params,
+    adapters, cache, batch) -> (next-token logits (B, V), cache)``.
+
+    ``batch``: ``{"tokens": (B, C)}`` and optionally ``"n_tokens": (B,)``
+    (real tokens per row) and, with a registry's device state as
+    ``adapters``, ``"adapter_ids": (B,)`` (default the base id 0).  Returns
+    the logits at each row's last real token.  ``decode_impl`` picks the
+    attention interior (dense | streamed | kernel)."""
+    from repro_torch.serve.adapters import attach, is_device_state
+
+    def serve_step(params, adapters, cache, batch):
+        with torch.no_grad():
+            toks = batch["tokens"]
+            if is_device_state(adapters):
+                ids = batch.get("adapter_ids")
+                if ids is None:
+                    ids = torch.zeros(toks.shape[0], dtype=torch.int32,
+                                      device=toks.device)
+                adapters = attach(adapters, ids, impl=lora_impl)
+            n = batch.get("n_tokens")
+            lg, cache = T.decode(cfg, params, cache, {"tokens": toks}, adapters,
+                                 n_tokens=n, decode_impl=decode_impl)
+            if n is None:
+                return lg[:, -1], cache
+            idx = (n.long() - 1).clamp(0, lg.shape[1] - 1)
+            return lg.gather(1, idx[:, None, None].expand(-1, 1, lg.shape[-1]))[:, 0], cache
+    return serve_step

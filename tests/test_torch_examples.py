@@ -1,15 +1,16 @@
 """The port's examples and bench harness on the CPU at small flags
 (``repro_torch.examples.quickstart`` / ``threshold_sweep`` /
-``serve_federated``, ``repro_torch.benchmarks.run``), and the engine's
-refusal of ``decode_impl="streamed"``.
+``serve_federated``, ``repro_torch.benchmarks.run``), and the engine on
+``decode_impl="streamed"``.
 
 ``serve_federated`` must serve every request, and after the first swap
-both adapter versions must be in flight in one batch; ``threshold_sweep``'s
-kept ranks stay within Σ r_k; ``quickstart`` prints the kept ranks of every
-layer.  ``"streamed"`` (engine and example) and ``--mesh`` raise
-``NotImplementedError`` naming their ``ROADMAP.md`` items, as does
-``run --only kernels``; a run without ``--only`` skips ``kernels`` and
-succeeds.
+both adapter versions must be in flight in one batch, on every
+``--decode-impl``; ``threshold_sweep``'s kept ranks stay within Σ r_k;
+``quickstart`` prints the kept ranks of every layer.  ``--mesh`` raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item; an unknown
+``decode_impl`` or ``--only`` tag raises ``ValueError``; the harness runs
+``kernels`` like every other module and reports a module that fails
+without stopping the others.
 """
 import sys
 import types
@@ -72,27 +73,38 @@ def test_serve_federated_serves_every_request_across_a_swap(impl, capsys):
         capsys.readouterr().out.splitlines()[-1]
 
 
-def test_serve_federated_refuses_streamed_and_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        serve_federated.main(["--device", "cpu", "--decode-impl", "streamed"])
+def test_serve_federated_refuses_streamed_and_mesh(capsys):
+    """``--decode-impl streamed`` serves; ``--mesh`` still
+    raises, naming its item."""
+    out = serve_federated.main(["--device", "cpu", "--decode-impl", "streamed"])
+    assert len(out["outputs"]) == 4
+    assert all(len(t) == 12 for t in out["outputs"].values())
+    assert out["in_flight"][1] == [1, 2]
+    assert out["engine"].decode_impl == "streamed"
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         serve_federated.main(["--device", "cpu", "--mesh", "2"])
 
 
 def test_engine_streamed_raises_naming_its_slice():
+    """The engine takes ``decode_impl="streamed"`` and gives
+    the dense route's greedy tokens; an unknown impl raises."""
     cfg = SMOKE.replace(num_layers=1, vocab_size=64)
     params = T.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        ServeEngine(cfg, params, decode_impl="streamed", device="cpu")
     with pytest.raises(ValueError, match="unknown decode_impl"):
         ServeEngine(cfg, params, decode_impl="ring", device="cpu")
-    for impl in ("dense", "kernel"):
+    toks = {}
+    for impl in ("dense", "kernel", "streamed"):
         eng = ServeEngine(cfg, params, decode_impl=impl, device="cpu")
         eng.submit([1, 2, 3])
-        assert len(eng.run()[1]) == 32
+        toks[impl] = eng.run()[1]
+        assert len(toks[impl]) == 32
+    assert toks["streamed"] == toks["dense"] == toks["kernel"]
 
 
-def test_harness_prints_reference_rows_and_refuses_kernels(capsys):
+def test_harness_prints_reference_rows_and_refuses_kernels(monkeypatch, capsys):
+    """Rows of a figure module; ``--only kernels`` runs the kernel bench's
+    module (a stub here, ``test_torch_kernel_bench.py`` runs
+    the real one); an unknown tag is refused."""
     from repro_torch.benchmarks import run
     run.main(["--only", "fig6", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
@@ -100,18 +112,36 @@ def test_harness_prints_reference_rows_and_refuses_kernels(capsys):
     assert sorted(ln.split(",")[0] for ln in lines[1:]) == [
         "fig6/summary", "fig6/wk", "fig6/wo", "fig6/wq", "fig6/wv"]
     assert all(ln.count(",") >= 2 for ln in lines[1:])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        run.main(["--only", "kernels", "--device", "cpu"])
+    assert dict(run.MODULES)["kernels"] == "repro_torch.benchmarks.kernel_bench"
+    fake = types.ModuleType("fake_kernels")
+    fake.run = lambda device=None: [{"name": f"kernel/x/{device}", "derived": "y"}]
+    monkeypatch.setitem(sys.modules, "fake_kernels", fake)
+    monkeypatch.setattr(run, "MODULES", [("kernels", "fake_kernels")])
+    run.main(["--only", "kernels", "--device", "cpu"])
+    assert capsys.readouterr().out.splitlines()[1] == "kernel/x/cpu,,y"
+    with pytest.raises(ValueError, match="kernels"):
+        run.main(["--only", "kernelz", "--device", "cpu"])
 
 
 def test_harness_skips_kernels_without_failing(monkeypatch, capsys):
+    """A module that raises is reported on stderr and in the exit status;
+    the modules after it still run."""
     from repro_torch.benchmarks import run
+    bad = types.ModuleType("bad_bench")
+
+    def boom(device=None):
+        raise RuntimeError("no card")
+
+    bad.run = boom
     fake = types.ModuleType("fake_bench")
     fake.run = lambda device=None: [{"name": f"fake/{device}", "derived": "x"}]
+    monkeypatch.setitem(sys.modules, "bad_bench", bad)
     monkeypatch.setitem(sys.modules, "fake_bench", fake)
-    monkeypatch.setattr(run, "MODULES", [("kernels", None),
+    monkeypatch.setattr(run, "MODULES", [("kernels", "bad_bench"),
                                          ("fake", "fake_bench")])
-    run.main(["--device", "cpu"])
+    with pytest.raises(SystemExit) as exc:
+        run.main(["--device", "cpu"])
     out = capsys.readouterr()
+    assert exc.value.code == 1
     assert out.out.splitlines() == ["name,us_per_call,derived", "fake/cpu,,x"]
-    assert "#kernels skipped" in out.err and "Queue 1 item 2" in out.err
+    assert "FAILED benchmarks: ['kernels']" in out.err and "no card" in out.err
