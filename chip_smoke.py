@@ -141,6 +141,34 @@ Phases (any failure exits non-zero; no exception is caught):
     step, through ``run_steps`` and as bursts) beside the numbers from
     before the graphs; (d) ``kernel_bench`` and ``serve_bench`` at their
     defaults.
+16. The federated runtime: (a) ``lora_matmul`` with a client axis (x (C,
+    M, din), A (C, r, din), s·B (C, dout, r), W shared) in one launch
+    against its plain version (a per-client loop) at TinyLlama's ``wq`` and
+    ``wv``, C 4, M 2048, bf16 and fp32, a ragged C 3, M 200 and the wmma
+    route, each timed beside its whole-cohort bound and the same work as
+    C launches of C = 1, and ``flash_attention`` at the cohort step's
+    batch of 16; then on TinyLlama-1.1B at published widths and
+    full depth (phase 13's setup: 8 clients of rank 16, 4 a round, 4
+    local steps of 4 × 512 tokens, wq/wv, the bf16 wire): (b) two FLoRIST
+    rounds with ``sequential`` and with ``cohort``, the cohort's train-step
+    ``lora_matmul`` and ``flash_attention`` launches exactly 1/4 of the
+    sequential's, round walls, step medians and a profiled window of each
+    runner's step; (d) one round of each scheduler (``sync``,
+    ``partial``, ``async``, ``sampled``) and of the ``resource`` rank
+    policy under ``cohort`` (2 local steps), one cohort step call a local
+    step of each cohort, powers-of-two ranks; (e) two rounds on the hardened wire
+    (``int8``, DP at clip 1.0 and σ for ε 8, gate ``full``, drop /
+    corrupt / duplicate / NaN / scale faults at 0.2 each) and one without
+    DP in which the gate must quarantine a scale-poisoned client, the
+    record's retries, dead clients, rejections, quarantines and wire bytes
+    and the folded weights equal to those worked out from the fault plan,
+    the kept ranks and the int8 byte count; (f) a crash at
+    ``mid_round`` of round 1 and a resume from the checkpoint, the history
+    and global adapters bit-identical to the uninterrupted run; (c) at 2
+    layers in fp32 (TF32 off), cohort against sequential (ΔW within 5e-4,
+    eval loss within 1e-4, each client's adapters within 5e-4); (g)
+    ``fed_bench``'s runner × scheduler arm and ``federated_finetune``'s
+    tiny profile.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -218,6 +246,7 @@ def main() -> None:
     report["kernel_cases"] = (kernel_cases(torch) + bgmv_kernel_cases(torch)
                               + mla_kernel_cases(torch)
                               + train_kernel_cases(torch)
+                              + cohort_kernel_cases(torch)
                               + wkv6_kernel_cases(torch))
     report["smoke_widths"] = smoke_widths(torch)
     report["e2e"], counts = end_to_end(torch)
@@ -246,6 +275,7 @@ def main() -> None:
     report["tinyllama"], tiny_counts = tinyllama_methods(torch)
     report["paper_eval"], eval_counts = paper_evaluation(torch)
     report["phase15"] = phase15(torch, report)
+    report["phase16"], cohort_counts = phase16(torch)
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -291,7 +321,16 @@ def main() -> None:
                | other_path("tinyllama_r64", name, LORA_TINY_R64)
                if name == "lora_matmul" else {})
             | (other_path("tinyllama_path", name, FLASH_TINY)
-               if name == "flash_attention" else {}))
+               | other_path("cohort", name, FLASH_COHORT)
+               if name == "flash_attention" else {})
+            | ({"launches_cohort_path": cohort_counts[name]}
+               if name in cohort_counts else {})
+            | (other_path("cohort", name, LORA_COHORT)
+               | other_path("cohort_wv", name, LORA_COHORT_WV)
+               | {"cohort_c1_launches_ms": case_rec(name, LORA_COHORT)["c1_launches_ms"],
+                  "cohort_wv_c1_launches_ms":
+                      case_rec(name, LORA_COHORT_WV)["c1_launches_ms"]}
+               if name == "lora_matmul" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -781,11 +820,50 @@ def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
     return total
 
 
+def flash_case(torch, gen, dt, B, S, T, H, K, hd, causal, window):
+    """One ``flash_attention`` case against its plain version, each query
+    row held to its own magnitude (bf16 1e-2, fp32 1e-5 of the row's max
+    |plain|), with its time, the plain version's, one SDPA call's (no
+    window) and its bound; returns the record."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v, causal, window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    case = (f"{'bf16' if dt == torch.bfloat16 else 'fp32'}, "
+            f"{'causal' if causal else 'full'}"
+            f"{f', window={window}' if window else ''}, "
+            f"B={B} S={S}{f' T={T}' if T != S else ''} H={H} K={K} hd={hd}")
+    err = check_rows(f"flash_attention[{case}]", got, want,
+                     1e-2 if dt == torch.bfloat16 else 1e-5)
+    ms = gpu_ms(torch, lambda: ops.flash_attention(q, k, v, causal, window))
+    plain = gpu_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal,
+                                                          window))
+    lib = None
+    if not window:      # one SDPA call, on pre-transposed inputs
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+    eb = q.element_size()
+    nbytes = eb * (2 * q.numel() + k.numel() + v.numel())
+    ops_n = 4 * B * H * hd * _causal_pairs(S, T, causal, window)
+    return _record(
+        "flash_attention", case,
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:70", err, ms, plain, lib,
+        nbytes, ops_n, str(dt).split(".")[-1],
+        library=None if window else
+        f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)")
+
+
 def train_kernel_cases(torch):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.lora_matmul import TILE_M
     from repro_torch.kernels.lora_matmul import plan as lora_plan
-    F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     records = []
@@ -903,37 +981,93 @@ def train_kernel_cases(torch):
             (torch.bfloat16, 1, 130, 130, 8, 2, 24, True, 0),
             (torch.float32, 2, 300, 300, 28, 4, 56, True, 64),
             (torch.float32, 2, 300, 300, 32, 32, 96, True, 0)):
-        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-        k = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
-        v = torch.randn(B, T, K, hd, generator=gen, device=dev).to(dt)
-        got = ops.flash_attention(q, k, v, causal, window)
-        want = ref.flash_attention_ref(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        case = (f"{dname[dt]}, {'causal' if causal else 'full'}"
-                f"{f', window={window}' if window else ''}, "
-                f"B={B} S={S}{f' T={T}' if T != S else ''} H={H} K={K} hd={hd}")
-        err = check_rows(f"flash_attention[{case}]", got, want,
-                         1e-2 if dt == torch.bfloat16 else 1e-5)
-        ms = gpu_ms(torch, lambda: ops.flash_attention(q, k, v, causal, window))
-        plain = gpu_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal,
-                                                              window))
-        lib = None
-        if not window:      # one SDPA call, on pre-transposed inputs
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = gpu_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
-        eb = q.element_size()
-        nbytes = eb * (2 * q.numel() + k.numel() + v.numel())
-        ops_n = 4 * B * H * hd * _causal_pairs(S, T, causal, window)
-        records.append(_record(
-            "flash_attention", case,
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:70", err, ms, plain, lib,
-            nbytes, ops_n, str(dt).split(".")[-1],
-            library=None if window else
-            f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)"))
+        records.append(flash_case(torch, gen, dt, B, S, T, H, K, hd, causal,
+                                  window))
 
     records += gram_kernel_cases(torch)
+    return records
+
+
+# phase 16 (a): the client axis of lora_matmul (one launch for a cohort)
+LORA_COHORT = "bf16, C=4 M=2048 din=2048 dout=2048 r=16"
+LORA_COHORT_WV = "bf16, C=4 M=2048 din=2048 dout=256 r=16"
+# the cohort step's attention: TinyLlama's heads at batch C·B = 4 x 4
+FLASH_COHORT = "bf16, causal, B=16 S=512 H=32 K=4 hd=64"
+
+
+def cohort_kernel_cases(torch):
+    """``lora_matmul`` with a client axis (x (C, M, din), A (C, r, din),
+    s·B (C, dout, r), W shared) in one launch, against its plain version
+    (a per-client loop of ``ref.lora_matmul_ref``) at the C = 1 limits
+    (bf16 2e-2 of max |y|, fp32 with TF32 off 1e-4): TinyLlama's ``wq``
+    (2048 -> 2048) and ``wv`` (2048 -> 256) at r 16, C 4, M 2048 (a cohort
+    step's 4 x 512 tokens a client) in bf16 and fp32, and a ragged C 3, M
+    200 (and the wmma route, dout 1003).  For each: the median of 50 (L2
+    flushed), the bound of the whole
+    cohort's work, and the same work as C separate C = 1 launches.  Then
+    ``flash_attention`` at the cohort step's batch C·B = 16 (TinyLlama's
+    32 heads over 4, S 512, bf16, causal) at its own limit, 1e-2 of each
+    row's max |plain|."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lora_matmul import TILE_M
+    from repro_torch.kernels.lora_matmul import plan as lora_plan
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+    records = []
+    print("phase 16 (a): lora_matmul with a client axis, one launch a cohort")
+    for dt, C, M, dout, r in ((torch.bfloat16, 4, 2048, 2048, 16),
+                              (torch.bfloat16, 4, 2048, 256, 16),
+                              (torch.float32, 4, 2048, 2048, 16),
+                              (torch.float32, 4, 2048, 256, 16),
+                              (torch.bfloat16, 3, 200, 2048, 16),
+                              (torch.bfloat16, 3, 200, 256, 16),
+                              (torch.float32, 3, 200, 256, 16),
+                              (torch.bfloat16, 3, 200, 1003, 5)):
+        din = 2048
+        x = torch.randn(C, M, din, generator=gen, device=dev).to(dt)
+        w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
+        a = torch.randn(C, r, din, generator=gen, device=dev) * 0.02
+        b = torch.randn(C, dout, r, generator=gen, device=dev) * 0.05
+        scale = torch.linspace(0.5, 2.0, C, device=dev)
+        a_c, b_s = ops.lora_operands(x, w, a, b, scale[:, None, None])
+        n0 = ops.lora_matmul.launches
+        got = ops.lora_matmul(x.reshape(C * M, din), w, a, b, scale)
+        launched = ops.lora_matmul.launches - n0
+        ops.lora_matmul.launches = n0          # comparison launches do not count
+        want = ref.lora_matmul_cohort_ref(x, w, a_c, b_s, 1.0)
+        torch.cuda.synchronize()
+        case = f"{dname[dt]}, C={C} M={M} din={din} dout={dout} r={r}"
+        p = lora_plan(M, din, dout, r, dt, sms, C)
+        how = p["route"] + (f" {TILE_M}x{p['bn']} tiles, {p['tiles']} tiles, "
+                            f"grid {p['grid']}" if p["bn"] else "")
+        if launched != 1:
+            fail(f"lora_matmul[{case}]: {launched} launches for one cohort")
+        err = check(f"lora_matmul[{case}; route {how}]",
+                    got.reshape(C, M, dout), want,
+                    torch.ones(C, dtype=torch.bool, device=dev),
+                    2e-2 if dt == torch.bfloat16 else 1e-4)
+        xf = x.reshape(C * M, din)
+        n0 = ops.lora_matmul.launches
+        ms = gpu_ms(torch, lambda: ops.lora_matmul(xf, w, a, b, scale))
+        ones = gpu_ms(torch, lambda: [ops.lora_matmul(x[c], w, a[c], b[c], scale[c])
+                                      for c in range(C)])
+        ops.lora_matmul.launches = n0
+        plain = gpu_ms(torch, lambda: ref.lora_matmul_cohort_ref(x, w, a_c, b_s, 1.0))
+        eb = x.element_size()
+        nbytes = eb * C * (M * din + r * din + dout * r + M * dout) + eb * din * dout
+        ops_n = C * (2 * M * din * dout + 2 * M * r * (din + dout))
+        records.append(_record(
+            "lora_matmul", case, "src/repro_torch/kernels/csrc/lora_matmul.cu",
+            "src/repro/kernels/lora_matmul.py:31", err, ms, plain, None, nbytes,
+            ops_n, str(dt).split(".")[-1]))
+        records[-1].update(kernel_route=p["route"], tile_n=p["bn"],
+                           grid=p["grid"], clients=C, c1_launches_ms=ones)
+        print(f"    the same work as {C} launches of C = 1: {ones:.4f} ms "
+              f"(one cohort launch {ms:.4f} ms)")
+    records.append(flash_case(torch, gen, torch.bfloat16, 16, 512, 512, 32, 4,
+                              64, True, 0))
     return records
 
 
@@ -3084,6 +3218,515 @@ def phase15(torch, report):
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 15: {out['phase_s']:.1f} s")
     return out
+
+
+# -- phase 16: the federated runtime, the cohort runner on the card ----------
+
+COHORT_SCHEDULES = (("sync", "static", {}), ("partial", "static", {}),
+                    ("async", "static", {}), ("sampled", "static", {}),
+                    ("sync", "resource", {"heterogeneous": True}))
+SCHEDULE_STEPS = 2          # (d)'s local steps: the plans and calls, not time
+
+
+def _tiny_setup(torch, layers: int = 0, dtype: str = ""):
+    """TinyLlama-1.1B at published widths (``layers`` > 0 cuts the depth,
+    ``dtype`` overrides bf16), random seeded weights, phase 13's 8
+    Dirichlet(0.5) clients and eval set, LoRA r 16 on wq/wv."""
+    from repro_torch.common.config import LoRAConfig
+    from repro_torch.configs.tinyllama_1p1b import CONFIG
+    from repro_torch.data.synthetic import make_eval_data, make_federated_data
+    from repro_torch.models import transformer as T
+    cfg = CONFIG.replace(**({"num_layers": layers} if layers else {}),
+                         **({"dtype": dtype} if dtype else {}))
+    params = T.init(cfg, 0, DEVICE)
+    clients = make_federated_data(num_clients=8, seq_len=FED_SEQ,
+                                  vocab=cfg.vocab_size, alpha=0.5, seed=0)
+    ev = make_eval_data(num_samples=16, seq_len=FED_SEQ, vocab=cfg.vocab_size)
+    lora = LoRAConfig(rank=TINY_RANK, alpha=float(TINY_RANK),
+                      targets=TINY_TARGETS)
+    return cfg, params, clients, ev, lora
+
+
+def _tiny_trainer(setup, runner="sequential", fed_kw=None, **kw):
+    """Phase 13's FLoRIST trainer (4 of 8 clients a round, 4 local steps of
+    4 x 512 tokens unless ``local_steps`` says otherwise, the bf16 wire, the
+    Gram route) on a shared setup."""
+    from repro_torch.common.config import FedConfig, OptimConfig
+    from repro_torch.core.federated import FederatedTrainer
+    cfg, params, clients, ev, lora = setup
+    fed = FedConfig(**{**dict(num_clients=8, clients_per_round=4,
+                              homogeneous_rank=TINY_RANK, dirichlet_alpha=0.5,
+                              tau=0.9, method="florist", seed=0,
+                              rank_distribution=((4, 2), (8, 2), (16, 2),
+                                                 (32, 2))),
+                       **(fed_kw or {})})
+    kw.setdefault("transport", "bf16")
+    kw.setdefault("local_steps", 4)
+    return FederatedTrainer(cfg, fed, lora, OptimConfig(lr=3e-4),
+                            clients=clients, eval_data=ev, batch_size=FED_BATCH,
+                            seq_len=FED_SEQ, svd_method="gram",
+                            runner=runner, params=params, device=DEVICE, **kw)
+
+
+def _recording_plans(tr):
+    """Keep every plan the trainer's scheduler makes (rank policy applied
+    in place afterwards) in the returned list."""
+    plans = []
+    orig = tr.scheduler.plan
+    tr.scheduler.plan = lambda rnd, ctx: plans.append(orig(rnd, ctx)) or plans[-1]
+    return plans
+
+
+def cohort_rounds(torch, setup):
+    """(b) two FLoRIST rounds with ``sequential`` and with ``cohort`` under
+    ``sync``: the cohort round's train-step ``lora_matmul`` and
+    ``flash_attention`` launches must be exactly 1/4 of the sequential
+    round's (and equal 22 · 2 · steps and 22 · steps), and both finalize
+    through ``adapter_gram`` (2 · buckets a round: the server folds the
+    cohort's updates on the card too); round walls and train-step medians
+    of both; a profiled window of each runner's step."""
+    from repro_torch.core.runtime import CohortRunner, SequentialRunner
+    from repro_torch.core.runtime.runners import _stack_cohort, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import adamw_init
+    cfg = setup[0]
+    L = cfg.num_layers
+    out, launches, trainers = {}, {}, {}
+    ops.reset_launch_counts()
+    for name, runner in (("sequential", SequentialRunner(record_steps=True)),
+                         ("cohort", CohortRunner(record_steps=True))):
+        tr = _tiny_trainer(setup, runner)
+        trainers[name] = tr
+        ops.reset_launch_counts()
+        rounds = []
+        for rnd in range(TINY_ROUNDS):
+            n_log = len(runner.step_log())
+            before = ops.launch_counts()
+            rec = tr.run_round(rnd)
+            got = ops.launch_delta(before, ops.launch_counts())
+            log = runner.step_log()[n_log:]
+            step_ms = [e["ms"] for e in log]
+            calls = len(log)
+            buckets = len({(n, m) for _, n, m in tr.aggregator.dims.values()})
+            train = {"lora_matmul": got.get("lora_matmul", 0),
+                     "flash_attention": got.get("flash_attention", 0) - L,
+                     "adapter_gram": got.get("adapter_gram", 0)}
+            want = {"lora_matmul": L * len(TINY_TARGETS) * calls,
+                    "flash_attention": L * calls,
+                    "adapter_gram": 2 * buckets}             # B and A stacks
+            tok = sum(len(e["clients"]) for e in log) * FED_BATCH * FED_SEQ
+            print(f"  {name} round {rnd}: eval loss {rec.eval_loss:.4f}; wall "
+                  f"{rec.wall_secs:.2f} s, finalize {rec.finalize_secs * 1e3:.1f}"
+                  f" ms; {calls} train-step calls, median "
+                  f"{statistics.median(step_ms):.2f} ms (CUDA events), "
+                  f"{tok / (sum(step_ms) / 1e3):.0f} train tok/s; train-step "
+                  f"and finalize launches {json.dumps(train)} (expected "
+                  f"{json.dumps(want)})")
+            if train != want:
+                fail(f"phase 16 (b) {name} round {rnd}: launches {train} != {want}")
+            if not math.isfinite(rec.eval_loss):
+                fail(f"phase 16 (b) {name} round {rnd}: eval loss {rec.eval_loss}")
+            rounds.append({"record": dataclasses.asdict(rec), "calls": calls,
+                           "train_step_ms": step_ms,
+                           "train_step_ms_median": statistics.median(step_ms),
+                           "train_tok_s": tok / (sum(step_ms) / 1e3),
+                           "train_launches": train})
+        launches[name] = {k: sum(r["train_launches"][k] for r in rounds)
+                          for k in ("lora_matmul", "flash_attention",
+                                    "adapter_gram")}
+        out[name] = rounds
+    seq, coh = launches["sequential"], launches["cohort"]
+    print(f"  train-step launches over {TINY_ROUNDS} rounds: sequential "
+          f"{json.dumps(seq)}, cohort {json.dumps(coh)}")
+    if any(4 * coh[k] != seq[k] for k in ("lora_matmul", "flash_attention")):
+        fail(f"phase 16 (b): cohort launches {coh} are not 1/4 of {seq}")
+
+    # a window of each runner's train step, profiled: one rank-16 client,
+    # and the cohort of four in one call
+    tr = trainers["cohort"]
+    plan = tr.scheduler.plan(TINY_ROUNDS, tr)
+    task_init = lambda t: tr._client_init(t.client_id, t.rank)
+    stacked, batch, _ = _stack_cohort(tr, TINY_ROUNDS, plan.tasks, task_init, 4)
+    cb = {"tokens": torch.as_tensor(batch["tokens"][:, 0], device=DEVICE),
+          "loss_mask": torch.as_tensor(batch["loss_mask"][:, 0], device=DEVICE)}
+    state = {"c": stacked, "co": adamw_init(stacked),
+             "s": to_device(task_init(plan.tasks[0]), tr.device)}
+    state["so"] = adamw_init(state["s"])
+    sb = {k: v[0] for k, v in cb.items()}
+    cstep, sstep = tr._cohort_step(), tr._train_step()
+
+    def run_cohort(n):
+        for _ in range(n):
+            state["c"], state["co"], _ = cstep(tr.params, state["c"],
+                                               state["co"], cb)
+
+    def run_single(n):
+        for _ in range(n):
+            state["s"], state["so"], _ = sstep(tr.params, state["s"],
+                                               state["so"], sb)
+
+    run_cohort(1)
+    run_single(1)
+    windows = {
+        "cohort": profile_window(torch, run_cohort, 3, f"cohort train step, 4 "
+                                 f"clients x {FED_BATCH} x {FED_SEQ} tokens, r=16"),
+        "sequential": profile_window(torch, run_single, 3, f"train step, one "
+                                     f"client, {FED_BATCH} x {FED_SEQ} tokens, r=16")}
+    del trainers, tr, state
+    torch.cuda.empty_cache()
+    return {"rounds": out, "train_launches": launches,
+            "profiled_steps": windows}, coh
+
+
+def _global_products(torch, tr):
+    from repro_torch.core.aggregators import adapter_leaf_paths, fold_scale, get_path
+    g = tr.global_state.global_adapters
+    out = {}
+    for path in adapter_leaf_paths(g):
+        B, A = fold_scale(get_path(g, path))
+        out[path] = (torch.as_tensor(B, device=DEVICE).double()
+                     @ torch.as_tensor(A, device=DEVICE).double())
+    return out
+
+
+def cohort_parity(torch):
+    """(c) the same setup at 2 layers in fp32 with TF32 off: cohort against
+    sequential, the global ΔW products within 5e-4 of max(1, |ΔW|) and the
+    eval loss within 1e-4 after each of two rounds (the reference's own
+    tolerance); then one round's plan trained by both runners from one
+    trainer state, each client's adapters from the one cohort call against
+    its sequential training (5e-4 of max(1, |x|))."""
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    from repro_torch.device import parity_mode
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"phase 16 (c): {parity_mode()}")
+    setup = _tiny_setup(torch, layers=2, dtype="float32")
+    seq, coh = _tiny_trainer(setup), _tiny_trainer(setup, "cohort")
+    rounds = []
+    for rnd in range(TINY_ROUNDS):
+        a, b = seq.run_round(rnd), coh.run_round(rnd)
+        pa, pb = _global_products(torch, seq), _global_products(torch, coh)
+        d = max(((pa[p] - pb[p]).abs().max() / pa[p].abs().max().clamp_min(1.0)).item()
+                for p in pa)
+        dl = abs(a.eval_loss - b.eval_loss)
+        print(f"  round {rnd}: eval loss sequential {a.eval_loss:.6f} cohort "
+              f"{b.eval_loss:.6f} (|Δ| {dl:.2e}, limit 1e-4); ΔW max |Δ| / "
+              f"max(1, |ΔW|) {d:.2e} (limit 5e-4); kept ranks equal "
+              f"{seq.global_state.ranks == coh.global_state.ranks}")
+        if dl > 1e-4 or d > 5e-4:
+            fail(f"phase 16 (c) round {rnd}: cohort differs from sequential")
+        rounds.append({"eval_loss": [a.eval_loss, b.eval_loss],
+                       "delta_w_rel": d})
+    # one trainer state and one plan for both runners: the two trainers'
+    # global adapters agree as products, but their SVD factors (the next
+    # round's client inits) may rotate within near-degenerate singular values
+    from repro_torch.core.runtime import CohortRunner, SequentialRunner
+    plan = seq.scheduler.plan(TINY_ROUNDS, seq)
+    got = {}
+    for name, runner in (("sequential", SequentialRunner()),
+                         ("cohort", CohortRunner())):
+        got[name] = []
+        runner.run(seq, plan, lambda t, ad, init: got[name].append((t.client_id, ad)))
+    worst = 0.0
+    for (ka, ta), (kb, tb) in zip(got["sequential"], got["cohort"]):
+        if ka != kb:
+            fail(f"phase 16 (c): delivery order {ka} != {kb}")
+        for p in adapter_leaf_paths(ta):
+            for n in ("A", "B"):
+                x = torch.as_tensor(get_path(ta, p)[n], device=DEVICE).double()
+                y = torch.as_tensor(get_path(tb, p)[n], device=DEVICE).double()
+                worst = max(worst, ((x - y).abs().max()
+                                    / x.abs().max().clamp_min(1.0)).item())
+    print(f"  each client's trained A and B, one cohort call against its "
+          f"sequential training: max |Δ| / max(1, |x|) {worst:.2e} (limit 5e-4)")
+    if worst > 5e-4:
+        fail("phase 16 (c): a client's cohort-trained adapters differ")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del seq, coh, setup
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "client_adapters_rel": worst}
+
+
+def cohort_schedules(torch, setup):
+    """(d) one round of each scheduler (``sync``, ``partial``, ``async``,
+    ``sampled`` at half the population) and of the ``resource`` rank
+    policy on heterogeneous ranks, under ``cohort``, ``SCHEDULE_STEPS``
+    local steps a client: every task's rank a
+    power of two when the policy is ``resource``, one cohort step call a
+    local step of each equal-(rank, steps) cohort, and ``lora_matmul``
+    launched 22 · 2 times a call, ``adapter_gram`` 2 · buckets a round."""
+    from repro_torch.core.runtime import CohortRunner, make_scheduler
+    from repro_torch.kernels import ops
+    L = setup[0].num_layers
+    out = {}
+    for sched, policy, fed_kw in COHORT_SCHEDULES:
+        runner = CohortRunner(record_steps=True)
+        scheduler = (make_scheduler("sampled", fraction=0.5)
+                     if sched == "sampled" else sched)
+        tr = _tiny_trainer(setup, runner, fed_kw, scheduler=scheduler,
+                           rank_policy=policy, local_steps=SCHEDULE_STEPS)
+        plans = _recording_plans(tr)
+        before = ops.launch_counts()
+        rec = tr.run_round(0)
+        got = ops.launch_delta(before, ops.launch_counts())
+        plan, log = plans[-1], runner.step_log()
+        cohorts = {}
+        for t in plan.tasks:
+            cohorts.setdefault((t.rank, t.steps), []).append(t.client_id)
+        calls = collections.Counter(tuple(e["clients"]) for e in log)
+        want_calls = {tuple(ids): steps for (_, steps), ids in cohorts.items()}
+        ranks = [t.rank for t in plan.tasks]
+        pow2 = all(r & (r - 1) == 0 for r in ranks)
+        print(f"  {sched}/{policy}: tasks (client, rank, steps) "
+              f"{[(t.client_id, t.rank, t.steps) for t in plan.tasks]}; "
+              f"{len(cohorts)} cohorts, {len(log)} cohort step calls; launches "
+              f"{json.dumps(got)}; eval loss {rec.eval_loss:.4f}, wall "
+              f"{rec.wall_secs:.2f} s")
+        if dict(calls) != want_calls:
+            fail(f"phase 16 (d) {sched}/{policy}: step calls {dict(calls)} != "
+                 f"one a local step of each cohort {want_calls}")
+        buckets = len({(n, m) for _, n, m in tr.aggregator.dims.values()})
+        if (got.get("lora_matmul", 0) != L * len(TINY_TARGETS) * len(log)
+                or got.get("adapter_gram", 0) != 2 * buckets):
+            fail(f"phase 16 (d) {sched}/{policy}: launches {got}")
+        if policy == "resource" and not pow2:
+            fail(f"phase 16 (d): resource ranks {ranks} are not powers of two")
+        if not math.isfinite(rec.eval_loss):
+            fail(f"phase 16 (d) {sched}/{policy}: eval loss {rec.eval_loss}")
+        out[f"{sched}/{policy}"] = {
+            "tasks": [(t.client_id, t.rank, t.steps, t.weight) for t in plan.tasks],
+            "cohorts": len(cohorts), "calls": len(log),
+            "step_ms_median": statistics.median(e["ms"] for e in log),
+            "launches": got, "record": dataclasses.asdict(rec)}
+        del tr
+    return out
+
+
+def expected_wire(tr, plan, faults, dp: bool, max_retries: int = 3):
+    """The counters, int8 wire bytes and folded weights one round must show,
+    worked out from ``FaultPlan.client_fault``, the plan and the gate's
+    rules alone: drops and clients corrupted more than ``max_retries``
+    times are dead, every corruption below that is a retry, NaN poison and
+    the second copy of a duplicate are gate rejections; every other upload
+    is held.  With at least ``min_mad_samples`` held and no DP stage (which
+    clips a scaled delta back to the bound), the scale-poisoned clients
+    are quarantined and the survivors' weights renormalised to the held
+    mass.  Each upload attempt costs the client's A and B at 1 byte a
+    parameter plus a 4-byte scale header a block, and the downlink the
+    kept ranks' A and B (from the aggregator's dims) a receiver, headers
+    included.  Returns (counts, expected weights in fold order)."""
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    want = {"retries": 0, "dead_clients": 0, "rejected": 0, "attempts": 0}
+    held = []
+    for t in plan.tasks:
+        f = faults.client_fault(plan.round, t.client_id)
+        if f.kind == "drop":
+            want["dead_clients"] += 1
+            continue
+        if f.kind == "corrupt":
+            want["retries"] += min(f.n_bad, max_retries)
+            if f.n_bad > max_retries:
+                want["dead_clients"] += 1
+                want["attempts"] += max_retries + 1
+                continue
+            want["attempts"] += f.n_bad + 1
+        else:
+            want["attempts"] += 1
+        if f.kind in ("nan", "duplicate"):
+            want["rejected"] += 1
+        if f.kind != "nan":
+            held.append((t, f.kind))
+    quarantine = (not dp and len(held) >= tr.gate.min_mad_samples)
+    kept = [t for t, kind in held if not (quarantine and kind == "scale")]
+    want["quarantined"] = len(held) - len(kept)
+    factor = (sum(t.weight for t, _ in held) / sum(t.weight for t in kept)
+              if want["quarantined"] else 1.0)
+    init = tr._client_init(plan.tasks[0].client_id, plan.tasks[0].rank)
+    paths = adapter_leaf_paths(init)
+    per_attempt = sum(math.prod(get_path(init, p)[n].shape) + 4
+                      for p in paths for n in ("A", "B"))
+    want["upload_bytes"] = want.pop("attempts") * per_attempt
+    if kept:
+        receivers = (plan.downloads if plan.downloads is not None
+                     else len(plan.tasks))
+        per_receiver = sum(r_l * (n + m) + 2 * 4
+                           for path, (_, n, m) in tr.aggregator.dims.items()
+                           for r_l in tr.global_state.ranks[path])
+        want["download_bytes"] = receivers * per_receiver
+    return want, [t.weight * factor for t in kept]
+
+
+def _folded_weights(tr):
+    """Keep the weight of every update the gate folds into the aggregator
+    in the returned list."""
+    weights = []
+    add = tr.aggregator.add_client
+    tr.aggregator.add_client = (lambda update, weight, rank=None:
+                                weights.append(weight)
+                                or add(update, weight, rank=rank))
+    return weights
+
+
+def hardened_wire(torch, setup):
+    """(e) at full depth under ``cohort``, the ``int8`` codec and gate
+    ``full``: two rounds with DP (clip 1.0, σ for ε 8) and a FaultPlan of
+    drop, corrupt, duplicate, NaN and scale at 0.2 each, then one round
+    without DP whose plan holds one scale-poisoned client among four held
+    updates, which the gate's MAD test must quarantine.  In every round
+    the record's retries, dead clients, rejections, quarantines and wire
+    bytes, and the weights folded into the aggregator, must equal what
+    :func:`expected_wire` works out from the plan."""
+    from repro_torch.core.privacy import noise_multiplier_for_epsilon
+    from repro_torch.core.runtime import FaultPlan, ValidationGate
+    sigma = noise_multiplier_for_epsilon(8.0)
+    arms = (("dp", FaultPlan(seed=3, drop=0.2, corrupt=0.2, duplicate=0.2,
+                             nan=0.2, scale=0.2),
+             dict(dp_clip=1.0, dp_sigma=sigma), TINY_ROUNDS),
+            ("no dp", FaultPlan(seed=0, scale=0.25), {}, 1))
+    out = []
+    for arm, faults, dp_kw, rounds in arms:
+        tr = _tiny_trainer(setup, "cohort", transport="int8",
+                           validation=ValidationGate("full"), faults=faults,
+                           **dp_kw)
+        plans = _recording_plans(tr)
+        folded = _folded_weights(tr)
+        for rnd in range(rounds):
+            del folded[:]
+            rec = tr.run_round(rnd)
+            want, weights = expected_wire(tr, plans[-1], faults, bool(dp_kw))
+            got = {k: getattr(rec, k) for k in want}
+            kinds = [faults.client_fault(rnd, t.client_id).kind
+                     for t in plans[-1].tasks]
+            w_err = (max(abs(x - y) / y for x, y in zip(folded, weights))
+                     if len(folded) == len(weights) and weights else 0.0)
+            print(f"  {arm} round {rnd}: faults {kinds}; record "
+                  f"{json.dumps(got)}, quorum {rec.quorum_met}, sim "
+                  f"{rec.sim_secs:.3f} s; from the plan {json.dumps(want)}; "
+                  f"folded weights {[round(w, 6) for w in folded]} (from the "
+                  f"plan {[round(w, 6) for w in weights]}, max rel |Δ| "
+                  f"{w_err:.1e}); eval loss {rec.eval_loss:.4f}, wall "
+                  f"{rec.wall_secs:.2f} s"
+                  + (f" (σ {sigma:.4f})" if dp_kw else ""))
+            if got != want:
+                fail(f"phase 16 (e) {arm} round {rnd}: record {got} != {want}")
+            if len(folded) != len(weights) or w_err > 1e-12:
+                fail(f"phase 16 (e) {arm} round {rnd}: folded weights "
+                     f"{folded} != {weights}")
+            if not dp_kw and not want["quarantined"]:
+                fail(f"phase 16 (e) {arm} round {rnd}: the plan quarantines "
+                     "nothing, so the check cannot bite")
+            out.append({"arm": arm, "record": dataclasses.asdict(rec),
+                        "faults": kinds, "expected": want,
+                        "folded_weights": list(folded),
+                        "expected_weights": weights})
+        del tr
+    return out
+
+
+def crash_resume(torch, setup):
+    """(f) a crash at ``mid_round`` of round 1 under ``cohort``, then a
+    fresh trainer resumed from the round-boundary checkpoint: its history
+    (times aside) and global adapters must equal the uninterrupted run's
+    bit for bit on the card."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    from repro_torch.core.runtime import FaultPlan, ServerCrash
+    ck_dir = ROOT / "build" / "phase16"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    ck = str(ck_dir / "fed.ckpt")
+    t0 = time.perf_counter()
+    ref = _tiny_trainer(setup, "cohort")
+    ref_hist = ref.run(TINY_ROUNDS)
+    plan = FaultPlan(seed=0, crashes=((1, "mid_round"),))
+    crashed = _tiny_trainer(setup, "cohort", faults=plan)
+    try:
+        crashed.run(TINY_ROUNDS, checkpoint=ck)
+        fail("phase 16 (f): the injected crash did not happen")
+    except ServerCrash as e:
+        print(f"  {e}")
+    del crashed
+    resumed = _tiny_trainer(setup, "cohort", faults=plan.without_crashes())
+    hist = resumed.run(TINY_ROUNDS, checkpoint=ck, resume=True)
+    strip = lambda r: {k: v for k, v in dataclasses.asdict(r).items()
+                       if k not in ("wall_secs", "finalize_secs", "sim_secs",
+                                    "resumes")}
+    same_hist = [strip(r) for r in hist] == [strip(r) for r in ref_hist]
+    g, rg = resumed.global_state.global_adapters, ref.global_state.global_adapters
+    diffs = {}
+    for p in adapter_leaf_paths(rg):
+        for n in ("A", "B"):
+            a, b = np.asarray(get_path(rg, p)[n]), np.asarray(get_path(g, p)[n])
+            if not np.array_equal(a, b):
+                diffs[f"{'/'.join(map(str, p))}/{n}"] = float(np.abs(a - b).max())
+    secs = time.perf_counter() - t0
+    print(f"  resumed history equal to the uninterrupted run's bit for bit: "
+          f"{same_hist}; resumes {[r.resumes for r in hist]}; global adapters "
+          f"that differ: {diffs or 'none'}; eval losses "
+          f"{[r.eval_loss for r in hist]} vs {[r.eval_loss for r in ref_hist]}; "
+          f"{secs:.1f} s")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    if not same_hist or diffs:
+        fail("phase 16 (f): the resumed run differs from the uninterrupted one")
+    del ref, resumed
+    return {"bit_identical": True, "eval_loss": [r.eval_loss for r in hist],
+            "secs": secs}
+
+
+def runtime_entry_points(torch):
+    """(g) ``fed_bench``'s runner × scheduler arm (its default model and
+    clients, 2 local steps, one timed round a combination after two
+    warm-ups) and ``federated_finetune`` at its tiny profile, on the
+    card."""
+    from repro_torch.benchmarks import fed_bench
+    from repro_torch.examples import federated_finetune
+    print("phase 16 (g): repro_torch.benchmarks.fed_bench (runner x scheduler) "
+          "and examples.federated_finetune (tiny, cohort)")
+    bench = fed_bench.main(["--iters", "1", "--local-steps", "2",
+                            "--device", DEVICE])
+    tr = federated_finetune.main(["--rounds", "2", "--runner", "cohort",
+                                  "--device", DEVICE])
+    if not all(math.isfinite(r.eval_loss) for r in tr.history):
+        fail("phase 16 (g): federated_finetune gave a non-finite loss")
+    return {"fed_bench": bench,
+            "federated_finetune": [dataclasses.asdict(r) for r in tr.history]}
+
+
+def phase16(torch):
+    """Phase 16: the federated runtime on the card, (b) to (g); (a) runs
+    with the other kernel cases."""
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    setup = _tiny_setup(torch)
+    cfg = setup[0]
+    print(f"phase 16: the federated runtime on {cfg.name} at published widths "
+          f"({cfg.num_layers} L, d {cfg.d_model}, {cfg.dtype}; random seeded "
+          f"weights), LoRA r {TINY_RANK} on {'/'.join(TINY_TARGETS)}, 8 clients, "
+          f"4 a round, 4 local steps of {FED_BATCH} x {FED_SEQ} tokens")
+    out, part_s = {}, {}
+
+    def timed(key, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        part_s[key] = time.perf_counter() - t
+        return res
+
+    out["runners"], counts = timed("b", cohort_rounds, torch, setup)
+    out["schedulers"] = timed("d", cohort_schedules, torch, setup)
+    out["hardened_wire"] = timed("e", hardened_wire, torch, setup)
+    out["crash_resume"] = timed("f", crash_resume, torch, setup)
+    del setup
+    torch.cuda.empty_cache()
+    out["parity"] = timed("c", cohort_parity, torch)
+    out["entry_points"] = timed("g", runtime_entry_points, torch)
+    ops.reset_launch_counts()
+    out["part_s"] = part_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16: {out['phase_s']:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in part_s.items())
+          + ", the rest set-up)")
+    return out, counts
 
 
 if __name__ == "__main__":

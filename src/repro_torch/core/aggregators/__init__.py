@@ -2,7 +2,7 @@
 ``repro.core.aggregators``).  Importing this package registers the paper's
 five methods (``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``);
 the reference's sharded ``florist_sharded`` raises ``NotImplementedError``
-until the multi-device slice ports it."""
+naming ``ROADMAP.md`` Queue 1 item 9 (multi-device)."""
 from repro_torch.core.aggregators.base import (AggResult, Aggregator,
                                                accepted_config,
                                                adapter_leaf_paths,

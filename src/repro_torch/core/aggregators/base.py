@@ -218,6 +218,43 @@ class Aggregator:
     def _finalize(self) -> AggResult:
         raise NotImplementedError
 
+    # -- checkpoint hooks ----------------------------------------------------
+    #: extra per-round attributes a subclass serializes beside the base
+    #: accumulators (fedit/ffa's ``_seen_ranks``)
+    _STATE_FIELDS: Tuple[str, ...] = ()
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Snapshot of the mid-round streaming accumulators (running sums,
+        pending FLoRIST stacks, the delta-mode ``M``), tensors copied to
+        the host with their dtypes (:func:`repro_torch.checkpoint.io.
+        to_host`)."""
+        from repro_torch.checkpoint.io import to_host
+        state = {
+            "dims": self.dims,
+            "num_clients": self.num_clients,
+            "client_ranks": list(self.client_ranks),
+            "round_upload_params": self.round_upload_params,
+            "_ref_scales": to_host(self._ref_scales),
+            "_state": to_host(self._state),
+        }
+        for field in self._STATE_FIELDS:
+            state[field] = to_host(getattr(self, field))
+        return state
+
+    def load_state_dict(self, state: Dict[str, Any],
+                        device: Any = "cpu") -> None:
+        """Restore a :meth:`state_dict` snapshot, its tensors on
+        ``device``; folding resumes where the saved round left off."""
+        from repro_torch.checkpoint.io import to_device
+        self.dims = state["dims"]
+        self.num_clients = int(state["num_clients"])
+        self.client_ranks = list(state["client_ranks"])
+        self.round_upload_params = int(state["round_upload_params"])
+        self._ref_scales = to_device(state["_ref_scales"], device)
+        self._state = to_device(state["_state"], device)
+        for field in self._STATE_FIELDS:
+            setattr(self, field, to_device(state[field], device))
+
     def aggregate(self, clients: Sequence[Dict], weights: Sequence[float],
                   client_ranks: Optional[Sequence[int]] = None) -> AggResult:
         """Run the full streaming lifecycle over an in-memory client list."""
@@ -310,8 +347,8 @@ def get_aggregator_class(name: str) -> Type[Aggregator]:
     except KeyError:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"aggregation method {name!r} is not ported yet (the "
-                "multi-device slice of the port)") from None
+                f"aggregation method {name!r} is not ported yet (ROADMAP.md "
+                "Queue 1 item 9, multi-device)") from None
         raise ValueError(
             f"unknown aggregation method {name!r} "
             f"(registered: {sorted(_REGISTRY)})") from None

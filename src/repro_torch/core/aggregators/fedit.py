@@ -32,6 +32,8 @@ class FedItAggregator(Aggregator):
         self.zero_padding = zero_padding
         super().__init__()
 
+    _STATE_FIELDS = ("_seen_ranks",)
+
     def _reset(self) -> None:
         super()._reset()
         self._seen_ranks = set()

@@ -30,6 +30,8 @@ class FfaAggregator(Aggregator):
         self.zero_padding = zero_padding
         super().__init__()
 
+    _STATE_FIELDS = ("_seen_ranks",)
+
     def _reset(self) -> None:
         super()._reset()
         self._seen_ranks: Dict[Tuple, set] = {}

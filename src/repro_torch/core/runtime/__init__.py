@@ -1,31 +1,50 @@
-"""Federated round runtime (port of ``repro.core.runtime``): the client
-runner (``sequential``), the round scheduler (``sync``) and rank policy
-(``static``), the measured wire transport (``fp32`` and ``bf16`` codecs)
-and the validation gate (``off`` / ``screen``).  Other names raise
-``NotImplementedError`` until a later slice ports them."""
-from repro_torch.core.runtime.runners import (ClientRunner, SequentialRunner,
+"""Federated round runtime (port of ``repro.core.runtime``): pluggable
+client runners (``sequential``, ``cohort``), round schedulers (``sync``,
+``partial``, ``async``, ``sampled``) and rank policies (``static``,
+``resource``), the measured wire transport (``fp32``, ``bf16`` and
+``int8`` codecs, local DP on the uplink, bounded retries), deterministic
+fault injection (:class:`FaultPlan`, :class:`SimClock`, server crash
+points) and the validation gate (``off`` / ``screen`` / ``full``).
+``sharded_cohort`` raises ``NotImplementedError`` naming ``ROADMAP.md``
+Queue 1 item 9."""
+from repro_torch.core.runtime.faults import (CRASH_POINTS, Fault, FaultPlan,
+                                             ServerCrash, SimClock)
+from repro_torch.core.runtime.runners import (ClientRunner, CohortRunner,
+                                              SequentialRunner,
                                               available_runners, make_runner)
-from repro_torch.core.runtime.schedulers import (ClientTask, RankPolicy,
+from repro_torch.core.runtime.schedulers import (AsyncScheduler, ClientTask,
+                                                 PartialScheduler, RankPolicy,
+                                                 ResourceRankPolicy,
                                                  RoundPlan, RoundScheduler,
+                                                 SampledScheduler,
                                                  StaticRankPolicy,
                                                  SyncScheduler,
+                                                 available_rank_policies,
                                                  available_schedulers,
                                                  make_rank_policy,
-                                                 make_scheduler)
+                                                 make_scheduler,
+                                                 register_rank_policy,
+                                                 register_scheduler)
 from repro_torch.core.runtime.transport import (AdapterPayload, Codec,
-                                                EncodedArray, PayloadCorrupted,
+                                                DeadClientError, EncodedArray,
+                                                PayloadCorrupted,
                                                 PayloadError, Transport,
+                                                TransportStats,
                                                 available_codecs, make_codec,
                                                 make_transport)
 from repro_torch.core.runtime.validation import (GateStats, ValidationGate,
                                                  make_validator)
 
 __all__ = [
-    "AdapterPayload", "ClientRunner", "ClientTask", "Codec", "EncodedArray",
-    "GateStats", "PayloadCorrupted", "PayloadError", "RankPolicy",
-    "RoundPlan", "RoundScheduler", "SequentialRunner", "StaticRankPolicy",
-    "SyncScheduler", "Transport", "ValidationGate", "available_codecs",
-    "available_runners", "available_schedulers", "make_codec",
-    "make_rank_policy", "make_runner", "make_scheduler", "make_transport",
-    "make_validator",
+    "AdapterPayload", "AsyncScheduler", "CRASH_POINTS", "ClientRunner",
+    "ClientTask", "Codec", "CohortRunner", "DeadClientError", "EncodedArray",
+    "Fault", "FaultPlan", "GateStats", "PartialScheduler", "PayloadCorrupted",
+    "PayloadError", "RankPolicy", "ResourceRankPolicy", "RoundPlan",
+    "RoundScheduler", "SampledScheduler", "SequentialRunner", "ServerCrash",
+    "SimClock", "StaticRankPolicy", "SyncScheduler", "Transport",
+    "TransportStats", "ValidationGate", "available_codecs",
+    "available_rank_policies", "available_runners", "available_schedulers",
+    "make_codec", "make_rank_policy", "make_runner", "make_scheduler",
+    "make_transport", "make_validator", "register_rank_policy",
+    "register_scheduler",
 ]

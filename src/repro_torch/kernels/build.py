@@ -44,7 +44,7 @@ ARGTYPES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P],
     "lora_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
     "adapter_gram_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

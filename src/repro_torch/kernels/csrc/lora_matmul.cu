@@ -5,7 +5,13 @@
 // Pallas TPU kernel behind repro.kernels.ops.lora_matmul).  Same contract:
 // x (M, din), w (din, dout), a (r, din), b (dout, r), all of one dtype
 // (bf16 or fp32; the wrapper casts a and s·B to x's dtype as the reference
-// does); out (M, dout) in that dtype, fp32 accumulation.  The rank-r
+// does); out (M, dout) in that dtype, fp32 accumulation.
+//
+// A client axis (the reference's jax.vmap of the kernel over a cohort of
+// clients): x (C, M, din), a (C, r, din), b (C, dout, r) and y (C, M, dout)
+// with W shared by all C clients, in one launch.  Each client's rows form
+// their own tiles: no tile straddles two clients, so each client's ragged
+// last tile is masked as M's always was.  C = 1 is the plain launch.  The rank-r
 // intermediate z = x Aᵀ never leaves the chip: it is accumulated beside
 // the base product, rounded to x's dtype (the reference's rounding point),
 // and multiplied into the same output accumulators.
@@ -20,7 +26,8 @@
 //
 // "wgmma" — bf16 with din and dout multiples of 8 (every main-path shape).
 //   * a persistent grid of one block per SM (at most the tile count) walks
-//     the 128 × BN output tiles in a grouped raster (8 tile rows a group),
+//     (client, tile) pairs, client-major, each client's 128 × BN output
+//     tiles in a grouped raster (8 tile rows a group),
 //     so that the blocks in flight share x rows and W columns in L2.  BN is
 //     chosen per shape so that the tiles fill the 132 SMs in whole waves
 //     (lora_matmul.py :: tile_n): 256 at M 2048 × 2048 (128 tiles, one
@@ -30,8 +37,10 @@
 //     rank padded to 16, 32, 64 or 128, rows past r zero-filled) in flight
 //     through a ring of 3–4 stages, 128-byte swizzled, with full/empty
 //     mbarrier pairs; it runs ahead across tiles, so a tile's epilogue
-//     overlaps the next tile's loads.  TMA zero-fills past M, din and dout:
-//     ragged edges cost no masking in the loop;
+//     overlaps the next tile's loads.  x, A and y are 3-D tensor maps with
+//     the client as the outer dimension, so TMA zero-fills past each
+//     client's M (and past din and dout): ragged edges cost no masking in
+//     the loop, and s·B is read at the client's offset;
 //   * two consumer warpgroups own 64 rows each.  Per 64-wide k-step each
 //     issues wgmma m64nBNk16 for x·W (W is MN-major: dout is contiguous, so
 //     it is the transposed B operand, its panels LBO apart) and m64nRPk16
@@ -56,10 +65,11 @@
 //   columns, so 256 columns are kept for ranks up to 16.
 // "wmma" — bf16 with din or dout not a multiple of 8, which TMA cannot
 //   describe (its strides are multiples of 16 bytes): WMMA 16×16×16
-//   fragments, 128 × 128 tiles, 32-wide k slices through a three-slot
-//   cp.async ring, ragged edges masked element by element.
-// "fp32" — CUDA cores (64 × 64 tiles, 4 × 4 outputs a thread), used for the
-//   parity checks; it computes the same function.
+//   fragments, 128 × 128 tiles (grid z: the client), 32-wide k slices
+//   through a three-slot cp.async ring, ragged edges masked element by
+//   element.
+// "fp32" — CUDA cores (64 × 64 tiles, 4 × 4 outputs a thread; grid z: the
+//   client), used for the parity checks; it computes the same function.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,11 +163,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
-                                             int c1) {
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1) : "memory");
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 __device__ __forceinline__ void consumers_sync() {   // both consumer warpgroups
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers * 128) : "memory");
@@ -269,8 +289,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Output tile t's origin in the grouped raster: kGroupM tile rows at a time,
-// column by column within the group.  lora_matmul.py :: tile_origin mirrors it.
+// Output tile t's origin in one client's grouped raster: kGroupM tile rows at
+// a time, column by column within the group.  lora_matmul.py :: tile_origin
+// mirrors it; tile_of adds the client.
 __device__ __forceinline__ void tile_origin(int t, int tm, int tn, int bn, int* m0,
                                             int* n0) {
   const int per_group = kGroupM * tn;
@@ -285,7 +306,7 @@ template <int BN, int RP>
 __global__ void __launch_bounds__(kTmaThreads, 1)
 lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                   const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap ty,
-                  const bf16* __restrict__ b, int M, int din, int dout, int r) {
+                  const bf16* __restrict__ b, int C, int M, int din, int dout, int r) {
   using P = Plan<BN, RP>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -294,7 +315,7 @@ lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
   const uint32_t sb = base + P::B_OFF;
   const uint32_t bars = base + P::BAR_OFF;        // full[STAGES], empty[STAGES]
   const int tm = (M + kTM - 1) / kTM, tn = (dout + BN - 1) / BN;
-  const int n_tiles = tm * tn, nk = (din + kTK - 1) / kTK;
+  const int per_client = tm * tn, n_tiles = C * per_client, nk = (din + kTK - 1) / kTK;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -312,18 +333,19 @@ lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
       int it = 0;                                 // k-steps issued, across tiles
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         int m0, n0;
-        tile_origin(t, tm, tn, BN, &m0, &n0);
+        const int c = t / per_client;
+        tile_origin(t % per_client, tm, tn, BN, &m0, &n0);
         for (int k = 0; k < nk; ++k, ++it) {
           const int st = it % P::STAGES;
           const uint32_t ph = (it / P::STAGES) & 1;
           mbar_wait(bars + 8 * (P::STAGES + st), ph ^ 1);    // slot released
           const uint32_t s = base + st * P::STAGE, full = bars + 8 * st;
           mbar_expect_tx(full, P::STAGE);
-          tma_load_2d(s, &tx, full, k * kTK, m0);
+          tma_load_3d(s, &tx, full, k * kTK, m0, c);
 #pragma unroll
           for (int p = 0; p < BN / 64; ++p)
             tma_load_2d(s + P::X_BYTES + p * kTK * 128, &tw, full, n0 + 64 * p, k * kTK);
-          tma_load_2d(s + P::X_BYTES + P::W_BYTES, &ta, full, k * kTK, 0);
+          tma_load_3d(s + P::X_BYTES + P::W_BYTES, &ta, full, k * kTK, 0, c);
         }
       }
     }
@@ -342,7 +364,9 @@ lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
   int it = 0;                                     // k-steps consumed, across tiles
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     int m0, n0;
-    tile_origin(t, tm, tn, BN, &m0, &n0);
+    const int c = t / per_client;
+    tile_origin(t % per_client, tm, tn, BN, &m0, &n0);
+    const bf16* __restrict__ bc = b + (long)c * dout * r;
     // the tile's rows of s·B, K-major and swizzled, zeros past dout and r;
     // the barrier before keeps the last tile's z·(s·B)ᵀ readers out of the way
     consumers_sync();
@@ -350,7 +374,7 @@ lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
       const int n = e / RP, kr = e % RP;
       const uint32_t off = (kr / P::BPC) * BN * P::BSW + n * P::BSW + (kr % P::BPC) * 2;
       *reinterpret_cast<bf16*>(gbase + P::B_OFF + swz<P::BSW>(off)) =
-          n0 + n < dout && kr < r ? b[(long)(n0 + n) * r + kr] : __float2bfloat16(0.f);
+          n0 + n < dout && kr < r ? bc[(long)(n0 + n) * r + kr] : __float2bfloat16(0.f);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     consumers_sync();
@@ -422,7 +446,7 @@ lora_matmul_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant_
       if (wt == 0) {
 #pragma unroll
         for (int p = 0; p < P::CW / 64; ++p)
-          tma_store_2d(&ty, sc + p * 8192, n0 + rnd * P::CW + 64 * p, m0 + wg * 64);
+          tma_store_3d(&ty, sc + p * 8192, n0 + rnd * P::CW + 64 * p, m0 + wg * 64, c);
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
     }
@@ -470,31 +494,50 @@ int matrix_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_ro
   return res == CUDA_SUCCESS ? 0 : -3;
 }
 
+// C row-major (rows × cols) bf16 matrices, one after another, as a 3-D map
+// {cols, rows, C}; a box is 64 columns by box_rows rows of one matrix,
+// zero-filled past its rows and columns (never read from the next one)
+int batched_map(CUtensorMap* map, const void* ptr, int C, int rows, int cols,
+                int box_rows) {
+  EncodeTiled enc = encoder();
+  if (!enc) return -2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)C};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult res = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                           dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -3;
+}
+
 template <int BN, int RP>
 int launch_wgmma(const void* x, const void* w, const void* a, const void* b, void* y,
-                 int M, int din, int dout, int r, int grid, cudaStream_t st) {
+                 int C, int M, int din, int dout, int r, int grid, cudaStream_t st) {
   using P = Plan<BN, RP>;
   CUtensorMap tx, tw, ta, ty;
-  int rc = matrix_map(&tx, x, M, din, kTM);
+  int rc = batched_map(&tx, x, C, M, din, kTM);
   if (rc == 0) rc = matrix_map(&tw, w, din, dout, kTK);
-  if (rc == 0) rc = matrix_map(&ta, a, r, din, RP);
-  if (rc == 0) rc = matrix_map(&ty, y, M, dout, 64);
+  if (rc == 0) rc = batched_map(&ta, a, C, r, din, RP);
+  if (rc == 0) rc = batched_map(&ty, y, C, M, dout, 64);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       lora_matmul_wgmma<BN, RP>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (err != cudaSuccess) return (int)err;
   lora_matmul_wgmma<BN, RP><<<grid, kTmaThreads, P::SMEM, st>>>(
-      tx, tw, ta, ty, static_cast<const bf16*>(b), M, din, dout, r);
+      tx, tw, ta, ty, static_cast<const bf16*>(b), C, M, din, dout, r);
   return (int)cudaGetLastError();
 }
 
 template <int RP>
 int launch_wgmma_bn(int bn, const void* x, const void* w, const void* a, const void* b,
-                    void* y, int M, int din, int dout, int r, int grid, cudaStream_t st) {
-  if (bn == 64) return launch_wgmma<64, RP>(x, w, a, b, y, M, din, dout, r, grid, st);
-  if (bn == 128) return launch_wgmma<128, RP>(x, w, a, b, y, M, din, dout, r, grid, st);
+                    void* y, int C, int M, int din, int dout, int r, int grid,
+                    cudaStream_t st) {
+  if (bn == 64) return launch_wgmma<64, RP>(x, w, a, b, y, C, M, din, dout, r, grid, st);
+  if (bn == 128) return launch_wgmma<128, RP>(x, w, a, b, y, C, M, din, dout, r, grid, st);
   if constexpr (RP == 16)
-    if (bn == 256) return launch_wgmma<256, RP>(x, w, a, b, y, M, din, dout, r, grid, st);
+    if (bn == 256) return launch_wgmma<256, RP>(x, w, a, b, y, C, M, din, dout, r, grid, st);
   return -1;
 }
 
@@ -544,6 +587,11 @@ lora_matmul_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  const bf16* __restrict__ a, const bf16* __restrict__ b,
                  bf16* __restrict__ y, int M, int din, int dout, int r) {
   constexpr int kLdR = RP + 8;
+  // client blockIdx.z's x, A, s·B and y
+  x += (long)blockIdx.z * M * din;
+  a += (long)blockIdx.z * r * din;
+  b += (long)blockIdx.z * dout * r;
+  y += (long)blockIdx.z * M * dout;
   constexpr int kStageElems = kBM * kLdX + kBK * kLdW + RP * kLdX;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);          // kStages × {x, W, A slices}
@@ -678,12 +726,12 @@ size_t wmma_smem() {
 
 template <int RP>
 int launch_wmma(const void* x, const void* w, const void* a, const void* b, void* y,
-                int M, int din, int dout, int r, cudaStream_t st) {
+                int C, int M, int din, int dout, int r, cudaStream_t st) {
   const size_t smem = wmma_smem<RP>();
   cudaError_t err = cudaFuncSetAttribute(
       lora_matmul_wmma<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((dout + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  const dim3 grid((dout + kBN - 1) / kBN, (M + kBM - 1) / kBM, C);
   lora_matmul_wmma<RP><<<grid, kThreads, smem, st>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const bf16*>(a), static_cast<const bf16*>(b),
@@ -700,6 +748,10 @@ lora_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ a, const float* __restrict__ b,
                 float* __restrict__ y, int M, int din, int dout, int r) {
   extern __shared__ __align__(16) float fs[];
+  x += (long)blockIdx.z * M * din;      // client blockIdx.z
+  a += (long)blockIdx.z * r * din;
+  b += (long)blockIdx.z * dout * r;
+  y += (long)blockIdx.z * M * dout;
   float* xs = fs;                       // [kFK][kFM]   x slice, transposed
   float* ws = xs + kFK * kFM;           // [kFK][kFN]
   float* at = ws + kFK * kFN;           // [kFK][RP]    A slice, transposed
@@ -774,13 +826,13 @@ lora_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 template <int RP>
 int launch_f32(const void* x, const void* w, const void* a, const void* b, void* y,
-               int M, int din, int dout, int r, cudaStream_t st) {
+               int C, int M, int din, int dout, int r, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)kFK * (kFM + kFN + RP)
                                        + (size_t)(kFM + kFN) * (RP + 1));
   cudaError_t err = cudaFuncSetAttribute(
       lora_matmul_f32<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((dout + kFN - 1) / kFN, (M + kFM - 1) / kFM);
+  const dim3 grid((dout + kFN - 1) / kFN, (M + kFM - 1) / kFM, C);
   lora_matmul_f32<RP><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(a), static_cast<const float*>(b),
@@ -791,41 +843,43 @@ int launch_f32(const void* x, const void* w, const void* a, const void* b, void*
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for all of x, w, a, b and y.  All
-// contiguous and 16-byte aligned; 1 <= r <= 128.  bf16 with bn 64, 128 or
+// contiguous and 16-byte aligned; 1 <= r <= 128; C clients (x, a, b and y
+// each C matrices one after another, w shared), 1 <= C <= 65535.  bf16 with bn 64, 128 or
 // 256 (and a grid of at most the tile count) takes the wgmma route, which
 // needs din and dout multiples of 8 and bn <= 128 at ranks above 64; bf16
 // with bn 0 takes the wmma route (lora_matmul.py :: plan chooses).  Returns
 // a cudaError_t (0 = launched), -1 for arguments the kernel does not take,
 // -2 when the driver has no cuTensorMapEncodeTiled, -3 when it refuses a map.
 extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a,
-                                  const void* b, void* y, int dtype, int M, int din,
-                                  int dout, int r, int bn, int grid, void* stream) {
+                                  const void* b, void* y, int dtype, int C, int M,
+                                  int din, int dout, int r, int bn, int grid,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r < 1 || r > 128 || M < 1 || din < 1 || dout < 1) return -1;
+  if (r < 1 || r > 128 || C < 1 || C > 65535 || M < 1 || din < 1 || dout < 1) return -1;
   const int rp = r <= 16 ? 16 : r <= 32 ? 32 : r <= 64 ? 64 : 128;
   if (dtype == 1 && bn != 0) {
     if (din % 8 != 0 || dout % 8 != 0 || grid < 1) return -1;
     switch (rp) {
-      case 16: return launch_wgmma_bn<16>(bn, x, w, a, b, y, M, din, dout, r, grid, st);
-      case 32: return launch_wgmma_bn<32>(bn, x, w, a, b, y, M, din, dout, r, grid, st);
-      case 64: return launch_wgmma_bn<64>(bn, x, w, a, b, y, M, din, dout, r, grid, st);
-      default: return launch_wgmma_bn<128>(bn, x, w, a, b, y, M, din, dout, r, grid, st);
+      case 16: return launch_wgmma_bn<16>(bn, x, w, a, b, y, C, M, din, dout, r, grid, st);
+      case 32: return launch_wgmma_bn<32>(bn, x, w, a, b, y, C, M, din, dout, r, grid, st);
+      case 64: return launch_wgmma_bn<64>(bn, x, w, a, b, y, C, M, din, dout, r, grid, st);
+      default: return launch_wgmma_bn<128>(bn, x, w, a, b, y, C, M, din, dout, r, grid, st);
     }
   }
   if (dtype == 1) {
     switch (rp) {
-      case 16: return launch_wmma<16>(x, w, a, b, y, M, din, dout, r, st);
-      case 32: return launch_wmma<32>(x, w, a, b, y, M, din, dout, r, st);
-      case 64: return launch_wmma<64>(x, w, a, b, y, M, din, dout, r, st);
-      default: return launch_wmma<128>(x, w, a, b, y, M, din, dout, r, st);
+      case 16: return launch_wmma<16>(x, w, a, b, y, C, M, din, dout, r, st);
+      case 32: return launch_wmma<32>(x, w, a, b, y, C, M, din, dout, r, st);
+      case 64: return launch_wmma<64>(x, w, a, b, y, C, M, din, dout, r, st);
+      default: return launch_wmma<128>(x, w, a, b, y, C, M, din, dout, r, st);
     }
   }
   if (dtype == 0) {
     switch (rp) {
-      case 16: return launch_f32<16>(x, w, a, b, y, M, din, dout, r, st);
-      case 32: return launch_f32<32>(x, w, a, b, y, M, din, dout, r, st);
-      case 64: return launch_f32<64>(x, w, a, b, y, M, din, dout, r, st);
-      default: return launch_f32<128>(x, w, a, b, y, M, din, dout, r, st);
+      case 16: return launch_f32<16>(x, w, a, b, y, C, M, din, dout, r, st);
+      case 32: return launch_f32<32>(x, w, a, b, y, C, M, din, dout, r, st);
+      case 64: return launch_f32<64>(x, w, a, b, y, C, M, din, dout, r, st);
+      default: return launch_f32<128>(x, w, a, b, y, C, M, din, dout, r, st);
     }
   }
   return -1;

@@ -3,7 +3,9 @@ the Hopper counterpart of ``repro.kernels.lora_matmul.lora_matmul_kernel``.
 
 The wrapper hands the kernel x, W, A and the pre-scaled s·B in one dtype;
 the kernel masks ragged M, dout, din and rank itself, so no padded copies
-are made (the reference pads on the host).  :func:`plan` picks the route
+are made (the reference pads on the host).  A client axis (x (C, M, din),
+A (C, r, din), s·B (C, dout, r), W shared) runs a whole cohort in one
+launch, the counterpart of the reference's ``jax.vmap`` of the kernel.  :func:`plan` picks the route
 and, on the ``"wgmma"`` route, the output tile's width and the persistent
 grid; the plain functions below mirror the source's arithmetic so that the
 CPU tests can check it.
@@ -76,16 +78,17 @@ def tile_widths(rp: int):
     return TILE_NS if rp <= 16 else TILE_NS[1:]
 
 
-def tile_n(M: int, dout: int, rp: int, sms: int) -> int:
-    """The output tile width for this shape: the widest whose tiles keep at
-    least ``WAVE_FILL`` of the SMs busy over whole waves (tiles / (waves ×
-    SMs)), else the one that keeps the most busy.  At rank 16, M 2048 ×
-    2048 takes 256 (128 tiles, one wave), M 8192 × 2048 256 (512 tiles, 3.9
-    waves), M 2048 × 512 64 (128 tiles)."""
+def tile_n(M: int, dout: int, rp: int, sms: int, clients: int = 1) -> int:
+    """The output tile width for this shape: the widest whose tiles (over
+    all ``clients``) keep at least ``WAVE_FILL`` of the SMs busy over whole
+    waves (tiles / (waves × SMs)), else the one that keeps the most busy.
+    At rank 16, M 2048 × 2048 takes 256 (128 tiles, one wave), M 8192 ×
+    2048 256 (512 tiles, 3.9 waves), M 2048 × 512 64 (128 tiles); four
+    clients of M 2048 × 256 take 128 (128 tiles)."""
     best, best_fill = None, -1.0
     tm = -(-M // TILE_M)
     for bn in tile_widths(rp):
-        tiles = tm * -(-dout // bn)
+        tiles = clients * tm * -(-dout // bn)
         fill = tiles / (-(-tiles // sms) * sms)
         if fill >= WAVE_FILL:
             return bn
@@ -94,16 +97,17 @@ def tile_n(M: int, dout: int, rp: int, sms: int) -> int:
     return best
 
 
-def plan(M: int, din: int, dout: int, r: int, dtype, sms: int) -> dict:
+def plan(M: int, din: int, dout: int, r: int, dtype, sms: int,
+         clients: int = 1) -> dict:
     """The launch: route, and for ``"wgmma"`` the tile width ``bn``, the
-    number of output tiles and the persistent grid (one block per SM, at
-    most one per tile)."""
+    number of output tiles of all ``clients`` (M rows each) and the
+    persistent grid (one block per SM, at most one per tile)."""
     rp = rank_pad(r)
     how = route(din, dout, dtype)
     if how != "wgmma":
         return {"route": how, "bn": 0, "grid": 0}
-    bn = tile_n(M, dout, rp, sms)
-    tiles = -(-M // TILE_M) * -(-dout // bn)
+    bn = tile_n(M, dout, rp, sms, clients)
+    tiles = clients * -(-M // TILE_M) * -(-dout // bn)
     return {"route": how, "bn": bn, "grid": min(tiles, sms), "tiles": tiles,
             "stages": stages(bn, rp)}
 
@@ -118,25 +122,46 @@ def tile_origin(t: int, tm: int, tn: int, bn: int):
     return (first + i % rows) * TILE_M, (i // rows) * bn
 
 
-def schedule(M: int, dout: int, bn: int, grid: int):
-    """The tiles each block of the persistent grid computes, in order:
-    block ``g`` takes tiles ``g, g + grid, ...``."""
+def tile_of(t: int, tm: int, tn: int, bn: int):
+    """(client, first row, first column) of tile ``t`` of a cohort: the
+    tiles walk client-major, each client's in its own grouped raster, so
+    no tile holds rows of two clients."""
+    c, i = divmod(t, tm * tn)
+    return (c,) + tile_origin(i, tm, tn, bn)
+
+
+def cohort_schedule(clients: int, M: int, dout: int, bn: int, grid: int):
+    """The (client, row, column) tiles each block of the persistent grid
+    computes, in order: block ``g`` takes tiles ``g, g + grid, ...`` of all
+    ``clients`` × the per-client tiles."""
     tm, tn = -(-M // TILE_M), -(-dout // bn)
-    return [[tile_origin(t, tm, tn, bn) for t in range(g, tm * tn, grid)]
+    return [[tile_of(t, tm, tn, bn) for t in range(g, clients * tm * tn, grid)]
             for g in range(grid)]
+
+
+def schedule(M: int, dout: int, bn: int, grid: int):
+    """One client's :func:`cohort_schedule`, as (row, column) origins."""
+    return [[(m, n) for _, m, n in share]
+            for share in cohort_schedule(1, M, dout, bn, grid)]
 
 
 def lora_matmul_cuda(x, w, a, b_scaled) -> torch.Tensor:
     """x (M, din), w (din, dout), a (r, din), b_scaled (dout, r), one dtype,
-    on one CUDA device; returns ``x w + bf16(x aᵀ) b_scaledᵀ`` (M, dout)."""
-    _check(x.dim() == 2 and w.dim() == 2 and a.dim() == 2 and b_scaled.dim() == 2,
+    on one CUDA device; returns ``x w + bf16(x aᵀ) b_scaledᵀ`` (M, dout).
+    With a leading client axis on x, a and b_scaled ((C, M, din), (C, r,
+    din), (C, dout, r); w shared) returns (C, M, dout) from one launch."""
+    nd = x.dim()
+    _check(nd in (2, 3) and w.dim() == 2 and a.dim() == nd
+           and b_scaled.dim() == nd,
            f"shapes x{tuple(x.shape)} w{tuple(w.shape)} a{tuple(a.shape)} "
            f"b{tuple(b_scaled.shape)}")
-    M, din = x.shape
+    C = x.shape[0] if nd == 3 else 1
+    M, din = x.shape[-2:]
     dout = w.shape[1]
-    r = a.shape[0]
-    _check(w.shape[0] == din and a.shape[1] == din
-           and b_scaled.shape == (dout, r),
+    r = a.shape[-2]
+    lead = (C,) if nd == 3 else ()
+    _check(w.shape[0] == din and tuple(a.shape) == lead + (r, din)
+           and tuple(b_scaled.shape) == lead + (dout, r) and C <= 65535,
            f"x{tuple(x.shape)} w{tuple(w.shape)} a{tuple(a.shape)} "
            f"b{tuple(b_scaled.shape)} do not match")
     rank_pad(r)
@@ -149,11 +174,11 @@ def lora_matmul_cuda(x, w, a, b_scaled) -> torch.Tensor:
                for t in (x, w, a, b_scaled)),
            "tensors must be contiguous and 16-byte aligned")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = plan(M, din, dout, r, x.dtype, sms)
-    y = torch.empty((M, dout), dtype=x.dtype, device=dev)
+    p = plan(M, din, dout, r, x.dtype, sms, C)
+    y = torch.empty(lead + (M, dout), dtype=x.dtype, device=dev)
     err = build.load("lora_matmul").lora_matmul_launch(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b_scaled.data_ptr(),
-        y.data_ptr(), _CODES[x.dtype], M, din, dout, r, p["bn"], p["grid"],
+        y.data_ptr(), _CODES[x.dtype], C, M, din, dout, r, p["bn"], p["grid"],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lora_matmul kernel launch failed: error {err}")

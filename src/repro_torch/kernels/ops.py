@@ -16,8 +16,9 @@ and the CUDA kernels' tiles are fixed in their sources.
 ``lora_matmul`` and ``flash_attention`` are differentiable
 (``torch.autograd.Function``).  Their TPU kernels have no backward kernel;
 the backward passes are the reference's own: the reference math of
-``ops.py``'s custom VJP for ``lora_matmul`` (in torch matmuls, on either
-device), and a recompute through ``flash_torch`` for ``flash_attention``.
+``ops.py``'s custom VJP for ``lora_matmul``, per client (in torch
+matmuls, on either device), and a recompute through ``flash_torch`` for
+``flash_attention``.
 """
 from __future__ import annotations
 
@@ -113,15 +114,18 @@ def lora_operands(x, w, a, b, scale):
 
 
 class _LoraMatmul(torch.autograd.Function):
-    """Fused forward (the kernel, or its plain version for a CPU tensor);
-    the reference's backward math for x, A, B and scale.  W is the frozen
-    base and gets no gradient."""
+    """The client-axis form: x (C, m, din), a (C, r, din), b (C, dout, r),
+    scale (C,), w (din, dout) shared and frozen (no gradient).  One kernel
+    launch for the cohort (a per-client loop of the plain version for a
+    CPU tensor); the backward is the reference's math of ``ops.py``'s
+    custom VJP per client, so dA, dB and ds of client c sum over client
+    c's rows only."""
 
     @staticmethod
     def forward(ctx, x, w, a, b, scale):
-        a_c, b_s = lora_operands(x, w, a, b, scale)
+        a_c, b_s = lora_operands(x, w, a, b, scale[:, None, None])
         if x.device.type == "cpu":
-            y = ref.lora_matmul_ref(x, w, a_c, b_s, 1.0)
+            y = ref.lora_matmul_cohort_ref(x, w, a_c, b_s, 1.0)
         else:
             y = lora_matmul_cuda(x.contiguous(), w.contiguous(), a_c, b_s)
             lora_matmul.launches += 1
@@ -132,28 +136,36 @@ class _LoraMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w, a, b, scale = ctx.saved_tensors
         dt = x.dtype
-        sc = scale.to(dt)
+        sc = scale.to(dt)[:, None, None]
         g = g.to(dt)
-        z = x @ a.t().to(dt)                              # (M, r) recomputed
-        gz = (g @ b.to(dt)) * sc                          # (M, r)
+        z = x @ a.mT.to(dt)                               # (C, m, r) recomputed
+        gz = (g @ b.to(dt)) * sc                          # (C, m, r)
         dx = da = db = ds = None
         if ctx.needs_input_grad[0]:
             dx = g @ w.t() + gz @ a.to(dt)
         if ctx.needs_input_grad[2]:
-            da = (gz.t() @ x).to(a.dtype)
+            da = (gz.mT @ x).to(a.dtype)
         if ctx.needs_input_grad[3]:
-            db = ((g.t() @ z) * sc).to(b.dtype)
+            db = ((g.mT @ z) * sc).to(b.dtype)
         if ctx.needs_input_grad[4]:
-            ds = torch.sum(g * (z @ b.t().to(dt))).to(scale.dtype)
-            ds = ds.reshape(scale.shape)
+            ds = torch.sum(g * (z @ b.mT.to(dt)), dim=(1, 2)).to(scale.dtype)
         return dx, None, da, db, ds
 
 
 def lora_matmul(x, w, a, b, scale):
     """x: (..., din) -> (..., dout), the fused base + adapter projection
-    ``x w + scale · (x aᵀ) bᵀ``; differentiable in x, a, b and scale."""
+    ``x w + scale · (x aᵀ) bᵀ``; differentiable in x, a, b and scale.
+
+    A cohort leaf (a (C, r, din), b (C, dout, r), scale (C,): one adapter
+    per client) takes x whose leading rows are the C clients' rows in
+    order, x.reshape(C, -1, din), and runs the whole cohort as one launch
+    (the reference's ``jax.vmap`` over clients); a single adapter is a
+    cohort of one."""
     din = x.shape[-1]
-    y = _LoraMatmul.apply(x.reshape(-1, din), w, a, b, scale)
+    if a.dim() == 2:
+        a, b = a[None], b[None]
+    C = a.shape[0]
+    y = _LoraMatmul.apply(x.reshape(C, -1, din), w, a, b, scale.reshape(C))
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

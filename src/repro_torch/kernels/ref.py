@@ -105,6 +105,16 @@ def lora_matmul_ref(x, w, a, b, scale):
     return y + (z @ b.t().to(x.dtype)) * scale
 
 
+def lora_matmul_cohort_ref(x, w, a, b, scale):
+    """The client-axis form, one :func:`lora_matmul_ref` per client: x (C,
+    m, din), a (C, r, din), b (C, dout, r), scale a number or (C,); w
+    shared.  Returns (C, m, dout)."""
+    C = x.shape[0]
+    sc = torch.as_tensor(scale).reshape(-1).expand(C)
+    return torch.stack([lora_matmul_ref(x[c], w, a[c], b[c], sc[c])
+                        for c in range(C)])
+
+
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
     """Dense grouped-query attention with an fp32 softmax
     (``repro.kernels.ref.flash_attention_ref``).  q: (B,S,H,hd), k/v:

@@ -154,14 +154,17 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict,
-            adapters: Optional[Dict] = None,
-            use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            adapters: Optional[Dict] = None, use_kernels: bool = False,
+            cohort: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]: (B, S)``.  Returns
     (final hidden (B,S,d), aux loss), aux being zero for the dense and RWKV6
     families.  ``use_kernels`` routes attention, the WKV recurrence and the
     LoRA projections through the ``flash_attention``, ``wkv6`` and
-    ``lora_matmul`` kernels.  The reference's ``remat`` has no counterpart:
-    autograd keeps the activations."""
+    ``lora_matmul`` kernels.  ``cohort``: ``adapters`` is a stack of C
+    clients' trees (a leading client axis on every leaf, the layer axis
+    second) and the batch holds the clients' rows in order, B = C·B_c;
+    everything shared runs once at batch B.  The reference's ``remat`` has
+    no counterpart: autograd keeps the activations."""
     if cfg.use_mla:
         raise NotImplementedError(
             "the full-sequence MLA forward (mla_fwd / mla_absorbed) is not "
@@ -173,8 +176,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
         for i in range(count):
-            x = _block_fwd(cfg, kind, _layer(seg_p, i), x, _layer(seg_a, i),
-                           use_kernels)
+            x = _block_fwd(cfg, kind, _layer(seg_p, i), x,
+                           _layer(seg_a, i, 1 if cohort else 0), use_kernels)
     x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -204,14 +207,15 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     return tuple(caches)
 
 
-def _layer(tree: Any, i: int) -> Any:
-    """Layer ``i`` of a stacked parameter or adapter tree."""
+def _layer(tree: Any, i: int, axis: int = 0) -> Any:
+    """Layer ``i`` of a stacked parameter or adapter tree, its layer axis
+    ``axis`` (1 for a cohort's client-stacked adapters)."""
     if isinstance(tree, PagedLoRA):
         return tree.layer(i)
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor) and tree.dim() > 0:
-        return tree[i]
+        return {k: _layer(v, i, axis) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dim() > axis:
+        return tree.select(axis, i)
     return tree
 
 

@@ -47,11 +47,17 @@ def schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return lr * warm * decay
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+def clip_by_global_norm(grads: Any, max_norm: float
+                        ) -> Tuple[Any, torch.Tensor]:
+    """Scale each client's slice of ``grads`` so its global L2 norm is at
+    most ``max_norm``.  Every leaf has a leading client axis (the
+    reference's ``vmap`` over clients; a single tree is given an axis of
+    1); the norms come back as (C,)."""
+    gnorm = torch.sqrt(sum(torch.square(g.float()).flatten(1).sum(1)
                            for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    return tree_map(lambda g: g * scale.reshape((-1,) + (1,) * (g.dim() - 1)),
+                    grads), gnorm
 
 
 def adamw_init(params: Any) -> Dict:
@@ -63,11 +69,17 @@ def adamw_init(params: Any) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def adamw_update(cfg: OptimConfig, grads: Any, state: Dict, params: Any
-                 ) -> Tuple[Any, Dict]:
+def adamw_update(cfg: OptimConfig, grads: Any, state: Dict, params: Any,
+                 per_client: bool = False) -> Tuple[Any, Dict]:
+    """One AdamW step.  ``per_client``: a cohort's stacked tree (a leading
+    client axis on every leaf); the clip is per client, and the moments,
+    being elementwise, are per client already."""
     step = state["step"] + 1
     if cfg.grad_clip:
-        grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        lead = grads if per_client else tree_map(lambda g: g[None], grads)
+        grads, _ = clip_by_global_norm(lead, cfg.grad_clip)
+        if not per_client:
+            grads = tree_map(lambda g: g[0], grads)
     b1, b2 = cfg.betas
     lr = schedule(cfg, step)
     sf = step.float()

@@ -101,6 +101,21 @@ def paged_delta_weight(ad: PagedLoRA) -> torch.Tensor:
     return delta * ad.scale.float()[ad.ids.long()][:, None, None]
 
 
+def lora_delta(x: torch.Tensor, adapter: Dict) -> torch.Tensor:
+    """The plain LoRA delta ``scale · (x Aᵀ) Bᵀ`` of a classic leaf (A (r,
+    din), B (dout, r)), or per client of a cohort leaf (A (C, r, din), B
+    (C, dout, r), scale (C,)) with x (C·B, ..., din) holding client c's
+    rows at [c·B, (c+1)·B).  A classic leaf is a cohort of one."""
+    A, B, s = adapter["A"], adapter["B"], adapter["scale"]
+    if A.dim() == 2:
+        A, B = A[None], B[None]
+    C = A.shape[0]
+    xc = x.reshape(C, -1, x.shape[-1])
+    z = xc @ A.mT.to(x.dtype)
+    d = (z @ B.mT.to(x.dtype)) * s.reshape(C, 1, 1).to(x.dtype)
+    return d.reshape(*x.shape[:-1], B.shape[-2])
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with jnp's promotion: mixed dtypes (an fp32 activation
     against bf16 weights) compute in the wider one, as the reference's
@@ -115,10 +130,13 @@ def lora_proj(x: torch.Tensor, w: torch.Tensor,
               adapter: Optional[Any] = None,
               use_kernel: bool = False) -> torch.Tensor:
     """y = x @ w (+ LoRA delta).  ``adapter`` is None (base model: no
-    adapter math at all), a classic ``{"A", "B", "scale"}`` leaf, or a
-    :class:`PagedLoRA` leaf.  ``use_kernel`` sends a classic leaf with a
-    3-D ``x`` through the fused ``lora_matmul`` (differentiable in x, A, B
-    and scale), as the reference's ``lora.USE_KERNEL`` does."""
+    adapter math at all), a classic ``{"A", "B", "scale"}`` leaf, a cohort
+    leaf (A (C, r, din), B (C, dout, r), scale (C,): one adapter per
+    client, x (C·B, S, din) with client c's rows at [c·B, (c+1)·B)), or a
+    :class:`PagedLoRA` leaf.  ``use_kernel`` sends a classic or cohort
+    leaf with a 3-D ``x`` through the fused ``lora_matmul`` (one launch for
+    a whole cohort; differentiable in x, A, B and scale), as the
+    reference's ``lora.USE_KERNEL`` does."""
     if adapter is None:
         return matmul(x, w)
     if isinstance(adapter, PagedLoRA):
@@ -126,9 +144,7 @@ def lora_proj(x: torch.Tensor, w: torch.Tensor,
     if use_kernel and x.dim() == 3:
         return kops.lora_matmul(x, w, adapter["A"], adapter["B"],
                                 adapter["scale"])
-    z = x @ adapter["A"].t().to(x.dtype)
-    return matmul(x, w) + ((z @ adapter["B"].t().to(x.dtype))
-                           * adapter["scale"].to(x.dtype))
+    return matmul(x, w) + lora_delta(x, adapter)
 
 
 def target_leaves(params: Any, targets: Sequence[str]

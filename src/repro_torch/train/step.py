@@ -106,6 +106,45 @@ def make_train_step(cfg: ModelConfig, optim: OptimConfig,
     return train_step
 
 
+def make_cohort_train_step(cfg: ModelConfig, optim: OptimConfig,
+                           loss_chunk: int = 512, use_kernels: bool = False,
+                           b_only: bool = False):
+    """Returns ``cohort_step(params, stacked, opt_state, batch) ->
+    (stacked, opt_state, metrics)``: one local step of C clients at once
+    (the reference's ``jax.vmap`` of the train step over clients).
+
+    ``stacked`` has a leading client axis on every adapter leaf (and
+    ``opt_state``'s moments on theirs); ``batch`` holds ``"tokens"`` and
+    ``"loss_mask"`` of shape (C, B, S).  The forward runs once at batch C·B
+    with each projection's cohort in one ``lora_matmul`` launch.  The loss
+    is the sum over clients of each client's masked mean, so each client's
+    gradient is its own (a zero-mask padding replica gets zero loss and
+    zero gradients); the global-norm clip is per client, and AdamW's
+    moments are per client.  Metrics are per client, shape (C,)."""
+
+    def cohort_step(params, adapters, opt_state, batch):
+        C = batch["tokens"].shape[0]
+        tokens = batch["tokens"].reshape(-1, batch["tokens"].shape[-1])
+        mask = batch["loss_mask"].reshape(tokens.shape)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(adapters)]
+        a = _unflatten(adapters, leaves)
+        hidden, _ = T.forward(cfg, params, {"tokens": tokens}, a,
+                              use_kernels=use_kernels, cohort=True)
+        loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask,
+                                   loss_chunk, clients=C)
+        gs = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+        grads = _unflatten(adapters, [torch.zeros_like(t) if g is None else g
+                                      for g, t in zip(gs, leaves)])
+        if b_only:
+            grads = _mask_a_grads(grads)
+        adapters, opt_state = adamw_update(optim, grads, opt_state, adapters,
+                                           per_client=True)
+        return adapters, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+    return cohort_step
+
+
 def make_eval_step(cfg: ModelConfig, loss_chunk: int = 512,
                    use_kernels: bool = False):
     """Returns ``eval_step(params, adapters, batch) -> metrics`` (no

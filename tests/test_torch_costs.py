@@ -119,7 +119,8 @@ def test_bf16_codec_bytes_match_reference_bit_for_bit():
                                       j.decode(je).view(np.uint32))
         assert t.bytes_per_param == j.bytes_per_param == 2.0
     assert ttransport.make_codec("fp32").bytes_per_param == 4.0
-    assert ttransport.available_codecs() == ["bf16", "fp32"]
+    assert ttransport.available_codecs() == jtransport.available_codecs() \
+        == ["bf16", "fp32", "int8"]
 
 
 def test_per_client_downlink_matches_reference():

@@ -206,6 +206,56 @@ def test_lora_schedule_covers_every_tile_once(M, dout, bn, grid):
     assert max(sizes) - min(sizes) <= 1
 
 
+@pytest.mark.parametrize("C,M,dout,r", [
+    (4, 2048, 2048, 16), (4, 2048, 256, 16), (3, 200, 2048, 16),
+    (3, 200, 256, 16), (8, 2048, 256, 16), (2, 129, 520, 7), (5, 1, 8, 4),
+    (16, 512, 2048, 32)])
+def test_lora_cohort_schedule_covers_every_client_tile_once(C, M, dout, r):
+    """With a client axis the persistent grid visits every (client, tile)
+    exactly once, client-major, and no tile straddles two clients: each
+    tile's rows lie inside its client's M rows (the 3-D maps clip the
+    ragged last tile at M, not at the next client's first row)."""
+    p = lm.plan(M, 2048, dout, r, torch.bfloat16, H100_SMS, C)
+    bn, grid = p["bn"], p["grid"]
+    tm, tn = -(-M // lm.TILE_M), -(-dout // bn)
+    assert p["tiles"] == C * tm * tn and grid == min(p["tiles"], H100_SMS)
+    shares = lm.cohort_schedule(C, M, dout, bn, grid)
+    tiles = [t for share in shares for t in share]
+    want = {(c, m, n) for c in range(C) for m in range(0, M, lm.TILE_M)
+            for n in range(0, dout, bn)}
+    assert len(tiles) == len(want) and set(tiles) == want
+    for c, m, n in tiles:
+        assert 0 <= m < M and 0 <= n < dout
+        first, last = c * M + m, c * M + min(m + lm.TILE_M, M) - 1
+        assert first // M == last // M == c
+    order = [lm.tile_of(t, tm, tn, bn)[0] for t in range(C * tm * tn)]
+    assert order == sorted(order)
+    sizes = [len(share) for share in shares]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("C,M,dout,r,bn", [
+    (1, 2048, 256, 16, 64),     # one client: 64 tiles at 64 wide
+    (4, 2048, 256, 16, 128),    # a cohort of 4: 128 tiles at 128 wide
+    (4, 2048, 2048, 16, 256),   # 512 tiles, 3.9 waves
+    (3, 200, 2048, 16, 128),
+    (16, 2048, 256, 16, 256)])
+def test_lora_cohort_tile_width(C, M, dout, r, bn):
+    """The tile width counts the whole cohort's tiles against the SMs;
+    one client's plan is unchanged by the client axis."""
+    assert lm.plan(M, 2048, dout, r, torch.bfloat16, H100_SMS, C)["bn"] == bn
+    if C == 1:
+        assert lm.plan(M, 2048, dout, r, torch.bfloat16, H100_SMS) == \
+            lm.plan(M, 2048, dout, r, torch.bfloat16, H100_SMS, 1)
+
+
+def test_lora_one_client_schedule_is_the_cohort_schedule():
+    for M, dout, bn, grid in ((2048, 2048, 256, 128), (300, 520, 64, 45)):
+        assert lm.schedule(M, dout, bn, grid) == [
+            [(m, n) for _, m, n in share]
+            for share in lm.cohort_schedule(1, M, dout, bn, grid)]
+
+
 def test_lora_raster_groups_tile_rows():
     """Blocks in flight together share x rows and W columns in L2: on a
     64 × 64-tile grid the first wave's 132 tiles touch 8 tile rows and 17
