@@ -65,7 +65,8 @@ Phases (any failure exits non-zero; no exception is caught):
    ``adapter_gram``).
 7. The federated path on the card in fp32 with TF32 off, at full width and
    4 layers: two train steps on the kernel route against the plain route
-   (loss, adapters, ``scale``), and one FLoRIST finalize on the Gram route
+   (the first batch's gradients, held to max(1e-4, 4 x each leaf's fp32
+   conditioning), loss, adapters, ``scale``), and one FLoRIST finalize on the Gram route
    against the LAPACK route (ranks, spectra, ``B_g A_g``).
 8. The MLA serving slice end to end: DeepSeek-V3 at published widths, cut
    to its three dense MLA layers (random seeded weights, bf16), phase 4's
@@ -90,11 +91,11 @@ Phases (any failure exits non-zero; no exception is caught):
     token at a time (registry adapter, ``bgmv``).
 13. The paper's five methods (FLoRIST, FedIT, FFA-LoRA, FLoRA, FlexLoRA),
     two rounds each, through ``FederatedTrainer`` on TinyLlama-1.1B at
-    published widths and full depth (random seeded weights, bf16, built
-    once for the five trainers): LoRA r 16 on ``wq``/``wv``, 8
-    Dirichlet(0.5) clients, 4 a round, 4 local steps of 4 × 512 tokens,
-    the ``bf16`` wire, FLoRIST on the Gram route.  Launch counts (22 · 2 ·
-    steps ``lora_matmul``, 22 · (steps + 1) ``flash_attention``, 2 ·
+    published widths, depth cut to 2 of its 22 layers (random seeded
+    weights, bf16, built once for the five trainers): LoRA r 16 on
+    ``wq``/``wv``, 8 Dirichlet(0.5) clients, 4 a round, 4 local steps of 4
+    × 512 tokens, the ``bf16`` wire, FLoRIST on the Gram route.  Launch
+    counts (L · 2 · steps ``lora_matmul``, L · (steps + 1) ``flash_attention``, 2 ·
     buckets ``adapter_gram`` for FLoRIST and none for the others), wire
     bytes equal to 2 × the analytic counts, each method's kept ranks,
     FFA's frozen A bit for bit, FLoRA's merge and re-init, finite losses;
@@ -105,14 +106,14 @@ Phases (any failure exits non-zero; no exception is caught):
 14. The paper's evaluation at full width, through the port's own modules
     (``repro_torch.benchmarks``, each module's ``bench_fed`` replaced by a
     recorder that is ``bench_trainer`` plus the same rounds) on
-    TinyLlama-1.1B at published widths and full depth (random seeded
-    weights, bf16, built once), LoRA on ``wq``/``wv``, 4 local steps of 4
+    TinyLlama-1.1B at published widths, depth cut to 2 of its 22 layers
+    (random seeded weights, bf16, built once), LoRA on ``wq``/``wv``, 4 local steps of 4
     × 512 tokens, the bench's 20 clients (5 a round) and rank mix
     ``((4, 8), (8, 4), (16, 4), (32, 2), (64, 2))``, τ 0.9, the ``fp32``
     wire, the ``svd`` route: (a) Table 2's heterogeneous arm, two rounds
     of each method (FedIT and FFA zero-padded): finite losses, FLoRIST's
     ranks in [1, Σ r_k], FedIT's and FFA's the round's largest client
-    rank, bytes exactly 4 × the analytic counts and the upload 140,800 ·
+    rank, bytes exactly 4 × the analytic counts and the upload 6,400 · L ·
     Σ r_k parameters (B alone for FFA), exact ``lora_matmul`` and
     ``flash_attention`` launches; per round wall, finalize, median step
     (by client rank), kept and download ranks; and FLoRIST's finalize at
@@ -147,8 +148,8 @@ Phases (any failure exits non-zero; no exception is caught):
     ``wv``, C 4, M 2048, bf16 and fp32, a ragged C 3, M 200 and the wmma
     route, each timed beside its whole-cohort bound and the same work as
     C launches of C = 1, and ``flash_attention`` at the cohort step's
-    batch of 16; then on TinyLlama-1.1B at published widths and
-    full depth (phase 13's setup: 8 clients of rank 16, 4 a round, 4
+    batch of 16; then on TinyLlama-1.1B at published widths, depth cut
+    to 2 of its 22 layers (phase 13's setup: 8 clients of rank 16, 4 a round, 4
     local steps of 4 × 512 tokens, wq/wv, the bf16 wire): (b) two FLoRIST
     rounds with ``sequential`` and with ``cohort``, the cohort's train-step
     ``lora_matmul`` and ``flash_attention`` launches exactly 1/4 of the
@@ -169,6 +170,49 @@ Phases (any failure exits non-zero; no exception is caught):
     eval loss within 1e-4, each client's adapters within 5e-4); (g)
     ``fed_bench``'s runner × scheduler arm and ``federated_finetune``'s
     tiny profile.
+17. The four Qwen configs (``launch.serve``'s ``qwen2_0p5b``, ``qwen3_4b``,
+    ``qwen2p5_14b_l8``, ``qwen1p5_32b_l4``; random seeded weights, bf16):
+    (a) each at published widths serves phase 4's traffic through
+    ``decode_impl="kernel"`` on the graphed engine, adapters on ``wq wk wv
+    wo`` and a swap, launches exact (``ring_decode`` L and ``bgmv`` 4 · L
+    an engine step), 16 of 16 requests, and a profiled burst window on
+    live-adapter rows; Qwen2-0.5B and Qwen3-4B at full depth,
+    Qwen2.5-14B cut to 8 of its 48 layers and Qwen1.5-32B to 4 of its
+    64; (b) phase 5 on each at 2 layers and full width in fp32 (TF32
+    off), the greedy tokens required equal (``qkv_bias`` and ``qk_norm``
+    on the kernel route); (c) ``repro_torch.examples.serve_batch`` at its
+    defaults and with ``--decode-impl kernel --int8-cache``.  Phase 2
+    holds ``ring_decode`` at groups 7 and 5 (C 1 and 16, bf16 and int8)
+    and MHA at hd 128, ``bgmv`` at din 896 / 2560 / 4096 / 5120,
+    ``lora_matmul`` at the Qwen projections and ``flash_attention`` at
+    the Qwen heads.
+18. The single-client trainer: (a) ``Trainer(use_kernels=True)`` on
+    Qwen2-0.5B at published widths and full depth, 6 steps of 4 × 512
+    tokens, eval and checkpoint every 3, launches exact (``lora_matmul``
+    96 and ``flash_attention`` 24 a forward), a second trainer's
+    ``restore_ckpt`` bit-equal, the median step, tokens/s and a profiled
+    window; (b) ``python -m repro_torch.launch.train --arch qwen2-0.5b
+    --steps 4 --use-kernels`` as a subprocess, exit 0 and a finite final
+    eval; (c) at 2 layers and full width in fp32 (TF32 off), two train
+    steps on the kernel route against the plain route (phase 7's limits).
+19. RWKV6 training: (a) two FLoRIST rounds of RWKV6-1.6B at published
+    widths and full depth through ``FederatedTrainer`` (sequential
+    runner; rank 16 on its five targets, 4 of 8 clients a round, 2 local
+    steps of 2 × 256 tokens, the Gram route): the train steps' recurrence
+    through ``wkv_scan`` (``models.rwkv.recurrence_route``), so ``wkv6``
+    launches 24 a round (the eval forward) and never in a train step,
+    ``lora_matmul`` 120 a train forward, ``adapter_gram`` 2 · buckets;
+    kept ranks, round wall, step median, peak allocated memory and a
+    profiled train step; (b) at 2 layers and full width in fp32 (TF32
+    off), the train step's kernel route against its plain route (phase
+    7's limits) and the cohort runner against the sequential one (phase
+    16 (c)'s limits).
+
+Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
+run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
+phase 13 (b)'s client trees too; phase 17 cuts Qwen2.5-14B to 8 layers and
+Qwen1.5-32B to 4.  Each phase's seconds are printed (``[phase N: s]``)
+and kept in the JSON.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -242,6 +286,16 @@ def main() -> None:
         print(f"  ptxas[{name}]: {len(regs)} kernels, at most {max(regs)} "
               f"registers per thread, {spills} bytes spilled")
 
+    phase_s = {"1": time.perf_counter() - t0}
+    mark = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        """Print and keep the seconds since the last phase ended."""
+        now = time.perf_counter()
+        phase_s[phase] = now - mark[0]
+        mark[0] = now
+        print(f"[phase {phase}: {phase_s[phase]:.1f} s]")
+
     report = {"card": smi, "ptxas": ptxas, "gpu_ms_floor": gpu_floor(torch)}
     report["kernel_cases"] = (kernel_cases(torch) + bgmv_kernel_cases(torch)
                               + mla_kernel_cases(torch)
@@ -249,12 +303,18 @@ def main() -> None:
                               + cohort_kernel_cases(torch)
                               + wkv6_kernel_cases(torch))
     report["smoke_widths"] = smoke_widths(torch)
+    done("2/3")
     report["e2e"], counts = end_to_end(torch)
+    done("4")
     report["parity"] = engine_parity(torch)
+    done("5")
     report["federated"], fed_counts = federated_round(torch)
+    done("6")
     report["fed_parity"] = federated_parity(torch)
+    done("7")
     counts.update(fed_counts)
     report["mla_e2e"], mla_counts = end_to_end(torch, "8", "deepseek_v3_dense3")
+    done("8")
     # fp32, TF32 off; the routes sum in another order, so layer 1's output
     # differs by ~1e-7 of itself, and that flips the rounding of a few
     # latent elements that layers 2 and 3 write to a bf16 or int8 cache (a
@@ -267,15 +327,29 @@ def main() -> None:
     report["mla_parity"] = engine_parity(
         torch, "9", "deepseek_v3_dense3", ("bfloat16", "int8"), 5e-3,
         require_equal=True)
+    done("9")
     counts["mla_ring_decode"] = mla_counts["mla_ring_decode"]
     report["rwkv_prefill"], rwkv_counts = rwkv_prefill(torch)
+    done("10")
     counts["wkv6"] = rwkv_counts["wkv6"]
     report["rwkv_e2e"], rwkv_serve_counts = end_to_end(torch, "11", "rwkv6_1p6b")
+    done("11")
     report["rwkv_parity"] = rwkv_parity(torch)
+    done("12")
     report["tinyllama"], tiny_counts = tinyllama_methods(torch)
+    done("13")
     report["paper_eval"], eval_counts = paper_evaluation(torch)
+    done("14")
     report["phase15"] = phase15(torch, report)
+    done("15")
     report["phase16"], cohort_counts = phase16(torch)
+    done("16")
+    report["qwen"], qwen_counts = phase17(torch)
+    done("17")
+    report["trainer"], trainer_counts = phase18(torch)
+    done("18")
+    report["rwkv_train"], rwkv_train_counts = phase19(torch)
+    done("19")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -330,11 +404,21 @@ def main() -> None:
                | {"cohort_c1_launches_ms": case_rec(name, LORA_COHORT)["c1_launches_ms"],
                   "cohort_wv_c1_launches_ms":
                       case_rec(name, LORA_COHORT_WV)["c1_launches_ms"]}
-               if name == "lora_matmul" else {}))
+               if name == "lora_matmul" else {})
+            | ({"launches_qwen_path": qwen_counts[name]}
+               if name in qwen_counts else {})
+            | ({"launches_trainer_path": trainer_counts[name]}
+               | other_path("trainer_path", name, LORA_TRAINER
+                            if name == "lora_matmul" else FLASH_TRAINER)
+               if name in trainer_counts else {})
+            | ({"launches_rwkv_train_path": rwkv_train_counts[name]}
+               if name in rwkv_train_counts else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
+    report["phase_s"] = phase_s
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(f"whole script from the build on: {report['script_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -489,7 +573,21 @@ def kernel_cases(torch):
             ("float32", 1, 0, 96, 1024, 32, 32, False),
             ("int8", 1, 0, 56, 1024, 28, 4, False),
             ("int8", 16, 0, 56, 1000, 28, 4, True),
-            ("int8", 16, 0, 96, 1024, 32, 32, False)):
+            ("int8", 16, 0, 96, 1024, 32, 32, False),
+            # the Qwen configs' groups: Qwen2-0.5B's 7 query heads a KV head
+            # (14 / 2, hd 64) and Qwen2.5-14B's 5 (40 / 8, hd 128), at C 1
+            # and at a 16-token chunk (112 and 80 rows a KV head), bf16 and
+            # int8; Qwen1.5-32B's MHA (40 / 40, hd 128)
+            ("bfloat16", 1, 0, 64, 1024, 14, 2, False),
+            ("bfloat16", 16, 0, 64, 1024, 14, 2, False),
+            ("int8", 1, 0, 64, 1024, 14, 2, False),
+            ("int8", 16, 0, 64, 1024, 14, 2, False),
+            ("bfloat16", 1, 0, 128, 1024, 40, 8, False),
+            ("bfloat16", 16, 0, 128, 1024, 40, 8, False),
+            ("int8", 1, 0, 128, 1024, 40, 8, False),
+            ("int8", 16, 0, 128, 1024, 40, 8, False),
+            ("bfloat16", 1, 0, 128, 1024, 40, 40, False),
+            ("bfloat16", 16, 0, 128, 1024, 40, 40, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -588,7 +686,13 @@ def bgmv_kernel_cases(torch):
         ("bfloat16", 1, 1536, 24576), ("bfloat16", 16, 1536, 24576),
         ("bfloat16", 1, 7168, 576), ("bfloat16", 16, 7168, 576),
         ("bfloat16", 1, 16384, 7168), ("bfloat16", 16, 16384, 7168),
-        ("float32", 16, 7168, 576), ("float32/bfloat16", 1, 2048, 2048))]
+        ("float32", 16, 7168, 576), ("float32/bfloat16", 1, 2048, 2048),
+        # the Qwen engines' projections: din 896 (Qwen2-0.5B), 2560 and
+        # 4096 (Qwen3-4B's wq and wo), 5120 (Qwen2.5-14B, Qwen1.5-32B)
+        ("bfloat16", 1, 896, 896), ("bfloat16", 16, 896, 128),
+        ("bfloat16", 1, 2560, 4096), ("bfloat16", 16, 4096, 2560),
+        ("bfloat16", 1, 5120, 5120), ("bfloat16", 16, 5120, 5120),
+        ("bfloat16", 16, 5120, 1024))]
     cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
         ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
         ("float32/bfloat16", 2048, 2048))]
@@ -806,6 +910,8 @@ LORA_MAIN = "bf16, M=2048 din=2048 dout=2048 r=16"
 # tile width, and the yardsticks (no one PyTorch call computes the function)
 LORA_EXTRA = ("kernel_route", "tile_n", "grid", "base_matmul_ms", "unfused_ms")
 LORA_RWKV = "bf16, M=8192 din=2048 dout=2048 r=16"
+LORA_TRAINER = "bf16, M=2048 din=896 dout=896 r=16"          # Qwen2-0.5B's wq
+FLASH_TRAINER = "bf16, causal, B=4 S=512 H=14 K=2 hd=64"      # Qwen2-0.5B
 FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
 GRAM_MAIN = "fp32, G=32 m=2048 r=64"
 
@@ -860,16 +966,60 @@ def flash_case(torch, gen, dt, B, S, T, H, K, hd, causal, window):
         f"scaled_dot_product_attention(is_causal={causal}, enable_gqa=True)")
 
 
-def train_kernel_cases(torch):
+def lora_case(torch, gen, sms, dt, M, din, dout, r):
+    """One ``lora_matmul`` case against its plain version (limits in
+    :func:`train_kernel_cases`), its time beside its bound, the plain
+    version's and the base product's (``torch.matmul``); the unfused
+    ``torch.addmm(x W, x Aᵀ, (s·B)ᵀ)`` too at the two main shapes."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.lora_matmul import TILE_M
     from repro_torch.kernels.lora_matmul import plan as lora_plan
+    dev = torch.device(DEVICE)
+    dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+    x = torch.randn(M, din, generator=gen, device=dev).to(dt)
+    w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
+    a = torch.randn(r, din, generator=gen, device=dev) * 0.02
+    b = torch.randn(dout, r, generator=gen, device=dev) * 0.05
+    scale = torch.tensor(16.0 / r, device=dev)
+    a_c, b_s = ops.lora_operands(x, w, a, b, scale)
+    got = ops.lora_matmul(x, w, a, b, scale)
+    want = ref.lora_matmul_ref(x, w, a_c, b_s, 1.0)
+    torch.cuda.synchronize()
+    case = f"{dname[dt]}, M={M} din={din} dout={dout} r={r}"
+    p = lora_plan(M, din, dout, r, dt, sms)
+    how = p["route"] + (f" {TILE_M}x{p['bn']} tiles, grid {p['grid']}"
+                        if p["bn"] else "")
+    err = check(f"lora_matmul[{case}; route {how}]", got, want,
+                torch.ones(M, dtype=torch.bool, device=dev),
+                2e-2 if dt == torch.bfloat16 else 1e-4)
+    ms = gpu_ms(torch, lambda: ops.lora_matmul(x, w, a, b, scale))
+    plain = gpu_ms(torch, lambda: ref.lora_matmul_ref(x, w, a_c, b_s, 1.0))
+    base = gpu_ms(torch, lambda: torch.matmul(x, w))
+    eb = x.element_size()
+    nbytes = eb * (M * din + din * dout + r * din + dout * r + M * dout)
+    ops_n = 2 * M * din * dout + 2 * M * r * (din + dout)
+    rec = _record(
+        "lora_matmul", case, "src/repro_torch/kernels/csrc/lora_matmul.cu",
+        "src/repro/kernels/lora_matmul.py:31", err, ms, plain, None, nbytes,
+        ops_n, str(dt).split(".")[-1])
+    rec.update(kernel_route=p["route"], tile_n=p["bn"], grid=p["grid"],
+               base_matmul_ms=base)
+    if case in (LORA_MAIN, LORA_RWKV):
+        bt = b_s.t()
+        rec["unfused_ms"] = gpu_ms(
+            torch, lambda: torch.addmm(x @ w, x @ a_c.t(), bt))
+    print(f"    base product torch.matmul(x, W) {base:.4f} ms"
+          + (f", unfused addmm(x W, x Aᵀ, (s·B)ᵀ) {rec['unfused_ms']:.4f} ms"
+             if "unfused_ms" in rec else ""))
+    return rec
+
+
+def train_kernel_cases(torch):
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     records = []
     print("phase 2/3: the federated round's kernels against plain versions; "
           "times beside bounds")
-    dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
     # lora_matmul: the train step's projections (M = 4 x 512 tokens; wq/wo
     # 2048 -> 2048, wk/wv 2048 -> 512; TinyLlama's wv 2048 -> 256, two
@@ -904,43 +1054,14 @@ def train_kernel_cases(torch):
                            (torch.bfloat16, 2048, 1003, 5),
                            (torch.bfloat16, 2048, 256, 4),
                            (torch.bfloat16, 2048, 256, 64)):
-        din = 2048
-        x = torch.randn(M, din, generator=gen, device=dev).to(dt)
-        w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
-        a = torch.randn(r, din, generator=gen, device=dev) * 0.02
-        b = torch.randn(dout, r, generator=gen, device=dev) * 0.05
-        scale = torch.tensor(16.0 / r, device=dev)
-        a_c, b_s = ops.lora_operands(x, w, a, b, scale)
-        got = ops.lora_matmul(x, w, a, b, scale)
-        want = ref.lora_matmul_ref(x, w, a_c, b_s, 1.0)
-        torch.cuda.synchronize()
-        case = f"{dname[dt]}, M={M} din={din} dout={dout} r={r}"
-        p = lora_plan(M, din, dout, r, dt, sms)
-        how = p["route"] + (f" {TILE_M}x{p['bn']} tiles, grid {p['grid']}"
-                            if p["bn"] else "")
-        err = check(f"lora_matmul[{case}; route {how}]", got, want,
-                    torch.ones(M, dtype=torch.bool, device=dev),
-                    2e-2 if dt == torch.bfloat16 else 1e-4)
-        ms = gpu_ms(torch, lambda: ops.lora_matmul(x, w, a, b, scale))
-        plain = gpu_ms(torch, lambda: ref.lora_matmul_ref(x, w, a_c, b_s, 1.0))
-        base = gpu_ms(torch, lambda: torch.matmul(x, w))
-        eb = x.element_size()
-        nbytes = eb * (M * din + din * dout + r * din + dout * r + M * dout)
-        ops_n = 2 * M * din * dout + 2 * M * r * (din + dout)
-        records.append(_record(
-            "lora_matmul", case, "src/repro_torch/kernels/csrc/lora_matmul.cu",
-            "src/repro/kernels/lora_matmul.py:31", err, ms, plain, None, nbytes,
-            ops_n, str(dt).split(".")[-1]))
-        records[-1].update(kernel_route=p["route"], tile_n=p["bn"],
-                           grid=p["grid"], base_matmul_ms=base)
-        if case in (LORA_MAIN, LORA_RWKV):
-            bt = b_s.t()
-            records[-1]["unfused_ms"] = gpu_ms(
-                torch, lambda: torch.addmm(x @ w, x @ a_c.t(), bt))
-        print(f"    base product torch.matmul(x, W) {base:.4f} ms"
-              + (f", unfused addmm(x W, x Aᵀ, (s·B)ᵀ) "
-                 f"{records[-1]['unfused_ms']:.4f} ms"
-                 if "unfused_ms" in records[-1] else ""))
+        records.append(lora_case(torch, gen, sms, dt, M, 2048, dout, r))
+    # the Qwen configs' projections at r 16 (M 4 x 512, the trainer's
+    # batch): Qwen2-0.5B's 896 -> 896 / 128, Qwen3-4B's 2560 -> 4096 / 1024
+    # and 4096 -> 2560, Qwen2.5-14B's and Qwen1.5-32B's 5120 -> 5120 / 1024
+    for din, dout in ((896, 896), (896, 128), (2560, 4096), (2560, 1024),
+                      (4096, 2560), (5120, 5120), (5120, 1024)):
+        records.append(lora_case(torch, gen, sms, torch.bfloat16, 2048, din,
+                                 dout, 16))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
     # 8 KV heads, hd 64; TinyLlama's 32 over 4, 8 query heads a KV head),
@@ -980,7 +1101,13 @@ def train_kernel_cases(torch):
             (torch.bfloat16, 1, 130, 200, 8, 2, 8, False, 0),
             (torch.bfloat16, 1, 130, 130, 8, 2, 24, True, 0),
             (torch.float32, 2, 300, 300, 28, 4, 56, True, 64),
-            (torch.float32, 2, 300, 300, 32, 32, 96, True, 0)):
+            (torch.float32, 2, 300, 300, 32, 32, 96, True, 0),
+            # the Qwen configs' heads: Qwen2-0.5B (14 / 2, hd 64), Qwen3-4B
+            # (32 / 8, hd 128), Qwen2.5-14B (40 / 8) and Qwen1.5-32B (40 / 40)
+            (torch.bfloat16, 4, 512, 512, 14, 2, 64, True, 0),
+            (torch.bfloat16, 4, 512, 512, 32, 8, 128, True, 0),
+            (torch.bfloat16, 4, 512, 512, 40, 8, 128, True, 0),
+            (torch.bfloat16, 4, 512, 512, 40, 40, 128, True, 0)):
         records.append(flash_case(torch, gen, dt, B, S, T, H, K, hd, causal,
                                   window))
 
@@ -1348,19 +1475,29 @@ def serve_launches(cfg, eng, steps: int) -> dict:
     return want
 
 
+DECODE_WINDOWS = {"profiled_decode": ("base", 1),
+                  "profiled_decode_adapters": ("live", 1),
+                  "profiled_burst": ("base", 8),
+                  "profiled_burst_adapters": ("live", 8)}
+
+
 def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
-               widths: str = "published widths"):
+               widths: str = "published widths", windows=tuple(DECODE_WINDOWS),
+               full_layers: int = 0):
     """Serve ``launch.serve``'s traffic on ``config`` through the kernels,
     the engine's steps and bursts as CUDA graphs; the launches must be
     :func:`serve_launches` of the engine steps plus the steps its graphs'
-    warm-ups ran.  Then decode windows (phase 15 (c)): 16 steps through
-    ``run_steps`` (a graph replay and a poll a step) and as two bursts of 8
-    (a replay and a poll a burst), on base-id rows and on rows on the live
-    adapters, each on a fresh batch, the wall the median of 5 windows."""
+    warm-ups ran.  Then decode windows (phase 15 (c); ``windows`` of
+    ``DECODE_WINDOWS``): 16 steps through ``run_steps`` (a graph replay and
+    a poll a step) and as two bursts of 8 (a replay and a poll a burst), on
+    base-id rows and on rows on the live adapters, each on a fresh batch,
+    the wall the median of 5 windows.  ``full_layers``: the depth of a
+    config cut to fewer layers, printed beside the cut."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import CONFIGS, MAX_TOKENS, N_REQUESTS, serve
     cfg = CONFIGS[config][0]
-    depth = f"{cfg.num_layers} L"
+    depth = (f"depth cut to {cfg.num_layers} of its {full_layers} layers"
+             if full_layers else f"{cfg.num_layers} L")
     if cfg.use_mla:
         shape = (f"{cfg.num_heads} H, q_lora {cfg.q_lora_rank}, kv_lora "
                  f"{cfg.kv_lora_rank}, qk nope/rope {cfg.qk_nope_head_dim}/"
@@ -1417,19 +1554,17 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
           f"{stats['wall_s']:.2f} s; prompt and generated tokens over the "
           f"steps' time {stats['step_tok_s']:.1f} tok/s")
     live = [i for i in ids if i and eng.registry.is_live(i)]
-    windows = {}
-    for key, ad, poll, n in (("profiled_decode", (0,), 1, 16),
-                             ("profiled_decode_adapters", live, 1, 16),
-                             ("profiled_burst", (0,), 8, 16),
-                             ("profiled_burst_adapters", live, 8, 16)):
-        windows[key] = profile_decode(torch, eng, n, adapter_ids=ad,
-                                      poll_every=poll, reps=5)
+    profiled = {}
+    for key in windows:
+        rows, poll = DECODE_WINDOWS[key]
+        profiled[key] = profile_decode(torch, eng, 16, poll_every=poll, reps=5,
+                                       adapter_ids=(0,) if rows == "base" else live)
     captures = {str(k): v for k, v in eng.trace_counts.items()}
     warmup = eng.warmup_steps
     del out, eng
     torch.cuda.empty_cache()
     return dict(stats, launches=counts, warmup_steps=warmup,
-                captures=captures, **windows), counts
+                captures=captures, **profiled), counts
 
 
 def mla_launches_a_call(eng) -> int:
@@ -1548,7 +1683,8 @@ TRACE_MARGIN_S = 0.05
 
 
 def profile_window(torch, run, steps: int, label: str, before: str = "",
-                   setup=None, reps: int = 1, calls=None, run_profiled=None):
+                   setup=None, reps: int = 1, calls=None, run_profiled=None,
+                   raw_events: bool = False, wall_ms: float = 0.0):
     """``run(steps)`` once under ``torch.profiler`` (device time by kernel,
     host time by operator; ``run_profiled`` in its place if given) and
     ``reps`` times without it (wall time per step, the median); the idle
@@ -1564,7 +1700,13 @@ def profile_window(torch, run, steps: int, label: str, before: str = "",
     to the port's kernels its trace shows the calls' replays ran
     (:func:`replay_launches`): the counters of a graph's replays are added
     by bookkeeping, the trace sees the kernels run.  The profiled run sits
-    ``TRACE_MARGIN_S`` inside the profiler's start and stop."""
+    ``TRACE_MARGIN_S`` inside the profiler's start and stop.
+
+    ``raw_events``: trace the device (and the CUDA runtime calls) only and
+    sum the trace's raw records by name, instead of building the
+    profiler's event tree, which costs ~70 µs an event on the host and
+    minutes for a window of ~10^6 events; ``wall_ms`` > 0: the wall per
+    step measured by the caller, in place of the ``reps`` timed runs."""
     from repro_torch.kernels import ops
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1574,7 +1716,8 @@ def profile_window(torch, run, steps: int, label: str, before: str = "",
     if calls:
         calls()                          # drop the calls setup() made
     counted0 = ops.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([] if raw_events else [ProfilerActivity.CPU])
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
         (run_profiled or run)(steps)
@@ -1582,8 +1725,8 @@ def profile_window(torch, run, steps: int, label: str, before: str = "",
         time.sleep(TRACE_MARGIN_S)
     counted = ops.launch_delta(counted0, ops.launch_counts())
     made = [k for k, _ in calls()] if calls else []
-    walls, replays = [], []
-    for _ in range(reps):
+    walls, replays = [wall_ms] if wall_ms else [], []
+    for _ in range(0 if wall_ms else reps):
         if setup:
             setup()
         if calls:
@@ -1595,12 +1738,17 @@ def profile_window(torch, run, steps: int, label: str, before: str = "",
         if calls:
             replays.append(sum(ms for _, ms in calls()) / steps)
     wall_ms = statistics.median(walls)
-    by_kernel, by_op = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:          # kernels and copies
-            by_kernel[e.key] = e.self_device_time_total / 1e3 / steps
-        elif e.self_cpu_time_total > 0:                # host operators
-            by_op[e.key] = e.self_cpu_time_total / 1e3 / steps
+    by_kernel, by_op = collections.Counter(), collections.Counter()
+    if raw_events:
+        for e in prof.profiler.kineto_results.events():
+            into = by_kernel if e.device_type() == DeviceType.CUDA else by_op
+            into[e.name()] += e.duration_ns() / 1e6 / steps
+    else:
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:          # kernels and copies
+                by_kernel[e.key] = e.self_device_time_total / 1e3 / steps
+            elif e.self_cpu_time_total > 0:                # host operators
+                by_op[e.key] = e.self_cpu_time_total / 1e3 / steps
     busy = sum(by_kernel.values())
     preceded = []
     if before:
@@ -1687,7 +1835,8 @@ def decode_route(impl: str):
 def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
                   kv_dtypes=("float32",), logit_tol: float = 1e-3,
                   require_equal: bool = False,
-                  routes=(("kernel", "kernel"), ("dense", "plain"))):
+                  routes=(("kernel", "kernel"), ("dense", "plain")),
+                  layers: int = 0):
     """The engine at full width in fp32 (TF32 off), the first of ``routes``
     (``(decode_impl, lora_impl)``: by default the kernel routes) against
     the second (the plain routes), once per cache dtype in ``kv_dtypes``:
@@ -1697,7 +1846,7 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
     the first token's time mix is exactly zero and never reaches the
     adapters) within ``logit_tol`` of max(1, |logit|), then the greedy
     tokens of 8 requests over 16 steps (required equal with
-    ``require_equal``)."""
+    ``require_equal``).  ``layers`` > 0 cuts the depth."""
     import numpy as np
     from repro_torch.configs import lora_targets
     from repro_torch.device import parity_mode
@@ -1707,9 +1856,11 @@ def engine_parity(torch, phase: str = "5", config: str = "llama3p2_1b",
     from repro_torch.serve.adapters import AdapterRegistry, attach
     from repro_torch.serve.engine import SamplingParams, ServeEngine
     (got, _), (ref, _) = routes
+    cfg = CONFIGS[config][0].replace(
+        dtype="float32", **({"num_layers": layers} if layers else {}))
+    cut = f", depth cut to {layers} layers" if layers else ""
     print(f"phase {phase}: engine on the card, {got} vs {ref} routes, "
-          f"{CONFIGS[config][0].name} at full width in fp32; " + parity_mode())
-    cfg = CONFIGS[config][0].replace(dtype="float32")
+          f"{cfg.name} at full width in fp32{cut}; " + parity_mode())
     dev = torch.device(DEVICE)
     params = T.init(cfg, 1, dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1930,17 +2081,123 @@ def profile_finalize(torch, agg, buckets: int, n: int = 3):
 
 # -- phase 7: the federated path, kernels against plain routes, fp32 ---------
 
+def _leaf_paths(tree, path=()):
+    """The key path of each leaf of ``tree``, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _leaf_paths(tree[k], path + (k,))]
+    return [path]
+
+
+def step_route_parity(torch, label, cfg, params, ad, batches, lr: float = 3e-4,
+                      loss_chunk: int = 64):
+    """The train step on the kernel route against the plain route from the
+    same adapters ``ad`` (B ≠ 0), fp32 with TF32 off (the caller's parity
+    mode): the first batch's gradients, the losses of two steps
+    (``make_train_step``) and the adapters after them.
+
+    The gradients are held leaf by leaf to max(1e-4, 4 x the leaf's own
+    fp32 conditioning) of the leaf's largest, the conditioning being how
+    far the plain route's gradients move when the embedding is perturbed
+    by fp32 rounding (a relative 2^-24 · N(0, 1)): a recurrence over
+    hundreds of tokens (RWKV6) moves them by ~1e-4 of that, a transformer
+    by ~1e-6."""
+    from repro_torch.common.config import OptimConfig
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train.step import _unflatten, loss_fn, make_train_step
+
+    def first_grads(use_kernels, p):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(ad)]
+        loss, _ = loss_fn(cfg, p, _unflatten(ad, leaves), batches[0],
+                          loss_chunk, use_kernels)
+        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+    gen = torch.Generator(device=params["embed"].device).manual_seed(9)
+    noise = torch.randn(params["embed"].shape, generator=gen,
+                        device=params["embed"].device)
+    perturbed = dict(params, embed=params["embed"] * (1 + 2.0 ** -24 * noise))
+    gk, gp, gq = (first_grads(True, params), first_grads(False, params),
+                  first_grads(False, perturbed))
+    del noise, perturbed
+    out = {}
+    for use_kernels in (True, False):
+        step = make_train_step(cfg, OptimConfig(lr=lr), loss_chunk=loss_chunk,
+                               use_kernels=use_kernels)
+        a, opt, losses = ad, adamw_init(ad), []
+        for b in batches:
+            a, opt, m = step(params, a, opt, b)
+            losses.append(float(m["loss"]))
+        out[use_kernels] = (losses, a)
+    res = {"losses_kernel": out[True][0], "losses_plain": out[False][0]}
+    paths = _leaf_paths(ad)
+    gmax = [g.abs().max().clamp_min(1e-30) for g in gp]
+    cond = [((q - g).abs().max() / m).item() for q, g, m in zip(gq, gp, gmax)]
+    tol = [max(1e-4, 4 * c) for c in cond]
+    rel = [((k - g).abs().max() / m).item() for k, g, m in zip(gk, gp, gmax)]
+    worst = sorted(zip((r / t for r, t in zip(rel, tol)), rel, tol, cond,
+                       ("/".join(map(str, q)) for q in paths)))
+    res.update(grads_worst_leaf_rel=max(rel), grads_worst_leaf_cond=max(cond),
+               grads_worst_share_of_limit=worst[-1][0])
+    print(f"  first batch's gradients, max |Δg| / max |g| by leaf: kernel vs "
+          f"plain at most {max(rel):.2e}; plain with the embedding perturbed by "
+          f"fp32 rounding vs plain at most {max(cond):.2e}; nearest its limit "
+          + ", ".join(f"{q} {r:.2e} (limit {t:.2e})" for _, r, t, _, q in worst[-3:]))
+    if worst[-1][0] > 1:
+        fail(f"{label}: the gradients of the two routes differ")
+    # the losses: fp32 on both routes, sums in another order through the
+    # layers and a large-vocabulary logsumexp: limit 1e-5 relative
+    for i, (lk, lp) in enumerate(zip(out[True][0], out[False][0])):
+        ok = abs(lk - lp) <= 1e-5 * max(1.0, abs(lp))
+        print(f"  train step {i + 1} loss: kernel {lk:.7f}, plain {lp:.7f} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{label}: train-step losses of the two routes differ")
+    # the adapters after 2 steps.  Adam divides by |g|: an entry whose
+    # gradient is within the routes' difference of zero can step by up to
+    # lr one way on one route and the other way on the other, so A and B
+    # are held to a mean |Δ| ≤ 1e-3·lr (a wrong gradient would move most
+    # entries by ~lr), and the entries with |Δ| > 0.1·lr whose first
+    # gradient is not within its leaf's limit above of zero (where a sign
+    # cannot differ) to a share of at most 1e-5 (no bound on max |Δ| can
+    # fail: an Adam step moves an entry by at most ~lr).  scale's gradient
+    # sums over every token and is never near zero: max |Δ| ≤ 1e-6.
+    ka = tree_leaves(out[True][1])
+    pa = tree_leaves(out[False][1])
+    far, near, n_ab, d_ab, d_s = 0, 0, 0, [], []
+    for x, y, q, g, m, t in zip(ka, pa, paths, gp, gmax, tol):
+        d = (x - y).abs()
+        if q[-1] == "scale":
+            d_s.append(d.flatten())
+            continue
+        d_ab.append(d.flatten())
+        n_ab += d.numel()
+        big = d > 0.1 * lr
+        far += int(big.sum())
+        near += int((big & (g.abs() <= t * m)).sum())
+    d_ab, d_s = torch.cat(d_ab), torch.cat(d_s)
+    mean_ab, max_ab, max_s = float(d_ab.mean()), float(d_ab.max()), float(d_s.max())
+    share = (far - near) / n_ab
+    res.update(adapters_mean_abs_diff=mean_ab, adapters_max_abs_diff=max_ab,
+               adapters_above_0p1_lr=far, adapters_above_0p1_lr_near_zero_grad=near,
+               adapters_share_above_0p1_lr_unexplained=share,
+               scale_max_abs_diff=max_s)
+    print(f"  adapters after {len(batches)} steps: mean |Δ| {mean_ab:.3e} (limit "
+          f"{1e-3 * lr:.1e}); |Δ| > 0.1·lr on {far} of {n_ab} entries, {near} of "
+          f"them with a first gradient within its leaf's limit of zero (the "
+          f"rest: share {share:.2e}, limit 1e-5); max |Δ| {max_ab:.3e}; scale "
+          f"max |Δ| {max_s:.3e} (limit 1e-6)")
+    if mean_ab > 1e-3 * lr or share > 1e-5 or max_s > 1e-6:
+        fail(f"{label}: the adapters of the two routes differ")
+    return res
+
+
 def federated_parity(torch):
     import numpy as np
-    from repro_torch.common.config import OptimConfig
     from repro_torch.configs.llama3p2_1b import CONFIG
     from repro_torch.core.aggregators import FloristAggregator
     from repro_torch.data.synthetic import make_federated_data
     from repro_torch.device import parity_mode
     from repro_torch.models import transformer as T
-    from repro_torch.optim.adamw import adamw_init, tree_leaves
     from repro_torch.peft.lora import init_lora
-    from repro_torch.train.step import make_train_step
     cfg = CONFIG.replace(dtype="float32", num_layers=4)
     L = cfg.num_layers
     print(f"phase 7: federated path on the card, kernel routes vs plain routes, "
@@ -1956,53 +2213,7 @@ def federated_parity(torch):
     batches = [{"tokens": torch.as_tensor(data.tokens[i:i + 2], device=dev).long(),
                 "loss_mask": torch.as_tensor(data.loss_mask[i:i + 2], device=dev)}
                for i in (0, 2)]
-    lr = 3e-4
-    out = {}
-    for use_kernels in (True, False):
-        step = make_train_step(cfg, OptimConfig(lr=lr), loss_chunk=64,
-                               use_kernels=use_kernels)
-        a, opt, losses = ad, adamw_init(ad), []
-        for b in batches:
-            a, opt, m = step(params, a, opt, b)
-            losses.append(float(m["loss"]))
-        out[use_kernels] = (losses, a)
-    res = {"losses_kernel": out[True][0], "losses_plain": out[False][0]}
-    # the losses: fp32 on both routes, sums in another order through 4
-    # layers and a 128k-vocabulary logsumexp: limit 1e-5 relative
-    for i, (lk, lp) in enumerate(zip(out[True][0], out[False][0])):
-        ok = abs(lk - lp) <= 1e-5 * max(1.0, abs(lp))
-        print(f"  train step {i + 1} loss: kernel {lk:.7f}, plain {lp:.7f} "
-              f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail("phase 7: train-step losses of the two routes differ")
-    # the adapters after 2 steps.  Adam divides by |g|: an entry whose
-    # gradient is within fp noise of zero can step by up to lr one way on
-    # one route and the other way on the other, so A and B are held to a
-    # mean |Δ| ≤ 1e-3·lr (a wrong gradient would move most entries by ~lr)
-    # and a share of entries with |Δ| > 0.1·lr of at most 1e-5 (4 of 0.85 M
-    # entries, 4.7e-6, measured; no bound on max |Δ| can fail: an Adam step
-    # moves an entry by at most ~lr).
-    # scale's gradient sums over every token and is never near zero: max
-    # |Δ| ≤ 1e-6.
-    ka = tree_leaves(out[True][1])
-    pa = tree_leaves(out[False][1])
-    keys = [k for _, leaf in sorted(ad["blocks"][0]["attn"].items())
-            for k in sorted(leaf)]
-    d_ab = torch.cat([(x - y).abs().flatten() for x, y, k in zip(ka, pa, keys)
-                      if k != "scale"])
-    d_s = torch.cat([(x - y).abs().flatten() for x, y, k in zip(ka, pa, keys)
-                     if k == "scale"])
-    mean_ab, max_ab, max_s = float(d_ab.mean()), float(d_ab.max()), float(d_s.max())
-    n_far = int((d_ab > 0.1 * lr).sum())
-    far = n_far / d_ab.numel()
-    res.update(adapters_mean_abs_diff=mean_ab, adapters_max_abs_diff=max_ab,
-               adapters_share_above_0p1_lr=far, scale_max_abs_diff=max_s)
-    print(f"  adapters after 2 steps: mean |Δ| {mean_ab:.3e} (limit "
-          f"{1e-3 * lr:.1e}); |Δ| > 0.1·lr on {n_far} of {d_ab.numel()} entries"
-          f" ({far:.2e}, limit 1e-5); max |Δ| {max_ab:.3e}; scale max |Δ| "
-          f"{max_s:.3e} (limit 1e-6)")
-    if mean_ab > 1e-3 * lr or far > 1e-5 or max_s > 1e-6:
-        fail("phase 7: the adapters of the two routes differ")
+    res = step_route_parity(torch, "phase 7", cfg, params, ad, batches)
 
     # one finalize on the Gram route (adapter_gram) against the LAPACK route
     clients, ranks = [], (4, 8, 16, 32)
@@ -2217,6 +2428,9 @@ def rwkv_parity(torch):
 TINY_TARGETS = ("wq", "wv")          # the paper's setting and Table 3's
 TINY_RANK = 16
 TINY_ROUNDS = 2
+# phases 13, 14 and 16 run TinyLlama-1.1B at full width cut to this depth
+# (of its 22 layers), to leave the script's time to phases 17-19
+TINY_LAYERS = 2
 LORA_TINY = "bf16, M=2048 din=2048 dout=256 r=16"
 # phase 14's client ranks at TinyLlama's wv (wq's 2048 -> 2048 at r 4 and 64
 # are cases of their own above)
@@ -2229,8 +2443,9 @@ SIGMA_0, RHO = 2048.0, 0.85          # phase 13 (b)'s known spectrum of ΔW
 def tinyllama_methods(torch):
     """Two rounds of each of the paper's five methods (FLoRIST, FedIT,
     FFA-LoRA, FLoRA, FlexLoRA) through ``FederatedTrainer`` on
-    TinyLlama-1.1B at published widths and full depth (random seeded
-    weights, bf16, built once and shared by the five trainers), LoRA on
+    TinyLlama-1.1B at published widths, depth cut to ``TINY_LAYERS``
+    (random seeded weights, bf16, built once and shared by the five
+    trainers), LoRA on
     ``wq`` and ``wv``, 8 Dirichlet(0.5) clients of rank 16, 4 a round, 4
     local steps of 4 x 512 tokens, the ``bf16`` wire, FLoRIST on the Gram
     route.  Per method and round: eval loss and accuracy, kept ranks, wire
@@ -2250,11 +2465,12 @@ def tinyllama_methods(torch):
     from repro_torch.data.synthetic import make_eval_data, make_federated_data
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    cfg = CONFIG
+    cfg = CONFIG.replace(num_layers=TINY_LAYERS)
     L = cfg.num_layers
     t_phase = time.perf_counter()
     print(f"phase 13: the paper's five methods, {TINY_ROUNDS} rounds each, on "
-          f"{cfg.name} at published widths ({L} L, d {cfg.d_model}, "
+          f"{cfg.name} at published widths (depth cut to {L} of its "
+          f"{CONFIG.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd {cfg.head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; random seeded "
           f"weights), LoRA r {TINY_RANK} on {'/'.join(TINY_TARGETS)}, 8 "
@@ -2416,7 +2632,8 @@ def tiny_rounds(torch, cfg, params, clients, ev, lora, spans, timed):
 
 def parity_trees(kind):
     """Phase 13 (b)'s client trees at TinyLlama's leaf shapes (wq 2048 ->
-    2048, wv 2048 -> 256; 4 clients of rank 16, numpy fp32, from seed 13):
+    2048, wv 2048 -> 256; ``TINY_LAYERS`` layers; 4 clients of rank 16,
+    numpy fp32, from seed 13):
     ``(clients, w, a_init, levels)``, with w the clients' weights and
     a_init an FFA A init.
 
@@ -2427,7 +2644,7 @@ def parity_trees(kind):
     whose clustered spectra put the cuts inside clusters."""
     import numpy as np
     from repro_torch.configs.tinyllama_1p1b import CONFIG
-    L, d, K, R = CONFIG.num_layers, CONFIG.d_model, 4, TINY_RANK
+    L, d, K, R = TINY_LAYERS, CONFIG.d_model, 4, TINY_RANK
     shapes = {"wq": (d, CONFIG.num_heads * CONFIG.head_dim),
               "wv": (d, CONFIG.num_kv_heads * CONFIG.head_dim)}  # (n_in, m_out)
     rng = np.random.default_rng(13)
@@ -2676,7 +2893,7 @@ def paper_evaluation(torch):
     """The reference's paper-evaluation layer run through the port's own
     modules (``repro_torch.benchmarks.table2_accuracy_efficiency``,
     ``fig6_layerwise_rank``, ``fig2_spectrum``, ``fig5_rank_vs_tau``) on
-    TinyLlama-1.1B at published widths and full depth (random seeded
+    TinyLlama-1.1B at published widths, depth cut to ``TINY_LAYERS`` (random seeded
     weights, bf16, built once and shared through ``params=``), LoRA on
     ``wq``/``wv``, 4 local steps of 4 x 512 tokens, the bench's 20 clients
     (5 a round) and rank mix, τ 0.9, the fp32 wire and the ``svd`` route:
@@ -2693,10 +2910,11 @@ def paper_evaluation(torch):
     from repro_torch.data.synthetic import make_eval_data, make_federated_data
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    cfg = CONFIG
+    cfg = CONFIG.replace(num_layers=TINY_LAYERS)
     t_phase = time.perf_counter()
     print(f"phase 14: the paper's evaluation on {CARD} ({cfg.name} at published "
-          f"widths: {cfg.num_layers} L, d {cfg.d_model}, {cfg.num_heads} H / "
+          f"widths, depth cut to {cfg.num_layers} of its {CONFIG.num_layers} "
+          f"layers: d {cfg.d_model}, {cfg.num_heads} H / "
           f"{cfg.num_kv_heads} KV, hd {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}; random seeded weights), LoRA on "
           f"{'/'.join(TINY_TARGETS)}, 20 Dirichlet(0.5) clients of ranks 4-64, "
@@ -2807,7 +3025,7 @@ class BenchRecorder:
     step-logging runner, then the same rounds one by one, each printed and
     checked (finite eval loss; FLoRIST's kept ranks in [1, Σ r_k]; FedIT's
     and FFA's global rank the zero padding's, the round's largest client
-    rank; wire bytes exactly 4 x the analytic counts, and the upload 22 ·
+    rank; wire bytes exactly 4 x the analytic counts, and the upload L ·
     Σ r_k · (2048 + 2048 + 256 + 2048) parameters, B alone for FFA; the
     launches of ``lora_matmul`` and ``flash_attention`` exact, none of
     ``adapter_gram`` on the svd route).  A FLoRIST call that was already
@@ -3281,7 +3499,7 @@ def cohort_rounds(torch, setup):
     """(b) two FLoRIST rounds with ``sequential`` and with ``cohort`` under
     ``sync``: the cohort round's train-step ``lora_matmul`` and
     ``flash_attention`` launches must be exactly 1/4 of the sequential
-    round's (and equal 22 · 2 · steps and 22 · steps), and both finalize
+    round's (and equal L · 2 · steps and L · steps), and both finalize
     through ``adapter_gram`` (2 · buckets a round: the server folds the
     cohort's updates on the card too); round walls and train-step medians
     of both; a profiled window of each runner's step."""
@@ -3391,19 +3609,30 @@ def _global_products(torch, tr):
 
 def cohort_parity(torch):
     """(c) the same setup at 2 layers in fp32 with TF32 off: cohort against
-    sequential, the global ΔW products within 5e-4 of max(1, |ΔW|) and the
-    eval loss within 1e-4 after each of two rounds (the reference's own
-    tolerance); then one round's plan trained by both runners from one
-    trainer state, each client's adapters from the one cohort call against
-    its sequential training (5e-4 of max(1, |x|))."""
-    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    sequential (:func:`runner_parity`)."""
     from repro_torch.device import parity_mode
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     print(f"phase 16 (c): {parity_mode()}")
     setup = _tiny_setup(torch, layers=2, dtype="float32")
-    seq, coh = _tiny_trainer(setup), _tiny_trainer(setup, "cohort")
-    rounds = []
-    for rnd in range(TINY_ROUNDS):
+    out = runner_parity(torch, "phase 16 (c)", _tiny_trainer(setup),
+                        _tiny_trainer(setup, "cohort"))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def runner_parity(torch, label, seq, coh, rounds: int = TINY_ROUNDS):
+    """Two trainers of one setup, ``seq`` on the sequential runner and
+    ``coh`` on the cohort runner: the global ΔW products within 5e-4 of
+    max(1, |ΔW|) and the eval loss within 1e-4 after each of ``rounds``
+    rounds (the reference's own tolerance); then one round's plan trained
+    by both runners from one trainer state, each client's adapters from
+    the one cohort call against its sequential training (5e-4 of max(1,
+    |x|))."""
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    results = []
+    for rnd in range(rounds):
         a, b = seq.run_round(rnd), coh.run_round(rnd)
         pa, pb = _global_products(torch, seq), _global_products(torch, coh)
         d = max(((pa[p] - pb[p]).abs().max() / pa[p].abs().max().clamp_min(1.0)).item()
@@ -3414,14 +3643,14 @@ def cohort_parity(torch):
               f"max(1, |ΔW|) {d:.2e} (limit 5e-4); kept ranks equal "
               f"{seq.global_state.ranks == coh.global_state.ranks}")
         if dl > 1e-4 or d > 5e-4:
-            fail(f"phase 16 (c) round {rnd}: cohort differs from sequential")
-        rounds.append({"eval_loss": [a.eval_loss, b.eval_loss],
-                       "delta_w_rel": d})
+            fail(f"{label} round {rnd}: cohort differs from sequential")
+        results.append({"eval_loss": [a.eval_loss, b.eval_loss],
+                        "delta_w_rel": d})
     # one trainer state and one plan for both runners: the two trainers'
     # global adapters agree as products, but their SVD factors (the next
     # round's client inits) may rotate within near-degenerate singular values
     from repro_torch.core.runtime import CohortRunner, SequentialRunner
-    plan = seq.scheduler.plan(TINY_ROUNDS, seq)
+    plan = seq.scheduler.plan(rounds, seq)
     got = {}
     for name, runner in (("sequential", SequentialRunner()),
                          ("cohort", CohortRunner())):
@@ -3430,7 +3659,7 @@ def cohort_parity(torch):
     worst = 0.0
     for (ka, ta), (kb, tb) in zip(got["sequential"], got["cohort"]):
         if ka != kb:
-            fail(f"phase 16 (c): delivery order {ka} != {kb}")
+            fail(f"{label}: delivery order {ka} != {kb}")
         for p in adapter_leaf_paths(ta):
             for n in ("A", "B"):
                 x = torch.as_tensor(get_path(ta, p)[n], device=DEVICE).double()
@@ -3440,11 +3669,9 @@ def cohort_parity(torch):
     print(f"  each client's trained A and B, one cohort call against its "
           f"sequential training: max |Δ| / max(1, |x|) {worst:.2e} (limit 5e-4)")
     if worst > 5e-4:
-        fail("phase 16 (c): a client's cohort-trained adapters differ")
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    del seq, coh, setup
-    torch.cuda.empty_cache()
-    return {"rounds": rounds, "client_adapters_rel": worst}
+        fail(f"{label}: a client's cohort-trained adapters differ")
+    del seq, coh
+    return {"rounds": results, "client_adapters_rel": worst}
 
 
 def cohort_schedules(torch, setup):
@@ -3454,7 +3681,7 @@ def cohort_schedules(torch, setup):
     local steps a client: every task's rank a
     power of two when the policy is ``resource``, one cohort step call a
     local step of each equal-(rank, steps) cohort, and ``lora_matmul``
-    launched 22 · 2 times a call, ``adapter_gram`` 2 · buckets a round."""
+    launched L · 2 times a call, ``adapter_gram`` 2 · buckets a round."""
     from repro_torch.core.runtime import CohortRunner, make_scheduler
     from repro_torch.kernels import ops
     L = setup[0].num_layers
@@ -3568,7 +3795,7 @@ def _folded_weights(tr):
 
 
 def hardened_wire(torch, setup):
-    """(e) at full depth under ``cohort``, the ``int8`` codec and gate
+    """(e) at phase 16's depth under ``cohort``, the ``int8`` codec and gate
     ``full``: two rounds with DP (clip 1.0, σ for ε 8) and a FaultPlan of
     drop, corrupt, duplicate, NaN and scale at 0.2 each, then one round
     without DP whose plan holds one scale-poisoned client among four held
@@ -3698,10 +3925,10 @@ def phase16(torch):
     with the other kernel cases."""
     from repro_torch.kernels import ops
     t_phase = time.perf_counter()
-    setup = _tiny_setup(torch)
+    setup = _tiny_setup(torch, layers=TINY_LAYERS)
     cfg = setup[0]
     print(f"phase 16: the federated runtime on {cfg.name} at published widths "
-          f"({cfg.num_layers} L, d {cfg.d_model}, {cfg.dtype}; random seeded "
+          f"(depth cut to {cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}; random seeded "
           f"weights), LoRA r {TINY_RANK} on {'/'.join(TINY_TARGETS)}, 8 clients, "
           f"4 a round, 4 local steps of {FED_BATCH} x {FED_SEQ} tokens")
     out, part_s = {}, {}
@@ -3727,6 +3954,393 @@ def phase16(torch):
           + ", ".join(f"({k}) {v:.1f} s" for k, v in part_s.items())
           + ", the rest set-up)")
     return out, counts
+
+
+# -- phase 17: the Qwen configs at published widths ---------------------------
+
+# launch.serve's Qwen configs and the published depth of each
+QWEN_SERVE = (("qwen2_0p5b", 24), ("qwen3_4b", 36), ("qwen2p5_14b_l8", 48),
+              ("qwen1p5_32b_l4", 64))
+
+
+def phase17(torch):
+    """(a) phase 4's traffic on each Qwen config (``launch.serve``) through
+    ``decode_impl="kernel"`` on the graphed engine, adapters on ``wq wk wv
+    wo``, a swap; launches exact (``ring_decode`` L and ``bgmv`` 4 · L an
+    engine step); the decode step's wall, busy and idle share from a
+    profiled burst window on the live adapters; (b) phase 5 on each at 2 layers and full width
+    in fp32 (TF32 off), greedy tokens required equal; (c)
+    ``examples.serve_batch`` at its defaults and with ``--decode-impl
+    kernel --int8-cache``."""
+    from repro_torch.launch.serve import CONFIGS
+    t_phase = time.perf_counter()
+    out = {"serve": {}, "parity": {}}
+    counts = collections.Counter()
+    for key, full in QWEN_SERVE:
+        L = CONFIGS[key][0].num_layers
+        out["serve"][key], c = end_to_end(
+            torch, "17 (a)", key,
+            windows=("profiled_burst_adapters",),
+            full_layers=full if L != full else 0)
+        counts.update(c)
+    for key, _ in QWEN_SERVE:
+        out["parity"][key] = engine_parity(torch, "17 (b)", key, layers=2,
+                                           require_equal=True)
+    out["serve_batch"] = serve_batch_card(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17: {out['phase_s']:.1f} s")
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def serve_batch_card(torch):
+    """(c) ``repro_torch.examples.serve_batch`` on the card at its defaults
+    (``qwen2-0.5b`` SMOKE, dense route) and with ``--decode-impl kernel
+    --int8-cache``: tokens in the vocabulary, ``ring_decode`` launched once
+    a layer a call on the kernel route (2 prefill calls of 8 and 24 decode
+    calls) and never on the dense one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import serve_batch
+    from repro_torch.kernels import ops
+    cfg = get_smoke_config("qwen2-0.5b")
+    print("phase 17 (c): repro_torch.examples.serve_batch on the card")
+    res = {}
+    for name, argv in (("defaults", []),
+                       ("kernel_int8", ["--decode-impl", "kernel", "--int8-cache"])):
+        ops.reset_launch_counts()
+        toks = serve_batch.main(argv + ["--device", DEVICE])
+        got = ops.launch_counts()["ring_decode"]
+        want = cfg.num_layers * (2 + 24) if argv else 0
+        print(f"  {name}: {tuple(toks.shape)} tokens; ring_decode launches "
+              f"{got} (expected {want})")
+        if got != want:
+            fail(f"phase 17 (c): serve_batch {name}: ring_decode launched "
+                 f"{got} times, expected {want}")
+        if tuple(toks.shape) != (4, 24) or not 0 <= int(toks.min()) <= int(
+                toks.max()) < cfg.vocab_size:
+            fail(f"phase 17 (c): serve_batch {name} gave tokens {toks}")
+        res[name] = {"tokens": toks.tolist(), "ring_decode_launches": got}
+    return res
+
+
+# -- phase 18: the single-client trainer ---------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 512
+
+
+def _nonzero_b(ad, gen, std: float = 0.01):
+    """``ad`` with every B drawn from N(0, std²) (``init_lora``'s B is zero,
+    which leaves A's gradient zero at the first step)."""
+    import torch
+    from repro_torch.serve.adapters import adapter_leaves
+    for _, leaf in adapter_leaves(ad):
+        b = leaf["B"]
+        leaf["B"] = torch.randn(b.shape, generator=gen, device=b.device) * std
+    return ad
+
+
+def phase18(torch):
+    """(a) ``Trainer(use_kernels=True)`` on Qwen2-0.5B at published widths
+    and full depth: 6 steps of 4 x 512 tokens, ``eval_every`` and
+    ``ckpt_every`` 3; launches exact (``lora_matmul`` 96 and
+    ``flash_attention`` 24 a forward, train step or eval); a second
+    trainer's ``restore_ckpt`` bit-equal; the median step, tokens/s and a
+    profiled window.  (b) ``python -m repro_torch.launch.train --arch
+    qwen2-0.5b --steps 4 --use-kernels`` as a subprocess.  (c) at 2 layers
+    and full width in fp32 (TF32 off): two train steps on the kernel route
+    against the plain route (:func:`step_route_parity`)."""
+    t_phase = time.perf_counter()
+    out, counts = trainer_card(torch)
+    out["launcher"] = train_launcher_card(torch)
+    out["parity"] = trainer_parity(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18: {out['phase_s']:.1f} s")
+    return out, counts
+
+
+def trainer_card(torch):
+    import shutil
+
+    from repro_torch.common.config import LoRAConfig, OptimConfig
+    from repro_torch.configs import lora_targets, qwen2_0p5b
+    from repro_torch.data.synthetic import make_eval_data
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = qwen2_0p5b.CONFIG
+    L, targets, B = cfg.num_layers, lora_targets(cfg), TRAIN_BATCH
+    print(f"phase 18 (a): Trainer(use_kernels=True) on {cfg.name} at published "
+          f"widths ({L} L, d {cfg.d_model}, {cfg.num_heads} H / "
+          f"{cfg.num_kv_heads} KV, hd {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; random seeded weights), LoRA r 16 on "
+          f"{'/'.join(targets)}, {TRAIN_STEPS} steps of {B} x {TRAIN_SEQ} "
+          f"tokens, eval and checkpoint every 3")
+    ck_dir = ROOT / "build" / "phase18"
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, eval_every=3, ckpt_every=3,
+                         ckpt_path=str(ck_dir / "trainer.npz"), loss_chunk=512,
+                         use_kernels=True)
+    lora, optim = LoRAConfig(rank=16, alpha=16.0, targets=targets), OptimConfig(lr=3e-4)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, lora, optim, tcfg, targets, seed=0, device=DEVICE)
+    data = make_eval_data(num_samples=B * (TRAIN_STEPS + 1), seq_len=TRAIN_SEQ,
+                          vocab=cfg.vocab_size)
+    batches = [{k: v[i * B:(i + 1) * B] for k, v in data.items()}
+               for i in range(TRAIN_STEPS)]
+    ev = {k: v[-B:] for k, v in data.items()}
+    ops.reset_launch_counts()
+    hist = tr.fit(iter(batches), eval_batch=ev)
+    got = ops.launch_counts()
+    forwards = TRAIN_STEPS + TRAIN_STEPS // 3          # the steps and the evals
+    want = dict.fromkeys(ops.WRAPPERS, 0) | {
+        "lora_matmul": L * len(targets) * forwards, "flash_attention": L * forwards}
+    walls = [r["wall_s"] for r in hist]
+    step_s = [b - a for a, b in zip([0.0] + walls, walls)]
+    plain = [s for s, r in zip(step_s, hist) if "eval_loss" not in r]
+    for r in hist:
+        print(f"  step {r['step']}: loss {r['loss']:.4f} acc {r['accuracy']:.4f}"
+              + (f"; eval loss {r['eval_loss']:.4f} acc {r['eval_accuracy']:.4f}"
+                 if "eval_loss" in r else "") + f" ({r['wall_s']:.2f} s)")
+    med = statistics.median(plain)
+    print(f"  launches {json.dumps(got)}; expected {json.dumps(want)}")
+    print(f"  median step (no eval or checkpoint) {med * 1e3:.1f} ms, "
+          f"{B * TRAIN_SEQ / med:.0f} train tok/s; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if got != want:
+        fail(f"phase 18 (a): launch counts {got} != {want}")
+    if [("eval_loss" in r) for r in hist] != [False, False, True] * 2:
+        fail("phase 18 (a): eval records not at every third step")
+    if not all(math.isfinite(r[k]) for r in hist for k in r):
+        fail("phase 18 (a): a non-finite loss or accuracy")
+    tr2 = Trainer(cfg, lora, optim, tcfg, targets, seed=1, params=tr.params,
+                  device=DEVICE)
+    step = tr2.restore_ckpt()
+    same = all(torch.equal(x, y) and x.dtype == y.dtype for x, y in zip(
+        tree_leaves(tr.adapters) + tree_leaves(tr.opt_state),
+        tree_leaves(tr2.adapters) + tree_leaves(tr2.opt_state)))
+    print(f"  restore_ckpt: step {step}; adapters and AdamW state bit-equal {same}")
+    if step != TRAIN_STEPS or not same:
+        fail("phase 18 (a): the restored trainer differs from the saved one")
+    shutil.rmtree(ck_dir)
+    del tr2
+    b = tr._on_device(batches[0])
+    state = {"a": tr.adapters, "o": tr.opt_state}
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["o"], _ = tr._train(tr.params, state["a"],
+                                                  state["o"], b)
+    run(1)
+    window = profile_window(torch, run, 3, f"Trainer step, {B} x {TRAIN_SEQ} "
+                            "tokens, r 16", reps=3)
+    out = {"history": hist, "launches": got, "step_ms_median": med * 1e3,
+           "train_tok_s": B * TRAIN_SEQ / med,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "profiled_step": window}
+    del tr, state, b
+    torch.cuda.empty_cache()
+    return out, {k: v for k, v in got.items() if v}
+
+
+def train_launcher_card(torch):
+    """(b) the launcher's documented run, as a user would start it."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2-0.5b", "--steps", "4", "--use-kernels"]
+    print(f"phase 18 (b): {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    final = [ln for ln in lines if ln.startswith("final eval: loss=")]
+    if proc.returncode != 0 or not final:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"phase 18 (b): the launcher exited {proc.returncode}")
+    loss = float(final[0].split("loss=")[1].split()[0])
+    if not math.isfinite(loss):
+        fail(f"phase 18 (b): final eval loss {loss}")
+    print(f"  exit 0 in {secs:.1f} s, final eval loss {loss:.4f}")
+    return {"stdout": lines, "final_eval_loss": loss, "secs": secs}
+
+
+def trainer_parity(torch):
+    from repro_torch.configs import lora_targets, qwen2_0p5b
+    from repro_torch.data.synthetic import make_federated_data
+    from repro_torch.device import parity_mode
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    cfg = qwen2_0p5b.CONFIG.replace(dtype="float32", num_layers=2)
+    print(f"phase 18 (c): {cfg.name} train step, kernel route vs plain route, "
+          f"full width in fp32, depth cut to 2 layers; " + parity_mode())
+    dev = torch.device(DEVICE)
+    params = T.init(cfg, 3, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+    data = make_federated_data(num_clients=1, seq_len=TRAIN_SEQ,
+                               vocab=cfg.vocab_size, seed=5)[0]
+    batches = [{"tokens": torch.as_tensor(data.tokens[i:i + 2], device=dev).long(),
+                "loss_mask": torch.as_tensor(data.loss_mask[i:i + 2], device=dev)}
+               for i in (0, 2)]
+    res = step_route_parity(torch, "phase 18 (c)", cfg, params, ad, batches)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del params, ad
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 19: RWKV6 training ------------------------------------------------
+
+RWKV_TRAIN_ROUNDS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 2, 2, 256
+
+
+def _rwkv_trainer(cfg, params, runner="sequential"):
+    """FLoRIST on RWKV6: rank 16 on its five targets, 4 of 8 clients a
+    round, 2 local steps of 2 x 256 tokens, the Gram route."""
+    from repro_torch.common.config import FedConfig, LoRAConfig, OptimConfig
+    from repro_torch.configs import lora_targets
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.synthetic import make_eval_data
+    fed = FedConfig(num_clients=8, clients_per_round=4, homogeneous_rank=16,
+                    tau=0.9, method="florist", seed=0)
+    lora = LoRAConfig(rank=16, alpha=16.0, targets=lora_targets(cfg))
+    return FederatedTrainer(
+        cfg, fed, lora, OptimConfig(lr=3e-4), params=params,
+        eval_data=make_eval_data(num_samples=8, seq_len=RWKV_TRAIN_SEQ,
+                                 vocab=cfg.vocab_size),
+        batch_size=RWKV_TRAIN_BATCH, local_steps=2, seq_len=RWKV_TRAIN_SEQ,
+        svd_method="gram", runner=runner, device=DEVICE)
+
+
+def phase19(torch):
+    """(a) two FLoRIST rounds of RWKV6-1.6B at published widths and full
+    depth through ``FederatedTrainer`` (sequential runner): the train steps
+    through ``wkv_scan`` and ``lora_matmul``, the eval through ``wkv6``;
+    launches exact (``wkv6`` 0 in the train steps and 24 an eval forward,
+    ``lora_matmul`` 120 a train forward, ``adapter_gram`` 2 · buckets a
+    round); kept ranks, round wall, step median, peak allocated memory and
+    a profiled train step.  (b) at 2 layers and full width in fp32 (TF32
+    off): the train step's kernel route against its plain route, and the
+    cohort runner against the sequential one."""
+    import numpy as np
+    from repro_torch.configs import rwkv6_1p6b
+    from repro_torch.core.runtime import SequentialRunner
+    from repro_torch.core.runtime.runners import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    t_phase = time.perf_counter()
+    cfg = rwkv6_1p6b.CONFIG
+    L = cfg.num_layers
+    print(f"phase 19 (a): {RWKV_TRAIN_ROUNDS} FLoRIST rounds of {cfg.name} at "
+          f"published widths ({L} L, d {cfg.d_model}, {cfg.num_rwkv_heads} heads "
+          f"of {cfg.rwkv_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}; random "
+          f"seeded weights), LoRA r 16 on its 5 targets, 4 of 8 clients a "
+          f"round, 2 local steps of {RWKV_TRAIN_BATCH} x {RWKV_TRAIN_SEQ} "
+          "tokens, Gram route; train steps through wkv_scan")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = SequentialRunner(record_steps=True)
+    tr = _rwkv_trainer(cfg, T.init(cfg, 0, DEVICE), runner)
+    rounds = []
+    ops.reset_launch_counts()
+    for rnd in range(RWKV_TRAIN_ROUNDS):
+        before, n_log = ops.launch_counts(), len(runner.step_log())
+        rec = tr.run_round(rnd)
+        step_ms = [e["ms"] for e in runner.step_log()[n_log:]]
+        steps = len(step_ms)
+        buckets = len({(n, m) for _, n, m in tr.aggregator.dims.values()})
+        got = ops.launch_delta(before, ops.launch_counts())
+        want = {"lora_matmul": L * 5 * steps, "adapter_gram": 2 * buckets,
+                "wkv6": L}
+        ranks = tr.global_state.ranks
+        r_sum = sum(tr.aggregator.client_ranks)
+        tok_s = steps * RWKV_TRAIN_BATCH * RWKV_TRAIN_SEQ / (sum(step_ms) / 1e3)
+        print(f"  round {rnd}: eval loss {rec.eval_loss:.4f} acc "
+              f"{rec.eval_acc:.4f}; wall {rec.wall_secs:.2f} s, finalize "
+              f"{rec.finalize_secs * 1e3:.1f} ms; {steps} train steps, median "
+              f"{statistics.median(step_ms):.1f} ms (CUDA events), {tok_s:.0f} "
+              f"train tok/s")
+        for path, ps in ranks.items():
+            print(f"    kept ranks {'/'.join(map(str, path))}: {ps}")
+        print(f"    launches {json.dumps(got)}; expected {json.dumps(want)} "
+              "(wkv6: the eval forward's; none in the train steps)")
+        if got != want:
+            fail(f"phase 19 (a) round {rnd}: launch counts {got} != {want}")
+        if not np.isfinite(rec.eval_loss):
+            fail(f"phase 19 (a) round {rnd}: eval loss {rec.eval_loss}")
+        if any(not 1 <= p <= r_sum for ps in ranks.values() for p in ps):
+            fail(f"phase 19 (a) round {rnd}: a kept rank is outside [1, {r_sum}]")
+        rounds.append({"record": dataclasses.asdict(rec),
+                       "ranks": {"/".join(map(str, k)): v for k, v in ranks.items()},
+                       "train_step_ms": step_ms,
+                       "train_step_ms_median": statistics.median(step_ms),
+                       "train_tok_s": tok_s, "launches": got})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak allocated {peak:.2f} GiB (weights, {RWKV_TRAIN_BATCH} x "
+          f"{RWKV_TRAIN_SEQ} tokens through wkv_scan under autograd)")
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+
+    step = tr._train_step()
+    data = tr.clients[0]
+    batch = {"tokens": torch.as_tensor(data.tokens[:RWKV_TRAIN_BATCH],
+                                       device=DEVICE).long(),
+             "loss_mask": torch.as_tensor(data.loss_mask[:RWKV_TRAIN_BATCH],
+                                          device=DEVICE)}
+    state = {"a": to_device(tr._client_init(0, 16), tr.device)}
+    state["opt"] = adamw_init(state["a"])
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["opt"], _ = step(tr.params, state["a"],
+                                               state["opt"], batch)
+    t_w = time.perf_counter()
+    step_ms = statistics.median(ms for r in rounds for ms in r["train_step_ms"])
+    window = profile_window(torch, run, 1, f"RWKV6 train step, {RWKV_TRAIN_BATCH}"
+                            f" x {RWKV_TRAIN_SEQ} tokens, r 16 (wall: the rounds' "
+                            "median step)", raw_events=True, wall_ms=step_ms)
+    print(f"  the profiled window took {time.perf_counter() - t_w:.1f} s")
+    out = {"rounds": rounds, "launches": counts, "peak_allocated_gib": peak,
+           "profiled_train_step": window}
+    del tr, state, batch, step
+    torch.cuda.empty_cache()
+    out["parity"] = rwkv_train_parity(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19: {out['phase_s']:.1f} s")
+    return out, counts
+
+
+def rwkv_train_parity(torch):
+    from repro_torch.configs import lora_targets, rwkv6_1p6b
+    from repro_torch.device import parity_mode
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    cfg = rwkv6_1p6b.CONFIG.replace(dtype="float32", num_layers=2)
+    print(f"phase 19 (b): {cfg.name} at full width in fp32, depth cut to 2 "
+          f"layers; " + parity_mode())
+    dev = torch.device(DEVICE)
+    params = T.init(cfg, 3, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    batches = [{"tokens": torch.randint(1, cfg.vocab_size, (2, RWKV_TRAIN_SEQ),
+                                        generator=rng, device=dev),
+                "loss_mask": torch.ones(2, RWKV_TRAIN_SEQ, device=dev)}
+               for _ in range(2)]
+    print("  the train step, kernel route (lora_matmul; wkv_scan) vs plain route")
+    res = {"step_routes": step_route_parity(torch, "phase 19 (b)", cfg, params,
+                                            ad, batches)}
+    print("  cohort runner vs sequential runner, two FLoRIST rounds")
+    res["runners"] = runner_parity(torch, "phase 19 (b)",
+                                   _rwkv_trainer(cfg, params),
+                                   _rwkv_trainer(cfg, params, "cohort"))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del params, ad
+    torch.cuda.empty_cache()
+    return res
 
 
 if __name__ == "__main__":

@@ -9,15 +9,12 @@ import importlib
 from repro_torch.common.config import ModelConfig
 
 #: the reference's architectures that the port carries
-PORTED = ("tinyllama_1p1b", "llama3p2_1b", "rwkv6_1p6b", "deepseek_v3_671b")
+PORTED = ("tinyllama_1p1b", "llama3p2_1b", "rwkv6_1p6b", "deepseek_v3_671b",
+          "qwen1p5_32b", "qwen3_4b", "qwen2p5_14b", "qwen2_0p5b")
 
 #: the reference's other architectures, by the slice of the port that
 #: brings each in
 NOT_PORTED = {
-    "qwen1p5_32b": "the other dense configs",
-    "qwen3_4b": "the other dense configs",
-    "qwen2p5_14b": "the other dense configs",
-    "qwen2_0p5b": "the other dense configs",
     "granite_moe_1b_a400m": "MoE",
     "phi3_vision_4p2b": "VLM and audio",
     "musicgen_medium": "VLM and audio",

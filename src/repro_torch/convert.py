@@ -14,7 +14,11 @@ bf16 weights, its ``(5, d)`` and ``(5, dl, d)`` mixing leaves included.
 A reference ``FederatedTrainer``'s state crosses the same way: its
 ``params`` through :func:`params_from_numpy` and its shared ``A_init_full``
 (an adapter tree) through :func:`adapters_from_numpy`, assigned to the
-port trainer's attributes of the same names before its first round.
+port trainer's attributes of the same names before its first round.  A
+reference ``Trainer``'s ``params`` cross the same way, and its ``adapters``
+and ``opt_state`` (AdamW's ``mu``/``nu`` trees and its ``step``) through
+:func:`adapters_from_numpy`, assigned to the port ``Trainer``'s attributes
+of the same names before its first step.
 """
 from __future__ import annotations
 

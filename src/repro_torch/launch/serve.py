@@ -14,11 +14,14 @@ through ``decode_impl="kernel"``.  Part-way through, one adapter name is
 requests go to the new id.  Weights are random (seeded) at the
 configuration's published widths; DeepSeek-V3 is cut to its three dense MLA
 layers (``configs.deepseek_v3_671b.DENSE3``); RWKV6-1.6B runs whole, one
-token per engine step (its recurrent state takes no chunks).
+token per engine step (its recurrent state takes no chunks).  Qwen2-0.5B
+and Qwen3-4B run whole; Qwen2.5-14B is cut to 8 of its 48 layers
+(``qwen2p5_14b_l8``) and Qwen1.5-32B to 4 of its 64 (``qwen1p5_32b_l4``).
 
     python -m repro_torch.launch.serve                  # Llama-3.2-1B, cuda
     python -m repro_torch.launch.serve --config deepseek_v3_dense3
     python -m repro_torch.launch.serve --config rwkv6_1p6b
+    python -m repro_torch.launch.serve --config qwen3_4b
     python -m repro_torch.launch.serve --config smoke --device cpu
     python -m repro_torch.launch.serve --config deepseek_smoke --device cpu
     python -m repro_torch.launch.serve --config rwkv_smoke --device cpu
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import (deepseek_v3_671b, llama3p2_1b, lora_targets,
+                                 qwen1p5_32b, qwen2_0p5b, qwen2p5_14b, qwen3_4b,
                                  rwkv6_1p6b)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
@@ -51,6 +55,12 @@ CONFIGS = {
     "llama3p2_1b": (llama3p2_1b.CONFIG, 1024, 16, (32, 256)),
     "deepseek_v3_dense3": (deepseek_v3_671b.DENSE3, 1024, 16, (32, 256)),
     "rwkv6_1p6b": (rwkv6_1p6b.CONFIG, 1024, 16, (32, 256)),
+    "qwen2_0p5b": (qwen2_0p5b.CONFIG, 1024, 16, (32, 256)),
+    "qwen3_4b": (qwen3_4b.CONFIG, 1024, 16, (32, 256)),
+    "qwen2p5_14b_l8": (qwen2p5_14b.CONFIG.replace(num_layers=8), 1024, 16,
+                       (32, 256)),
+    "qwen1p5_32b_l4": (qwen1p5_32b.CONFIG.replace(num_layers=4), 1024, 16,
+                       (32, 256)),
     "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24)),
     "deepseek_smoke": (deepseek_v3_671b.SMOKE.replace(first_dense_layers=3),
                        64, 4, (4, 24)),

@@ -4,9 +4,14 @@ norm, gating, and the squared-ReLU channel mix (arXiv:2404.05892).
 
 Three routes through the recurrence, as in the reference: the O(1) decode
 update of a carried state, the ``wkv6`` kernel over a whole sequence
-(``use_kernel``) and the loop over time ``wkv_scan`` otherwise.  With
-``use_kernel`` the LoRA projections go through ``lora_matmul`` as the dense
-path's do; paged multi-tenant adapters go through ``bgmv`` (``lora_proj``).
+(``use_kernel``) and the loop over time ``wkv_scan`` otherwise.
+:func:`recurrence_route` picks one.  The kernel has no backward (nor has
+the reference's), so a call that differentiates (grad mode on and an
+adapter leaf that requires grad: a train step) takes ``wkv_scan`` even
+with ``use_kernel``, as the reference's train step, which runs without
+kernels, does.  With ``use_kernel`` the LoRA projections go through
+``lora_matmul`` on every route, as the dense path's do; paged multi-tenant
+adapters go through ``bgmv`` (``lora_proj``).
 
 Parameters are stacked ``(L, ...)`` dicts under the reference's keys.  The
 decode state keeps the reference's dtypes (``tm_x``/``cm_x`` fp32, ``wkv``
@@ -113,6 +118,25 @@ def _group_norm(x, w, b, H: int, eps: float) -> torch.Tensor:
     return xh.reshape(B, S, d) * w + b
 
 
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def recurrence_route(adapters, state=None, use_kernel: bool = False) -> str:
+    """The route of one time mix through the WKV recurrence: ``"decode"``
+    (a carried state, one token), ``"kernel"`` (the ``wkv6`` kernel: a
+    whole sequence with ``use_kernel`` in a call that does not
+    differentiate) or ``"scan"`` (``wkv_scan``: without ``use_kernel``, or
+    with grad mode on and an adapter leaf that requires grad)."""
+    if state is not None:
+        return "decode"
+    if use_kernel and not (torch.is_grad_enabled() and _requires_grad(adapters)):
+        return "kernel"
+    return "scan"
+
+
 def time_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
              use_kernel: bool = False):
     """x: (B,S,d).  ``state``: None (full sequence) or one layer's decode
@@ -130,14 +154,15 @@ def time_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
     g = F.silu(lora_proj(xg, p["wg"], a.get("wg"), use_kernel).float())
     w = _decay(p, xw).reshape(B, S, H, hd)
 
-    if state is not None:                      # O(1) decode update
+    route = recurrence_route(a, state, use_kernel)
+    if route == "decode":                      # O(1) decode update
         s = state["wkv"]                                    # (B,H,hd,hd) fp32
         rt, kt, vt = (t[:, 0].float() for t in (r, k, v))
         kv = kt[..., :, None] * vt[..., None, :]
         y = torch.einsum("bhk,bhkv->bhv", rt, s + p["u"][..., None] * kv)[:, None]
         new_state = {"tm_x": x[:, -1],
                      "wkv": torch.exp(w[:, 0])[..., None] * s + kv}
-    elif use_kernel:
+    elif route == "kernel":
         y = kops.wkv6(r, k, v, w, p["u"])
         new_state = None
     else:

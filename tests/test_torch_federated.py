@@ -226,7 +226,7 @@ def test_unported_names_raise_not_implemented():
     from repro_torch.configs import get_config
     for make, item in ((lambda: make_aggregator("florist_sharded"), "Queue 1 item 9"),
                        (lambda: make_runner("sharded_cohort"), "Queue 1 item 9"),
-                       (lambda: get_config("qwen2-0.5b"), "later slice")):
+                       (lambda: get_config("granite-moe-1b-a400m"), "MoE")):
         with pytest.raises(NotImplementedError, match="not ported") as e:
             make()
         assert item in str(e.value)

@@ -148,13 +148,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_federated_trainer_refuses_rwkv():
-    """Training RWKV6 through the port is a later slice: the trainer
-    raises at construction, before any round."""
+    """The trainer once refused RWKV6; it no longer does: it builds on the
+    CPU and runs one round (the recurrence trains through ``wkv_scan``,
+    ``tests/test_torch_rwkv_train.py`` holds it to the reference)."""
     from repro_torch.core.federated import FederatedTrainer
-    with pytest.raises(NotImplementedError, match="later slice"):
-        FederatedTrainer(CFG, FedConfig(num_clients=2, clients_per_round=1),
-                         LoRAConfig(targets=("wr", "wk", "wv", "wg", "wo")),
-                         OptimConfig(), device="cpu")
+    tr = FederatedTrainer(CFG, FedConfig(num_clients=2, clients_per_round=1,
+                                         homogeneous_rank=4),
+                          LoRAConfig(rank=4, alpha=8.0,
+                                     targets=("wr", "wk", "wv", "wg", "wo")),
+                          OptimConfig(), batch_size=2, local_steps=1,
+                          seq_len=16, device="cpu")
+    rec = tr.run_round(0)
+    assert np.isfinite(rec.eval_loss)
+    assert 1 <= min(min(r) for r in tr.global_state.ranks.values())
 
 
 @pytest.mark.parametrize("family", ["hybrid", "vlm", "audio"])
