@@ -196,23 +196,60 @@ Phases (any failure exits non-zero; no exception is caught):
     eval; (c) at 2 layers and full width in fp32 (TF32 off), two train
     steps on the kernel route against the plain route (phase 7's limits).
 19. RWKV6 training: (a) two FLoRIST rounds of RWKV6-1.6B at published
-    widths and full depth through ``FederatedTrainer`` (sequential
-    runner; rank 16 on its five targets, 4 of 8 clients a round, 2 local
-    steps of 2 × 256 tokens, the Gram route): the train steps' recurrence
-    through ``wkv_scan`` (``models.rwkv.recurrence_route``), so ``wkv6``
-    launches 24 a round (the eval forward) and never in a train step,
-    ``lora_matmul`` 120 a train forward, ``adapter_gram`` 2 · buckets;
+    widths, cut to 12 of its 24 layers, through ``FederatedTrainer``
+    (sequential runner; rank 16 on its five targets, 4 of 8 clients a
+    round, 2 local steps of 2 × 256 tokens, the Gram route): the train
+    steps' recurrence through ``wkv_scan``
+    (``models.rwkv.recurrence_route``), so ``wkv6`` launches 12 a round
+    (the eval forward) and never in a train step, ``lora_matmul`` 60 a
+    train forward, ``adapter_gram`` 2 · buckets;
     kept ranks, round wall, step median, peak allocated memory and a
     profiled train step; (b) at 2 layers and full width in fp32 (TF32
     off), the train step's kernel route against its plain route (phase
     7's limits) and the cohort runner against the sequential one (phase
     16 (c)'s limits).
 
+20. MoE and MLA's full-sequence path (random seeded weights, bf16): (a)
+    granite-moe-1b-a400m at published widths and full depth (24 L, d
+    1024, 16 H / 8 KV, 32 experts top-8, e_ff 512) serves phase 4's
+    traffic on the graphed engine (``ring_decode`` 24 and ``bgmv`` 96 an
+    engine step, 16 of 16 requests, a profiled burst window on live
+    adapters), and its graphed tokens equal its uncaptured tokens bit for
+    bit (phase 15 (a)'s check); (b) DeepSeek-V3-L4 (the three dense MLA
+    layers and the first MoE layer, 256 experts top-8 and a shared one, at
+    published widths) serves the same traffic (``mla_ring_decode`` 4 and
+    ``bgmv`` 16 a step), peak memory printed; (c) one granite MoE layer
+    on the card against the CPU in fp32 (TF32 off), capacity factor 1.25
+    on inputs skewed toward one expert (tokens dropped) and 8.0 (none):
+    the same experts and slots kept for every token, outputs within 1e-5 ·
+    max(1, |y|), aux within 1e-6; (d) FLoRIST through ``FederatedTrainer``:
+    granite at full depth (2 rounds, cohort runner, 4 of 8 clients of rank
+    16, 2 local steps of 4 × 512) and DeepSeek-V3-L4 (1 round, sequential
+    runner, 2 of 4 clients, 2 local steps of 4 × 512, LoRA on the five
+    MLA targets): launches exact (granite ``lora_matmul`` 96 and
+    ``flash_attention`` 24 a forward, DeepSeek ``lora_matmul`` 16 and no
+    ``flash_attention``, ``adapter_gram`` 2 a stacked shape), every
+    ``lora_matmul`` (C, din, dout) and ``adapter_gram`` (G, m, r, layout)
+    the rounds launch one that phases 2/3 and 16 (a) held to its plain
+    version, finite losses and aux, kept ranks in [1, Σ r_k], step
+    medians, peak memory and a profiled step of each; ``make_prefill_step(use_kernels=True)`` on
+    DeepSeek-V3-L4; (e) at 2 layers and full width in fp32 (TF32 off), the
+    train step's kernel route against its plain route on granite and on
+    the DENSE3 cut (through ``mla_fwd``), phase 7's limits.  Phase 2 holds
+    ``ring_decode`` at 16 / 8, ``bgmv`` at 1024 → 1024 / 512 and 7168 →
+    1536, ``lora_matmul`` at granite's and MLA's projections and
+    ``flash_attention`` at 16 / 8 (B 4 and 16), ``adapter_gram`` at every
+    Gram stack of (d) (``GRAM_MOE``); phase 16 (a) ``lora_matmul``'s client
+    axis at granite's projections (C 4).
+
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
 phase 13 (b)'s client trees too; phase 17 cuts Qwen2.5-14B to 8 layers and
-Qwen1.5-32B to 4.  Each phase's seconds are printed (``[phase N: s]``)
-and kept in the JSON.
+Qwen1.5-32B to 4; phase 19 cuts RWKV6-1.6B's training to 12 of its 24
+layers (``RWKV_TRAIN_LAYERS``; its serving and prefill keep 24); phase 20
+cuts DeepSeek-V3 to 4 of its 61 layers (``deepseek_v3_671b.L4``, 28.1 GB
+of bf16 weights).  Each phase's seconds are printed (``[phase N: s]``) and
+kept in the JSON.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -350,6 +387,8 @@ def main() -> None:
     done("18")
     report["rwkv_train"], rwkv_train_counts = phase19(torch)
     done("19")
+    report["moe"], moe_counts = phase20(torch)
+    done("20")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -412,7 +451,16 @@ def main() -> None:
                             if name == "lora_matmul" else FLASH_TRAINER)
                if name in trainer_counts else {})
             | ({"launches_rwkv_train_path": rwkv_train_counts[name]}
-               if name in rwkv_train_counts else {}))
+               if name in rwkv_train_counts else {})
+            | ({"launches_moe_path": moe_counts[name]}
+               if name in moe_counts else {})
+            | (other_path("granite_path", name, LORA_GRANITE)
+               | other_path("granite_cohort", name, LORA_GRANITE_COHORT)
+               | other_path("mla_path", name, LORA_MLA)
+               if name == "lora_matmul" else {})
+            | (other_path("granite_path", name, GRAM_GRANITE)
+               | other_path("dsv3_path", name, GRAM_DSV3)
+               if name == "adapter_gram" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -587,7 +635,11 @@ def kernel_cases(torch):
             ("int8", 1, 0, 128, 1024, 40, 8, False),
             ("int8", 16, 0, 128, 1024, 40, 8, False),
             ("bfloat16", 1, 0, 128, 1024, 40, 40, False),
-            ("bfloat16", 16, 0, 128, 1024, 40, 40, False)):
+            ("bfloat16", 16, 0, 128, 1024, 40, 40, False),
+            # granite-moe-1b-a400m's heads (16 / 8, hd 64: 2 query heads a
+            # KV head, 32 rows a KV head at a 16-token chunk)
+            ("bfloat16", 1, 0, 64, 1024, 16, 8, False),
+            ("bfloat16", 16, 0, 64, 1024, 16, 8, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -692,7 +744,11 @@ def bgmv_kernel_cases(torch):
         ("bfloat16", 1, 896, 896), ("bfloat16", 16, 896, 128),
         ("bfloat16", 1, 2560, 4096), ("bfloat16", 16, 4096, 2560),
         ("bfloat16", 1, 5120, 5120), ("bfloat16", 16, 5120, 5120),
-        ("bfloat16", 16, 5120, 1024))]
+        ("bfloat16", 16, 5120, 1024),
+        # granite-moe's projections (d 1024: wq / wo 1024 -> 1024, wk / wv
+        # 1024 -> 512) and DeepSeek-V3's wq_a (7168 -> 1536)
+        ("bfloat16", 1, 1024, 1024), ("bfloat16", 16, 1024, 512),
+        ("bfloat16", 1, 7168, 1536))]
     cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
         ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
         ("float32/bfloat16", 2048, 2048))]
@@ -911,9 +967,26 @@ LORA_MAIN = "bf16, M=2048 din=2048 dout=2048 r=16"
 LORA_EXTRA = ("kernel_route", "tile_n", "grid", "base_matmul_ms", "unfused_ms")
 LORA_RWKV = "bf16, M=8192 din=2048 dout=2048 r=16"
 LORA_TRAINER = "bf16, M=2048 din=896 dout=896 r=16"          # Qwen2-0.5B's wq
+LORA_MOE_SHAPES = ((1024, 1024), (1024, 512), (7168, 1536), (1536, 24576),
+                   (7168, 576), (16384, 7168))
+LORA_GRANITE = "bf16, M=2048 din=1024 dout=1024 r=16"        # granite's wq
+LORA_MLA = "bf16, M=2048 din=16384 dout=7168 r=16"           # DeepSeek-V3's wo
 FLASH_TRAINER = "bf16, causal, B=4 S=512 H=14 K=2 hd=64"      # Qwen2-0.5B
 FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
 GRAM_MAIN = "fp32, G=32 m=2048 r=64"
+# phase 20 (d)'s Gram stacks (G, m, r, layout), fp32, r = Σ r_k: granite-
+# moe's two buckets of 2 leaves x 24 layers at r 64 (B stacks m 1024 for
+# wq/wo and 512 for wk/wv; both A stacks n 1024, read in place), and
+# DeepSeek-V3-L4's five MLA targets at r 32 in its dense (G 3) and MoE (G 1)
+# segments: B stacks m = dout (wq_a 1536, wq_b 24576, wkv_a 576, wkv_b
+# 32768, wo 7168), A stacks n = din (7168, 1536, 512, 16384)
+GRAM_MOE = ((48, 1024, 64, "col"), (48, 512, 64, "col"), (48, 1024, 64, "row")) + tuple(
+    (G, m, 32, layout) for G in (3, 1)
+    for m, layout in ((1536, "col"), (24576, "col"), (576, "col"), (32768, "col"),
+                      (7168, "col"), (7168, "row"), (1536, "row"), (512, "row"),
+                      (16384, "row")))
+GRAM_GRANITE = "fp32, G=48 m=1024 r=64"
+GRAM_DSV3 = "fp32, G=3 m=32768 r=32"                         # wkv_b's B stack
 
 
 def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -1062,6 +1135,13 @@ def train_kernel_cases(torch):
                       (4096, 2560), (5120, 5120), (5120, 1024)):
         records.append(lora_case(torch, gen, sms, torch.bfloat16, 2048, din,
                                  dout, 16))
+    # phase 20's train steps at r 16, M 4 x 512: granite-moe's 1024 -> 1024
+    # (wq, wo) and 1024 -> 512 (wk, wv); DeepSeek-V3's MLA projections on
+    # mla_fwd: wq_a 7168 -> 1536, wq_b 1536 -> 24576, wkv_a 7168 -> 576, wo
+    # 16384 -> 7168 (wkv_b is folded into the absorbed weight)
+    for din, dout in LORA_MOE_SHAPES:
+        records.append(lora_case(torch, gen, sms, torch.bfloat16, 2048, din,
+                                 dout, 16))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
     # 8 KV heads, hd 64; TinyLlama's 32 over 4, 8 query heads a KV head),
@@ -1107,7 +1187,11 @@ def train_kernel_cases(torch):
             (torch.bfloat16, 4, 512, 512, 14, 2, 64, True, 0),
             (torch.bfloat16, 4, 512, 512, 32, 8, 128, True, 0),
             (torch.bfloat16, 4, 512, 512, 40, 8, 128, True, 0),
-            (torch.bfloat16, 4, 512, 512, 40, 40, 128, True, 0)):
+            (torch.bfloat16, 4, 512, 512, 40, 40, 128, True, 0),
+            # granite-moe's heads (16 / 8, hd 64): one client's batch and
+            # phase 20's cohort of four clients
+            (torch.bfloat16, 4, 512, 512, 16, 8, 64, True, 0),
+            (torch.bfloat16, 16, 512, 512, 16, 8, 64, True, 0)):
         records.append(flash_case(torch, gen, dt, B, S, T, H, K, hd, causal,
                                   window))
 
@@ -1118,6 +1202,10 @@ def train_kernel_cases(torch):
 # phase 16 (a): the client axis of lora_matmul (one launch for a cohort)
 LORA_COHORT = "bf16, C=4 M=2048 din=2048 dout=2048 r=16"
 LORA_COHORT_WV = "bf16, C=4 M=2048 din=2048 dout=256 r=16"
+# phase 20 (d)'s granite-moe cohort step: wq/wo 1024 -> 1024, wk/wv
+# 1024 -> 512 (the MLA run is sequential, C 1)
+LORA_MOE_COHORT = ((1024, 1024), (1024, 512))
+LORA_GRANITE_COHORT = "bf16, C=4 M=2048 din=1024 dout=1024 r=16"
 # the cohort step's attention: TinyLlama's heads at batch C·B = 4 x 4
 FLASH_COHORT = "bf16, causal, B=16 S=512 H=32 K=4 hd=64"
 
@@ -1129,7 +1217,8 @@ def cohort_kernel_cases(torch):
     (bf16 2e-2 of max |y|, fp32 with TF32 off 1e-4): TinyLlama's ``wq``
     (2048 -> 2048) and ``wv`` (2048 -> 256) at r 16, C 4, M 2048 (a cohort
     step's 4 x 512 tokens a client) in bf16 and fp32, and a ragged C 3, M
-    200 (and the wmma route, dout 1003).  For each: the median of 50 (L2
+    200 (and the wmma route, dout 1003), and granite-moe's cohort step
+    (``LORA_MOE_COHORT``, C 4, bf16).  For each: the median of 50 (L2
     flushed), the bound of the whole
     cohort's work, and the same work as C separate C = 1 launches.  Then
     ``flash_attention`` at the cohort step's batch C·B = 16 (TinyLlama's
@@ -1144,15 +1233,17 @@ def cohort_kernel_cases(torch):
     dname = {torch.bfloat16: "bf16", torch.float32: "fp32"}
     records = []
     print("phase 16 (a): lora_matmul with a client axis, one launch a cohort")
-    for dt, C, M, dout, r in ((torch.bfloat16, 4, 2048, 2048, 16),
-                              (torch.bfloat16, 4, 2048, 256, 16),
-                              (torch.float32, 4, 2048, 2048, 16),
-                              (torch.float32, 4, 2048, 256, 16),
-                              (torch.bfloat16, 3, 200, 2048, 16),
-                              (torch.bfloat16, 3, 200, 256, 16),
-                              (torch.float32, 3, 200, 256, 16),
-                              (torch.bfloat16, 3, 200, 1003, 5)):
-        din = 2048
+    for dt, C, M, din, dout, r in ((
+            (torch.bfloat16, 4, 2048, 2048, 2048, 16),
+            (torch.bfloat16, 4, 2048, 2048, 256, 16),
+            (torch.float32, 4, 2048, 2048, 2048, 16),
+            (torch.float32, 4, 2048, 2048, 256, 16),
+            (torch.bfloat16, 3, 200, 2048, 2048, 16),
+            (torch.bfloat16, 3, 200, 2048, 256, 16),
+            (torch.float32, 3, 200, 2048, 256, 16),
+            (torch.bfloat16, 3, 200, 2048, 1003, 5))
+            + tuple((torch.bfloat16, 4, 2048, din, dout, 16)
+                    for din, dout in LORA_MOE_COHORT)):
         x = torch.randn(C, M, din, generator=gen, device=dev).to(dt)
         w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
         a = torch.randn(C, r, din, generator=gen, device=dev) * 0.02
@@ -1208,10 +1299,11 @@ def gram_kernel_cases(torch):
     n), passed as the transposed view that ``gram_svd`` takes: the kernel
     reads them in place), the delta route's large r, and ragged edges (r 5
     and 12, rows that are not 16-byte multiples, K under one slice, r > 128
-    with off-diagonal tiles).  The kernel runs 3xTF32 on the tensor cores
-    (lo·lo dropped, ~2^-20 of each product), the plain version fp32 FMAs
-    (TF32 off), sums in another order over m rows: limit 1e-4 of max
-    |xᵀx|.  Two calls on the same input must give the same bits (no
+    with off-diagonal tiles), and every stack of phase 20 (d)'s rounds
+    (``GRAM_MOE``: m up to 32768, G 1 and 3).  The kernel runs 3xTF32 on
+    the tensor cores (lo·lo dropped, ~2^-20 of each product), the plain
+    version fp32 FMAs (TF32 off), sums in another order over m rows: limit
+    1e-4 of max |xᵀx|.  Two calls on the same input must give the same bits (no
     atomics; fixed summing order), and the result must be exactly
     symmetric.  xᵀx needs only its r(r+1)/2 distinct entries, m
     multiply-adds each: G·m·r·(r+1) operations; ``bound_ms`` holds them to
@@ -1236,14 +1328,15 @@ def gram_kernel_cases(torch):
             fail(f"adapter_gram.smem_bytes({tile}, {layout}, {strips}) = {want}, "
                  f"the built kernel's is {got}")
     held = build_fn("adapter_gram", "adapter_gram_max_clusters", 8)
-    for G, m, r, layout, timed in ((32, 2048, 64, "col", True), (32, 2048, 16, "col", True),
+    for G, m, r, layout, timed in (((32, 2048, 64, "col", True), (32, 2048, 16, "col", True),
                                    (32, 2048, 128, "col", True), (32, 512, 16, "col", True),
                                    (32, 512, 64, "col", True), (32, 512, 128, "col", True),
                                    (32, 2000, 60, "col", True), (32, 2048, 64, "row", True),
                                    (32, 2048, 128, "row", True), (4, 2048, 512, "col", True),
                                    (3, 70, 5, "col", False), (2, 1001, 12, "row", False),
                                    (2, 100, 40, "col", False), (1, 8, 200, "col", False),
-                                   (2, 300, 130, "row", False), (5, 257, 96, "col", False)):
+                                   (2, 300, 130, "row", False), (5, 257, 96, "col", False))
+                                  + tuple(c + (True,) for c in GRAM_MOE)):
         if layout == "col":
             x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
             stored, lib = x, (lambda x=x: torch.bmm(x.mT, x))
@@ -1498,17 +1591,24 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
     cfg = CONFIGS[config][0]
     depth = (f"depth cut to {cfg.num_layers} of its {full_layers} layers"
              if full_layers else f"{cfg.num_layers} L")
+    moe = (f", {cfg.num_experts} experts top-{cfg.experts_per_token} (e_ff "
+           f"{cfg.moe_d_ff}{', one shared' if cfg.num_shared_experts else ''})"
+           if cfg.num_experts and cfg.num_layers > cfg.first_dense_layers else "")
     if cfg.use_mla:
         shape = (f"{cfg.num_heads} H, q_lora {cfg.q_lora_rank}, kv_lora "
                  f"{cfg.kv_lora_rank}, qk nope/rope {cfg.qk_nope_head_dim}/"
-                 f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}")
-        depth = f"depth cut to its {cfg.num_layers} dense MLA layers"
+                 f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}{moe}")
+        dense = min(cfg.num_layers, cfg.first_dense_layers)
+        depth = (f"depth cut to its {dense} dense MLA layers"
+                 + (f" and {cfg.num_layers - dense} MLA-MoE layer(s) of its "
+                    f"{cfg.num_layers if not full_layers else full_layers}"
+                    if cfg.num_layers > dense else ""))
     elif cfg.family == "ssm":
         shape = (f"{cfg.num_rwkv_heads} heads of {cfg.rwkv_head_dim}, decay "
                  f"LoRA {cfg.rwkv_decay_lora}; one token per engine step")
     else:
         shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
-                 f"{cfg.head_dim}")
+                 f"{cfg.head_dim}{moe}")
     print(f"phase {phase}: {cfg.name} at {widths} ({depth}, d "
           f"{cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}), random seeded weights, decode_impl=kernel, graphed")
@@ -3277,7 +3377,7 @@ def examples_card(torch):
 
 # -- phase 15: the engine's graphs, the streamed route, the benches ----------
 
-def graph_parity(torch, config: str = "llama3p2_1b"):
+def graph_parity(torch, config: str = "llama3p2_1b", phase: str = "15 (a)"):
     """(a) ``launch.serve``'s traffic (16 requests, one sampled, a swap)
     twice on one engine, graphed and then on the same built functions run
     uncaptured: every request's tokens equal bit for bit, the launches
@@ -3286,7 +3386,7 @@ def graph_parity(torch, config: str = "llama3p2_1b"):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as S
     cfg = S.CONFIGS[config][0]
-    print(f"phase 15 (a): {cfg.name}, phase 4's traffic twice (a swap in "
+    print(f"phase {phase}: {cfg.name}, phase 4's traffic twice (a swap in "
           "each), graphed engine vs its step functions uncaptured")
     runs = {}
     for name in ("graphed", "uncaptured"):
@@ -3315,9 +3415,9 @@ def graph_parity(torch, config: str = "llama3p2_1b"):
               f"{'captures' if name == 'graphed' else 'builds'} "
               f"{ {str(k): v for k, v in captures[1].items()} }")
         if counts != want:
-            fail(f"phase 15 (a): {name} launch counts do not match the steps")
+            fail(f"phase {phase}: {name} launch counts do not match the steps")
         if captures[0] != captures[1]:
-            fail(f"phase 15 (a): {name} captured again in the second pass "
+            fail(f"phase {phase}: {name} captured again in the second pass "
                  f"({captures[0]} -> {captures[1]})")
         runs[name] = {"passes": passes, "launches": counts,
                       "steps": eng.steps_run, "warmup_steps": eng.warmup_steps,
@@ -3330,7 +3430,7 @@ def graph_parity(torch, config: str = "llama3p2_1b"):
         sampled = 2 + i * S.N_REQUESTS        # the pass's second request
         if a != b or len(a) != S.N_REQUESTS or sampled not in a:
             diff = sorted(u for u in set(a) | set(b) if a.get(u) != b.get(u))
-            fail(f"phase 15 (a): pass {i + 1}'s tokens differ between the "
+            fail(f"phase {phase}: pass {i + 1}'s tokens differ between the "
                  f"graphed and uncaptured engines for uids {diff}")
         print(f"  pass {i + 1}: {len(a)} requests' tokens equal bit for bit "
               f"(sampled uid {sampled}: {a[sampled][:6]}...)")
@@ -4194,6 +4294,10 @@ def trainer_parity(torch):
 # -- phase 19: RWKV6 training ------------------------------------------------
 
 RWKV_TRAIN_ROUNDS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 2, 2, 256
+# phase 19 (a) trains RWKV6-1.6B at full width cut to this depth (of its
+# 24 layers): its host-bound step scales with depth, and the whole script
+# must stay inside its time on a slow host
+RWKV_TRAIN_LAYERS = 12
 
 
 def _rwkv_trainer(cfg, params, runner="sequential"):
@@ -4215,12 +4319,12 @@ def _rwkv_trainer(cfg, params, runner="sequential"):
 
 
 def phase19(torch):
-    """(a) two FLoRIST rounds of RWKV6-1.6B at published widths and full
-    depth through ``FederatedTrainer`` (sequential runner): the train steps
-    through ``wkv_scan`` and ``lora_matmul``, the eval through ``wkv6``;
-    launches exact (``wkv6`` 0 in the train steps and 24 an eval forward,
-    ``lora_matmul`` 120 a train forward, ``adapter_gram`` 2 · buckets a
-    round); kept ranks, round wall, step median, peak allocated memory and
+    """(a) two FLoRIST rounds of RWKV6-1.6B at published widths, cut to
+    ``RWKV_TRAIN_LAYERS`` of its 24 layers, through ``FederatedTrainer``
+    (sequential runner): the train steps through ``wkv_scan`` and
+    ``lora_matmul``, the eval through ``wkv6``; launches exact (``wkv6`` 0
+    in the train steps and L an eval forward, ``lora_matmul`` 5 · L a
+    train forward, ``adapter_gram`` 2 · buckets a round); kept ranks, round wall, step median, peak allocated memory and
     a profiled train step.  (b) at 2 layers and full width in fp32 (TF32
     off): the train step's kernel route against its plain route, and the
     cohort runner against the sequential one."""
@@ -4232,10 +4336,10 @@ def phase19(torch):
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import adamw_init
     t_phase = time.perf_counter()
-    cfg = rwkv6_1p6b.CONFIG
+    cfg = rwkv6_1p6b.CONFIG.replace(num_layers=RWKV_TRAIN_LAYERS)
     L = cfg.num_layers
     print(f"phase 19 (a): {RWKV_TRAIN_ROUNDS} FLoRIST rounds of {cfg.name} at "
-          f"published widths ({L} L, d {cfg.d_model}, {cfg.num_rwkv_heads} heads "
+          f"published widths cut to {L} of 24 layers (d {cfg.d_model}, {cfg.num_rwkv_heads} heads "
           f"of {cfg.rwkv_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}; random "
           f"seeded weights), LoRA r 16 on its 5 targets, 4 of 8 clients a "
           f"round, 2 local steps of {RWKV_TRAIN_BATCH} x {RWKV_TRAIN_SEQ} "
@@ -4340,6 +4444,366 @@ def rwkv_train_parity(torch):
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     del params, ad
     torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 20: MoE and MLA's full-sequence path --------------------------------
+
+MOE_ROUNDS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 4, 512, 2
+DSV3_BATCH = 4                # DeepSeek-V3-L4's train batch (x 512 tokens)
+
+
+def phase20(torch):
+    """(a) granite-moe-1b-a400m at published widths and full depth serves
+    phase 4's traffic (``ring_decode`` 24 and ``bgmv`` 96 an engine step,
+    a profiled burst window on live adapters) and its graphed tokens equal
+    its uncaptured tokens bit for bit; (b) DeepSeek-V3-L4 (the three dense
+    MLA layers and the first MoE layer at published widths) serves it
+    (``mla_ring_decode`` 4 and ``bgmv`` 16 a step), peak memory; (c) one
+    granite MoE layer on the card against the CPU in fp32; (d) FLoRIST
+    through ``FederatedTrainer`` on granite (cohort runner) and DeepSeek-V3-L4
+    (sequential runner), and ``make_prefill_step(use_kernels=True)`` on
+    DeepSeek-V3-L4; (e) the fp32 route parities at 2 layers."""
+    t_phase = time.perf_counter()
+    out, counts = {}, collections.Counter()
+    out["granite_serve"], c = end_to_end(torch, "20 (a)", "granite_moe_1b_a400m",
+                                         windows=("profiled_burst_adapters",))
+    counts.update(c)
+    out["granite_graphs"] = graph_parity(torch, "granite_moe_1b_a400m", "20 (a)")
+    torch.cuda.reset_peak_memory_stats()
+    out["dsv3_serve"], c = end_to_end(torch, "20 (b)", "deepseek_v3_l4",
+                                      windows=(), full_layers=61)
+    counts.update(c)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["dsv3_serve"]["peak_allocated_gib"] = peak
+    print(f"  peak allocated {peak:.2f} GiB (28.1 GB of bf16 weights)")
+    out["moe_layer"] = moe_layer_parity(torch)
+    out["granite_fed"], c = moe_federated(torch, "granite")
+    counts.update(c)
+    out["dsv3_fed"], c = moe_federated(torch, "deepseek")
+    counts.update(c)
+    out["dsv3_prefill"] = dsv3_prefill(torch)
+    out["parity"] = moe_route_parity(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 20: {out['phase_s']:.1f} s")
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def _kept_slots(torch, meta, T: int, E: int, k: int):
+    """(T, E) int: the capacity slot of each kept (token, expert) pair of a
+    ``moe._route_and_dispatch`` call, -1 where the token does not keep the
+    expert, on the CPU."""
+    dst_e, dst_c, _ = (m[0].cpu() for m in meta)
+    slots = torch.full((T, E + 1), -1, dtype=torch.long)
+    slots[torch.arange(T * k) // k, dst_e] = dst_c   # drops land in column E
+    return slots[:, :E]
+
+
+def moe_layer_parity(torch):
+    """(c) one granite MoE layer (published widths, fp32, TF32 off) on the
+    card against the same layer on the CPU, at capacity factor 1.25 on
+    inputs skewed toward expert 0 (tokens dropped) and 8.0 (none): the
+    same experts and slots kept for every token, outputs within 1e-5 ·
+    max(1, |y|), aux within 1e-6."""
+    from repro_torch.configs import granite_moe_1b_a400m
+    from repro_torch.device import parity_mode
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import transformer as T
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    mode = parity_mode()
+    res = {}
+    for factor in (1.25, 8.0):
+        cfg = granite_moe_1b_a400m.CONFIG.replace(dtype="float32",
+                                                  moe_capacity_factor=factor)
+        E, k = cfg.num_experts, cfg.experts_per_token
+        gen = torch.Generator().manual_seed(7)
+        p = T._layer(Moe.init_moe(cfg, gen, 1, torch.float32), 0)
+        r0 = p["router"][:, 0]
+        x = (torch.randn((2, 512, cfg.d_model), generator=gen)
+             + 1.5 * r0 / (r0 @ r0))
+        pc = {n: t.to(DEVICE) for n, t in p.items()}
+        xt = x.reshape(1, -1, cfg.d_model)
+        T_ = xt.shape[1]
+        C = Moe._capacity(cfg, T_)
+        probs = Moe.router_scores(cfg, p["router"], xt[0]).sort(-1).values
+        margin = float((probs[:, -k] - probs[:, -k - 1]).min())
+        slots = [_kept_slots(torch, Moe._route_and_dispatch(
+                     cfg, pp["router"], xx, C)[1], T_, E, k)
+                 for pp, xx in ((p, xt), (pc, xt.to(DEVICE)))]
+        want, aw = Moe.moe_fwd(cfg, p, x)
+        got, ag = Moe.moe_fwd(cfg, pc, x.to(DEVICE))
+        same = bool(torch.equal(slots[0], slots[1]))
+        kept = int((slots[0] >= 0).sum())
+        err = float((got.cpu() - want).abs().max())
+        lim = 1e-5 * max(1.0, float(want.abs().max()))
+        aerr = abs(float(ag) - float(aw))
+        print(f"phase 20 (c): {cfg.name} MoE layer (d {cfg.d_model}, {E} "
+              f"experts top-{k}, e_ff {cfg.moe_d_ff}), {T_} tokens, capacity "
+              f"factor {factor} ({C} slots an expert): {T_ * k - kept} of "
+              f"{T_ * k} choices dropped; card vs CPU: kept experts and slots "
+              f"equal {same} (least top-{k} margin {margin:.2e}); max |Δy| "
+              f"{err:.2e} (limit {lim:.2e}); |Δaux| {aerr:.2e} (limit 1e-6); "
+              + mode)
+        if not same:
+            fail(f"phase 20 (c): routing differs between card and CPU at "
+                 f"factor {factor}")
+        if (T_ * k - kept > 0) != (factor < 2):
+            fail(f"phase 20 (c): factor {factor} dropped {T_ * k - kept}")
+        if err > lim or aerr > 1e-6:
+            fail(f"phase 20 (c): outputs or aux differ at factor {factor}")
+        res[str(factor)] = {"dropped": T_ * k - kept, "routing_equal": same,
+                            "min_topk_margin": margin, "max_abs_err": err,
+                            "aux_abs_err": aerr}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return res
+
+
+@contextlib.contextmanager
+def launched_shapes():
+    """The shapes of the ``lora_matmul`` and ``adapter_gram`` launches made
+    inside, recorded at the kernels' entry points: ``{"lora_matmul": {(C,
+    din, dout)}, "adapter_gram": {(G, m, r, layout)}}``."""
+    from repro_torch.kernels import ops
+    seen = {"lora_matmul": set(), "adapter_gram": set()}
+    lora, gram = ops.lora_matmul_cuda, ops.adapter_gram_cuda
+
+    def lora_seen(x, w, a, b):
+        seen["lora_matmul"].add((x.shape[0],) + tuple(w.shape))
+        return lora(x, w, a, b)
+
+    def gram_seen(stored, layout):
+        G, m, r = stored.shape if layout == "col" else stored.mT.shape
+        seen["adapter_gram"].add((G, m, r, layout))
+        return gram(stored, layout)
+
+    ops.lora_matmul_cuda, ops.adapter_gram_cuda = lora_seen, gram_seen
+    try:
+        yield seen
+    finally:
+        ops.lora_matmul_cuda, ops.adapter_gram_cuda = lora, gram
+
+
+# the (C, din, dout) and (G, m, r, layout) that phases 2/3 and 16 (a) check
+# at phase 20 (d)'s widths (lora_matmul at M 2048 and r 16; the eval
+# forward's M and kept rank differ)
+MOE_CHECKED = {"lora_matmul": {(1,) + s for s in LORA_MOE_SHAPES}
+               | {(4,) + s for s in LORA_MOE_COHORT},
+               "adapter_gram": set(GRAM_MOE)}
+
+
+def _moe_trainer(cfg, params, runner, clients: int, per_round: int,
+                 batch: int):
+    from repro_torch.common.config import FedConfig, LoRAConfig, OptimConfig
+    from repro_torch.configs import lora_targets
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.synthetic import make_eval_data
+    fed = FedConfig(num_clients=clients, clients_per_round=per_round,
+                    homogeneous_rank=16, tau=0.9, method="florist", seed=0)
+    lora = LoRAConfig(rank=16, alpha=16.0, targets=lora_targets(cfg))
+    return FederatedTrainer(
+        cfg, fed, lora, OptimConfig(lr=3e-4), params=params,
+        eval_data=make_eval_data(num_samples=8, seq_len=MOE_SEQ,
+                                 vocab=cfg.vocab_size),
+        batch_size=batch, local_steps=MOE_STEPS, seq_len=MOE_SEQ,
+        svd_method="gram", runner=runner, device=DEVICE)
+
+
+def moe_federated(torch, which: str):
+    """(d) FLoRIST rounds, rank 16 on the family's targets, 2 local steps
+    of 512-token rows, the Gram route: granite at full depth (2 rounds, 4
+    of 8 clients, cohort runner, batch 4: one cohort step a local step) or
+    DeepSeek-V3-L4 (1 round, 2 of 4 clients, sequential runner, batch
+    ``DSV3_BATCH``).  Launches exact: ``lora_matmul`` 4 · L a train forward
+    (granite ``wq wk wv wo``; DeepSeek ``wq_a wq_b wkv_a wo``, ``wkv_b``
+    folded into the absorbed weight), ``flash_attention`` L a forward for
+    granite (the eval's included) and none for MLA, ``adapter_gram`` 2 ·
+    buckets; each kernel's launch shapes among those phases 2/3 and 16 (a)
+    check (``MOE_CHECKED``); finite losses and aux, kept ranks in [1, Σ
+    r_k], the step median, peak memory, and a profiled train step."""
+    import numpy as np
+    from repro_torch.configs import (deepseek_v3_671b, granite_moe_1b_a400m,
+                                     lora_targets)
+    from repro_torch.core.runtime import CohortRunner, SequentialRunner
+    from repro_torch.core.runtime.runners import _stack_cohort, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    granite = which == "granite"
+    cfg = granite_moe_1b_a400m.CONFIG if granite else deepseek_v3_671b.L4
+    L = cfg.num_layers
+    rounds_n = MOE_ROUNDS if granite else 1
+    clients, per_round, batch = (8, 4, MOE_BATCH) if granite else (4, 2, DSV3_BATCH)
+    runner = (CohortRunner if granite else SequentialRunner)(record_steps=True)
+    print(f"phase 20 (d): {rounds_n} FLoRIST round(s) of {cfg.name} at published "
+          f"widths ({L} L, d {cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, {cfg.dtype}; random seeded weights), LoRA r "
+          f"16 on {'/'.join(lora_targets(cfg))}, {per_round} of {clients} "
+          f"clients a round, {MOE_STEPS} local steps of {batch} x {MOE_SEQ} "
+          f"tokens, {runner.name} runner, Gram route")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _moe_trainer(cfg, T.init(cfg, 0, DEVICE), runner, clients, per_round,
+                      batch)
+    rounds = []
+    ops.reset_launch_counts()
+    with launched_shapes() as seen:
+        for rnd in range(rounds_n):
+            before, n_log = ops.launch_counts(), len(runner.step_log())
+            rec = tr.run_round(rnd)
+            log = runner.step_log()[n_log:]
+            step_ms = [e["ms"] for e in log]
+            calls = len(log)
+            # a bucket a stacked shape: DeepSeek's dense and MoE segments
+            # (3 and 1 layers) are separate buckets of one width
+            buckets = len(set(tr.aggregator.dims.values()))
+            got = ops.launch_delta(before, ops.launch_counts())
+            want = {"lora_matmul": L * 4 * calls, "adapter_gram": 2 * buckets}
+            if granite:
+                want["flash_attention"] = L * (calls + 1)     # and the eval's
+            ranks = tr.global_state.ranks
+            r_sum = sum(tr.aggregator.client_ranks)
+            tok = sum(len(e["clients"]) for e in log) * batch * MOE_SEQ
+            print(f"  round {rnd}: eval loss {rec.eval_loss:.4f} acc "
+                  f"{rec.eval_acc:.4f}; wall {rec.wall_secs:.2f} s, finalize "
+                  f"{rec.finalize_secs * 1e3:.1f} ms; {calls} train-step calls, "
+                  f"median {statistics.median(step_ms):.1f} ms (CUDA events), "
+                  f"{tok / (sum(step_ms) / 1e3):.0f} train tok/s; kept ranks "
+                  + ", ".join(f"{'/'.join(map(str, k))}: {v}" for k, v in ranks.items()))
+            print(f"    launches {json.dumps(got)}; expected {json.dumps(want)}")
+            if got != want:
+                fail(f"phase 20 (d) {cfg.name} round {rnd}: launches {got} != {want}")
+            if not np.isfinite(rec.eval_loss):
+                fail(f"phase 20 (d) {cfg.name} round {rnd}: eval loss {rec.eval_loss}")
+            if any(not 1 <= p <= r_sum for ps in ranks.values() for p in ps):
+                fail(f"phase 20 (d) {cfg.name} round {rnd}: a kept rank is "
+                     f"outside [1, {r_sum}]")
+            rounds.append({"record": dataclasses.asdict(rec),
+                           "ranks": {"/".join(map(str, k)): v for k, v in ranks.items()},
+                           "train_step_ms": step_ms,
+                           "train_step_ms_median": statistics.median(step_ms),
+                           "train_tok_s": tok / (sum(step_ms) / 1e3), "launches": got})
+    print("  launched shapes: " + "; ".join(
+        f"{k} {sorted(v, key=str)}" for k, v in seen.items()))
+    for k, shapes in seen.items():
+        if not shapes <= MOE_CHECKED[k]:
+            fail(f"phase 20 (d) {cfg.name}: {k} ran at "
+                 f"{sorted(shapes - MOE_CHECKED[k], key=str)}, which no "
+                 f"kernel case checks")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+
+    # one more step on the card: its loss and aux finite, then a profiled window
+    plan = tr.scheduler.plan(rounds_n, tr)
+    task_init = lambda t: tr._client_init(t.client_id, t.rank)
+    if granite:
+        stacked, b, _ = _stack_cohort(tr, rounds_n, plan.tasks, task_init, 4)
+        b = {"tokens": torch.as_tensor(b["tokens"][:, 0], device=DEVICE),
+             "loss_mask": torch.as_tensor(b["loss_mask"][:, 0], device=DEVICE)}
+        step = tr._cohort_step()
+    else:
+        data = tr.clients[plan.tasks[0].client_id]
+        b = {"tokens": torch.as_tensor(data.tokens[:batch], device=DEVICE).long(),
+             "loss_mask": torch.as_tensor(data.loss_mask[:batch], device=DEVICE)}
+        stacked = to_device(task_init(plan.tasks[0]), tr.device)
+        step = tr._train_step()
+    state = {"a": stacked, "o": adamw_init(stacked)}
+    state["a"], state["o"], m = step(tr.params, state["a"], state["o"], b)
+    loss, aux = m["loss"].float().cpu(), m["aux"].float().cpu()
+    print(f"  a further step: loss {loss.tolist()}, aux {aux.tolist()} "
+          f"(router_aux_coef {cfg.router_aux_coef}); peak allocated {peak:.2f} GiB")
+    if not (torch.isfinite(loss).all() and torch.isfinite(aux).all()
+            and bool((aux > 0).all())):
+        fail(f"phase 20 (d) {cfg.name}: loss {loss} or aux {aux}")
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["o"], _ = step(tr.params, state["a"], state["o"], b)
+    what = "cohort train step, 4 clients" if granite else "train step, one client"
+    window = profile_window(torch, run, 3, f"{cfg.name} {what} x {batch} x "
+                            f"{MOE_SEQ} tokens, r 16")
+    out = {"rounds": rounds, "launches": counts, "peak_allocated_gib": peak,
+           "launched_shapes": {k: sorted(v, key=str) for k, v in seen.items()},
+           "step_loss": loss.tolist(), "step_aux": aux.tolist(),
+           "profiled_train_step": window}
+    del tr, state, b, step, stacked
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def dsv3_prefill(torch):
+    """(d) ``make_prefill_step(use_kernels=True)`` on DeepSeek-V3-L4 (2 x
+    512 tokens, a rank-16 adapter on the five MLA targets): ``lora_matmul``
+    16 a call (``wkv_b`` folded), no ``flash_attention`` (MLA's attention
+    is plain, as in the reference), finite logits; ms a call."""
+    from repro_torch.configs import deepseek_v3_671b, lora_targets
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.train.step import make_prefill_step
+    cfg = deepseek_v3_671b.L4
+    dev = torch.device(DEVICE)
+    params = T.init(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+    toks = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+    step = make_prefill_step(cfg, use_kernels=True)
+    step(params, ad, {"tokens": toks})
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg = step(params, ad, {"tokens": toks})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"lora_matmul": 4 * cfg.num_layers}
+    print(f"phase 20 (d): make_prefill_step(use_kernels=True) on {cfg.name}, 2 x "
+          f"512 tokens: logits {tuple(lg.shape)}, {ms:.1f} ms a call (host "
+          f"clock); launches {json.dumps(got)} (expected {json.dumps(want)})")
+    if got != want:
+        fail(f"phase 20 (d): prefill launches {got} != {want}")
+    if tuple(lg.shape) != (2, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+        fail("phase 20 (d): prefill logits")
+    del params, ad, lg
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": got}
+
+
+def moe_route_parity(torch):
+    """(e) fp32 (TF32 off) at full width and 2 layers: granite's train step
+    on the kernel route against the plain route, and the DENSE3 cut's (the
+    train step through ``mla_fwd``: ``lora_matmul`` on its projections
+    against the plain products), both at phase 7's limits
+    (:func:`step_route_parity`)."""
+    from repro_torch.configs import deepseek_v3_671b, granite_moe_1b_a400m, lora_targets
+    from repro_torch.data.synthetic import make_federated_data
+    from repro_torch.device import parity_mode
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    res = {}
+    for key, base in (("granite", granite_moe_1b_a400m.CONFIG),
+                      ("dense3", deepseek_v3_671b.DENSE3)):
+        cfg = base.replace(dtype="float32", num_layers=2,
+                           first_dense_layers=min(2, base.first_dense_layers))
+        print(f"phase 20 (e): {cfg.name} train step, kernel route vs plain "
+              f"route, full width in fp32, depth cut to 2 layers; " + parity_mode())
+        dev = torch.device(DEVICE)
+        params = T.init(cfg, 3, dev)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+        # the empty MoE segment's zero-size adapters take no gradient
+        ad["blocks"] = {i: a for i, a in ad["blocks"].items()
+                        if T.layer_plan(cfg)[i][1]}
+        data = make_federated_data(num_clients=1, seq_len=MOE_SEQ,
+                                   vocab=cfg.vocab_size, seed=5)[0]
+        batches = [{"tokens": torch.as_tensor(data.tokens[i:i + 2], device=dev).long(),
+                    "loss_mask": torch.as_tensor(data.loss_mask[i:i + 2], device=dev)}
+                   for i in (0, 2)]
+        res[key] = step_route_parity(torch, f"phase 20 (e) {cfg.name}", cfg,
+                                     params, ad, batches)
+        del params, ad, batches
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return res
 
 

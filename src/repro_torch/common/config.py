@@ -126,6 +126,18 @@ class ModelConfig:
             return moe
         return dense
 
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: only its top-k routed
+        experts), the reference's formula."""
+        if not self.num_experts:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        e_ff = self.moe_d_ff or self.d_ff
+        moe_layers = L - self.first_dense_layers
+        all_expert = moe_layers * self.num_experts * 3 * d * e_ff
+        active_expert = (all_expert // self.num_experts) * self.experts_per_token
+        return self.param_count() - all_expert + active_expert
+
 
 @dataclass(frozen=True)
 class LoRAConfig:

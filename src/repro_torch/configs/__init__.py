@@ -10,15 +10,15 @@ from repro_torch.common.config import ModelConfig
 
 #: the reference's architectures that the port carries
 PORTED = ("tinyllama_1p1b", "llama3p2_1b", "rwkv6_1p6b", "deepseek_v3_671b",
-          "qwen1p5_32b", "qwen3_4b", "qwen2p5_14b", "qwen2_0p5b")
+          "qwen1p5_32b", "qwen3_4b", "qwen2p5_14b", "qwen2_0p5b",
+          "granite_moe_1b_a400m")
 
 #: the reference's other architectures, by the slice of the port that
 #: brings each in
 NOT_PORTED = {
-    "granite_moe_1b_a400m": "MoE",
-    "phi3_vision_4p2b": "VLM and audio",
-    "musicgen_medium": "VLM and audio",
-    "zamba2_1p2b": "Mamba2 and hybrid",
+    "phi3_vision_4p2b": "ROADMAP.md Queue 1 item 8.5, VLM and audio",
+    "musicgen_medium": "ROADMAP.md Queue 1 item 8.5, VLM and audio",
+    "zamba2_1p2b": "ROADMAP.md Queue 1 item 8.6, Mamba2 and hybrid",
 }
 
 _ALIAS = {

@@ -7,15 +7,19 @@ intermediate size; the first 3 layers are dense, the remainder MoE with one
 shared expert; MLA caches only the compressed latent (kv_lora_rank 512 + 64
 RoPE dims) at decode.
 
-``DENSE3`` is what the port serves: the published widths at depth 3, i.e.
-the three dense MLA layers, plan ``[("mla_dense", 3), ("mla_moe", 0)]``.
-Cuts from ``CONFIG``:
-  * layers 4–61, the MoE layers (256 experts each, ~22.5 GB of experts per
-    layer at bf16), are cut: the port has no MoE module yet;
-  * ``mtp_depth`` stays 1 but is unused: decode never runs the MTP stream,
-    in the reference either.
-About 2.55 B parameters (per layer attention 187.1 M and MLP 44.0 M;
-embedding plus head 1.85 B): 5.1 GB in bf16, 10.2 GB in fp32.
+``DENSE3`` and ``L4`` are what the port serves and trains, both at the
+published widths:
+  * ``DENSE3``: depth 3, the three dense MLA layers, plan
+    ``[("mla_dense", 3), ("mla_moe", 0)]`` (the MoE segment empty); about
+    2.55 B parameters (per layer attention 187.1 M and MLP 44.0 M;
+    embedding plus head 1.85 B), 5.1 GB in bf16;
+  * ``L4``: depth 4, the three dense MLA layers and the first MoE layer
+    (256 routed experts top-8, one shared expert, sigmoid router), plan
+    ``[("mla_dense", 3), ("mla_moe", 1)]``; about 14.1 B parameters, 28.1
+    GB in bf16, of which the MoE layer's experts are 11.3 B (22.5 GB).
+Cuts from ``CONFIG``: layers 5–61 (57 more MoE layers, ~22.9 GB each in
+bf16: the whole model does not fit one 80 GB card); ``mtp_depth`` stays 1
+but is unused: neither package runs the MTP stream.
 """
 from repro_torch.common.config import ModelConfig
 
@@ -55,3 +59,5 @@ SMOKE = CONFIG.replace(
 )
 
 DENSE3 = CONFIG.replace(name="deepseek-v3-dense3", num_layers=3)
+
+L4 = CONFIG.replace(name="deepseek-v3-l4", num_layers=4)

@@ -4,10 +4,12 @@
 The port keeps the reference's tree layout — the same keys, the ``blocks``
 tuple, stacked ``(L, ...)`` leaves, per-layer adapter ``scale`` — so every
 conversion here is a copy without renames.  bfloat16 arrays (numpy's
-``ml_dtypes.bfloat16``) are carried bit for bit.  Zero-size leaves (the
-``(0, ...)`` parameters and adapters of DeepSeek-V3's empty MoE segment when
-the config is cut to its dense layers) are accepted and carried across as
-zero-size tensors, so the port's tree keeps the reference's structure.
+``ml_dtypes.bfloat16``) are carried bit for bit.  A MoE segment's leaves
+cross the same way: the fp32 router ``(L, d, E)``, the stacked experts
+``(L, E, d, e_ff)`` / ``(L, E, e_ff, d)`` in the model dtype and
+DeepSeek-V3's shared expert; so do the zero-size ``(0, ...)`` leaves of a
+MoE segment with no layers (DeepSeek-V3 cut to its dense layers), so the
+port's tree keeps the reference's structure.
 Mixed dtypes cross as they are: RWKV6's fp32 ``w0`` and ``u`` beside its
 bf16 weights, its ``(5, d)`` and ``(5, dl, d)`` mixing leaves included.
 

@@ -18,8 +18,11 @@ device→host copy per block (a cohort, or one client), every other leaf
   (:func:`repro_torch.train.step.make_cohort_train_step`: every projection
   of the whole cohort in one ``lora_matmul`` launch, attention at batch
   C·B).  Ragged batch sizes are zero-masked rows and the client axis is
-  padded to a power of two with inert replicas, so the cohort trains each
-  client as the sequential loop does, up to batched-matmul reassociation.
+  padded to a power of two with replicas that are never delivered, so the
+  cohort trains each client as the sequential loop does, up to
+  batched-matmul reassociation; in a MoE model a ragged client's padded
+  rows take expert capacity and enter its aux, as in the reference
+  (:func:`_stack_cohort`).
 
 ``sharded_cohort`` (the client axis over a device mesh) raises
 ``NotImplementedError``: it is ``ROADMAP.md`` Queue 1 item 9.
@@ -148,10 +151,18 @@ def _group_cohorts(plan) -> Dict[Tuple[int, int], List]:
 
 def _stack_cohort(ctx, rnd: int, tasks: List, task_init, pad_c: int):
     """Host-side prep for one cohort: replay the sequential batch draws,
-    zero-pad ragged batch sizes (padded rows carry ``loss_mask = 0`` and
-    contribute nothing to loss, gradient or the token count), stack the
-    inits and batches along a client axis, and pad the client axis to
-    ``pad_c`` with inert replicas (zero mask, so zero loss and gradients).
+    zero-pad ragged batch sizes (padded rows carry ``loss_mask = 0``),
+    stack the inits and batches along a client axis, and pad the client
+    axis to ``pad_c`` with replicas of the first client on zero masks,
+    which train only their own copies and are never delivered.
+
+    Padded rows add nothing to the CE or the token count, and in a dense,
+    MLA or RWKV6 model nothing to any gradient.  In a MoE model they are
+    not inert, as in the reference (whose ``vmap`` of one client's step
+    pads the same way): they are routed with the client's real rows, take
+    expert capacity (so they can push a real token past ``C``) and enter
+    the client's load-balancing aux.  With no row padded the cohort equals
+    the sequential runner.
 
     Returns ``(stacked adapters on the device, {"tokens", "loss_mask"} of
     shape (pad_c, steps, batch, seq), inits)``, ``inits`` the unpadded

@@ -7,7 +7,8 @@ of ``repro.launch.fed`` for the flags this slice supports.
       [--scheduler partial|async|sampled] [--participation 0.1] \
       [--rank-policy resource] [--dp-clip 1.0 --dp-epsilon 8] \
       [--validation full] [--min-clients 2] [--fault-drop 0.2 ...] \
-      [--crash-at 2:mid_round] [--checkpoint PATH [--resume]] [--device cpu]
+      [--crash-at 2:mid_round] [--checkpoint PATH [--resume]] \
+      [--arch granite-moe-1b-a400m [--smoke]] [--device cpu]
 
 ``--method`` takes any registered aggregation strategy (the paper's five:
 ``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``); ``--codec``
@@ -18,8 +19,11 @@ ROUND:POINT`` drive the deterministic fault injector.  ``--runner
 sharded_cohort`` raises: it is ``ROADMAP.md`` Queue 1 item 9.
 It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
 without ``--device cpu`` it raises.  The model is the reference launcher's
-small dense config (``--layers``, ``--d-model``), and heterogeneous ranks
-follow the paper's heavy-tail distribution scaled to ``--clients``.
+small dense config (``--layers``, ``--d-model``), or with ``--arch`` a
+ported architecture (``--smoke``: its reduced config; random seeded
+weights, LoRA on the family's targets, 64 tokens a row), and
+heterogeneous ranks follow the paper's heavy-tail distribution scaled to
+``--clients``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import json
 
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
+from repro_torch.configs import get_config, get_smoke_config, lora_targets
 from repro_torch.core.aggregators import available_aggregators
 from repro_torch.core.federated import FederatedTrainer
 from repro_torch.core.privacy import noise_multiplier_for_epsilon
@@ -70,6 +75,11 @@ def main(argv=None):
                          "(overrides --dp-sigma)")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--arch", default="",
+                    help="a ported architecture (default: the small dense "
+                         "config of --layers and --d-model)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: its reduced smoke config")
     ap.add_argument("--out", default="")
     ap.add_argument("--checkpoint", default="",
                     help="round-boundary checkpoint path (atomic writes)")
@@ -118,10 +128,15 @@ def main(argv=None):
                            nan=args.fault_nan, scale=args.fault_scale,
                            slow=args.fault_slow, crashes=crashes)
 
-    cfg = ModelConfig(name="fed-cli", family="dense", num_layers=args.layers,
-                      d_model=args.d_model, num_heads=4, num_kv_heads=2,
-                      head_dim=args.d_model // 4, d_ff=2 * args.d_model,
-                      vocab_size=512, dtype="float32")
+    if args.arch:
+        cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+        lora = LoRAConfig(rank=16, alpha=16.0, targets=lora_targets(cfg))
+    else:
+        cfg = ModelConfig(name="fed-cli", family="dense", num_layers=args.layers,
+                          d_model=args.d_model, num_heads=4, num_kv_heads=2,
+                          head_dim=args.d_model // 4, d_ff=2 * args.d_model,
+                          vocab_size=512, dtype="float32")
+        lora = LoRAConfig(rank=16, alpha=16.0)
     # paper's heavy-tail heterogeneous rank distribution, scaled to --clients
     c = args.clients
     dist = ((4, 4 * c // 10), (8, 2 * c // 10), (16, 2 * c // 10),
@@ -131,7 +146,7 @@ def main(argv=None):
                     dirichlet_alpha=args.alpha, heterogeneous=args.heter,
                     rank_distribution=dist,
                     zero_padding=args.heter and args.method in ("fedit", "ffa"))
-    tr = FederatedTrainer(cfg, fed, LoRAConfig(rank=16, alpha=16.0),
+    tr = FederatedTrainer(cfg, fed, lora,
                           OptimConfig(lr=3e-4), local_steps=args.local_steps,
                           svd_method=args.svd, dp_clip=args.dp_clip,
                           dp_sigma=dp_sigma, runner=args.runner,

@@ -13,7 +13,9 @@ through ``decode_impl="kernel"``.  Part-way through, one adapter name is
 ``swap``-ped to a new version: rows admitted on the old id finish on it, new
 requests go to the new id.  Weights are random (seeded) at the
 configuration's published widths; DeepSeek-V3 is cut to its three dense MLA
-layers (``configs.deepseek_v3_671b.DENSE3``); RWKV6-1.6B runs whole, one
+layers (``configs.deepseek_v3_671b.DENSE3``) or to those and its first MoE
+layer (``deepseek_v3_l4``, 28.1 GB in bf16); granite-moe-1b-a400m runs
+whole (32 experts top-8 a layer); RWKV6-1.6B runs whole, one
 token per engine step (its recurrent state takes no chunks).  Qwen2-0.5B
 and Qwen3-4B run whole; Qwen2.5-14B is cut to 8 of its 48 layers
 (``qwen2p5_14b_l8``) and Qwen1.5-32B to 4 of its 64 (``qwen1p5_32b_l4``).
@@ -22,9 +24,13 @@ and Qwen3-4B run whole; Qwen2.5-14B is cut to 8 of its 48 layers
     python -m repro_torch.launch.serve --config deepseek_v3_dense3
     python -m repro_torch.launch.serve --config rwkv6_1p6b
     python -m repro_torch.launch.serve --config qwen3_4b
+    python -m repro_torch.launch.serve --config granite_moe_1b_a400m
+    python -m repro_torch.launch.serve --config deepseek_v3_l4
     python -m repro_torch.launch.serve --config smoke --device cpu
     python -m repro_torch.launch.serve --config deepseek_smoke --device cpu
     python -m repro_torch.launch.serve --config rwkv_smoke --device cpu
+    python -m repro_torch.launch.serve --config granite_smoke --device cpu
+    python -m repro_torch.launch.serve --config deepseek_moe_smoke --device cpu
 """
 from __future__ import annotations
 
@@ -35,9 +41,9 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import (deepseek_v3_671b, llama3p2_1b, lora_targets,
-                                 qwen1p5_32b, qwen2_0p5b, qwen2p5_14b, qwen3_4b,
-                                 rwkv6_1p6b)
+from repro_torch.configs import (deepseek_v3_671b, granite_moe_1b_a400m,
+                                 llama3p2_1b, lora_targets, qwen1p5_32b,
+                                 qwen2_0p5b, qwen2p5_14b, qwen3_4b, rwkv6_1p6b)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
@@ -61,10 +67,14 @@ CONFIGS = {
                        (32, 256)),
     "qwen1p5_32b_l4": (qwen1p5_32b.CONFIG.replace(num_layers=4), 1024, 16,
                        (32, 256)),
+    "granite_moe_1b_a400m": (granite_moe_1b_a400m.CONFIG, 1024, 16, (32, 256)),
+    "deepseek_v3_l4": (deepseek_v3_671b.L4, 1024, 16, (32, 256)),
     "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24)),
     "deepseek_smoke": (deepseek_v3_671b.SMOKE.replace(first_dense_layers=3),
                        64, 4, (4, 24)),
     "rwkv_smoke": (rwkv6_1p6b.SMOKE, 64, 4, (4, 24)),
+    "granite_smoke": (granite_moe_1b_a400m.SMOKE, 64, 4, (4, 24)),
+    "deepseek_moe_smoke": (deepseek_v3_671b.SMOKE, 64, 4, (4, 24)),
 }
 
 

@@ -3,7 +3,8 @@ masks for decode attention, the streamed decode route
 (``ring_flash_decode``, ``mla_ring_flash_decode``: an online softmax over
 kv blocks of the ring, the reference's XLA flash-decoding), and
 ``flash_torch``, the chunked online-softmax attention of full sequences
-(``flash_jax``).
+(``flash_jax``), and ``mla_absorbed``, MLA's full-sequence attention in
+the absorbed form.
 
 Slot ``s`` of a row's ring holds absolute position
 ``p_abs = last - (last - s) mod cap`` with ``last = pos - 1``.  The modulo is
@@ -15,6 +16,7 @@ a floor modulo: ``last - s`` is negative for slots never written
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -197,7 +199,8 @@ def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 
 
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool = True, window: int = 0, q_chunk: int = 512,
+                causal: bool = True, window: int = 0,
+                scale: Optional[float] = None, q_chunk: int = 512,
                 kv_chunk: int = 1024) -> torch.Tensor:
     """q: (B,S,H,dq), k: (B,T,K,dq), v: (B,T,K,dv) -> (B,S,H,dv) fp32.
 
@@ -205,13 +208,14 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     O(B·H·bq·bk), the port of ``flash_jax`` (a Python loop replaces the two
     scans).  Differentiable by autograd; it is the port's non-kernel
     training attention and what the ``flash_attention`` kernel's backward
-    recomputes through.  Scores are scaled by 1/√dq.
+    recomputes through.  Scores are scaled by ``scale``, by default 1/√dq.
     """
     B, S, H, dq = q.shape
     T, K = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = H // K
-    scale = 1.0 / math.sqrt(dq)
+    if scale is None:
+        scale = 1.0 / math.sqrt(dq)
     bq, bk = min(q_chunk, S), min(kv_chunk, T)
     if S % bq or T % bk:
         raise ValueError(f"chunks ({bq}, {bk}) must divide (S, T) = ({S}, {T})")
@@ -242,3 +246,36 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp(l_run, min=1e-30)[..., None]  # (B,K,g,bq,dv)
         outs.append(out.permute(0, 3, 1, 2, 4))                # (B,bq,K,g,dv)
     return torch.stack(outs, dim=1).reshape(B, S, H, dv)
+
+
+def mla_absorbed(q_nope, q_rope, c_kv, k_rope, w_kvb, *, num_heads: int,
+                 nope_dim: int, v_dim: int, causal: bool = True,
+                 window: int = 0, q_chunk: int = 512,
+                 kv_chunk: int = 1024) -> torch.Tensor:
+    """Absorbed-MLA attention over a full sequence (the reference's
+    single-device ``mla_absorbed``).
+
+    q_nope (B,S,H,nope), q_rope (B,S,H,rope), c_kv (B,T,kvr), k_rope
+    (B,T,rope); ``w_kvb`` (kvr, H·(nope+v_dim)) is the latent
+    up-projection, its key part absorbed into the queries and its value
+    part applied after the attention, or a cohort's (C, kvr, ...) with one
+    weight a client (client c's rows at [c·B/C, (c+1)·B/C)).  One "kv head"
+    (MQA): keys ``[c_kv | k_rope]``, queries ``[q_nope·W_k | q_rope]``,
+    values the latent, through :func:`flash_torch` at the un-absorbed
+    scale 1/√(nope + rope).  Returns (B,S,H,v_dim) fp32."""
+    B, S, H, _ = q_nope.shape
+    kvr = c_kv.shape[-1]
+    scale = 1.0 / math.sqrt(nope_dim + q_rope.shape[-1])
+    G = w_kvb.shape[0] if w_kvb.dim() == 3 else 1
+    w = w_kvb.reshape(G, kvr, H, nope_dim + v_dim).float()
+    w_k, w_v = w[..., :nope_dim], w[..., nope_dim:]
+    qn = q_nope.float().reshape(G, B // G, S, H, nope_dim)
+    q_lat = torch.einsum("gbshn,gkhn->gbshk", qn, w_k).reshape(B, S, H, kvr)
+    q_eff = torch.cat([q_lat, q_rope.float()], dim=-1)
+    k_eff = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :].float()
+    v_eff = c_kv[:, :, None, :].float()
+    out_lat = flash_torch(q_eff, k_eff, v_eff, causal=causal, window=window,
+                          scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out_lat = out_lat.reshape(G, B // G, S, H, kvr)
+    return torch.einsum("gbshk,gkhv->gbshv", out_lat, w_v).reshape(
+        B, S, H, v_dim)

@@ -1,7 +1,8 @@
 """Transformer layers (port of the dense and MLA subset of
 ``repro.models.layers``): RMSNorm, RoPE, GQA attention over full sequences
 (train / eval) and the cached decode path, DeepSeek-V3's multi-head latent
-attention (MLA) on the cached decode path, SwiGLU MLP.  Plain functions on
+attention (MLA) over full sequences and on the cached decode path, SwiGLU
+MLP.  Plain functions on
 tensors over parameter dicts that keep the reference's layout and keys.
 
 ``use_kernel`` routes the LoRA projections through the fused
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.attention_core import (flash_torch,
+from repro_torch.models.attention_core import (flash_torch, mla_absorbed,
                                               mla_ring_flash_decode,
                                               ring_attend_mask,
                                               ring_flash_decode)
@@ -230,24 +231,93 @@ def init_mla(cfg: ModelConfig, generator: torch.Generator, L: int,
     }
 
 
-def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions):
+def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
+             use_kernel: bool = False):
     """x (B,S,d) -> q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the
     normed latent c_kv (B,S,kvr) and the roped shared key k_rope (B,S,rope)."""
     B, S, _ = x.shape
     H = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     a = adapters or {}
-    q = lora_proj(x, p["wq_a"], a.get("wq_a"))
+    q = lora_proj(x, p["wq_a"], a.get("wq_a"), use_kernel)
     q = rmsnorm(q, p["q_a_norm"], cfg.norm_eps)
-    q = lora_proj(q, p["wq_b"], a.get("wq_b")).reshape(B, S, H, nope + rope)
+    q = lora_proj(q, p["wq_b"], a.get("wq_b"), use_kernel).reshape(
+        B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    kv = lora_proj(x, p["wkv_a"], a.get("wkv_a"))
+    kv = lora_proj(x, p["wkv_a"], a.get("wkv_a"), use_kernel)
     c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
     cos, sin = rope_freqs(rope, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[..., None, :], cos, sin)       # (B,S,1,rope)
     c_kv = rmsnorm(c_kv, p["kv_a_norm"], cfg.norm_eps)
     return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+
+
+def fold_lora(w: torch.Tensor, adapter: Dict) -> torch.Tensor:
+    """``w + scale · (B A)ᵀ`` in ``w``'s dtype: a classic leaf's delta
+    folded into the weight (kvr, out), or a cohort leaf's (A (C, r, kvr), B
+    (C, out, r), scale (C,)) into one weight a client, (C, kvr, out)."""
+    A, Bm, s = adapter["A"], adapter["B"], adapter["scale"]
+    if A.dim() == 2:
+        return w + ((Bm @ A).t() * s).to(w.dtype)
+    delta = (Bm @ A).mT * s.reshape(-1, 1, 1)
+    return w[None] + delta.to(w.dtype)
+
+
+def _mla_expand_kv(cfg: ModelConfig, p: Params, c_kv, adapters,
+                   use_kernel: bool = False):
+    """The latent c_kv (B,T,kvr) expanded to per-head k_nope (B,T,H,nope)
+    and v (B,T,H,vd) through ``wkv_b``."""
+    B, T, _ = c_kv.shape
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    a = adapters or {}
+    kv = lora_proj(c_kv, p["wkv_b"], a.get("wkv_b"), use_kernel).reshape(
+        B, T, cfg.num_heads, nope + vd)
+    return kv[..., :nope], kv[..., nope:]
+
+
+def mla_fwd(cfg: ModelConfig, p: Params, x, adapters=None, positions=None,
+            use_kernel: bool = False) -> torch.Tensor:
+    """MLA over a full sequence (train / prefill), x (B,S,d), the
+    reference's two routes: when ``S % min(S, 512) == 0`` the absorbed
+    route (:func:`~repro_torch.models.attention_core.mla_absorbed`: MQA of
+    the absorbed queries against the latent stream, the per-head K/V never
+    made; a ``wkv_b`` adapter is folded into the weight, per client for a
+    cohort), otherwise the expanded route (``wkv_b`` expands the latent
+    to per-head keys and values, dense causal attention).  A
+    :class:`PagedLoRA` adapter raises on the absorbed route: paged adapters
+    run on the decode path.  ``use_kernel`` sends ``wq_a``, ``wq_b``,
+    ``wkv_a``, ``wo`` (and the expanded route's ``wkv_b``) through
+    ``lora_matmul``; the attention itself is plain on both routes, as in
+    the reference."""
+    B, S, _ = x.shape
+    H, nope, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    a = adapters or {}
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, adapters, positions,
+                                            use_kernel)
+    if S % min(S, 512) == 0:
+        a_kvb = a.get("wkv_b")
+        if isinstance(a_kvb, PagedLoRA):
+            raise NotImplementedError(
+                "paged multi-tenant adapters only run through the decode "
+                "path (mla_decode); mla_fwd is the training/full-seq path")
+        w_kvb = p["wkv_b"] if a_kvb is None else fold_lora(p["wkv_b"], a_kvb)
+        o = mla_absorbed(q_nope, q_rope, c_kv.float(), k_rope.float(), w_kvb,
+                         num_heads=H, nope_dim=nope, v_dim=vd, causal=True,
+                         window=cfg.sliding_window)
+    else:
+        k_nope, v = _mla_expand_kv(cfg, p, c_kv, adapters, use_kernel)
+        scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+        s = (torch.einsum("bshc,bthc->bhst", q_nope.float(), k_nope.float())
+             + torch.einsum("bshc,btc->bhst", q_rope.float(), k_rope.float()))
+        s = s * scale
+        mask = causal_mask(S, S, cfg.sliding_window, x.device)
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+        o = torch.einsum("bhst,bthv->bshv", torch.softmax(s, dim=-1), v.float())
+    o = o.reshape(B, S, H * vd).to(x.dtype)
+    return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
@@ -293,8 +363,7 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
         v_ein = "bshk,bkhv->bshv"
     else:
         if a_kvb is not None:     # fold the LoRA delta into the absorbed weight
-            w_kvb = w_kvb + ((a_kvb["B"] @ a_kvb["A"]).t()
-                             * a_kvb["scale"]).to(w_kvb.dtype)
+            w_kvb = fold_lora(w_kvb, a_kvb)
         w = w_kvb.reshape(kvr, H, nope + vd).float()
         w_k, w_v = w[..., :nope], w[..., nope:]
         q_lat = torch.einsum("bshn,khn->bshk", q_nope.float(), w_k)
@@ -329,8 +398,10 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, L: int,
-             dtype: torch.dtype) -> Params:
-    d, ff = cfg.d_model, cfg.d_ff
+             dtype: torch.dtype, d_ff: int = 0) -> Params:
+    """Stacked SwiGLU weights of ``L`` layers, ``d_ff`` wide (default the
+    config's; a MoE's shared expert passes its own)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": dense_init(generator, (L, d, ff), d, dtype),
         "w_up": dense_init(generator, (L, d, ff), d, dtype),

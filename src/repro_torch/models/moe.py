@@ -1,0 +1,182 @@
+"""Mixture-of-Experts layer (port of ``repro.models.moe``): token-choice
+top-k routing, capacity-bounded sort-based dispatch, and the experts as
+grouped products; granite-moe (32 experts, top-8, softmax router) and
+DeepSeek-V3 (256 routed experts top-8 with sigmoid scores, plus one shared
+expert).
+
+Dispatch follows the reference step for step, so the same tokens keep the
+same experts and the same capacity slots: a stable sort of the flattened
+``(token, choice)`` pairs by expert, ``searchsorted`` for each expert's
+first sorted entry, a slot ``pos < C`` kept and the rest sent to a dummy
+expert row ``E`` of an ``(E + 1, C, d)`` buffer, the experts as batched
+products over ``(E, C, d)``.  The slots are then carried back to token
+order (the sort permutation inverted), so the combine gathers each
+token's k rows into ``(T, k, d)`` and sums over k in a fixed order, and
+two calls give the same bits; the reference scatter-adds them in sorted
+order (an ``index_add_`` on CUDA sums with atomics).  The whole path makes
+no host synchronisation (no ``item``, ``nonzero``, boolean-mask indexing or
+data-dependent shapes), so the serving engine captures it in its graphs.
+
+``groups`` routes G slabs of tokens each on their own, with the capacity
+of one slab: the cohort step's clients, as the reference's ``vmap`` of one
+client's step routes each client's rows alone.
+
+The reference's ``_moe_fwd_sharded`` (expert parallelism over a mesh) has
+no counterpart: the port runs on one device (``ROADMAP.md`` Queue 1 item
+9).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import layers as Lyr
+
+Params = Dict[str, Any]
+
+#: largest fp32 temporary (elements) that ``init_moe`` draws at once
+INIT_CHUNK = 1 << 28
+
+
+def _normal_stack(gen: torch.Generator, shape, in_dim: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/in_dim) weights of ``shape`` = (L, E, a, b), drawn a few
+    experts at a time into the model dtype, so no fp32 temporary of the
+    whole stack is made (one DeepSeek-V3 layer's is 15 GB)."""
+    L, E, a, b = shape
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    n = max(1, min(E, INIT_CHUNK // max(1, a * b)))
+    std = in_dim ** -0.5
+    for li in range(L):
+        for e0 in range(0, E, n):
+            e1 = min(E, e0 + n)
+            w = torch.randn((e1 - e0, a, b), generator=gen, device=gen.device)
+            out[li, e0:e1] = (w * std).to(dtype)
+    return out
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, L: int,
+             dtype: torch.dtype) -> Params:
+    """Stacked MoE weights of ``L`` layers: the router ``(L, d, E)`` in
+    fp32, the experts ``w_gate``/``w_up`` ``(L, E, d, e_ff)`` and
+    ``w_down`` ``(L, E, e_ff, d)`` in the model dtype, and DeepSeek-V3's
+    shared expert (a SwiGLU of ``e_ff · num_shared_experts``).  ``L = 0``
+    gives the zero-size leaves of an empty segment."""
+    d, E = cfg.d_model, cfg.num_experts
+    e_ff = cfg.moe_d_ff or cfg.d_ff
+    p = {"router": Lyr.dense_init(gen, (L, d, E), d, torch.float32),
+         "w_gate": _normal_stack(gen, (L, E, d, e_ff), d, dtype),
+         "w_up": _normal_stack(gen, (L, E, d, e_ff), d, dtype),
+         "w_down": _normal_stack(gen, (L, E, e_ff, d), e_ff, dtype)}
+    if cfg.num_shared_experts:
+        p["shared"] = Lyr.init_mlp(cfg, gen, L, dtype,
+                                   d_ff=e_ff * cfg.num_shared_experts)
+    return p
+
+
+def router_scores(cfg: ModelConfig, router_w: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(..., E) routing probabilities in fp32: a softmax, or DeepSeek-V3's
+    sigmoid."""
+    logits = x.float() @ router_w
+    if cfg.router_sigmoid:
+        return torch.sigmoid(logits)
+    return torch.softmax(logits, dim=-1)
+
+
+def _capacity(cfg: ModelConfig, num_tokens: int) -> int:
+    """Slots per expert: ``int(f·T·k/E)`` rounded up to a multiple of 8,
+    at least 8 (the reference's arithmetic, in Python)."""
+    k, E = cfg.experts_per_token, cfg.num_experts
+    c = int(cfg.moe_capacity_factor * num_tokens * k / E)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def _route_and_dispatch(cfg: ModelConfig, router_w: torch.Tensor,
+                        xt: torch.Tensor, C: int):
+    """Top-k routing and capacity dispatch of G token slabs ``xt (G, T,
+    d)``, each routed on its own.  Returns the expert buffer ``(G, E, C,
+    d)``, the combine metadata ``(dst_e, dst_c, w)`` of shape (G, T·k) in
+    token order (entry t·k + j is token t's j-th choice: its expert, or E
+    where dropped, its slot and its weight, 0 where dropped) and the
+    load-balancing loss per slab ``(G,)``."""
+    G, T, d = xt.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    dev = xt.device
+    probs = router_scores(cfg, router_w, xt)                   # (G, T, E)
+    top_w, top_e = torch.topk(probs, k, dim=-1)                # (G, T, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balancing loss; the one-hot counts as a comparison
+    experts = torch.arange(E, device=dev)
+    me = probs.mean(1)                                          # (G, E)
+    ce = (top_e[..., None] == experts).float().sum(2).mean(1)   # (G, E)
+    aux = E * (me * ce).sum(-1)
+
+    flat_e = top_e.reshape(G, T * k)        # entry t·k + j: token t's j-th choice
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(1, order)                                # sorted experts
+    seg_start = torch.searchsorted(se, experts.expand(G, E).contiguous(),
+                                   right=False)                 # (G, E)
+    pos_sorted = torch.arange(T * k, device=dev) - seg_start.gather(1, se)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < C
+    dst_e = torch.where(keep, flat_e, torch.full_like(flat_e, E))
+    dst_c = torch.where(keep, pos, torch.zeros_like(pos))
+    # one scatter along the slot axis (advanced indexing's backward, with
+    # each token k times, sorts on the card)
+    rows = xt[:, :, None, :].expand(G, T, k, d).reshape(G, T * k, d)
+    slot = (dst_e * C + dst_c)[..., None].expand(G, T * k, d)
+    buf = torch.zeros((G, (E + 1) * C, d), dtype=xt.dtype, device=dev)
+    buf = buf.scatter(1, slot, rows).reshape(G, E + 1, C, d)
+    w = top_w.reshape(G, T * k) * keep
+    return buf[:, :E], (dst_e, dst_c, w), aux
+
+
+def _combine(eo: torch.Tensor, meta, k: int) -> torch.Tensor:
+    """Each token's k expert outputs, weighted and summed in choice order:
+    ``eo (G, E, C, d)`` -> ``(G, T, d)``; a dropped choice has weight 0."""
+    dst_e, dst_c, w = meta
+    G, E, C, d = eo.shape
+    n = dst_e.shape[1]
+    slot = ((dst_e % E) * C + dst_c)[..., None].expand(G, n, d)
+    rows = eo.reshape(G, E * C, d).gather(1, slot) * w[..., None].to(eo.dtype)
+    return rows.reshape(G, n // k, k, d).sum(2)
+
+
+def _experts(p: Params, ebuf: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert on its slots: ``ebuf (E, N, d)`` ->
+    ``(E, N, d)``, the SiLU in fp32 as in the reference."""
+    g = torch.bmm(ebuf, p["w_gate"])
+    u = torch.bmm(ebuf, p["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(ebuf.dtype) * u
+    return torch.bmm(h, p["w_down"])
+
+
+def moe_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            adapters: Optional[Dict] = None, groups: int = 0,
+            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux loss).
+
+    ``groups`` = G > 0 splits the batch into G slabs of B/G rows routed
+    each on its own, capacity from one slab's tokens, and returns aux of
+    shape (G,) (the cohort step's clients); 0 routes all B·S tokens at
+    once and returns a scalar aux.  The shared expert (DeepSeek-V3) runs
+    on every token through :func:`repro_torch.models.layers.mlp_fwd` with
+    ``adapters["shared"]`` (``use_kernel`` as there)."""
+    B, S, d = x.shape
+    G = groups or 1
+    xt = x.reshape(G, (B // G) * S, d)
+    T = xt.shape[1]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = _capacity(cfg, T)
+    buf, meta, aux = _route_and_dispatch(cfg, p["router"], xt, C)
+    eo = _experts(p, buf.transpose(0, 1).reshape(E, G * C, d))
+    out = _combine(eo.reshape(E, G, C, d).transpose(0, 1), meta, k)
+    out = out.reshape(B, S, d)
+    if cfg.num_shared_experts:
+        out = out + Lyr.mlp_fwd(p["shared"], x, (adapters or {}).get("shared"),
+                                use_kernel=use_kernel)
+    return out, (aux if groups else aux[0])

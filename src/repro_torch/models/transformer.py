@@ -1,16 +1,17 @@
-"""Model assembly for the dense, MLA and RWKV6 families (port of the
-dense, MLA and RWKV paths of ``repro.models.transformer``).
+"""Model assembly for the dense, MoE, MLA and RWKV6 families (port of
+the dense, MoE, MLA and RWKV paths of ``repro.models.transformer``).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a tuple of
 segments, each a dict of stacked ``(L, ...)`` leaves under the reference's
-keys, so converting a reference tree is a copy without renames.  A Python
-loop over the stacked layers replaces ``lax.scan``.
+keys (a MoE layer's experts ``(L, E, d, e_ff)``), so converting a reference
+tree is a copy without renames.  A Python loop over the stacked layers
+replaces ``lax.scan``.
 
-DeepSeek-V3's plan is ``[("mla_dense", k), ("mla_moe", L - k)]``.  The port
-has no MoE module yet: a MoE segment with layers raises, and the empty one
-of a config cut to its dense layers (``L == k``) is kept with zero-size
-``(0, ...)`` leaves, so the trees keep the reference's structure.  MLA runs
-only on the cached decode path so far; ``forward`` raises for it.  RWKV6
+granite-moe's plan is ``[("moe", L)]``; DeepSeek-V3's is ``[("mla_dense",
+k), ("mla_moe", L - k)]`` (the MoE segment empty, with zero-size ``(0,
+...)`` leaves, when a config is cut to its dense layers).  ``forward``
+sums the MoE layers' load-balancing losses into its aux.  MLA runs over
+full sequences (``mla_fwd``) and on the cached decode path.  RWKV6
 (``family="ssm"``) is one ``("rwkv", L)`` segment: ``forward`` runs the
 whole sequence (the ``wkv6`` kernel with ``use_kernels``), ``decode`` steps
 the recurrent state one token at a time.
@@ -33,6 +34,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as Lyr
+from repro_torch.models import moe as Moe
 from repro_torch.models import rwkv as Rwkv
 from repro_torch.peft.lora import PagedLoRA
 from repro_torch.serve import kvcache as Kv
@@ -46,15 +48,20 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """The reference's segment plan.  Families the port lacks (hybrid,
-    VLM, audio) and MoE segments with layers raise ``NotImplementedError``."""
+    """The reference's segment plan.  Families the port lacks raise
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them
+    (VLM and audio: item 8.5; hybrid: item 8.6, Mamba2 and hybrid)."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         return [("rwkv", L)]
     if cfg.family not in ("dense", "moe"):
+        item = {"vlm": "item 8.5, VLM and audio",
+                "audio": "item 8.5, VLM and audio",
+                "hybrid": "item 8.6, Mamba2 and hybrid"}.get(cfg.family,
+                                                             "no item")
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: the port serves "
-            "dense models, DeepSeek-V3's dense MLA layers and RWKV6")
+            f"the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 "
+            f"{item}): the port runs dense, MoE, MLA and RWKV6 models")
     if cfg.num_experts:
         kind = "mla_moe" if cfg.use_mla else "moe"
         dense_kind = "mla_dense" if cfg.use_mla else "dense"
@@ -63,37 +70,14 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
                 if cfg.first_dense_layers else [(kind, L)])
     else:
         plan = [("mla_dense" if cfg.use_mla else "dense", L)]
-    for kind, count in plan:
-        if kind.endswith("moe") and count:
-            raise NotImplementedError(
-                f"{cfg.name}: {count} {kind!r} layers; MoE (models/moe.py) is "
-                "not ported yet: cut the config to its dense layers "
-                "(num_layers = first_dense_layers)")
     return plan
-
-
-def _empty_moe(cfg: ModelConfig, dtype: torch.dtype, dev) -> Params:
-    """Zero-size ``(0, ...)`` leaves with the shapes and dtypes of the
-    reference's ``init_moe``: the parameters of an empty MoE segment."""
-    d, E = cfg.d_model, cfg.num_experts
-    e_ff = cfg.moe_d_ff or cfg.d_ff
-
-    def z(*shape, dt=dtype):
-        return torch.zeros((0,) + shape, dtype=dt, device=dev)
-
-    p = {"router": z(d, E, dt=torch.float32), "w_gate": z(E, d, e_ff),
-         "w_up": z(E, d, e_ff), "w_down": z(E, e_ff, d)}
-    if cfg.num_shared_experts:
-        sff = e_ff * cfg.num_shared_experts
-        p["shared"] = {"w_gate": z(d, sff), "w_up": z(d, sff),
-                       "w_down": z(sff, d)}
-    return p
 
 
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator``, with the
     reference's distributions: embedding N(0, 0.02²), projections
-    N(0, 1/fan_in), norms one."""
+    N(0, 1/fan_in), norms one.  Expert stacks are drawn a few experts at a
+    time on the device (:func:`repro_torch.models.moe.init_moe`)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -115,8 +99,8 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
         blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
                "attn": attn_init(cfg, gen, L, dtype),
                "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
-        if kind.endswith("moe"):             # empty: layer_plan raised otherwise
-            blk["moe"] = _empty_moe(cfg, dtype, dev)
+        if kind.endswith("moe"):
+            blk["moe"] = Moe.init_moe(cfg, gen, L, dtype)
         else:
             blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
         blocks.append(blk)
@@ -134,8 +118,10 @@ def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tens
 
 
 def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
-               use_kernels: bool):
-    """One dense or RWKV6 layer over a full sequence."""
+               use_kernels: bool, groups: int = 0):
+    """One layer over a full sequence.  Returns (x, aux): a MoE layer's
+    load-balancing loss (per cohort client, (groups,), when ``groups``),
+    else None."""
     a = a or {}
     if kind == "rwkv":
         h, _ = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -144,42 +130,51 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
         h, _ = Rwkv.channel_mix(cfg, p["mix"],
                                 Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
                                 a.get("mix"), use_kernel=use_kernels)
-        return x + h
-    h = Lyr.attention_fwd(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                          a.get("attn"), use_kernel=use_kernels)
+        return x + h, None
+    attn_fn = Lyr.mla_fwd if kind.startswith("mla") else Lyr.attention_fwd
+    h = attn_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                a.get("attn"), use_kernel=use_kernels)
     x = x + h
-    h = Lyr.mlp_fwd(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
-                    a.get("mlp"), use_kernel=use_kernels)
-    return x + h
+    xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind.endswith("moe"):
+        h, aux = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"), groups=groups,
+                             use_kernel=use_kernels)
+        return x + h, aux
+    h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), use_kernel=use_kernels)
+    return x + h, None
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict,
             adapters: Optional[Dict] = None, use_kernels: bool = False,
-            cohort: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            cohort: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]: (B, S)``.  Returns
-    (final hidden (B,S,d), aux loss), aux being zero for the dense and RWKV6
-    families.  ``use_kernels`` routes attention, the WKV recurrence and the
-    LoRA projections through the ``flash_attention``, ``wkv6`` and
-    ``lora_matmul`` kernels.  ``cohort``: ``adapters`` is a stack of C
-    clients' trees (a leading client axis on every leaf, the layer axis
-    second) and the batch holds the clients' rows in order, B = C·B_c;
-    everything shared runs once at batch B.  The reference's ``remat`` has
-    no counterpart: autograd keeps the activations."""
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "the full-sequence MLA forward (mla_fwd / mla_absorbed) is not "
-            "ported yet: MLA runs on the cached decode path (decode); its "
-            "training path is a later slice")
+    (final hidden (B,S,d), aux loss): the sum of the MoE layers'
+    load-balancing losses, zero for the other families.  ``use_kernels``
+    routes GQA attention, the WKV recurrence and the LoRA projections
+    through the ``flash_attention``, ``wkv6`` and ``lora_matmul`` kernels
+    (MLA's attention is plain on both of its routes, as in the reference).
+    ``cohort`` = C > 0: ``adapters`` is a stack of C clients' trees (a
+    leading client axis on every leaf, the layer axis second) and the batch
+    holds the clients' rows in order, B = C·B_c; everything shared runs once at
+    batch B, except that a MoE layer routes each client's rows on their
+    own with one client's capacity (the reference ``vmap``s one client's
+    step), and aux is per client, shape (C,).  The reference's ``remat``
+    has no counterpart: autograd keeps the activations."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
+    aux = torch.zeros((cohort,) if cohort else (), dtype=torch.float32,
+                      device=x.device)
     for seg_i, (kind, count) in enumerate(layer_plan(cfg)):
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
         for i in range(count):
-            x = _block_fwd(cfg, kind, _layer(seg_p, i), x,
-                           _layer(seg_a, i, 1 if cohort else 0), use_kernels)
+            x, aux_l = _block_fwd(cfg, kind, _layer(seg_p, i), x,
+                                  _layer(seg_a, i, 1 if cohort else 0),
+                                  use_kernels, cohort)
+            if aux_l is not None:
+                aux = aux + aux_l
     x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -232,9 +227,11 @@ def _mask_state_rows(new: Dict, old: Dict, n_tokens) -> Dict:
 
 def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                   n_tokens=None, decode_impl: str = "dense"):
-    """One dense, MLA-dense or RWKV6 layer, one token chunk.  An RWKV6
+    """One dense, MoE, MLA or RWKV6 layer, one token chunk.  An RWKV6
     layer takes one token (C = 1) and writes its new state into the
-    cache's buffers in place."""
+    cache's buffers in place.  A MoE layer routes the chunk's B·C tokens
+    at once, as the reference's decode does (rows with ``n_tokens`` 0
+    take capacity too)."""
     a = a or {}
     if kind == "rwkv":
         if x.shape[1] != 1:
@@ -254,8 +251,11 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                       cache, a.get("attn"), n_tokens=n_tokens,
                       decode_impl=decode_impl)
     x = x + h
-    h = Lyr.mlp_fwd(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
-                    a.get("mlp"))
+    xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if kind.endswith("moe"):
+        h, _ = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"))
+    else:
+        h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"))
     return x + h, cache
 
 

@@ -34,7 +34,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 def schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     s = step.float()
-    lr = torch.tensor(cfg.lr, dtype=torch.float32, device=s.device)
+    # a fill on the device: a copy from the host would sync the stream
+    lr = torch.full((), cfg.lr, dtype=torch.float32, device=s.device)
     warm = (torch.clamp((s + 1) / cfg.warmup_steps, max=1.0)
             if cfg.warmup_steps else 1.0)
     if cfg.schedule in ("cosine", "linear"):

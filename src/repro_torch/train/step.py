@@ -5,9 +5,10 @@ through the frozen base into the adapter tree only (A, B and the per-layer
 ``scale``, as the reference's ``value_and_grad`` over the whole tree does),
 and AdamW updates those leaves.  ``use_kernels`` runs attention and the
 LoRA projections through the ``flash_attention`` and ``lora_matmul``
-kernels in both steps.  ``make_prefill_step`` is the full-sequence forward
-that serves a prompt's next-token logits (RWKV6's recurrence through the
-``wkv6`` kernel with ``use_kernels``); ``make_serve_step`` the chunked
+kernels in both steps; a MoE config's loss adds ``router_aux_coef · aux``.
+``make_prefill_step`` is the full-sequence forward that serves a prompt's
+next-token logits (RWKV6's recurrence through the ``wkv6`` kernel with
+``use_kernels``; MoE and MLA models alike); ``make_serve_step`` the chunked
 decode step against a ring cache that serves a batch's next-token logits.
 """
 from __future__ import annotations
@@ -24,8 +25,11 @@ from repro_torch.train.loss import chunked_ce
 
 def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
             loss_chunk: int = 512, use_kernels: bool = False):
-    """(loss, metrics) of one batch ``{"tokens", "loss_mask"}``.  The
-    reference's ``remat`` has no counterpart: autograd keeps the
+    """(loss, metrics) of one batch ``{"tokens", "loss_mask"}``: the masked
+    CE plus ``router_aux_coef · aux`` when the config sets the coefficient
+    (the MoE layers' load-balancing loss), as in the reference;
+    ``metrics["loss"]`` is the CE alone and ``metrics["aux"]`` the aux.
+    The reference's ``remat`` has no counterpart: autograd keeps the
     activations."""
     hidden, aux = T.forward(cfg, params, batch, adapters,
                             use_kernels=use_kernels)
@@ -35,6 +39,8 @@ def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
     loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask, loss_chunk)
+    if cfg.router_aux_coef:
+        loss = loss + cfg.router_aux_coef * aux
     metrics["aux"] = aux
     return loss, metrics
 
@@ -118,9 +124,13 @@ def make_cohort_train_step(cfg: ModelConfig, optim: OptimConfig,
     ``"loss_mask"`` of shape (C, B, S).  The forward runs once at batch C·B
     with each projection's cohort in one ``lora_matmul`` launch.  The loss
     is the sum over clients of each client's masked mean, so each client's
-    gradient is its own (a zero-mask padding replica gets zero loss and
-    zero gradients); the global-norm clip is per client, and AdamW's
-    moments are per client.  Metrics are per client, shape (C,)."""
+    gradient is its own (a zero-mask padding replica gets zero CE and
+    trains only its own, undelivered, copy); the global-norm clip is per
+    client, and AdamW's moments are per client.  A MoE layer routes each
+    client's rows on their own (one client's capacity), and each client's
+    loss adds its own ``router_aux_coef · aux``; a ragged client's
+    zero-masked padding rows take expert capacity and enter its aux, as in
+    the reference's vmapped step.  Metrics are per client, shape (C,), ``"aux"`` included."""
 
     def cohort_step(params, adapters, opt_state, batch):
         C = batch["tokens"].shape[0]
@@ -129,10 +139,13 @@ def make_cohort_train_step(cfg: ModelConfig, optim: OptimConfig,
         leaves = [t.detach().requires_grad_(True)
                   for t in tree_leaves(adapters)]
         a = _unflatten(adapters, leaves)
-        hidden, _ = T.forward(cfg, params, {"tokens": tokens}, a,
-                              use_kernels=use_kernels, cohort=True)
+        hidden, aux = T.forward(cfg, params, {"tokens": tokens}, a,
+                                use_kernels=use_kernels, cohort=C)
         loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask,
                                    loss_chunk, clients=C)
+        if cfg.router_aux_coef:
+            loss = loss + cfg.router_aux_coef * aux
+        metrics["aux"] = aux
         gs = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
         grads = _unflatten(adapters, [torch.zeros_like(t) if g is None else g
                                       for g, t in zip(gs, leaves)])

@@ -6,7 +6,7 @@ checked on the CPU (where the same built functions run uncaptured).
   replays the addresses it captured.
 * The built step and burst functions make no host synchronisation (no
   ``item``, ``nonzero`` or data-dependent shape), on every family and
-  decode route, greedy and sampled.
+  decode route, greedy and sampled, MoE routing and dispatch included.
 * The capture counter's arithmetic (``ops.launch_delta`` /
   ``ops.add_launches``) as plain functions.
 * ``trace_counts`` (builds here, captures on the card) is fixed after the
@@ -24,7 +24,8 @@ torch = pytest.importorskip("torch")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
-from repro_torch.configs import deepseek_v3_671b, llama3p2_1b, rwkv6_1p6b  # noqa: E402
+from repro_torch.configs import (deepseek_v3_671b, granite_moe_1b_a400m,  # noqa: E402
+                                 llama3p2_1b, rwkv6_1p6b)
 from repro_torch.configs import lora_targets  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import make_adapter  # noqa: E402
@@ -39,6 +40,8 @@ SMALL = dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
 GQA = llama3p2_1b.SMOKE.replace(**SMALL)
 MLA = deepseek_v3_671b.SMOKE.replace(first_dense_layers=3)
 RWKV = rwkv6_1p6b.SMOKE
+MOE = granite_moe_1b_a400m.SMOKE.replace(**SMALL)
+MLA_MOE = deepseek_v3_671b.SMOKE                # 1 dense + 2 MoE MLA layers
 SAMPLED = SamplingParams(temperature=0.9, top_k=20, top_p=0.9, max_tokens=6)
 
 
@@ -72,7 +75,8 @@ def _addresses(eng):
     return out
 
 
-@pytest.mark.parametrize("cfg", [GQA, MLA, RWKV], ids=["gqa", "mla", "rwkv"])
+@pytest.mark.parametrize("cfg", [GQA, MLA, RWKV, MOE, MLA_MOE],
+                         ids=["gqa", "mla", "rwkv", "moe", "mla-moe"])
 def test_state_and_cache_keep_their_addresses(cfg):
     eng, reg, ids, params, gen = _engine(cfg)
     before = _addresses(eng)
@@ -114,9 +118,11 @@ class _Syncs(TorchDispatchMode):
 
 @pytest.mark.parametrize("cfg,impl", [(GQA, "dense"), (GQA, "streamed"),
                                       (GQA, "kernel"), (MLA, "streamed"),
-                                      (MLA, "kernel"), (RWKV, "kernel")],
+                                      (MLA, "kernel"), (RWKV, "kernel"),
+                                      (MOE, "kernel"), (MLA_MOE, "kernel")],
                          ids=["gqa-dense", "gqa-streamed", "gqa-kernel",
-                              "mla-streamed", "mla-kernel", "rwkv"])
+                              "mla-streamed", "mla-kernel", "rwkv",
+                              "moe-kernel", "mla-moe-kernel"])
 def test_built_functions_make_no_host_sync(cfg, impl):
     eng, _, ids, _, _ = _engine(cfg, impl)
     eng.submit([1, 2, 3, 4, 5], SAMPLED, adapter_id=ids[0])

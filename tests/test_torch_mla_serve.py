@@ -122,24 +122,43 @@ def test_engine_resets_latent_slot(model):
 
 
 def test_layer_plan_raises_for_moe_layers():
-    """The full DeepSeek-V3 config has 58 MoE layers: MoE is not ported, so
-    its plan raises; the dense-3 cut serves."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.layer_plan(deepseek_v3_671b.CONFIG)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init(deepseek_v3_671b.SMOKE, 0, device="cpu")   # first_dense_layers=1
+    """MoE is ported: the full DeepSeek-V3 plan (58 MoE layers), its SMOKE
+    config (1 dense and 2 MoE layers) and the L4 cut build; the dense-3 cut
+    keeps its empty MoE segment.  The families still unported raise
+    ``NotImplementedError`` naming their ``ROADMAP.md`` items."""
+    assert T.layer_plan(deepseek_v3_671b.CONFIG) == [("mla_dense", 3),
+                                                     ("mla_moe", 58)]
+    params = T.init(deepseek_v3_671b.SMOKE, 0, device="cpu")
+    assert params["blocks"][1]["moe"]["w_gate"].shape == (2, 4, 256, 128)
+    assert T.layer_plan(deepseek_v3_671b.L4) == [("mla_dense", 3),
+                                                 ("mla_moe", 1)]
     assert T.layer_plan(deepseek_v3_671b.DENSE3) == [("mla_dense", 3),
                                                      ("mla_moe", 0)]
-    for family in ("hybrid", "vlm"):            # ssm (RWKV6) is ported
-        with pytest.raises(NotImplementedError, match=family):
+    for family, item in (("hybrid", "item 8.6"), ("vlm", "item 8.5"),
+                         ("audio", "item 8.5")):
+        with pytest.raises(NotImplementedError, match=family) as e:
             T.layer_plan(CFG.replace(family=family, use_mla=False,
                                      num_experts=0))
+        assert item in str(e.value)
 
 
 def test_forward_raises_on_mla(model):
+    """MLA's full-sequence forward is ported (it raised before): the
+    dense-3 SMOKE model's forward runs on both of ``mla_fwd``'s routes;
+    the configs still unported raise naming their items."""
+    from repro_torch.configs import get_config
     _, _, params = model
-    with pytest.raises(NotImplementedError, match="mla_fwd"):
-        T.forward(CFG, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    for S in (4, 520):                     # absorbed; expanded (520 % 512)
+        h, aux = T.forward(CFG, params,
+                           {"tokens": torch.zeros(1, S, dtype=torch.long)})
+        assert h.shape == (1, S, CFG.d_model) and float(aux) == 0.0
+        assert bool(torch.isfinite(h).all())
+    for name, item in (("phi3_vision_4p2b", "item 8.5"),
+                       ("musicgen_medium", "item 8.5"),
+                       ("zamba2_1p2b", "item 8.6")):
+        with pytest.raises(NotImplementedError, match="not ported") as e:
+            get_config(name)
+        assert item in str(e.value)
 
 
 def test_decode_streamed_raises(model):

@@ -293,5 +293,6 @@ def test_rmsnorm_is_the_block_norm(model):
     h, _ = R.time_mix(CFG, p["mix"], Lyr.rmsnorm(x, p["ln1"]), a["mix"])
     y = x + h
     h, _ = R.channel_mix(CFG, p["mix"], Lyr.rmsnorm(y, p["ln2"]), a["mix"])
-    got = T._block_fwd(CFG, "rwkv", p, x, a, use_kernels=False)
+    got, aux = T._block_fwd(CFG, "rwkv", p, x, a, use_kernels=False)
     torch.testing.assert_close(got, y + h, rtol=0, atol=0)
+    assert aux is None                   # only a MoE layer returns an aux
