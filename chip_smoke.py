@@ -82,9 +82,10 @@ Phases (any failure exits non-zero; no exception is caught):
     ``make_prefill_step(use_kernels=True)`` on 8 x 1024 tokens, three
     calls after a warm-up; ``wkv6`` must run 24 and ``lora_matmul`` 120
     times a call; tokens/s and a profiled window.
-11. RWKV6 serving end to end: phase 4's traffic on RWKV6-1.6B, one token
-    per engine step; ``bgmv`` must run 120 times per engine step (5 targets
-    x 24 layers) and ``wkv6`` never; 16 of 16 requests with 32 tokens.
+11. RWKV6 serving end to end: phase 4's traffic on RWKV6-1.6B at
+    published widths cut to 12 of its 24 layers, one token per engine
+    step; ``bgmv`` must run 60 times per engine step (5 targets x 12
+    layers) and ``wkv6`` never; 16 of 16 requests with 32 tokens.
 12. RWKV6 in fp32 (TF32 off) at full width: (a) the prefill step's kernel
     route against its plain route, (b) phase 5 on this model, (c) the
     kernel prefill's last logits against ``decode`` fed the same prompt one
@@ -196,12 +197,12 @@ Phases (any failure exits non-zero; no exception is caught):
     eval; (c) at 2 layers and full width in fp32 (TF32 off), two train
     steps on the kernel route against the plain route (phase 7's limits).
 19. RWKV6 training: (a) two FLoRIST rounds of RWKV6-1.6B at published
-    widths, cut to 12 of its 24 layers, through ``FederatedTrainer``
+    widths, cut to 6 of its 24 layers, through ``FederatedTrainer``
     (sequential runner; rank 16 on its five targets, 4 of 8 clients a
     round, 2 local steps of 2 × 256 tokens, the Gram route): the train
     steps' recurrence through ``wkv_scan``
-    (``models.rwkv.recurrence_route``), so ``wkv6`` launches 12 a round
-    (the eval forward) and never in a train step, ``lora_matmul`` 60 a
+    (``models.rwkv.recurrence_route``), so ``wkv6`` launches 6 a round
+    (the eval forward) and never in a train step, ``lora_matmul`` 30 a
     train forward, ``adapter_gram`` 2 · buckets;
     kept ranks, round wall, step median, peak allocated memory and a
     profiled train step; (b) at 2 layers and full width in fp32 (TF32
@@ -210,9 +211,9 @@ Phases (any failure exits non-zero; no exception is caught):
     16 (c)'s limits).
 
 20. MoE and MLA's full-sequence path (random seeded weights, bf16): (a)
-    granite-moe-1b-a400m at published widths and full depth (24 L, d
-    1024, 16 H / 8 KV, 32 experts top-8, e_ff 512) serves phase 4's
-    traffic on the graphed engine (``ring_decode`` 24 and ``bgmv`` 96 an
+    granite-moe-1b-a400m at published widths cut to 12 of its 24 layers
+    (d 1024, 16 H / 8 KV, 32 experts top-8, e_ff 512) serves phase 4's
+    traffic on the graphed engine (``ring_decode`` 12 and ``bgmv`` 48 an
     engine step, 16 of 16 requests, a profiled burst window on live
     adapters), and its graphed tokens equal its uncaptured tokens bit for
     bit (phase 15 (a)'s check); (b) DeepSeek-V3-L4 (the three dense MLA
@@ -223,11 +224,11 @@ Phases (any failure exits non-zero; no exception is caught):
     on inputs skewed toward one expert (tokens dropped) and 8.0 (none):
     the same experts and slots kept for every token, outputs within 1e-5 ·
     max(1, |y|), aux within 1e-6; (d) FLoRIST through ``FederatedTrainer``:
-    granite at full depth (2 rounds, cohort runner, 4 of 8 clients of rank
-    16, 2 local steps of 4 × 512) and DeepSeek-V3-L4 (1 round, sequential
-    runner, 2 of 4 clients, 2 local steps of 4 × 512, LoRA on the five
-    MLA targets): launches exact (granite ``lora_matmul`` 96 and
-    ``flash_attention`` 24 a forward, DeepSeek ``lora_matmul`` 16 and no
+    granite at 12 of 24 layers (2 rounds, cohort runner, 4 of 8 clients of
+    rank 16, 2 local steps of 4 × 512) and DeepSeek-V3-L4 (1 round,
+    sequential runner, 2 of 4 clients, 2 local steps of 4 × 512, LoRA on
+    the five MLA targets): launches exact (granite ``lora_matmul`` 48 and
+    ``flash_attention`` 12 a forward, DeepSeek ``lora_matmul`` 16 and no
     ``flash_attention``, ``adapter_gram`` 2 a stacked shape), every
     ``lora_matmul`` (C, din, dout) and ``adapter_gram`` (G, m, r, layout)
     the rounds launch one that phases 2/3 and 16 (a) held to its plain
@@ -241,15 +242,61 @@ Phases (any failure exits non-zero; no exception is caught):
     ``flash_attention`` at 16 / 8 (B 4 and 16), ``adapter_gram`` at every
     Gram stack of (d) (``GRAM_MOE``); phase 16 (a) ``lora_matmul``'s client
     axis at granite's projections (C 4).
+21. The vision and audio front ends and the Mamba2 hybrid (random seeded
+    weights, bf16, published widths, full depth): (a) phi-3-vision-4.2b
+    (32 L, d 3072, 32 H / 32 KV, hd 96) serves phase 4's traffic on the
+    graphed engine (``ring_decode`` 32 and ``bgmv`` 128 an engine step, 16
+    of 16 requests, a profiled burst window on live adapters), its graphed
+    tokens equal its uncaptured tokens bit for bit, and
+    ``make_train_step(use_kernels=True)`` takes 2 steps on a vision batch
+    shaped as ``launch/specs.input_specs`` shapes one (4 rows of 576 patch
+    embeds of 1024 and 448 text tokens): ``lora_matmul`` 128 and
+    ``flash_attention`` 32 a forward, the loss finite and over the text
+    tail only (the CE's token count), step times, idle share, peak
+    allocated; (b) musicgen-medium (48 L, d 1536, 24 / 24, vocab 2048)
+    serves the same traffic on codebook-token prompts (``ring_decode`` 48,
+    ``bgmv`` 192 a step) and trains 2 steps on an audio batch (4 × 512
+    frame embeds, labels, no tokens; ``lora_matmul`` 192 and
+    ``flash_attention`` 48 a forward); (c) zamba2-1.2b (38 Mamba2 layers,
+    d 2048, state 64, the shared attention block applied 6 times) serves
+    the traffic one token a step (``ring_decode`` 6 and ``bgmv`` 100 a
+    step, graphed tokens equal uncaptured), trains two FLoRIST rounds
+    through ``FederatedTrainer`` (cohort runner, 4 of 8 clients of rank
+    16, 2 local steps of 4 × 512, LoRA on the six hybrid targets:
+    ``lora_matmul`` 100 and ``flash_attention`` 6 a forward,
+    ``adapter_gram`` 2 a stacked shape, every launched shape one that
+    phases 2/3 and 16 (a) check, ranks in [1, Σ r_k], finite losses, step
+    median, idle share, peak) and prefills 2 × 512 through
+    ``make_prefill_step(use_kernels=True)``; (d) one Mamba2 layer at
+    published widths on the card against the CPU in fp32 (TF32 off): the
+    forward on 512 tokens (two SSD chunks) and 16 decode steps with a
+    masked row, within 1e-4 · max(1, |y|); (e) at full width in fp32 the
+    train step's kernel route against its plain route (phase 7's limits)
+    on phi-3-vision and musicgen cut to 2 layers (with patches, with
+    frames) and zamba2 cut to 4 layers at ``attn_every`` 2, and zamba2's
+    16-token decode against its forward within 2e-4 relative.  Phase 2
+    holds ``ring_decode`` at 24 / 24 and 32 / 32 hd 64 (32 / 32 hd 96 was
+    there), ``bgmv`` at 3072, 1536, 2048 → 8384 and 4096 → 2048,
+    ``lora_matmul`` at the three models' projections (phase 16 (a) the
+    client axis at zamba2's), ``flash_attention`` at each model's heads
+    and batches, ``adapter_gram`` at every Gram stack of (c)
+    (``GRAM_HYBRID``).
 
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
 phase 13 (b)'s client trees too; phase 17 cuts Qwen2.5-14B to 8 layers and
-Qwen1.5-32B to 4; phase 19 cuts RWKV6-1.6B's training to 12 of its 24
-layers (``RWKV_TRAIN_LAYERS``; its serving and prefill keep 24); phase 20
-cuts DeepSeek-V3 to 4 of its 61 layers (``deepseek_v3_671b.L4``, 28.1 GB
-of bf16 weights).  Each phase's seconds are printed (``[phase N: s]``) and
-kept in the JSON.
+Qwen1.5-32B to 4; phase 20 cuts DeepSeek-V3 to 4 of its 61 layers
+(``deepseek_v3_671b.L4``, 28.1 GB of bf16 weights).  To pay for phase 21
+(287.6 s on an H100 80GB HBM3 at 700 W with zamba2's graphed-vs-uncaptured
+pass at 38 layers): phase 11 serves RWKV6-1.6B at 12 of its 24
+layers (``RWKV_SERVE_LAYERS``; its prefill keeps 24), phase 19 trains it
+at 6 (``RWKV_TRAIN_LAYERS``, 12 before), phase 20 (a) and (d) run
+granite-moe at 12 of its 24 (``GRANITE_LAYERS``), phase 21 (c) holds
+zamba2's graphed tokens to its uncaptured ones at 12 of its 38 layers
+(``ZAMBA2_GRAPH_LAYERS``: two shared applications; its serving, launches
+and window stay at 38), and each kernel time is the median of ``REPS`` =
+30 launches (50 before).  Each phase's seconds are printed (``[phase N:
+s]``) and kept in the JSON.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -269,7 +316,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
-REPS = 50
+REPS = 30
 DEVICE = "cuda"
 CARD = "the card"                # nvidia-smi's name and power limit, set by main
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
@@ -291,6 +338,23 @@ KERNELS_OF = {
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# depth cuts that pay for the later phases (the docstring's last paragraph)
+RWKV_SERVE_LAYERS = 12           # phase 11: RWKV6-1.6B served at 12 of 24
+GRANITE_LAYERS = 12              # phase 20 (a), (d): granite-moe at 12 of 24
+ZAMBA2_GRAPH_LAYERS = 12         # phase 21 (c)'s graphed-vs-uncaptured pass
+
+
+def cut_config(key: str, layers: int) -> str:
+    """The key of ``launch.serve.CONFIGS[key]`` cut to its first ``layers``
+    layers (its ring, chunk and prompts kept), registered under
+    ``f"{key}_l{layers}"``."""
+    from repro_torch.launch.serve import CONFIGS
+    cut = f"{key}_l{layers}"
+    cfg, *rest = CONFIGS[key]
+    CONFIGS[cut] = (cfg.replace(num_layers=layers), *rest)
+    return cut
 
 
 def main() -> None:
@@ -369,7 +433,8 @@ def main() -> None:
     report["rwkv_prefill"], rwkv_counts = rwkv_prefill(torch)
     done("10")
     counts["wkv6"] = rwkv_counts["wkv6"]
-    report["rwkv_e2e"], rwkv_serve_counts = end_to_end(torch, "11", "rwkv6_1p6b")
+    report["rwkv_e2e"], rwkv_serve_counts = end_to_end(
+        torch, "11", cut_config("rwkv6_1p6b", RWKV_SERVE_LAYERS), full_layers=24)
     done("11")
     report["rwkv_parity"] = rwkv_parity(torch)
     done("12")
@@ -389,6 +454,8 @@ def main() -> None:
     done("19")
     report["moe"], moe_counts = phase20(torch)
     done("20")
+    report["phase21"], p21_counts = phase21(torch)
+    done("21")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -460,6 +527,19 @@ def main() -> None:
                if name == "lora_matmul" else {})
             | (other_path("granite_path", name, GRAM_GRANITE)
                | other_path("dsv3_path", name, GRAM_DSV3)
+               if name == "adapter_gram" else {})
+            | ({"launches_phase21_path": p21_counts[name]}
+               if name in p21_counts else {})
+            | (other_path("phi3_path", name, LORA_PHI3)
+               | other_path("zamba2_path", name, LORA_ZAMBA2)
+               if name == "lora_matmul" else {})
+            | (other_path("phi3_path", name, FLASH_PHI3)
+               if name == "flash_attention" else {})
+            | (other_path("zamba2_path", name, RING_ZAMBA2)
+               if name == "ring_decode" else {})
+            | (other_path("zamba2_path", name, BGMV_ZAMBA2)
+               if name == "bgmv" else {})
+            | (other_path("zamba2_path", name, GRAM_ZAMBA2)
                if name == "adapter_gram" else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -639,7 +719,13 @@ def kernel_cases(torch):
             # granite-moe-1b-a400m's heads (16 / 8, hd 64: 2 query heads a
             # KV head, 32 rows a KV head at a 16-token chunk)
             ("bfloat16", 1, 0, 64, 1024, 16, 8, False),
-            ("bfloat16", 16, 0, 64, 1024, 16, 8, False)):
+            ("bfloat16", 16, 0, 64, 1024, 16, 8, False),
+            # phase 21: musicgen-medium's MHA (24 / 24, hd 64) and zamba2's
+            # shared block (32 / 32, hd 64; one token a step); Phi-3's 32 /
+            # 32 at hd 96 is above
+            ("bfloat16", 1, 0, 64, 1024, 24, 24, False),
+            ("bfloat16", 16, 0, 64, 1024, 24, 24, False),
+            ("bfloat16", 1, 0, 64, 1024, 32, 32, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -748,7 +834,13 @@ def bgmv_kernel_cases(torch):
         # granite-moe's projections (d 1024: wq / wo 1024 -> 1024, wk / wv
         # 1024 -> 512) and DeepSeek-V3's wq_a (7168 -> 1536)
         ("bfloat16", 1, 1024, 1024), ("bfloat16", 16, 1024, 512),
-        ("bfloat16", 1, 7168, 1536))]
+        ("bfloat16", 1, 7168, 1536),
+        # phase 21: Phi-3's projections (3072 -> 3072, all four: 32 KV
+        # heads), musicgen's (1536 -> 1536), zamba2's Mamba2 in_proj
+        # (2048 -> 8384) and out_proj (4096 -> 2048; one token a step)
+        ("bfloat16", 1, 3072, 3072), ("bfloat16", 16, 3072, 3072),
+        ("bfloat16", 1, 1536, 1536), ("bfloat16", 16, 1536, 1536),
+        ("bfloat16", 1, 2048, 8384), ("bfloat16", 1, 4096, 2048))]
     cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
         ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
         ("float32/bfloat16", 2048, 2048))]
@@ -975,18 +1067,38 @@ FLASH_TRAINER = "bf16, causal, B=4 S=512 H=14 K=2 hd=64"      # Qwen2-0.5B
 FLASH_MAIN = "bf16, causal, B=4 S=512 H=32 K=8 hd=64"
 GRAM_MAIN = "fp32, G=32 m=2048 r=64"
 # phase 20 (d)'s Gram stacks (G, m, r, layout), fp32, r = Σ r_k: granite-
-# moe's two buckets of 2 leaves x 24 layers at r 64 (B stacks m 1024 for
-# wq/wo and 512 for wk/wv; both A stacks n 1024, read in place), and
+# moe's two buckets of 2 leaves x GRANITE_LAYERS at r 64 (B stacks m 1024
+# for wq/wo and 512 for wk/wv; both A stacks n 1024, read in place), and
 # DeepSeek-V3-L4's five MLA targets at r 32 in its dense (G 3) and MoE (G 1)
 # segments: B stacks m = dout (wq_a 1536, wq_b 24576, wkv_a 576, wkv_b
 # 32768, wo 7168), A stacks n = din (7168, 1536, 512, 16384)
-GRAM_MOE = ((48, 1024, 64, "col"), (48, 512, 64, "col"), (48, 1024, 64, "row")) + tuple(
+GRAM_MOE = tuple((2 * GRANITE_LAYERS, m, 64, layout) for m, layout in (
+    (1024, "col"), (512, "col"), (1024, "row"))) + tuple(
     (G, m, 32, layout) for G in (3, 1)
     for m, layout in ((1536, "col"), (24576, "col"), (576, "col"), (32768, "col"),
                       (7168, "col"), (7168, "row"), (1536, "row"), (512, "row"),
                       (16384, "row")))
-GRAM_GRANITE = "fp32, G=48 m=1024 r=64"
+GRAM_GRANITE = f"fp32, G={2 * GRANITE_LAYERS} m=1024 r=64"
 GRAM_DSV3 = "fp32, G=3 m=32768 r=32"                         # wkv_b's B stack
+# phase 21's train steps: (M, din, dout) of Phi-3-vision's and musicgen's
+# projections, and (din, dout) of zamba2's (in_proj, out_proj, and the
+# shared block's wq..wo), which phase 16 (a) also checks at C 4
+LORA_FRONT_SHAPES = ((4096, 3072, 3072), (2048, 1536, 1536))
+LORA_HYBRID_SHAPES = ((2048, 8384), (4096, 2048), (2048, 2048))
+LORA_PHI3 = "bf16, M=4096 din=3072 dout=3072 r=16"
+LORA_ZAMBA2 = "bf16, M=2048 din=2048 dout=8384 r=16"         # Mamba2's in_proj
+# phase 21 (c)'s Gram stacks, fp32, r = Σ r_k = 64: zamba2's five buckets,
+# Mamba2 in_proj and out_proj in six segments of 6 layers (G 36) and one of
+# 2 (G 2), and the shared block's four 2-D leaves (G 4): B stacks m = dout
+# (8384, 2048), A stacks n = din (2048, 4096)
+GRAM_HYBRID = tuple((G, m, 64, layout) for G in (36, 2)
+                    for m, layout in ((8384, "col"), (2048, "row"), (2048, "col"),
+                                      (4096, "row"))) + (
+    (4, 2048, 64, "col"), (4, 2048, 64, "row"))
+GRAM_ZAMBA2 = "fp32, G=36 m=8384 r=64"
+FLASH_PHI3 = "bf16, causal, B=4 S=1024 H=32 K=32 hd=96"
+RING_ZAMBA2 = "bf16 cache, C=1, B=8 H=32 K=32 hd=64 cap=1024"
+BGMV_ZAMBA2 = "bf16, C=1, B=8 din=2048 dout=8384 pr=4 Pmax=4"
 
 
 def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -1142,6 +1254,13 @@ def train_kernel_cases(torch):
     for din, dout in LORA_MOE_SHAPES:
         records.append(lora_case(torch, gen, sms, torch.bfloat16, 2048, din,
                                  dout, 16))
+    # phase 21's train steps at r 16: Phi-3-vision's 3072 -> 3072 at M 4 x
+    # 1024 (576 patches and 448 text tokens a row), musicgen's 1536 -> 1536
+    # at M 4 x 512, and zamba2's Mamba2 in_proj (2048 -> 8384) and out_proj
+    # (4096 -> 2048) at M 4 x 512 (the eval and prefill forwards at C 1;
+    # its shared block's 2048 -> 2048 is LORA_MAIN)
+    for M, din, dout in LORA_FRONT_SHAPES + tuple((2048,) + s for s in LORA_HYBRID_SHAPES[:2]):
+        records.append(lora_case(torch, gen, sms, torch.bfloat16, M, din, dout, 16))
 
     # flash_attention: the train step's attention (B 4, S 512, 32 heads over
     # 8 KV heads, hd 64; TinyLlama's 32 over 4, 8 query heads a KV head),
@@ -1191,7 +1310,17 @@ def train_kernel_cases(torch):
             # granite-moe's heads (16 / 8, hd 64): one client's batch and
             # phase 20's cohort of four clients
             (torch.bfloat16, 4, 512, 512, 16, 8, 64, True, 0),
-            (torch.bfloat16, 16, 512, 512, 16, 8, 64, True, 0)):
+            (torch.bfloat16, 16, 512, 512, 16, 8, 64, True, 0),
+            # phase 21: Phi-3-vision's 32 / 32 hd 96 at the vision batch's
+            # length (576 patches + 448 tokens), musicgen's 24 / 24 hd 64,
+            # zamba2's shared block 32 / 32 hd 64 at a client's batch, the
+            # prefill's 2 rows, the eval's 8 and the cohort step's 16
+            (torch.bfloat16, 4, 1024, 1024, 32, 32, 96, True, 0),
+            (torch.bfloat16, 4, 512, 512, 24, 24, 64, True, 0),
+            (torch.bfloat16, 4, 512, 512, 32, 32, 64, True, 0),
+            (torch.bfloat16, 2, 512, 512, 32, 32, 64, True, 0),
+            (torch.bfloat16, 8, 512, 512, 32, 32, 64, True, 0),
+            (torch.bfloat16, 16, 512, 512, 32, 32, 64, True, 0)):
         records.append(flash_case(torch, gen, dt, B, S, T, H, K, hd, causal,
                                   window))
 
@@ -1243,7 +1372,7 @@ def cohort_kernel_cases(torch):
             (torch.float32, 3, 200, 2048, 256, 16),
             (torch.bfloat16, 3, 200, 2048, 1003, 5))
             + tuple((torch.bfloat16, 4, 2048, din, dout, 16)
-                    for din, dout in LORA_MOE_COHORT)):
+                    for din, dout in LORA_MOE_COHORT + LORA_HYBRID_SHAPES)):
         x = torch.randn(C, M, din, generator=gen, device=dev).to(dt)
         w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
         a = torch.randn(C, r, din, generator=gen, device=dev) * 0.02
@@ -1336,7 +1465,7 @@ def gram_kernel_cases(torch):
                                    (3, 70, 5, "col", False), (2, 1001, 12, "row", False),
                                    (2, 100, 40, "col", False), (1, 8, 200, "col", False),
                                    (2, 300, 130, "row", False), (5, 257, 96, "col", False))
-                                  + tuple(c + (True,) for c in GRAM_MOE)):
+                                  + tuple(c + (True,) for c in GRAM_MOE + GRAM_HYBRID)):
         if layout == "col":
             x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
             stored, lib = x, (lambda x=x: torch.bmm(x.mT, x))
@@ -1555,11 +1684,20 @@ def serve_launches(cfg, eng, steps: int) -> dict:
     kernel (``ring_decode``, or ``mla_ring_decode`` for MLA; none for
     RWKV6) once per layer, ``bgmv`` once per layer per bgmv-routed target
     (every LoRA target but MLA's ``wkv_b``, which is folded into the
-    absorbed weights instead), the same at every step width."""
+    absorbed weights instead), the same at every step width.  The hybrid:
+    ``ring_decode`` once per shared application, ``bgmv`` 4 a shared
+    application (``wq wk wv wo``) and 2 a Mamba2 layer (``in_proj
+    out_proj``)."""
     from repro_torch.configs import lora_targets
     from repro_torch.kernels import ops
+    from repro_torch.models.transformer import num_shared_applications
     L = cfg.num_layers
     want = dict.fromkeys(ops.WRAPPERS, 0)
+    if cfg.family == "hybrid":
+        n = num_shared_applications(cfg)
+        want["ring_decode"] = n * steps
+        want["bgmv"] = (4 * n + 2 * L) * steps
+        return want
     want["bgmv"] = L * (len(lora_targets(cfg)) - cfg.use_mla) * steps
     if cfg.use_mla:
         want["mla_ring_decode"] = L * steps * mla_launches_a_call(eng)
@@ -1606,6 +1744,12 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
     elif cfg.family == "ssm":
         shape = (f"{cfg.num_rwkv_heads} heads of {cfg.rwkv_head_dim}, decay "
                  f"LoRA {cfg.rwkv_decay_lora}; one token per engine step")
+    elif cfg.family == "hybrid":
+        shape = (f"Mamba2 d_inner {cfg.d_inner}, {cfg.num_ssm_heads} SSM heads "
+                 f"of {cfg.ssm_head_dim}, state {cfg.ssm_state}; one shared "
+                 f"attention block ({cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
+                 f"{cfg.head_dim}) after every {cfg.attn_every} layers; one "
+                 f"token per engine step")
     else:
         shape = (f"{cfg.num_heads} H / {cfg.num_kv_heads} KV, hd "
                  f"{cfg.head_dim}{moe}")
@@ -1663,7 +1807,7 @@ def end_to_end(torch, phase: str = "4", config: str = "llama3p2_1b",
     warmup = eng.warmup_steps
     del out, eng
     torch.cuda.empty_cache()
-    return dict(stats, launches=counts, warmup_steps=warmup,
+    return dict(stats, launches=counts, warmup_steps=warmup, layers=cfg.num_layers,
                 captures=captures, **profiled), counts
 
 
@@ -3386,8 +3530,9 @@ def graph_parity(torch, config: str = "llama3p2_1b", phase: str = "15 (a)"):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as S
     cfg = S.CONFIGS[config][0]
-    print(f"phase {phase}: {cfg.name}, phase 4's traffic twice (a swap in "
-          "each), graphed engine vs its step functions uncaptured")
+    print(f"phase {phase}: {cfg.name} ({cfg.num_layers} L), phase 4's traffic "
+          "twice (a swap in each), graphed engine vs its step functions "
+          "uncaptured")
     runs = {}
     for name in ("graphed", "uncaptured"):
         setup = S.build(config, device=DEVICE)
@@ -3470,7 +3615,8 @@ def streamed_parity(torch):
 
 
 # PERF.md section 5's decode windows from before the engine's graphs
-# (H100 80GB HBM3 at 700 W; 10 steps of the Python loop of steps):
+# (H100 80GB HBM3 at 700 W; 10 steps of the Python loop of steps; each
+# model at full depth, RWKV6 at 24 layers where phase 11 now serves 12):
 # wall ms, busy ms, idle share a step
 WINDOWS_BEFORE = {
     "llama3p2_1b": {"base id": (36.2, 4.04, 0.889), "live": (48.1, 4.31, 0.910)},
@@ -3500,9 +3646,10 @@ def engine_windows(report):
                                              w["device_busy_ms_per_step"],
                                              w["idle_share"])
         before = WINDOWS_BEFORE[config]
+        label = f"{config} ({rec['layers']} L)"
         for name, (wall, busy, idle) in rows.items():
             b = before.get(name.split(",")[0])
-            print(f"  {config:20s} {name:20s} {wall:8.3f} / {busy:7.3f} / "
+            print(f"  {label:25s} {name:20s} {wall:8.3f} / {busy:7.3f} / "
                   f"{idle:.3f}" + (f"   (before: {b[0]} / {b[1]} / {b[2]})"
                                    if b else ""))
         out[config] = {"after": rows, "before_graphs": before}
@@ -4297,7 +4444,7 @@ RWKV_TRAIN_ROUNDS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 2, 2, 256
 # phase 19 (a) trains RWKV6-1.6B at full width cut to this depth (of its
 # 24 layers): its host-bound step scales with depth, and the whole script
 # must stay inside its time on a slow host
-RWKV_TRAIN_LAYERS = 12
+RWKV_TRAIN_LAYERS = 6
 
 
 def _rwkv_trainer(cfg, params, runner="sequential"):
@@ -4454,8 +4601,9 @@ DSV3_BATCH = 4                # DeepSeek-V3-L4's train batch (x 512 tokens)
 
 
 def phase20(torch):
-    """(a) granite-moe-1b-a400m at published widths and full depth serves
-    phase 4's traffic (``ring_decode`` 24 and ``bgmv`` 96 an engine step,
+    """(a) granite-moe-1b-a400m at published widths, cut to
+    ``GRANITE_LAYERS`` of its 24 layers, serves phase 4's traffic
+    (``ring_decode`` and ``bgmv`` L and 4 · L an engine step,
     a profiled burst window on live adapters) and its graphed tokens equal
     its uncaptured tokens bit for bit; (b) DeepSeek-V3-L4 (the three dense
     MLA layers and the first MoE layer at published widths) serves it
@@ -4466,10 +4614,11 @@ def phase20(torch):
     DeepSeek-V3-L4; (e) the fp32 route parities at 2 layers."""
     t_phase = time.perf_counter()
     out, counts = {}, collections.Counter()
-    out["granite_serve"], c = end_to_end(torch, "20 (a)", "granite_moe_1b_a400m",
+    granite = cut_config("granite_moe_1b_a400m", GRANITE_LAYERS)
+    out["granite_serve"], c = end_to_end(torch, "20 (a)", granite, full_layers=24,
                                          windows=("profiled_burst_adapters",))
     counts.update(c)
-    out["granite_graphs"] = graph_parity(torch, "granite_moe_1b_a400m", "20 (a)")
+    out["granite_graphs"] = graph_parity(torch, granite, "20 (a)")
     torch.cuda.reset_peak_memory_stats()
     out["dsv3_serve"], c = end_to_end(torch, "20 (b)", "deepseek_v3_l4",
                                       windows=(), full_layers=61)
@@ -4591,8 +4740,8 @@ MOE_CHECKED = {"lora_matmul": {(1,) + s for s in LORA_MOE_SHAPES}
                "adapter_gram": set(GRAM_MOE)}
 
 
-def _moe_trainer(cfg, params, runner, clients: int, per_round: int,
-                 batch: int):
+def _florist_trainer(cfg, params, runner, clients: int, per_round: int,
+                     batch: int):
     from repro_torch.common.config import FedConfig, LoRAConfig, OptimConfig
     from repro_torch.configs import lora_targets
     from repro_torch.core.federated import FederatedTrainer
@@ -4610,7 +4759,7 @@ def _moe_trainer(cfg, params, runner, clients: int, per_round: int,
 
 def moe_federated(torch, which: str):
     """(d) FLoRIST rounds, rank 16 on the family's targets, 2 local steps
-    of 512-token rows, the Gram route: granite at full depth (2 rounds, 4
+    of 512-token rows, the Gram route: granite at ``GRANITE_LAYERS`` (2 rounds, 4
     of 8 clients, cohort runner, batch 4: one cohort step a local step) or
     DeepSeek-V3-L4 (1 round, 2 of 4 clients, sequential runner, batch
     ``DSV3_BATCH``).  Launches exact: ``lora_matmul`` 4 · L a train forward
@@ -4629,7 +4778,8 @@ def moe_federated(torch, which: str):
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import adamw_init
     granite = which == "granite"
-    cfg = granite_moe_1b_a400m.CONFIG if granite else deepseek_v3_671b.L4
+    cfg = (granite_moe_1b_a400m.CONFIG.replace(num_layers=GRANITE_LAYERS)
+           if granite else deepseek_v3_671b.L4)
     L = cfg.num_layers
     rounds_n = MOE_ROUNDS if granite else 1
     clients, per_round, batch = (8, 4, MOE_BATCH) if granite else (4, 2, DSV3_BATCH)
@@ -4642,8 +4792,8 @@ def moe_federated(torch, which: str):
           f"tokens, {runner.name} runner, Gram route")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tr = _moe_trainer(cfg, T.init(cfg, 0, DEVICE), runner, clients, per_round,
-                      batch)
+    tr = _florist_trainer(cfg, T.init(cfg, 0, DEVICE), runner, clients,
+                          per_round, batch)
     rounds = []
     ops.reset_launch_counts()
     with launched_shapes() as seen:
@@ -4805,6 +4955,431 @@ def moe_route_parity(torch):
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return res
+
+
+# -- phase 21: the vision and audio front ends, and the Mamba2 hybrid ---------
+
+FRONT_BATCH = 4                # the vision and audio train batches' rows
+# the (C, din, dout) and (G, m, r, layout) that phase 2/3 and 16 (a) check at
+# phase 21's widths, by model (every lora_matmul launch is C 1 but the
+# zamba2 cohort step's)
+PHASE21_CHECKED = {
+    "phi3_vision_4p2b": {"lora_matmul": {(1, 3072, 3072)}, "adapter_gram": set()},
+    "musicgen_medium": {"lora_matmul": {(1, 1536, 1536)}, "adapter_gram": set()},
+    "zamba2_1p2b": {"lora_matmul": {(c,) + s for c in (1, 4) for s in LORA_HYBRID_SHAPES},
+                    "adapter_gram": set(GRAM_HYBRID)},
+}
+
+
+def phase21(torch):
+    """(a) phi-3-vision-4.2b and (b) musicgen-medium at published widths and
+    full depth serve phase 4's traffic on the graphed engine (Phi-3's graphed
+    tokens held to its uncaptured tokens bit for bit) and take two train
+    steps on a vision or audio batch; (c) zamba2-1.2b serves the traffic one
+    token a step (graphed against uncaptured too), trains through two
+    FLoRIST rounds on the cohort runner and prefills; (d) one Mamba2 layer
+    on the card against the CPU in fp32; (e) the fp32 route parities at 2
+    layers (4 for zamba2) and zamba2's decode against its forward."""
+    t_phase = time.perf_counter()
+    out, counts = {}, collections.Counter()
+    for key, label, graphs in (("phi3_vision_4p2b", "21 (a)", True),
+                               ("musicgen_medium", "21 (b)", False),
+                               ("zamba2_1p2b", "21 (c)", True)):
+        out[f"{key}_serve"], c = end_to_end(torch, label, key,
+                                            windows=("profiled_burst_adapters",))
+        counts.update(c)
+        if graphs:
+            out[f"{key}_graphs"] = graph_parity(
+                torch, key if key != "zamba2_1p2b"
+                else cut_config(key, ZAMBA2_GRAPH_LAYERS), label)
+        if key != "zamba2_1p2b":
+            out[f"{key}_train"], c = frontend_train(torch, key, label)
+            counts.update(c)
+    out["zamba2_fed"], c = hybrid_federated(torch)
+    counts.update(c)
+    out["zamba2_prefill"], c = hybrid_prefill(torch)
+    counts.update(c)
+    out["mamba_layer"] = mamba_layer_parity(torch)
+    out["parity"] = phase21_parity(torch)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 21: {out['phase_s']:.1f} s")
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def frontend_batch(torch, cfg, rows: int, gen, dtype=None):
+    """A batch shaped as the reference's ``launch/specs.input_specs`` shapes
+    a train batch, random from ``gen``: vision ``patch_embeds`` (rows,
+    num_patches, frontend_dim) and ``num_patches`` fewer text ``tokens`` of
+    1024 with their ``loss_mask``; audio ``frame_embeds`` (rows, 512,
+    frontend_dim), ``labels`` and ``loss_mask``, no tokens."""
+    dev = gen.device
+    dtype = dtype or getattr(torch, cfg.dtype)
+    S = 1024 if cfg.frontend == "vision" else 512
+    T_ = S - cfg.num_patches if cfg.frontend == "vision" else S
+    toks = torch.randint(0, cfg.vocab_size, (rows, T_), generator=gen, device=dev)
+    mask = torch.ones((rows, T_), dtype=torch.float32, device=dev)
+    if cfg.frontend == "vision":
+        emb = torch.randn((rows, cfg.num_patches, cfg.frontend_dim),
+                          generator=gen, device=dev).to(dtype)
+        return {"patch_embeds": emb, "tokens": toks, "loss_mask": mask}
+    emb = torch.randn((rows, S, cfg.frontend_dim), generator=gen, device=dev).to(dtype)
+    return {"frame_embeds": emb, "labels": toks, "loss_mask": mask}
+
+
+def frontend_train(torch, key: str, label: str):
+    """(a), (b) ``make_train_step(use_kernels=True)`` takes 2 steps on a
+    vision or audio batch of ``FRONT_BATCH`` rows (rank 16 on ``wq wk wv wo``,
+    non-zero B): launches exact (``lora_matmul`` 4 · L and ``flash_attention``
+    L a forward), every ``lora_matmul`` shape one that phase 2/3 checks, the
+    loss finite and counted over the text tail only (the CE's token count
+    equals the text mask's target positions), the step times (CUDA
+    events), a profiled window of 3 more steps and the peak allocated."""
+    from repro_torch.common.config import OptimConfig
+    from repro_torch.configs import lora_targets
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CONFIGS
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.train.step import make_train_step
+    cfg = CONFIGS[key][0]
+    dev = torch.device(DEVICE)
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+    batch = frontend_batch(torch, cfg, FRONT_BATCH, gen)
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    print(f"phase {label}: make_train_step(use_kernels=True) on {cfg.name} at "
+          f"published widths ({L} L, d {cfg.d_model}, {cfg.num_heads} H / "
+          f"{cfg.num_kv_heads} KV, hd {cfg.head_dim}, {cfg.dtype}; random seeded "
+          f"weights), LoRA r 16 on {'/'.join(lora_targets(cfg))}, a {cfg.frontend} "
+          f"batch {json.dumps(shapes)}")
+    step = make_train_step(cfg, OptimConfig(lr=3e-4), use_kernels=True)
+    state = {"a": ad, "o": adamw_init(ad)}
+    ops.reset_launch_counts()
+    times, losses, counted = [], [], []
+    with launched_shapes() as seen:
+        for _ in range(2):
+            a0 = torch.cuda.Event(enable_timing=True)
+            b0 = torch.cuda.Event(enable_timing=True)
+            a0.record()
+            state["a"], state["o"], m = step(params, state["a"], state["o"], batch)
+            b0.record()
+            times.append((a0, b0))
+            losses.append(m["loss"])
+            counted.append(m["tokens"])
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in times]
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"lora_matmul": 4 * L * 2, "flash_attention": L * 2}
+    losses = [float(x) for x in losses]
+    counted = [float(x) for x in counted]
+    text = float(batch["loss_mask"][:, 1:].sum())
+    print(f"  2 steps: {step_ms[0]:.1f} / {step_ms[1]:.1f} ms (CUDA events; "
+          f"median {statistics.median(step_ms):.1f}); losses {losses}; tokens "
+          f"in the CE {counted} (the text targets: {text:.0f}); launches "
+          f"{json.dumps(got)} (expected {json.dumps(want)}); lora_matmul shapes "
+          f"{sorted(seen['lora_matmul'])}")
+    if got != want:
+        fail(f"phase {label}: train launches {got} != {want}")
+    if not all(math.isfinite(x) for x in losses) or any(c != text for c in counted):
+        fail(f"phase {label}: losses {losses} or CE token counts {counted} "
+             f"(want {text})")
+    checked = PHASE21_CHECKED[key]
+    for k, shapes_seen in seen.items():
+        if not shapes_seen <= checked[k]:
+            fail(f"phase {label}: {k} ran at {sorted(shapes_seen - checked[k])}, "
+                 f"which no kernel case checks")
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["o"], _ = step(params, state["a"], state["o"], batch)
+    window = profile_window(torch, run, 3, f"{cfg.name} train step, "
+                            f"{FRONT_BATCH} x {batch['loss_mask'].shape[1]} text "
+                            f"tokens, {cfg.frontend} front end, r 16")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak allocated {peak:.2f} GiB")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+            "losses": losses, "ce_tokens": counted, "launches": got,
+            "lora_matmul_shapes": sorted(seen["lora_matmul"]),
+            "peak_allocated_gib": peak, "profiled_train_step": window}, got
+
+
+def hybrid_federated(torch):
+    """(c) FLoRIST through ``FederatedTrainer`` on zamba2-1.2b at published
+    widths and full depth: 2 rounds, the cohort runner, 4 of 8 clients of
+    rank 16 a round, 2 local steps of 4 x 512, LoRA on the six hybrid
+    targets, the Gram route.  Launches exact: ``lora_matmul`` 4 · 6 + 2 · 38
+    = 100 a train forward (none in the eval, which merges the aggregate
+    into the base), ``flash_attention`` 6 a forward (the eval's included),
+    ``adapter_gram`` 2 a stacked shape (5 buckets); every ``lora_matmul``
+    and ``adapter_gram`` shape one that phases 2/3 and 16 (a) check; kept
+    ranks in [1, Σ r_k]; finite losses; step median, peak allocated and a
+    profiled cohort step."""
+    import numpy as np
+    from repro_torch.configs import lora_targets, zamba2_1p2b
+    from repro_torch.core.runtime import CohortRunner
+    from repro_torch.core.runtime.runners import _stack_cohort
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    cfg = zamba2_1p2b.CONFIG
+    L, n_sh = cfg.num_layers, T.num_shared_applications(cfg)
+    runner = CohortRunner(record_steps=True)
+    print(f"phase 21 (c): {MOE_ROUNDS} FLoRIST rounds of {cfg.name} at published "
+          f"widths ({L} Mamba2 layers, d {cfg.d_model}, the shared block applied "
+          f"{n_sh} times, {cfg.dtype}; random seeded weights), LoRA r 16 on "
+          f"{'/'.join(lora_targets(cfg))}, 4 of 8 clients a round, {MOE_STEPS} "
+          f"local steps of {MOE_BATCH} x {MOE_SEQ} tokens, cohort runner, Gram route")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _florist_trainer(cfg, T.init(cfg, 0, DEVICE), runner, 8, 4, MOE_BATCH)
+    rounds = []
+    ops.reset_launch_counts()
+    with launched_shapes() as seen:
+        for rnd in range(MOE_ROUNDS):
+            before, n_log = ops.launch_counts(), len(runner.step_log())
+            rec = tr.run_round(rnd)
+            log = runner.step_log()[n_log:]
+            step_ms = [e["ms"] for e in log]
+            calls = len(log)
+            buckets = len(set(tr.aggregator.dims.values()))
+            got = ops.launch_delta(before, ops.launch_counts())
+            want = {"lora_matmul": (4 * n_sh + 2 * L) * calls,
+                    "flash_attention": n_sh * (calls + 1),
+                    "adapter_gram": 2 * buckets}
+            ranks = tr.global_state.ranks
+            r_sum = sum(tr.aggregator.client_ranks)
+            tok = sum(len(e["clients"]) for e in log) * MOE_BATCH * MOE_SEQ
+            print(f"  round {rnd}: eval loss {rec.eval_loss:.4f} acc "
+                  f"{rec.eval_acc:.4f}; wall {rec.wall_secs:.2f} s, finalize "
+                  f"{rec.finalize_secs * 1e3:.1f} ms; {calls} cohort-step calls, "
+                  f"median {statistics.median(step_ms):.1f} ms (CUDA events), "
+                  f"{tok / (sum(step_ms) / 1e3):.0f} train tok/s; {buckets} buckets; "
+                  f"kept ranks " + ", ".join(
+                      f"{'/'.join(map(str, k))}: {v}" for k, v in ranks.items()))
+            print(f"    launches {json.dumps(got)}; expected {json.dumps(want)}")
+            if got != want:
+                fail(f"phase 21 (c) round {rnd}: launches {got} != {want}")
+            if not np.isfinite(rec.eval_loss):
+                fail(f"phase 21 (c) round {rnd}: eval loss {rec.eval_loss}")
+            if any(not 1 <= p <= r_sum for ps in ranks.values() for p in ps):
+                fail(f"phase 21 (c) round {rnd}: a kept rank is outside [1, {r_sum}]")
+            rounds.append({"record": dataclasses.asdict(rec),
+                           "ranks": {"/".join(map(str, k)): v for k, v in ranks.items()},
+                           "train_step_ms": step_ms,
+                           "train_step_ms_median": statistics.median(step_ms),
+                           "train_tok_s": tok / (sum(step_ms) / 1e3), "launches": got})
+    print("  launched shapes: " + "; ".join(
+        f"{k} {sorted(v, key=str)}" for k, v in seen.items()))
+    checked = PHASE21_CHECKED["zamba2_1p2b"]
+    for k, shapes in seen.items():
+        if not shapes <= checked[k]:
+            fail(f"phase 21 (c): {k} ran at {sorted(shapes - checked[k], key=str)}, "
+                 f"which no kernel case checks")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+
+    # one more cohort step: its losses finite, then a profiled window
+    plan = tr.scheduler.plan(MOE_ROUNDS, tr)
+    stacked, b, _ = _stack_cohort(tr, MOE_ROUNDS, plan.tasks,
+                                  lambda t: tr._client_init(t.client_id, t.rank), 4)
+    b = {"tokens": torch.as_tensor(b["tokens"][:, 0], device=DEVICE),
+         "loss_mask": torch.as_tensor(b["loss_mask"][:, 0], device=DEVICE)}
+    step = tr._cohort_step()
+    state = {"a": stacked, "o": adamw_init(stacked)}
+    state["a"], state["o"], m = step(tr.params, state["a"], state["o"], b)
+    loss = m["loss"].float().cpu()
+    print(f"  a further cohort step: losses {loss.tolist()}; peak allocated "
+          f"{peak:.2f} GiB")
+    if not bool(torch.isfinite(loss).all()):
+        fail(f"phase 21 (c): cohort step losses {loss}")
+
+    def run(n):
+        for _ in range(n):
+            state["a"], state["o"], _ = step(tr.params, state["a"], state["o"], b)
+    window = profile_window(torch, run, 2, f"{cfg.name} cohort train step, 4 "
+                            f"clients x {MOE_BATCH} x {MOE_SEQ} tokens, r 16",
+                            raw_events=True, reps=2)
+    out = {"rounds": rounds, "launches": counts, "peak_allocated_gib": peak,
+           "launched_shapes": {k: sorted(v, key=str) for k, v in seen.items()},
+           "step_loss": loss.tolist(), "profiled_train_step": window}
+    del tr, state, b, step, stacked
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def hybrid_prefill(torch):
+    """(c) ``make_prefill_step(use_kernels=True)`` on zamba2-1.2b (2 x 512
+    tokens, a rank-16 adapter on the six targets): ``lora_matmul`` 100 and
+    ``flash_attention`` 6 a call, finite logits; ms a call."""
+    from repro_torch.configs import lora_targets, zamba2_1p2b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.train.step import make_prefill_step
+    cfg = zamba2_1p2b.CONFIG
+    dev = torch.device(DEVICE)
+    params = T.init(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+    toks = torch.randint(1, cfg.vocab_size, (2, 512), generator=gen, device=dev)
+    step = make_prefill_step(cfg, use_kernels=True)
+    step(params, ad, {"tokens": toks})
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with launched_shapes() as seen:
+        lg = step(params, ad, {"tokens": toks})
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    n_sh = T.num_shared_applications(cfg)
+    want = {"lora_matmul": 4 * n_sh + 2 * cfg.num_layers, "flash_attention": n_sh}
+    print(f"phase 21 (c): make_prefill_step(use_kernels=True) on {cfg.name}, 2 x "
+          f"512 tokens: logits {tuple(lg.shape)}, {ms:.1f} ms a call (host "
+          f"clock); launches {json.dumps(got)} (expected {json.dumps(want)})")
+    if got != want:
+        fail(f"phase 21 (c): prefill launches {got} != {want}")
+    if not seen["lora_matmul"] <= PHASE21_CHECKED["zamba2_1p2b"]["lora_matmul"]:
+        fail(f"phase 21 (c): prefill lora_matmul shapes {seen['lora_matmul']}")
+    if tuple(lg.shape) != (2, cfg.vocab_size) or not bool(torch.isfinite(lg).all()):
+        fail("phase 21 (c): prefill logits")
+    del params, ad, lg
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": got}, got
+
+
+def mamba_layer_parity(torch):
+    """(d) one Mamba2 layer of zamba2-1.2b at published widths (d 2048,
+    d_inner 4096, 64 heads of 64, state 64), fp32 with TF32 off, on the
+    card against the same layer on the CPU: the full-sequence forward on 2
+    x 512 tokens (two SSD chunks of 256), then 16 decode steps from the
+    zero state through the model's ``_block_decode`` (row 1 with
+    ``n_tokens`` 0 on every third step), outputs and states within 1e-4 ·
+    max(1, |y|)."""
+    from repro_torch.configs import zamba2_1p2b
+    from repro_torch.device import parity_mode
+    from repro_torch.models import ssm as Ssm
+    from repro_torch.models import transformer as T
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    mode = parity_mode()
+    cfg = zamba2_1p2b.CONFIG.replace(dtype="float32")
+    gen = torch.Generator().manual_seed(31)
+    p = T._layer(Ssm.init_mamba2(cfg, gen, 1, torch.float32), 0)
+    H = cfg.num_ssm_heads
+    p["D"] = torch.rand(H, generator=gen) + 0.5
+    p["dt_bias"] = torch.randn(H, generator=gen) * 0.5
+    p["conv_b"] = torch.randn(p["conv_b"].shape, generator=gen) * 0.1
+    blk = {"ln": torch.ones(cfg.d_model), "mixer": p}
+    blk_c = {"ln": blk["ln"].to(DEVICE), "mixer": {k: v.to(DEVICE) for k, v in p.items()}}
+    x = torch.randn(2, 512, cfg.d_model, generator=gen)
+    want = Ssm.mamba2_fwd(cfg, p, x)
+    got = Ssm.mamba2_fwd(cfg, blk_c["mixer"], x.to(DEVICE)).cpu()
+    err = float((got - want).abs().max())
+    lim = 1e-4 * max(1.0, float(want.abs().max()))
+    res = {"forward_max_abs_err": err, "forward_limit": lim}
+    cache = Ssm.mamba2_init_state(cfg, 2, "cpu")
+    cache_c = Ssm.mamba2_init_state(cfg, 2, DEVICE)
+    derr, dlim = 0.0, 0.0
+    for t in range(16):
+        xt = torch.randn(2, 1, cfg.d_model, generator=gen)
+        n = torch.tensor([1, 0 if t % 3 == 2 else 1], dtype=torch.int32)
+        y, cache = T._block_decode(cfg, "mamba", blk, xt, cache, {}, n)
+        yc, cache_c = T._block_decode(cfg, "mamba", blk_c, xt.to(DEVICE), cache_c,
+                                      {}, n.to(DEVICE))
+        for a, b in [(yc, y)] + [(cache_c[k], cache[k]) for k in ("conv", "ssm")]:
+            derr = max(derr, float((a.cpu() - b).abs().max()))
+            dlim = max(dlim, 1e-4 * max(1.0, float(b.abs().max())))
+    res.update(decode_max_abs_err=derr, decode_limit=dlim)
+    print(f"phase 21 (d): one Mamba2 layer of {cfg.name} at published widths, "
+          f"card vs CPU in fp32: forward on 2 x 512 tokens (two SSD chunks) max "
+          f"|Δy| {err:.2e} (limit {lim:.2e}); 16 decode steps (row 1 masked every "
+          f"third step) max |Δ| over outputs and states {derr:.2e} (limit "
+          f"{dlim:.2e}); " + mode)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if err > lim or derr > dlim:
+        fail("phase 21 (d): the Mamba2 layer differs between card and CPU")
+    return res
+
+
+def phase21_parity(torch):
+    """(e) fp32 (TF32 off) at full width: the train step's kernel route
+    against its plain route (phase 7's limits, :func:`step_route_parity`)
+    on phi-3-vision cut to 2 layers with patches, musicgen cut to 2 layers
+    with frames, and zamba2 cut to 4 layers at ``attn_every`` 2 (two shared
+    applications); then zamba2's 16-token decode (kernel route: ``ring_decode``
+    on the shared rings) against its forward at that cut, within 2e-4 of max
+    |logit| (the reference's limit, tests/test_models.py)."""
+    from repro_torch.configs import (lora_targets, musicgen_medium,
+                                     phi3_vision_4p2b, zamba2_1p2b)
+    from repro_torch.data.synthetic import make_federated_data
+    from repro_torch.device import parity_mode
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    dev = torch.device(DEVICE)
+    res = {}
+    for key, cfg in (("phi3", phi3_vision_4p2b.CONFIG.replace(num_layers=2)),
+                     ("musicgen", musicgen_medium.CONFIG.replace(num_layers=2)),
+                     ("zamba2", zamba2_1p2b.CONFIG.replace(num_layers=4,
+                                                           attn_every=2))):
+        cfg = cfg.replace(dtype="float32")
+        print(f"phase 21 (e): {cfg.name} train step, kernel route vs plain route, "
+              f"full width in fp32, {cfg.num_layers} layers; " + parity_mode())
+        params = T.init(cfg, 3, dev)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        ad = _nonzero_b(init_lora(params, lora_targets(cfg), 16, 16.0, gen), gen)
+        if cfg.frontend:
+            batches = [frontend_batch(torch, cfg, 2, gen) for _ in range(2)]
+        else:
+            data = make_federated_data(num_clients=1, seq_len=MOE_SEQ,
+                                       vocab=cfg.vocab_size, seed=5)[0]
+            batches = [{"tokens": torch.as_tensor(data.tokens[i:i + 2], device=dev).long(),
+                        "loss_mask": torch.as_tensor(data.loss_mask[i:i + 2], device=dev)}
+                       for i in (0, 2)]
+        res[key] = step_route_parity(torch, f"phase 21 (e) {cfg.name}", cfg,
+                                     params, ad, batches)
+        if key == "zamba2":
+            res["zamba2_decode"] = hybrid_decode_parity(torch, cfg, params, ad,
+                                                        batches[0]["tokens"][:, :16])
+        del params, ad, batches
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return res
+
+
+def hybrid_decode_parity(torch, cfg, params, ad, toks):
+    """16 single-token ``decode`` steps (``decode_impl="kernel"``) against
+    the forward's logits (``use_kernels``) over the same tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        hidden, _ = T.forward(cfg, params, {"tokens": toks}, ad, use_kernels=True)
+        full = T.logits(cfg, params, hidden)
+        cache = T.init_cache(cfg, toks.shape[0], 16, torch.float32,
+                             device=toks.device)
+        n0 = ops.launch_counts()
+        outs = []
+        for t in range(toks.shape[1]):
+            lg, cache = T.decode(cfg, params, cache, {"tokens": toks[:, t:t + 1]},
+                                 ad, decode_impl="kernel")
+            outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1)
+    got = ops.launch_delta(n0, ops.launch_counts())
+    rel = float((dec - full).abs().max() / full.abs().max())
+    want = T.num_shared_applications(cfg) * toks.shape[1]
+    print(f"  {cfg.name}: 16 decode steps against the forward: max |Δ logit| / "
+          f"max |logit| {rel:.2e} (limit 2e-4); ring_decode launches "
+          f"{got.get('ring_decode', 0)} (expected {want})")
+    if rel >= 2e-4 or got.get("ring_decode", 0) != want:
+        fail("phase 21 (e): zamba2's decode differs from its forward")
+    return {"rel_err": rel, "ring_decode_launches": got.get("ring_decode", 0)}
 
 
 if __name__ == "__main__":

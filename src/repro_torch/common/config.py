@@ -64,6 +64,14 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     @property
+    def d_inner(self) -> int:          # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def num_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def num_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
@@ -85,14 +93,15 @@ class ModelConfig:
             per_layer += 2 * self.rwkv_decay_lora * d * 5   # ddlerp loras
             per_layer += 2 * (d // hd) * hd          # time_first/decay base
             per_layer += d * ff + ff * d + d * d     # channel mix
-        elif self.family == "hybrid":
-            raise NotImplementedError(
-                "param_count of the hybrid family is not ported yet (the "
-                "Mamba2-and-hybrid slice of the port)")
         else:
             per_layer += self._attn_params()
             per_layer += self._mlp_params()
-        return n + L * per_layer
+        n += L * per_layer
+        if self.family == "hybrid":
+            # shared attention block counted once, not per layer
+            n -= L * self._attn_params()
+            n += self._attn_params() + 2 * self.d_model
+        return n
 
     def _attn_params(self) -> int:
         d = self.d_model

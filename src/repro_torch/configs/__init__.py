@@ -11,15 +11,8 @@ from repro_torch.common.config import ModelConfig
 #: the reference's architectures that the port carries
 PORTED = ("tinyllama_1p1b", "llama3p2_1b", "rwkv6_1p6b", "deepseek_v3_671b",
           "qwen1p5_32b", "qwen3_4b", "qwen2p5_14b", "qwen2_0p5b",
-          "granite_moe_1b_a400m")
-
-#: the reference's other architectures, by the slice of the port that
-#: brings each in
-NOT_PORTED = {
-    "phi3_vision_4p2b": "ROADMAP.md Queue 1 item 8.5, VLM and audio",
-    "musicgen_medium": "ROADMAP.md Queue 1 item 8.5, VLM and audio",
-    "zamba2_1p2b": "ROADMAP.md Queue 1 item 8.6, Mamba2 and hybrid",
-}
+          "granite_moe_1b_a400m", "phi3_vision_4p2b", "musicgen_medium",
+          "zamba2_1p2b")
 
 _ALIAS = {
     "phi-3-vision-4.2b": "phi3_vision_4p2b",
@@ -39,10 +32,6 @@ _ALIAS = {
 
 def _module(name: str):
     mod_name = _ALIAS.get(name, name)
-    if mod_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (a later slice of the port: "
-            f"{NOT_PORTED[mod_name]})")
     if mod_name not in PORTED:
         raise ValueError(f"unknown config {name!r} (ported: {list(PORTED)})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
@@ -58,8 +47,7 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def lora_targets(cfg: ModelConfig) -> tuple:
     """Default LoRA target modules per family (paper: attention q/k/v/o;
-    adapted for attention-free / hybrid / MLA families).  Families the port
-    does not run yet raise where their models are built."""
+    adapted for attention-free / hybrid / MLA families)."""
     if cfg.use_mla:
         return ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
     if cfg.family == "ssm":

@@ -11,7 +11,12 @@ DeepSeek-V3's shared expert; so do the zero-size ``(0, ...)`` leaves of a
 MoE segment with no layers (DeepSeek-V3 cut to its dense layers), so the
 port's tree keeps the reference's structure.
 Mixed dtypes cross as they are: RWKV6's fp32 ``w0`` and ``u`` beside its
-bf16 weights, its ``(5, d)`` and ``(5, dl, d)`` mixing leaves included.
+bf16 weights, its ``(5, d)`` and ``(5, dl, d)`` mixing leaves included;
+so do the Mamba2 segments' fp32 ``A_log``, ``D`` and ``dt_bias`` beside
+their bf16 ``in_proj``, ``conv_w``, ``conv_b``, ``norm`` and ``out_proj``.
+The Zamba2 hybrid's ``shared_blk`` crosses unstacked (one attention and
+MLP block, 2-D weights; its adapters 2-D leaves with a scalar ``scale``),
+and a front end's ``frontend_proj`` (frontend_dim, d) as any weight.
 
 A reference ``FederatedTrainer``'s state crosses the same way: its
 ``params`` through :func:`params_from_numpy` and its shared ``A_init_full``

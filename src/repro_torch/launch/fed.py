@@ -20,8 +20,10 @@ sharded_cohort`` raises: it is ``ROADMAP.md`` Queue 1 item 9.
 It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
 without ``--device cpu`` it raises.  The model is the reference launcher's
 small dense config (``--layers``, ``--d-model``), or with ``--arch`` a
-ported architecture (``--smoke``: its reduced config; random seeded
-weights, LoRA on the family's targets, 64 tokens a row), and
+ported architecture, any of the reference's (``--smoke``: its reduced
+config; random seeded weights, LoRA on the family's targets, 64 tokens a
+row; ``zamba2-1.2b``, ``phi-3-vision-4.2b`` and ``musicgen-medium`` train
+on token rows, as the reference's launcher does), and
 heterogeneous ranks follow the paper's heavy-tail distribution scaled to
 ``--clients``.
 """

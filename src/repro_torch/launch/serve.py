@@ -6,8 +6,9 @@ publish → serve loop on a tiny model): one
 :class:`~repro_torch.serve.engine.ServeEngine` mounted on
 an :class:`~repro_torch.serve.adapters.AdapterRegistry` holding adapters of
 ranks 4, 8 and 16 (random, seeded) on the family's LoRA targets
-(``lora_targets``: ``wq wk wv wo``, MLA's ``wq_a wq_b wkv_a wkv_b wo``, or
-RWKV6's ``wr wk wv wg wo``)
+(``lora_targets``: ``wq wk wv wo``, MLA's ``wq_a wq_b wkv_a wkv_b wo``,
+RWKV6's ``wr wk wv wg wo``, or the hybrid's ``wq wk wv wo in_proj
+out_proj``)
 serves a wave of requests on mixed adapter ids, the base id 0 included,
 through ``decode_impl="kernel"``.  Part-way through, one adapter name is
 ``swap``-ped to a new version: rows admitted on the old id finish on it, new
@@ -19,6 +20,11 @@ whole (32 experts top-8 a layer); RWKV6-1.6B runs whole, one
 token per engine step (its recurrent state takes no chunks).  Qwen2-0.5B
 and Qwen3-4B run whole; Qwen2.5-14B is cut to 8 of its 48 layers
 (``qwen2p5_14b_l8``) and Qwen1.5-32B to 4 of its 64 (``qwen1p5_32b_l4``).
+phi-3-vision-4.2b and musicgen-medium run whole on token prompts (the
+engine serves tokens, as the reference's does: musicgen's are codebook
+tokens); zamba2-1.2b runs whole, one token per engine step (its Mamba2
+states take no chunks; the shared block's six rings decode through
+``ring_decode``).
 
     python -m repro_torch.launch.serve                  # Llama-3.2-1B, cuda
     python -m repro_torch.launch.serve --config deepseek_v3_dense3
@@ -31,6 +37,10 @@ and Qwen3-4B run whole; Qwen2.5-14B is cut to 8 of its 48 layers
     python -m repro_torch.launch.serve --config rwkv_smoke --device cpu
     python -m repro_torch.launch.serve --config granite_smoke --device cpu
     python -m repro_torch.launch.serve --config deepseek_moe_smoke --device cpu
+    python -m repro_torch.launch.serve --config zamba2_1p2b
+    python -m repro_torch.launch.serve --config zamba2_smoke --device cpu
+    python -m repro_torch.launch.serve --config phi3_vision_smoke --device cpu
+    python -m repro_torch.launch.serve --config musicgen_smoke --device cpu
 """
 from __future__ import annotations
 
@@ -42,8 +52,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import (deepseek_v3_671b, granite_moe_1b_a400m,
-                                 llama3p2_1b, lora_targets, qwen1p5_32b,
-                                 qwen2_0p5b, qwen2p5_14b, qwen3_4b, rwkv6_1p6b)
+                                 llama3p2_1b, lora_targets, musicgen_medium,
+                                 phi3_vision_4p2b, qwen1p5_32b, qwen2_0p5b,
+                                 qwen2p5_14b, qwen3_4b, rwkv6_1p6b,
+                                 zamba2_1p2b)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
@@ -69,12 +81,18 @@ CONFIGS = {
                        (32, 256)),
     "granite_moe_1b_a400m": (granite_moe_1b_a400m.CONFIG, 1024, 16, (32, 256)),
     "deepseek_v3_l4": (deepseek_v3_671b.L4, 1024, 16, (32, 256)),
+    "phi3_vision_4p2b": (phi3_vision_4p2b.CONFIG, 1024, 16, (32, 256)),
+    "musicgen_medium": (musicgen_medium.CONFIG, 1024, 16, (32, 256)),
+    "zamba2_1p2b": (zamba2_1p2b.CONFIG, 1024, 16, (32, 256)),
     "smoke": (llama3p2_1b.SMOKE, 64, 4, (4, 24)),
     "deepseek_smoke": (deepseek_v3_671b.SMOKE.replace(first_dense_layers=3),
                        64, 4, (4, 24)),
     "rwkv_smoke": (rwkv6_1p6b.SMOKE, 64, 4, (4, 24)),
     "granite_smoke": (granite_moe_1b_a400m.SMOKE, 64, 4, (4, 24)),
     "deepseek_moe_smoke": (deepseek_v3_671b.SMOKE, 64, 4, (4, 24)),
+    "phi3_vision_smoke": (phi3_vision_4p2b.SMOKE, 64, 4, (4, 24)),
+    "musicgen_smoke": (musicgen_medium.SMOKE, 64, 4, (4, 24)),
+    "zamba2_smoke": (zamba2_1p2b.SMOKE, 64, 4, (4, 24)),
 }
 
 

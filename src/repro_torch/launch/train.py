@@ -9,7 +9,10 @@ It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
 without ``--device cpu`` it raises.  Weights are random (``T.init`` seeded
 with 0), the adapters ``init_lora`` of rank ``--rank`` and alpha
 ``--rank`` on the family's LoRA targets; batches cycle over
-``make_eval_data``'s ``4 × --batch`` samples, as the reference's do.
+``make_eval_data``'s ``4 × --batch`` token samples, as the reference's do
+(the vision and audio models too: their front ends take no part).
+``--arch`` takes any of the reference's architectures, e.g.
+``zamba2-1.2b``, ``phi-3-vision-4.2b`` or ``musicgen-medium``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, MLA and RWKV6 families (port of
-the dense, MoE, MLA and RWKV paths of ``repro.models.transformer``).
+"""Model assembly for every family of the reference: dense, MoE, MLA,
+RWKV6, the Mamba2 hybrid and the vision and audio front ends (port of
+``repro.models.transformer``).
 
 Parameters keep the reference's layout: ``params["blocks"]`` is a tuple of
 segments, each a dict of stacked ``(L, ...)`` leaves under the reference's
@@ -14,10 +15,22 @@ sums the MoE layers' load-balancing losses into its aux.  MLA runs over
 full sequences (``mla_fwd``) and on the cached decode path.  RWKV6
 (``family="ssm"``) is one ``("rwkv", L)`` segment: ``forward`` runs the
 whole sequence (the ``wkv6`` kernel with ``use_kernels``), ``decode`` steps
-the recurrent state one token at a time.
+the recurrent state one token at a time.  Zamba2 (``family="hybrid"``)
+plans runs of ``attn_every`` Mamba2 layers, each full run followed by
+``("shared", 1)``: the one shared attention block, stored once and
+unstacked as ``params["shared_blk"]`` (its adapters under
+``adapters["shared_blk"]``, 2-D leaves), applied at each such entry.  Its
+cache tuple follows the whole plan: one unstacked attention ring a shared
+application and stacked Mamba2 states; ``params["blocks"]`` skips the
+shared entries, so the loops keep two indices.  The vision and audio
+models plan as dense: ``embed_inputs`` prepends the projected
+``patch_embeds`` to the token embeddings, or takes ``frame_embeds`` in
+place of tokens (``frontend_proj``, cast to the model dtype after the
+product).
 
 Public API:
     layer_plan(cfg)                                 -> [(kind, count)]
+    num_shared_applications(cfg)                    -> int
     init(cfg, seed, device=None)                    -> params
     embed_inputs(cfg, params, batch)                -> (B, S, d)
     forward(cfg, params, batch, adapters, ...)      -> (hidden, aux)  [train / prefill]
@@ -36,7 +49,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as Lyr
 from repro_torch.models import moe as Moe
 from repro_torch.models import rwkv as Rwkv
-from repro_torch.peft.lora import PagedLoRA
+from repro_torch.models import ssm as Ssm
+from repro_torch.peft.lora import PagedLoRA, matmul
 from repro_torch.serve import kvcache as Kv
 
 Params = Dict[str, Any]
@@ -48,20 +62,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    """The reference's segment plan.  Families the port lacks raise
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them
-    (VLM and audio: item 8.5; hybrid: item 8.6, Mamba2 and hybrid)."""
+    """The reference's segment plan."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         return [("rwkv", L)]
-    if cfg.family not in ("dense", "moe"):
-        item = {"vlm": "item 8.5, VLM and audio",
-                "audio": "item 8.5, VLM and audio",
-                "hybrid": "item 8.6, Mamba2 and hybrid"}.get(cfg.family,
-                                                             "no item")
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md Queue 1 "
-            f"{item}): the port runs dense, MoE, MLA and RWKV6 models")
+    if cfg.family == "hybrid":
+        plan, remaining = [], L
+        while remaining > 0:
+            n = min(cfg.attn_every, remaining)
+            plan.append(("mamba", n))
+            remaining -= n
+            if n == cfg.attn_every:
+                plan.append(("shared", 1))
+        return plan
     if cfg.num_experts:
         kind = "mla_moe" if cfg.use_mla else "moe"
         dense_kind = "mla_dense" if cfg.use_mla else "dense"
@@ -73,11 +86,40 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return plan
 
 
+def num_shared_applications(cfg: ModelConfig) -> int:
+    return sum(1 for k, _ in layer_plan(cfg) if k == "shared")
+
+
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
+                dtype: torch.dtype) -> Params:
+    """``L`` stacked layers of one kind."""
+    dev = gen.device
+    d = cfg.d_model
+    if kind == "mamba":
+        return {"ln": torch.ones((L, d), dtype=dtype, device=dev),
+                "mixer": Ssm.init_mamba2(cfg, gen, L, dtype)}
+    if kind == "rwkv":
+        return {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
+                "ln2": torch.ones((L, d), dtype=dtype, device=dev),
+                "mix": Rwkv.init_rwkv6(cfg, gen, L, dtype)}
+    attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
+    blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
+           "attn": attn_init(cfg, gen, L, dtype),
+           "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
+    if kind.endswith("moe"):
+        blk["moe"] = Moe.init_moe(cfg, gen, L, dtype)
+    else:
+        blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
+    return blk
+
+
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator``, with the
     reference's distributions: embedding N(0, 0.02²), projections
     N(0, 1/fan_in), norms one.  Expert stacks are drawn a few experts at a
-    time on the device (:func:`repro_torch.models.moe.init_moe`)."""
+    time on the device (:func:`repro_torch.models.moe.init_moe`).  A
+    front end adds ``frontend_proj`` (frontend_dim, d); the hybrid its
+    ``shared_blk``, made once and unstacked."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -88,28 +130,28 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = Lyr.dense_init(gen, (d, V), d, dtype)
-    blocks = []
-    for kind, L in layer_plan(cfg):
-        if kind == "rwkv":
-            blocks.append({"ln1": torch.ones((L, d), dtype=dtype, device=dev),
-                           "ln2": torch.ones((L, d), dtype=dtype, device=dev),
-                           "mix": Rwkv.init_rwkv6(cfg, gen, L, dtype)})
-            continue
-        attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
-        blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
-               "attn": attn_init(cfg, gen, L, dtype),
-               "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
-        if kind.endswith("moe"):
-            blk["moe"] = Moe.init_moe(cfg, gen, L, dtype)
-        else:
-            blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
-        blocks.append(blk)
-    params["blocks"] = tuple(blocks)
+    if cfg.frontend:
+        fd = cfg.frontend_dim or d
+        params["frontend_proj"] = Lyr.dense_init(gen, (fd, d), fd, dtype)
+    params["blocks"] = tuple(_init_block(cfg, kind, gen, L, dtype)
+                             for kind, L in layer_plan(cfg) if kind != "shared")
+    if cfg.family == "hybrid":
+        params["shared_blk"] = _layer(_init_block(cfg, "shared", gen, 1, dtype), 0)
     return params
 
 
 def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"]]
+    """(B, S, d) inputs: the projected ``patch_embeds`` (vision) before the
+    token embeddings, or the projected ``frame_embeds`` (audio) in place of
+    tokens, each cast to the model dtype after the product."""
+    dtype = torch_dtype(cfg.dtype)
+    parts = []
+    key = {"vision": "patch_embeds", "audio": "frame_embeds"}.get(cfg.frontend)
+    if key in batch:
+        parts.append(matmul(batch[key], params["frontend_proj"]).to(dtype))
+    if "tokens" in batch:
+        parts.append(params["embed"][batch["tokens"]])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -123,6 +165,10 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
     load-balancing loss (per cohort client, (groups,), when ``groups``),
     else None."""
     a = a or {}
+    if kind == "mamba":
+        h = Ssm.mamba2_fwd(cfg, p["mixer"], Lyr.rmsnorm(x, p["ln"], cfg.norm_eps),
+                           a.get("mixer"), use_kernel=use_kernels)
+        return x + h, None
     if kind == "rwkv":
         h, _ = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
                              a.get("mix"), use_kernel=use_kernels)
@@ -147,7 +193,8 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
 def forward(cfg: ModelConfig, params: Params, batch: Dict,
             adapters: Optional[Dict] = None, use_kernels: bool = False,
             cohort: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward over ``batch["tokens"]: (B, S)``.  Returns
+    """Full-sequence forward over ``batch["tokens"]: (B, S)`` (and a front
+    end's ``patch_embeds`` or ``frame_embeds``).  Returns
     (final hidden (B,S,d), aux loss): the sum of the MoE layers'
     load-balancing losses, zero for the other families.  ``use_kernels``
     routes GQA attention, the WKV recurrence and the LoRA projections
@@ -158,13 +205,22 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
     holds the clients' rows in order, B = C·B_c; everything shared runs once at
     batch B, except that a MoE layer routes each client's rows on their
     own with one client's capacity (the reference ``vmap``s one client's
-    step), and aux is per client, shape (C,).  The reference's ``remat``
-    has no counterpart: autograd keeps the activations."""
+    step), and aux is per client, shape (C,).  The hybrid's shared block
+    takes ``adapters["shared_blk"]`` as they are: 2-D leaves, or (C, r, d)
+    client stacks in a cohort (no layer axis to index).  The reference's
+    ``remat`` has no counterpart: autograd keeps the activations (a Mamba2
+    layer's intra-chunk tensors excepted, :mod:`repro_torch.models.ssm`)."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     aux = torch.zeros((cohort,) if cohort else (), dtype=torch.float32,
                       device=x.device)
-    for seg_i, (kind, count) in enumerate(layer_plan(cfg)):
+    seg_i = 0
+    for kind, count in layer_plan(cfg):
+        if kind == "shared":
+            sa = (adapters or {}).get("shared_blk") or {}
+            x, _ = _block_fwd(cfg, kind, params["shared_blk"], x, sa,
+                              use_kernels, cohort)
+            continue
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}
         for i in range(count):
@@ -173,6 +229,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
                                   use_kernels, cohort)
             if aux_l is not None:
                 aux = aux + aux_l
+        seg_i += 1
     x = Lyr.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 
@@ -184,7 +241,10 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     stacked rings (``(L, B, cap, K, hd)`` k/v, or MLA's ``(L, B, cap, kvr)``
     latent and ``(L, B, cap, rope)`` key) and ``(L, B)`` positions, or
     RWKV6's stacked recurrent state (``(L, B, d)`` ``tm_x``/``cm_x`` and
-    ``(L, B, H, hd, hd)`` ``wkv``, fp32; no capacity).  Sliding windows keep
+    ``(L, B, H, hd, hd)`` ``wkv``, fp32; no capacity), or Mamba2's (``(L,
+    B, K-1, d_inner + 2·st)`` ``conv`` and ``(L, B, H, st, hd)`` ``ssm``,
+    fp32); a shared entry of the hybrid's plan holds one unstacked ring
+    (``(B, cap, K, hd)`` k/v, ``(B,)`` positions).  Sliding windows keep
     ``prefill_chunk - 1`` spare slots, as in the reference."""
     dev = resolve_device(device)
     kv_dtype = kv_dtype or torch_dtype(cfg.dtype)
@@ -192,8 +252,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
         capacity = min(capacity, cfg.sliding_window + max(prefill_chunk, 1) - 1)
     caches = []
     for kind, L in layer_plan(cfg):
+        if kind == "shared":
+            caches.append(Kv.attn_cache(cfg, batch, capacity, kv_dtype, dev))
+            continue
         if kind == "rwkv":
             one = Rwkv.rwkv6_init_state(cfg, batch, dev)
+        elif kind == "mamba":
+            one = Ssm.mamba2_init_state(cfg, batch, dev)
         else:
             make = Kv.mla_cache if kind.startswith("mla") else Kv.attn_cache
             one = make(cfg, batch, capacity, kv_dtype, dev)
@@ -227,12 +292,22 @@ def _mask_state_rows(new: Dict, old: Dict, n_tokens) -> Dict:
 
 def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                   n_tokens=None, decode_impl: str = "dense"):
-    """One dense, MoE, MLA or RWKV6 layer, one token chunk.  An RWKV6
-    layer takes one token (C = 1) and writes its new state into the
-    cache's buffers in place.  A MoE layer routes the chunk's B·C tokens
+    """One layer of any kind, one token chunk.  An RWKV6 or Mamba2 layer
+    takes one token (C = 1) and writes its new state into the cache's
+    buffers in place (rows with ``n_tokens`` 0 keep theirs).  A MoE layer routes the chunk's B·C tokens
     at once, as the reference's decode does (rows with ``n_tokens`` 0
     take capacity too)."""
     a = a or {}
+    if kind == "mamba":
+        if x.shape[1] != 1:
+            raise ValueError("SSM decode is a single-token recurrence: "
+                             f"got a chunk of {x.shape[1]} tokens")
+        h, new = Ssm.mamba2_decode(cfg, p["mixer"],
+                                   Lyr.rmsnorm(x, p["ln"], cfg.norm_eps),
+                                   cache, a.get("mixer"))
+        for k, t in _mask_state_rows(new, cache, n_tokens).items():
+            cache[k].copy_(t)
+        return x + h, cache
     if kind == "rwkv":
         if x.shape[1] != 1:
             raise ValueError("RWKV decode is a single-token recurrence: "
@@ -270,13 +345,23 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
     attention interior (``"dense"``, ``"streamed"`` or ``"kernel"``; the
     RWKV6 recurrence is the same on all three).  The ring buffers and recurrent states are
     written in place; the returned cache holds the same buffers and the
-    advanced positions.  RWKV6 takes C = 1.  Returns (logits (B,C,V),
+    advanced positions.  RWKV6 and the hybrid take C = 1.  The cache tuple
+    follows the whole plan (``ci``), the hybrid's shared entries included;
+    ``params["blocks"]`` skips them (``seg_i``).  Returns (logits (B,C,V),
     cache)."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     new_caches = []
-    for seg_i, (kind, count) in enumerate(layer_plan(cfg)):
-        seg_c = cache[seg_i]
+    seg_i = -1
+    for ci, (kind, count) in enumerate(layer_plan(cfg)):
+        seg_c = cache[ci]
+        if kind == "shared":
+            sa = (adapters or {}).get("shared_blk") or {}
+            x, c = _block_decode(cfg, kind, params["shared_blk"], x, seg_c, sa,
+                                 n_tokens, decode_impl)
+            new_caches.append(c)
+            continue
+        seg_i += 1
         if not count:                     # an empty MoE segment
             new_caches.append(seg_c)
             continue

@@ -53,9 +53,11 @@ def clip_by_global_norm(grads: Any, max_norm: float
     """Scale each client's slice of ``grads`` so its global L2 norm is at
     most ``max_norm``.  Every leaf has a leading client axis (the
     reference's ``vmap`` over clients; a single tree is given an axis of
-    1); the norms come back as (C,)."""
-    gnorm = torch.sqrt(sum(torch.square(g.float()).flatten(1).sum(1)
-                           for g in tree_leaves(grads)))
+    1), a 2-D leaf's scalar ``scale`` included; the norms come back as
+    (C,)."""
+    gnorm = torch.sqrt(sum(
+        torch.square(g.float()).reshape(g.shape[0], -1).sum(1)
+        for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.reshape((-1,) + (1,) * (g.dim() - 1)),
                     grads), gnorm

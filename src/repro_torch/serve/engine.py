@@ -429,7 +429,8 @@ class ServeEngine:
 
     def _reserve_tickets(self):
         """``ring_decode``'s merge counters for the engine's largest call,
-        before any capture (a graph keeps the address it captured)."""
+        before any capture (a graph keeps the address it captured); the
+        hybrid's rings are its shared block's, at chunk 1."""
         cfg = self.cfg
         if self.decode_impl != "kernel" or cfg.use_mla or cfg.family == "ssm":
             return None

@@ -1,6 +1,7 @@
 """Per-slot ring KV caches for batched decode (port of the GQA and MLA
 parts of ``repro.serve.kvcache``, and its slot resets for every cache kind,
-RWKV6's recurrent state included).
+the RWKV6 and Mamba2 recurrent states and the Zamba2 hybrid's unstacked
+shared-block rings included).
 
 ``pos``/``length`` have shape ``(B,)``: every slot of a continuous-batching
 engine advances its own ring.  Update ops take a whole token chunk
@@ -200,7 +201,8 @@ def _reset(cache: Any, rows: torch.Tensor) -> Any:
 def reset_slots(cache: Any, mask) -> Any:
     """Zero the cache rows of every slot where ``mask: (B,)`` is True, in
     place: per-slot ``pos``/``length`` restart at 0 and the ring rows and
-    RWKV6 recurrent states are wiped.  Works on one layer's dict, a
+    RWKV6 and Mamba2 recurrent states are wiped (a leaf's batch axis is
+    read off ``CACHE_LEAF_RANKS``, so stacked and unstacked leaves alike).  Works on one layer's dict, a
     layer-stacked dict, or the tuple of
     :func:`repro_torch.models.transformer.init_cache`.  Returns ``cache``."""
     _, dev = _batch_axis(cache)

@@ -6,6 +6,10 @@ through the frozen base into the adapter tree only (A, B and the per-layer
 and AdamW updates those leaves.  ``use_kernels`` runs attention and the
 LoRA projections through the ``flash_attention`` and ``lora_matmul``
 kernels in both steps; a MoE config's loss adds ``router_aux_coef · aux``.
+The train, eval and prefill steps take a front end's batches as
+``forward`` does (``patch_embeds`` before ``tokens``, or ``frame_embeds``
+and ``labels``); the cohort step stays tokens-only, as the reference's
+cohort runner stacks only ``tokens`` and ``loss_mask``.
 ``make_prefill_step`` is the full-sequence forward that serves a prompt's
 next-token logits (RWKV6's recurrence through the ``wkv6`` kernel with
 ``use_kernels``; MoE and MLA models alike); ``make_serve_step`` the chunked
@@ -29,6 +33,10 @@ def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
     CE plus ``router_aux_coef · aux`` when the config sets the coefficient
     (the MoE layers' load-balancing loss), as in the reference;
     ``metrics["loss"]`` is the CE alone and ``metrics["aux"]`` the aux.
+    The CE's targets are ``labels`` where the batch has them (an audio
+    batch: ``frame_embeds``, ``labels``, ``loss_mask``), else ``tokens``; a
+    vision batch's P ``patch_embeds`` positions are dropped from the hidden
+    states before the CE, so the loss is over the text tail only.
     The reference's ``remat`` has no counterpart: autograd keeps the
     activations."""
     hidden, aux = T.forward(cfg, params, batch, adapters,
@@ -38,6 +46,8 @@ def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:]
     loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask, loss_chunk)
     if cfg.router_aux_coef:
         loss = loss + cfg.router_aux_coef * aux
@@ -172,8 +182,9 @@ def make_eval_step(cfg: ModelConfig, loss_chunk: int = 512,
 
 def make_prefill_step(cfg: ModelConfig, use_kernels: bool = False):
     """Returns ``prefill_step(params, adapters, batch) -> (B, V)``: the
-    full-sequence forward over ``batch["tokens"]: (B, S)`` and the logits of
-    the last position, without gradients."""
+    full-sequence forward over ``batch`` (``tokens`` (B, S), and a front
+    end's embeddings) and the logits of the last position, without
+    gradients."""
     def prefill_step(params, adapters, batch):
         with torch.no_grad():
             hidden, _ = T.forward(cfg, params, batch, adapters,

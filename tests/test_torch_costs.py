@@ -164,12 +164,9 @@ def test_param_count_and_config_registry_match_reference():
             tiny.head_dim, tiny.d_ff, tiny.vocab_size) == (22, 2048, 32, 4, 64,
                                                            5632, 32000)
     for alias, mod in jconfigs._ALIAS.items():
-        if mod in tconfigs.PORTED:
-            assert tconfigs.get_config(alias) == tconfigs.get_config(mod)
-        else:
-            with pytest.raises(NotImplementedError, match="not ported"):
-                tconfigs.get_config(alias)
-    assert set(tconfigs.PORTED) | set(tconfigs.NOT_PORTED) == set(jconfigs.ARCH_IDS)
+        assert tconfigs.get_config(alias) == tconfigs.get_config(mod)
+    # every architecture of the reference is ported
+    assert set(tconfigs.PORTED) == set(jconfigs.ARCH_IDS)
     with pytest.raises(ValueError, match="unknown config"):
         tconfigs.get_config("gpt2")
 

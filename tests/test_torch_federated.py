@@ -222,20 +222,22 @@ def test_validation_gate_screen():
 def test_unported_names_raise_not_implemented():
     """The names still unported raise, each naming the roadmap item that
     ports it (the runtime's schedulers, runners, codecs and gate modes are
-    ported, and granite-moe since the MoE slice, so only these remain)."""
+    ported, granite-moe since the MoE slice, and the vision, audio and
+    hybrid configs since the front-end and Mamba2 slice, so only the
+    multi-device ones remain)."""
     from repro_torch.configs import get_config
     for make, item in ((lambda: make_aggregator("florist_sharded"), "Queue 1 item 9"),
-                       (lambda: make_runner("sharded_cohort"), "Queue 1 item 9"),
-                       (lambda: get_config("phi-3-vision-4.2b"), "item 8.5"),
-                       (lambda: get_config("musicgen-medium"), "item 8.5"),
-                       (lambda: get_config("zamba2-1.2b"), "item 8.6")):
+                       (lambda: make_runner("sharded_cohort"), "Queue 1 item 9")):
         with pytest.raises(NotImplementedError, match="not ported") as e:
             make()
         assert item in str(e.value)
     for ported in (lambda: make_runner("cohort"),
                    lambda: make_scheduler("async"), lambda: make_codec("int8"),
                    lambda: ValidationGate("full"),
-                   lambda: get_config("granite-moe-1b-a400m")):
+                   lambda: get_config("granite-moe-1b-a400m"),
+                   lambda: get_config("phi-3-vision-4.2b"),
+                   lambda: get_config("musicgen-medium"),
+                   lambda: get_config("zamba2-1.2b")):
         ported()
 
 

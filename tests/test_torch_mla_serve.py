@@ -124,8 +124,9 @@ def test_engine_resets_latent_slot(model):
 def test_layer_plan_raises_for_moe_layers():
     """MoE is ported: the full DeepSeek-V3 plan (58 MoE layers), its SMOKE
     config (1 dense and 2 MoE layers) and the L4 cut build; the dense-3 cut
-    keeps its empty MoE segment.  The families still unported raise
-    ``NotImplementedError`` naming their ``ROADMAP.md`` items."""
+    keeps its empty MoE segment.  The hybrid, vision and audio families,
+    which raised before their slice of the port, plan as the reference
+    does and build."""
     assert T.layer_plan(deepseek_v3_671b.CONFIG) == [("mla_dense", 3),
                                                      ("mla_moe", 58)]
     params = T.init(deepseek_v3_671b.SMOKE, 0, device="cpu")
@@ -134,18 +135,22 @@ def test_layer_plan_raises_for_moe_layers():
                                                  ("mla_moe", 1)]
     assert T.layer_plan(deepseek_v3_671b.DENSE3) == [("mla_dense", 3),
                                                      ("mla_moe", 0)]
-    for family, item in (("hybrid", "item 8.6"), ("vlm", "item 8.5"),
-                         ("audio", "item 8.5")):
-        with pytest.raises(NotImplementedError, match=family) as e:
-            T.layer_plan(CFG.replace(family=family, use_mla=False,
-                                     num_experts=0))
-        assert item in str(e.value)
+    from repro_torch.configs import get_smoke_config as t_smoke
+    for family, name in (("hybrid", "zamba2-1.2b"), ("vlm", "phi-3-vision-4.2b"),
+                         ("audio", "musicgen-medium")):
+        cfg = t_smoke(name)
+        assert cfg.family == family
+        assert T.layer_plan(cfg) == JT.layer_plan(get_smoke_config(name))
+        params = T.init(cfg, 0, device="cpu")
+        assert len(params["blocks"]) == sum(
+            1 for kind, _ in T.layer_plan(cfg) if kind != "shared")
 
 
 def test_forward_raises_on_mla(model):
     """MLA's full-sequence forward is ported (it raised before): the
     dense-3 SMOKE model's forward runs on both of ``mla_fwd``'s routes;
-    the configs still unported raise naming their items."""
+    the configs that raised before the hybrid and front-end slice load
+    and build."""
     from repro_torch.configs import get_config
     _, _, params = model
     for S in (4, 520):                     # absorbed; expanded (520 % 512)
@@ -153,12 +158,12 @@ def test_forward_raises_on_mla(model):
                            {"tokens": torch.zeros(1, S, dtype=torch.long)})
         assert h.shape == (1, S, CFG.d_model) and float(aux) == 0.0
         assert bool(torch.isfinite(h).all())
-    for name, item in (("phi3_vision_4p2b", "item 8.5"),
-                       ("musicgen_medium", "item 8.5"),
-                       ("zamba2_1p2b", "item 8.6")):
-        with pytest.raises(NotImplementedError, match="not ported") as e:
-            get_config(name)
-        assert item in str(e.value)
+    for name, family in (("phi3_vision_4p2b", "vlm"),
+                         ("musicgen_medium", "audio"),
+                         ("zamba2_1p2b", "hybrid")):
+        cfg = get_config(name)
+        assert cfg.family == family
+        assert T.layer_plan(cfg)
 
 
 def test_decode_streamed_raises(model):
