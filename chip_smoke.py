@@ -243,21 +243,22 @@ Phases (any failure exits non-zero; no exception is caught):
     Gram stack of (d) (``GRAM_MOE``); phase 16 (a) ``lora_matmul``'s client
     axis at granite's projections (C 4).
 21. The vision and audio front ends and the Mamba2 hybrid (random seeded
-    weights, bf16, published widths, full depth): (a) phi-3-vision-4.2b
+    weights, bf16, published widths; phi-3-vision and musicgen cut in depth,
+    below): (a) phi-3-vision-4.2b
     (32 L, d 3072, 32 H / 32 KV, hd 96) serves phase 4's traffic on the
-    graphed engine (``ring_decode`` 32 and ``bgmv`` 128 an engine step, 16
+    graphed engine (``ring_decode`` L and ``bgmv`` 4 L an engine step, 16
     of 16 requests, a profiled burst window on live adapters), its graphed
     tokens equal its uncaptured tokens bit for bit, and
     ``make_train_step(use_kernels=True)`` takes 2 steps on a vision batch
     shaped as ``launch/specs.input_specs`` shapes one (4 rows of 576 patch
-    embeds of 1024 and 448 text tokens): ``lora_matmul`` 128 and
-    ``flash_attention`` 32 a forward, the loss finite and over the text
+    embeds of 1024 and 448 text tokens): ``lora_matmul`` 4 L and
+    ``flash_attention`` L a forward, the loss finite and over the text
     tail only (the CE's token count), step times, idle share, peak
     allocated; (b) musicgen-medium (48 L, d 1536, 24 / 24, vocab 2048)
-    serves the same traffic on codebook-token prompts (``ring_decode`` 48,
-    ``bgmv`` 192 a step) and trains 2 steps on an audio batch (4 × 512
-    frame embeds, labels, no tokens; ``lora_matmul`` 192 and
-    ``flash_attention`` 48 a forward); (c) zamba2-1.2b (38 Mamba2 layers,
+    serves the same traffic on codebook-token prompts (``ring_decode`` L,
+    ``bgmv`` 4 L a step) and trains 2 steps on an audio batch (4 × 512
+    frame embeds, labels, no tokens; ``lora_matmul`` 4 L and
+    ``flash_attention`` L a forward); (c) zamba2-1.2b (38 Mamba2 layers,
     d 2048, state 64, the shared attention block applied 6 times) serves
     the traffic one token a step (``ring_decode`` 6 and ``bgmv`` 100 a
     step, graphed tokens equal uncaptured), trains two FLoRIST rounds
@@ -281,6 +282,40 @@ Phases (any failure exits non-zero; no exception is caught):
     client axis at zamba2's), ``flash_attention`` at each model's heads
     and batches, ``adapter_gram`` at every Gram stack of (c)
     (``GRAM_HYBRID``).
+22. The multi-device path (``repro_torch.topology``, ``ServeEngine(mesh=
+    ...)``, ``sharded_cohort``, ``florist_sharded``).  The card is one
+    device and NCCL refuses two ranks on one GPU, so the sharded paths run
+    as a gloo world of 2 ranks spawned on cuda:0 (``topology.spawn``; gloo
+    carries the collectives through the host, every kernel runs on the
+    card at its shard's shape, and a rank's exception fails the script).
+    (a) Llama-3.2-1B, all 16 layers, bf16, tensor-parallel on a serve mesh
+    of 2 with phase 4's traffic, steps uncaptured: 16 of 16 requests on
+    each rank with the same tokens, ``ring_decode`` L a step at 16 / 4
+    heads and ``bgmv`` 4 L a step at the shard widths (``BGMV_SHARD``),
+    each rank's pools half of each target's sharded factor, 2 L
+    ``all_reduce``s a step and their host time.  (b) fp32, TF32 off, 2
+    layers: the mesh-2 kernel engine's first prefill step's logits within
+    1e-3 of max(1, |logit|) of the mesh-less engine's on the card and its
+    greedy tokens equal over 16 steps; then DeepSeek-V3-dense3 on the
+    world with phase 8's traffic (``mla_ring_decode`` 3 a step a rank at
+    64 heads).  (c) NCCL at world 1: an ``all_reduce`` on the card, and the
+    mesh-1 engine's tokens equal the mesh-less engine's bit for bit (Llama
+    cut to 2 layers, graphed).  (d) TinyLlama at ``TINY_LAYERS``, fp32 (TF32
+    off), 8 clients of rank 16, 4 a round, 4 steps of 4 × 512, Gram route,
+    2 rounds: ``sharded_cohort`` + ``florist_sharded`` on the world against
+    one-process ``cohort`` + ``florist``: eval loss within 2e-4, kept ranks
+    equal, ΔW within 2e-3, the global adapters equal bit for bit across
+    ranks, each rank's launches equal to the one-process run's and every
+    ``lora_matmul`` / ``adapter_gram`` shape one that phase 2/3 checks;
+    then the same world runs the cohort phases' bf16 (bf16 wire): each
+    rank's launches equal to its fp32 run's, the same shapes, finite
+    losses, and histories, kept ranks and global adapters equal across
+    ranks.
+    Phase 2 holds each kernel at those shard shapes: ``ring_decode`` at 16
+    / 4, ``bgmv`` at ``BGMV_SHARD`` and ``BGMV_MLA_SHARD``,
+    ``mla_ring_decode`` at 64 heads, ``lora_matmul`` at C 2
+    (``LORA_SHARD_SHAPES``), ``flash_attention`` at B 8 and
+    ``adapter_gram`` at one rank's layer slice (``GRAM_SHARD``).
 
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
@@ -294,9 +329,15 @@ at 6 (``RWKV_TRAIN_LAYERS``, 12 before), phase 20 (a) and (d) run
 granite-moe at 12 of its 24 (``GRANITE_LAYERS``), phase 21 (c) holds
 zamba2's graphed tokens to its uncaptured ones at 12 of its 38 layers
 (``ZAMBA2_GRAPH_LAYERS``: two shared applications; its serving, launches
-and window stay at 38), and each kernel time is the median of ``REPS`` =
-30 launches (50 before).  Each phase's seconds are printed (``[phase N:
-s]``) and kept in the JSON.
+and window stay at 38).  To pay for phase 22 (the script took 1242.7 s
+from the build on with it, on an H100 80GB HBM3 at 700 W whose host ran
+phase 21 in 277.5 s): phase 21 (a) serves and trains phi-3-vision at 8 of
+its 32 layers (``PHI3_LAYERS``) and (b) musicgen at 12 of its 48
+(``MUSICGEN_LAYERS``), phase 15 (d) runs ``serve_bench``'s mesh axis at
+mesh 1 only (phase 22 serves on a world of 2), and each kernel time is
+the median of ``REPS`` = 20 launches (50 and then 30 before).
+Each phase's seconds are printed (``[phase N: s]``) and kept in the
+JSON.
 
 It fails without a CUDA device, and in a directory that lacks the port's
 sources.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -316,7 +357,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
-REPS = 30
+REPS = 20
 DEVICE = "cuda"
 CARD = "the card"                # nvidia-smi's name and power limit, set by main
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
@@ -344,6 +385,11 @@ def fail(msg: str) -> None:
 RWKV_SERVE_LAYERS = 12           # phase 11: RWKV6-1.6B served at 12 of 24
 GRANITE_LAYERS = 12              # phase 20 (a), (d): granite-moe at 12 of 24
 ZAMBA2_GRAPH_LAYERS = 12         # phase 21 (c)'s graphed-vs-uncaptured pass
+PHI3_LAYERS = 8                  # phase 21 (a): phi-3-vision at 8 of 32 layers
+MUSICGEN_LAYERS = 12             # phase 21 (b): musicgen at 12 of 48 layers
+
+
+CUT_OF = {}                      # a cut config's key -> the key it cuts
 
 
 def cut_config(key: str, layers: int) -> str:
@@ -354,6 +400,7 @@ def cut_config(key: str, layers: int) -> str:
     cut = f"{key}_l{layers}"
     cfg, *rest = CONFIGS[key]
     CONFIGS[cut] = (cfg.replace(num_layers=layers), *rest)
+    CUT_OF[cut] = key
     return cut
 
 
@@ -456,6 +503,8 @@ def main() -> None:
     done("20")
     report["phase21"], p21_counts = phase21(torch)
     done("21")
+    report["phase22"], p22_counts = phase22(torch)
+    done("22")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -540,7 +589,11 @@ def main() -> None:
             | (other_path("zamba2_path", name, BGMV_ZAMBA2)
                if name == "bgmv" else {})
             | (other_path("zamba2_path", name, GRAM_ZAMBA2)
-               if name == "adapter_gram" else {}))
+               if name == "adapter_gram" else {})
+            | ({"launches_phase22_path": p22_counts[name]}
+               if name in p22_counts else {})
+            | (other_path("shard_path", name, SHARD_CASES[name])
+               if name in SHARD_CASES else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -725,7 +778,12 @@ def kernel_cases(torch):
             # 32 at hd 96 is above
             ("bfloat16", 1, 0, 64, 1024, 24, 24, False),
             ("bfloat16", 16, 0, 64, 1024, 24, 24, False),
-            ("bfloat16", 1, 0, 64, 1024, 32, 32, False)):
+            ("bfloat16", 1, 0, 64, 1024, 32, 32, False),
+            # phase 22 (a): one rank's shard of Llama-3.2-1B on a model axis
+            # of 2 (16 of 32 query heads over 4 of 8 KV heads), at a decode
+            # step and at the 16-token prefill chunk
+            ("bfloat16", 1, 0, 64, 1024, 16, 4, False),
+            ("bfloat16", 16, 0, 64, 1024, 16, 4, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -841,6 +899,12 @@ def bgmv_kernel_cases(torch):
         ("bfloat16", 1, 3072, 3072), ("bfloat16", 16, 3072, 3072),
         ("bfloat16", 1, 1536, 1536), ("bfloat16", 16, 1536, 1536),
         ("bfloat16", 1, 2048, 8384), ("bfloat16", 1, 4096, 2048))]
+    # phase 22: one rank's shard widths on a model axis of 2 (Llama's and
+    # DeepSeek-V3-dense3's column-parallel dout and row-parallel din),
+    # at a decode step and at the prefill chunk
+    cases += [(dt, C, din, dout, (0, 3, 8, 16, 0), 4)
+              for din, dout in BGMV_SHARD + BGMV_MLA_SHARD
+              for dt, C in (("bfloat16", 1), ("bfloat16", 16))]
     cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
         ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
         ("float32/bfloat16", 2048, 2048))]
@@ -960,6 +1024,8 @@ def mla_kernel_cases(torch):
         ("int8", 16, 0), ("float32", 16, 0))]
     # the engine's rings: phase 8's prompts of 16-256 tokens plus 32 new
     engine = [(512, 64, 128, 128, "bfloat16", c, 0, "engine") for c in (1, 16)]
+    # phase 22 (b): one rank's 64 of DeepSeek-V3's 128 heads (model axis 2)
+    main += [(512, 64, 128, 64, "bfloat16", c, 0) for c in (1, 16)]
     engine_pos = torch.tensor([288, 32, 100, 200, 0, 150, 64, 250], device=dev)
     for kvr, rope, nope, H, kv_name, C, window, *ring in main + smoke + engine:
         pos = engine_pos if ring else torch.tensor(
@@ -1096,6 +1162,25 @@ GRAM_HYBRID = tuple((G, m, 64, layout) for G in (36, 2)
                                       (4096, "row"))) + (
     (4, 2048, 64, "col"), (4, 2048, 64, "row"))
 GRAM_ZAMBA2 = "fp32, G=36 m=8384 r=64"
+# phase 22's shard shapes on a model / data axis of 2: bgmv's (din, dout)
+# of a Llama-3.2-1B rank (wq 2048 -> 1024, wk / wv 2048 -> 256, wo 1024 ->
+# 2048) and of a DeepSeek-V3-dense3 rank (wq_a 7168 -> 768, wq_b 1536 ->
+# 12288, wkv_a 7168 -> 288, wo 8192 -> 7168); lora_matmul's (din, dout) at
+# C 2 (TinyLlama's wq and wv); a rank's FLoRIST layer slice of TinyLlama
+# at 2 layers, r = 4 x 16 (wq's B stack, both A stacks, wv's B stack)
+BGMV_SHARD = ((2048, 1024), (2048, 256), (1024, 2048))
+BGMV_MLA_SHARD = ((7168, 768), (1536, 12288), (7168, 288), (8192, 7168))
+LORA_SHARD_SHAPES = ((2048, 2048), (2048, 256))
+GRAM_SHARD = ((1, 2048, 64, "col"), (1, 2048, 64, "row"), (1, 256, 64, "col"))
+RING_SHARD = "bf16 cache, C=1, B=8 H=16 K=4 hd=64 cap=1024"
+BGMV_SHARD_MAIN = "bf16, C=1, B=8 din=2048 dout=1024 pr=4 Pmax=4"
+MLA_SHARD = "bf16 cache, C=1, B=8 H=64 kvr=512 rope=64 cap=1024"
+LORA_SHARD = "fp32, C=2 M=2048 din=2048 dout=2048 r=16"
+FLASH_SHARD = "fp32, causal, B=8 S=512 H=32 K=4 hd=64"
+GRAM_SHARD_MAIN = "fp32, G=1 m=2048 r=64"
+SHARD_CASES = {"ring_decode": RING_SHARD, "bgmv": BGMV_SHARD_MAIN,
+               "mla_ring_decode": MLA_SHARD, "lora_matmul": LORA_SHARD,
+               "flash_attention": FLASH_SHARD, "adapter_gram": GRAM_SHARD_MAIN}
 FLASH_PHI3 = "bf16, causal, B=4 S=1024 H=32 K=32 hd=96"
 RING_ZAMBA2 = "bf16 cache, C=1, B=8 H=32 K=32 hd=64 cap=1024"
 BGMV_ZAMBA2 = "bf16, C=1, B=8 din=2048 dout=8384 pr=4 Pmax=4"
@@ -1372,7 +1457,11 @@ def cohort_kernel_cases(torch):
             (torch.float32, 3, 200, 2048, 256, 16),
             (torch.bfloat16, 3, 200, 2048, 1003, 5))
             + tuple((torch.bfloat16, 4, 2048, din, dout, 16)
-                    for din, dout in LORA_MOE_COHORT + LORA_HYBRID_SHAPES)):
+                    for din, dout in LORA_MOE_COHORT + LORA_HYBRID_SHAPES)
+            # phase 22 (d): one rank's half of a 4-client cohort (C 2)
+            + tuple((dt, 2, 2048, din, dout, 16) for dt in (torch.bfloat16,
+                                                            torch.float32)
+                    for din, dout in LORA_SHARD_SHAPES)):
         x = torch.randn(C, M, din, generator=gen, device=dev).to(dt)
         w = (torch.randn(din, dout, generator=gen, device=dev) / din ** 0.5).to(dt)
         a = torch.randn(C, r, din, generator=gen, device=dev) * 0.02
@@ -1415,6 +1504,10 @@ def cohort_kernel_cases(torch):
               f"(one cohort launch {ms:.4f} ms)")
     records.append(flash_case(torch, gen, torch.bfloat16, 16, 512, 512, 32, 4,
                               64, True, 0))
+    # phase 22 (d): the rank's cohort batch, C 2 x B 4
+    for dt in (torch.bfloat16, torch.float32):
+        records.append(flash_case(torch, gen, dt, 8, 512, 512, 32, 4, 64,
+                                  True, 0))
     return records
 
 
@@ -1465,7 +1558,8 @@ def gram_kernel_cases(torch):
                                    (3, 70, 5, "col", False), (2, 1001, 12, "row", False),
                                    (2, 100, 40, "col", False), (1, 8, 200, "col", False),
                                    (2, 300, 130, "row", False), (5, 257, 96, "col", False))
-                                  + tuple(c + (True,) for c in GRAM_MOE + GRAM_HYBRID)):
+                                  + tuple(c + (True,) for c in GRAM_MOE + GRAM_HYBRID
+                                          + GRAM_SHARD)):
         if layout == "col":
             x = torch.randn(G, m, r, generator=gen, device=dev) * 0.05
             stored, lib = x, (lambda x=x: torch.bmm(x.mT, x))
@@ -1820,7 +1914,7 @@ def mla_launches_a_call(eng) -> int:
     ckv = next(c["c_kv"] for c in eng.cache if "c_kv" in c)
     _, B, cap, kvr = ckv.shape
     how = mla.route(ckv.dtype, kvr, eng.cfg.qk_rope_head_dim)
-    per = {mla.launches(how, mla.splits(B, C, eng.cfg.num_heads, cap,
+    per = {mla.launches(how, mla.splits(B, C, eng.dcfg.num_heads, cap,
                                         ckv.device, how)[0])
            for C in {1, eng.chunk}}
     if len(per) != 1:
@@ -3665,8 +3759,9 @@ def benches(torch):
     t0 = time.perf_counter()
     kb = kernel_bench.report(device=DEVICE, log=lambda s: print("  " + s))
     t1 = time.perf_counter()
+    # the mesh axis at mesh 1 only: phase 22 serves on a world of 2
     sb = serve_bench.bench(serve_bench.parse_args([]), device=DEVICE,
-                           log=lambda s: print("  " + s))
+                           log=lambda s: print("  " + s), mesh_sizes=(1,))
     t2 = time.perf_counter()
     print(f"  kernel_bench {t1 - t0:.1f} s, serve_bench {t2 - t1:.1f} s")
     return {"kernel_bench": kb, "serve_bench": sb,
@@ -4972,8 +5067,8 @@ PHASE21_CHECKED = {
 
 
 def phase21(torch):
-    """(a) phi-3-vision-4.2b and (b) musicgen-medium at published widths and
-    full depth serve phase 4's traffic on the graphed engine (Phi-3's graphed
+    """(a) phi-3-vision-4.2b and (b) musicgen-medium at published widths,
+    cut to ``PHI3_LAYERS`` and ``MUSICGEN_LAYERS``, serve phase 4's traffic on the graphed engine (Phi-3's graphed
     tokens held to its uncaptured tokens bit for bit) and take two train
     steps on a vision or audio batch; (c) zamba2-1.2b serves the traffic one
     token a step (graphed against uncaptured too), trains through two
@@ -4982,11 +5077,13 @@ def phase21(torch):
     layers (4 for zamba2) and zamba2's decode against its forward."""
     t_phase = time.perf_counter()
     out, counts = {}, collections.Counter()
-    for key, label, graphs in (("phi3_vision_4p2b", "21 (a)", True),
-                               ("musicgen_medium", "21 (b)", False),
-                               ("zamba2_1p2b", "21 (c)", True)):
+    for key, label, graphs, full in (
+            (cut_config("phi3_vision_4p2b", PHI3_LAYERS), "21 (a)", True, 32),
+            (cut_config("musicgen_medium", MUSICGEN_LAYERS), "21 (b)", False, 48),
+            ("zamba2_1p2b", "21 (c)", True, 0)):
         out[f"{key}_serve"], c = end_to_end(torch, label, key,
-                                            windows=("profiled_burst_adapters",))
+                                            windows=("profiled_burst_adapters",),
+                                            full_layers=full)
         counts.update(c)
         if graphs:
             out[f"{key}_graphs"] = graph_parity(
@@ -5088,7 +5185,7 @@ def frontend_train(torch, key: str, label: str):
     if not all(math.isfinite(x) for x in losses) or any(c != text for c in counted):
         fail(f"phase {label}: losses {losses} or CE token counts {counted} "
              f"(want {text})")
-    checked = PHASE21_CHECKED[key]
+    checked = PHASE21_CHECKED[CUT_OF.get(key, key)]
     for k, shapes_seen in seen.items():
         if not shapes_seen <= checked[k]:
             fail(f"phase {label}: {k} ran at {sorted(shapes_seen - checked[k])}, "
@@ -5380,6 +5477,458 @@ def hybrid_decode_parity(torch, cfg, params, ad, toks):
     if rel >= 2e-4 or got.get("ring_decode", 0) != want:
         fail("phase 21 (e): zamba2's decode differs from its forward")
     return {"rel_err": rel, "ring_decode_launches": got.get("ring_decode", 0)}
+
+
+# -- phase 22: multi-device on one card, gloo worlds of 2 ranks ----------------
+
+WORLD = 2                        # ranks of (a), (b), (d)'s worlds
+P22_PARITY_LAYERS = 2            # (b)'s fp32 parity depth
+
+
+def _rank_start(device: str) -> None:
+    global DEVICE
+    DEVICE = device
+
+
+@contextlib.contextmanager
+def serving_shapes():
+    """The shapes the serving kernels launch at inside the block, recorded
+    at the kernels' entry points (as :func:`launched_shapes` does):
+    ``{"ring_decode": {(H, K, hd)}, "bgmv": {(din, dout)},
+    "mla_ring_decode": {H}}``."""
+    from repro_torch.kernels import ops
+    seen = {"ring_decode": set(), "bgmv": set(), "mla_ring_decode": set()}
+    ring, bgmv, mla = ops.ring_decode_cuda, ops.bgmv_cuda, ops.mla_ring_decode_cuda
+
+    def ring_seen(q, k, *a, **kw):
+        seen["ring_decode"].add((q.shape[2], k.shape[2], q.shape[3]))
+        return ring(q, k, *a, **kw)
+
+    def bgmv_seen(x, a_pages, b_pages, *a, **kw):
+        seen["bgmv"].add((a_pages.shape[-1], b_pages.shape[-2]))
+        return bgmv(x, a_pages, b_pages, *a, **kw)
+
+    def mla_seen(q, *a, **kw):
+        seen["mla_ring_decode"].add(q.shape[2])
+        return mla(q, *a, **kw)
+
+    ops.ring_decode_cuda, ops.bgmv_cuda, ops.mla_ring_decode_cuda = (
+        ring_seen, bgmv_seen, mla_seen)
+    try:
+        yield seen
+    finally:
+        ops.ring_decode_cuda, ops.bgmv_cuda, ops.mla_ring_decode_cuda = ring, bgmv, mla
+
+
+def _rank_log(rank: int):
+    return (lambda s: print(f"  [rank {rank}] {s}", flush=True)) if rank == 0 \
+        else (lambda s: None)
+
+
+def p22_serve(torch, config: str) -> dict:
+    """One rank of a tensor-parallel server: ``launch.serve``'s traffic on
+    ``config`` (phase 4's for Llama, phase 8's for DeepSeek-V3-dense3)
+    through ``ServeEngine(mesh=make_serve_mesh(WORLD))``, uncaptured; its
+    launches, kernel shapes, pools, all_reduces and tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as LS
+    from repro_torch.topology import make_serve_mesh, world
+    rank, _ = world()
+    mesh = make_serve_mesh(WORLD, device=DEVICE)
+    setup = LS.build(config, device=mesh.device, mesh=mesh)
+    eng = setup["engine"]
+    ops.reset_launch_counts()
+    with serving_shapes() as seen:
+        out = LS.traffic(setup, log=_rank_log(rank))
+    counts = ops.launch_counts()
+    from repro_torch.serve.adapters import adapter_leaves
+    pools = {}
+    for path, leaf in adapter_leaves(eng.registry.device_state["pools"]):
+        pools[path[-1]] = {"A": tuple(leaf["A"].shape), "B": tuple(leaf["B"].shape),
+                           "bytes": leaf["A"].numel() * leaf["A"].element_size()
+                           + leaf["B"].numel() * leaf["B"].element_size()}
+    res = {"results": out["results"], "stats": out["stats"],
+           "served_by": out["served_by"], "swap": out["swap"],
+           "counts": counts,
+           "want": serve_launches(eng.dcfg, eng, eng.steps_run),
+           "steps": eng.steps_run, "all_reduces": eng.tp.all_reduces,
+           "reduce_s": eng.tp.reduce_s, "heads": (eng.dcfg.num_heads,
+                                                   eng.dcfg.num_kv_heads),
+           "seen": seen, "pools": pools, "backend": mesh.backend,
+           "builds": {str(k): v for k, v in eng.trace_counts.items()}}
+    del out, setup, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def p22_parity_side(torch, mesh) -> dict:
+    """(b)'s fp32 side on one engine (``mesh`` None: mesh-less): Llama-3.2-
+    1B at P22_PARITY_LAYERS layers in fp32, TF32 off, through the kernel
+    routes with phase 5's registry; the first 16-token prefill step's
+    logits (``T.decode`` on the engine's own shards) and the greedy tokens
+    of 8 requests over 16 steps."""
+    import numpy as np
+    from repro_torch.configs import lora_targets
+    from repro_torch.device import parity_mode
+    from repro_torch.launch.serve import CONFIGS, make_adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.serve.adapters import AdapterRegistry, attach
+    from repro_torch.serve.engine import SamplingParams, ServeEngine
+    parity_mode()
+    cfg = CONFIGS["llama3p2_1b"][0].replace(dtype="float32",
+                                            num_layers=P22_PARITY_LAYERS)
+    dev = torch.device(DEVICE) if mesh is None else mesh.device
+    params = T.init(cfg, 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    targets = lora_targets(cfg)
+    reg = AdapterRegistry(init_lora(params, targets, 4, 8.0, gen), page_rank=4,
+                          max_rank=16, device=dev)
+    aid = [0] + [reg.register(f"r{r}", make_adapter(params, targets, r, gen,
+                                                     torch.float32))
+                 for r in (4, 8, 16)]
+    B, C = 8, 16
+    eng = ServeEngine(cfg, params, registry=reg, batch_slots=B, capacity=1024,
+                      prefill_chunk=C, decode_impl="kernel", device=dev,
+                      mesh=mesh)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, C)), device=dev)
+    n = torch.tensor([16, 16, 9, 16, 3, 16, 16, 1], dtype=torch.int32,
+                     device=dev)
+    ids = torch.tensor([aid[i % 4] for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    cache = T.init_cache(cfg, B, 1024, torch.float32, prefill_chunk=C,
+                         device=dev)
+    if mesh is not None:
+        from repro_torch import topology
+        cache = topology.shard(cache, topology.serve_cache_pspecs(
+            mesh, cfg, cache), mesh)
+    lg, _ = T.decode(eng.dcfg, eng.params, cache, {"tokens": toks},
+                     attach(reg.device_state, ids, impl="kernel"), n_tokens=n,
+                     decode_impl="kernel", tp=eng.tp)
+    prng = np.random.default_rng(4)
+    uids = [eng.submit(prng.integers(1, cfg.vocab_size,
+                                     int(prng.integers(32, 65))).tolist(),
+                       SamplingParams(max_tokens=16), adapter_id=aid[i % 4])
+            for i in range(B)]
+    res = eng.run()
+    out = {"logits": lg.cpu(), "valid": (torch.arange(C, device=dev)[None, :]
+                                         < n[:, None]).cpu(),
+           "tokens": [res[u] for u in uids],
+           "reduces": eng.tp.all_reduces if eng.tp is not None else 0}
+    del eng, reg, params, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def p22_serving_rank(device: str = "cuda") -> dict:
+    """Every serving case of phase 22 on one rank of the world of
+    ``WORLD`` (gloo, every rank on cuda:0): (a) Llama-3.2-1B, (b) the fp32
+    parity side and DeepSeek-V3-dense3."""
+    import torch
+    from repro_torch.topology import make_serve_mesh
+    _rank_start(device)
+    out = {"llama": p22_serve(torch, "llama3p2_1b")}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    out["parity"] = p22_parity_side(torch, make_serve_mesh(WORLD, device=DEVICE))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["mla"] = p22_serve(torch, "deepseek_v3_dense3")
+    return out
+
+
+def p22_nccl_rank() -> dict:
+    """(c): one rank on NCCL: a collective on the card, then the mesh-1
+    engine against the mesh-less engine on phase 4's traffic (Llama cut
+    to 2 layers, bf16, graphed), tokens bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import serve as LS
+    from repro_torch.topology import make_serve_mesh
+    x = torch.arange(4.0, device="cuda")
+    dist.all_reduce(x)
+    key = cut_config("llama3p2_1b", 2)
+    runs = {}
+    for name, mesh in (("mesh-less", None), ("mesh 1", make_serve_mesh(1))):
+        setup = LS.build(key, device="cuda", mesh=mesh)
+        out = LS.traffic(setup, log=lambda s: None)
+        runs[name] = {"results": out["results"],
+                      "captures": sum(setup["engine"].trace_counts.values())}
+        del setup, out
+        torch.cuda.empty_cache()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "all_reduce": x.cpu(), "runs": runs}
+
+
+def p22_fed_side(torch, runner: str, method: str, bf16: bool = False) -> dict:
+    """(d)'s federated run on one rank (or in one process): TinyLlama at
+    ``TINY_LAYERS`` in fp32 (TF32 off) on the fp32 wire, or with ``bf16``
+    in bf16 on the bf16 wire as phases 13-16 train, 8 clients of rank 16,
+    4 a round, 4 local steps of 4 x 512 tokens, the Gram route,
+    ``TINY_ROUNDS`` rounds; the history, kept ranks, global adapters,
+    launches and the ``lora_matmul`` / ``adapter_gram`` shapes launched."""
+    from repro_torch.device import parity_mode
+    from repro_torch.kernels import ops
+    if bf16:
+        setup = _tiny_setup(torch, layers=TINY_LAYERS)
+        tr = _tiny_trainer(setup, runner, fed_kw={"method": method})
+    else:
+        parity_mode()
+        setup = _tiny_setup(torch, layers=TINY_LAYERS, dtype="float32")
+        tr = _tiny_trainer(setup, runner, fed_kw={"method": method},
+                           transport="fp32")
+    ops.reset_launch_counts()
+    with launched_shapes() as seen:
+        tr.run(TINY_ROUNDS)
+    counts = ops.launch_counts()
+    gs = tr.global_state
+    out = {"history": [(h.eval_loss, h.upload_bytes, h.download_bytes,
+                        h.global_rank_total) for h in tr.history],
+           "ranks": gs.ranks, "global": gs.global_adapters, "counts": counts,
+           "seen": seen, "peak": getattr(tr.runner, "peak_live_clients", 0)}
+    del tr, setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def p22_fed_rank(device: str = "cuda") -> dict:
+    """(d) on one rank: the fp32 run that is held to the one-process run,
+    then the bf16 run of the cohort phases."""
+    import torch
+    _rank_start(device)
+    fp32 = p22_fed_side(torch, "sharded_cohort", "florist_sharded")
+    return {"fp32": fp32, "bf16": p22_fed_side(
+        torch, "sharded_cohort", "florist_sharded", bf16=True)}
+
+
+def phase22(torch) -> tuple:
+    """Phase 22: the multi-device path on one H100 (the card's one device:
+    NCCL refuses two ranks on one GPU, so the sharded paths run as a gloo
+    world of ``WORLD`` ranks that share cuda:0; gloo carries the
+    collectives through the host and every kernel runs on the card at its
+    shard's shape).  (a) tensor-parallel Llama-3.2-1B serving, (b) fp32
+    parity against the mesh-less engine and DeepSeek-V3-dense3 serving
+    (one world for both), (c) NCCL at world 1, (d) ``sharded_cohort`` +
+    ``florist_sharded`` in fp32 against one-process ``cohort`` +
+    ``florist``, then in bf16.
+    Every rank must finish; a rank's exception fails the script."""
+    from repro_torch.launch.serve import CONFIGS, MAX_TOKENS, N_REQUESTS
+    from repro_torch.topology import spawn
+    report, counts = {}, {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print("phase 22 (b): the mesh-less side in this process")
+    base = p22_parity_side(torch, None)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    print(f"phase 22 (a), (b): a gloo world of {WORLD} ranks on cuda:0 "
+          "(spawned; every rank on the same card)")
+    ranks = spawn(p22_serving_rank, WORLD, "gloo", DEVICE, args=(DEVICE,),
+                  timeout_s=600)
+    print(f"  world of {WORLD}: {time.perf_counter() - t0:.1f} s, spawn included")
+    # (a) Llama-3.2-1B, all 16 layers, phase 4's traffic
+    for key, label in (("llama", "(a)"), ("mla", "(b)")):
+        cfg = CONFIGS["llama3p2_1b" if key == "llama" else "deepseek_v3_dense3"][0]
+        L = cfg.num_layers
+        r0 = ranks[0][key]
+        heads = (f"{r0['heads'][0]}" if cfg.use_mla
+                 else f"{r0['heads'][0]} (KV {r0['heads'][1]})")
+        print(f"phase 22 {label}: {cfg.name}, {L} layers, bf16, mesh (data=1, "
+              f"model={WORLD}), backend {r0['backend']}; a rank's heads "
+              f"{heads}; uncaptured steps (builds {r0['builds']})")
+        for r in range(WORLD):
+            got = ranks[r][key]
+            res = got["results"]
+            if len(res) != N_REQUESTS or any(len(t) != MAX_TOKENS
+                                             for t in res.values()):
+                fail(f"phase 22 {label}: rank {r} served "
+                     f"{ {u: len(t) for u, t in res.items()} }")
+            if res != r0["results"]:
+                fail(f"phase 22 {label}: rank {r}'s tokens differ from rank 0's")
+            if got["counts"] != got["want"]:
+                fail(f"phase 22 {label}: rank {r} launched {got['counts']}, "
+                     f"expected {got['want']} over {got['steps']} steps")
+            if got["all_reduces"] != 2 * L * got["steps"]:
+                fail(f"phase 22 {label}: rank {r} made {got['all_reduces']} "
+                     f"all_reduces over {got['steps']} steps, expected 2 L a step")
+        seen = r0["seen"]
+        if key == "llama":
+            H, K = cfg.num_heads // WORLD, cfg.num_kv_heads // WORLD
+            if seen["ring_decode"] != {(H, K, cfg.head_dim)}:
+                fail(f"phase 22 (a): ring_decode called at {seen['ring_decode']}")
+            if seen["bgmv"] != set(BGMV_SHARD):
+                fail(f"phase 22 (a): bgmv called at {seen['bgmv']}, not the "
+                     f"shard widths {BGMV_SHARD}")
+            full = {"wq": (cfg.d_model, cfg.num_heads * cfg.head_dim),
+                    "wk": (cfg.d_model, cfg.num_kv_heads * cfg.head_dim),
+                    "wv": (cfg.d_model, cfg.num_kv_heads * cfg.head_dim),
+                    "wo": (cfg.num_heads * cfg.head_dim, cfg.d_model)}
+            for name, pool in r0["pools"].items():
+                din, dout = full[name]
+                half = (pool["A"][-1] * WORLD == din if name == "wo"
+                        else pool["B"][-2] * WORLD == dout)
+                whole = (pool["B"][-2] == dout if name == "wo"
+                         else pool["A"][-1] == din)
+                if not (half and whole):
+                    fail(f"phase 22 (a): {name}'s pools {pool['A']} / "
+                         f"{pool['B']} are not the rank's half")
+            print(f"  each rank's pools: " + ", ".join(
+                f"{n} A {p['A']} B {p['B']}" for n, p in r0["pools"].items())
+                + f" ({sum(p['bytes'] for p in r0['pools'].values()) / 2**20:.2f}"
+                  " MiB a rank, half of each target's sharded factor)")
+        else:
+            if seen["mla_ring_decode"] != {cfg.num_heads // WORLD}:
+                fail(f"phase 22 (b): mla_ring_decode at {seen['mla_ring_decode']} heads")
+            if not seen["bgmv"] <= set(BGMV_MLA_SHARD):
+                fail(f"phase 22 (b): bgmv called at {seen['bgmv']}, outside "
+                     f"{BGMV_MLA_SHARD}")
+        st = r0["stats"]
+        steps = r0["steps"]
+        print(f"  both ranks served {N_REQUESTS} of {N_REQUESTS} requests x "
+              f"{MAX_TOKENS} tokens, the same tokens on both; launches a rank "
+              f"{json.dumps({k: v for k, v in r0['counts'].items() if v})} over "
+              f"{steps} steps (= {json.dumps({k: v for k, v in r0['want'].items() if v})})")
+        print(f"  rank 0: decode step median {st['decode_step_ms_median']:.3f} "
+              f"ms, prefill step median {st['prefill_step_ms_median']:.3f} ms "
+              f"(CUDA events around each uncaptured step), wall "
+              f"{st['wall_s']:.2f} s; {r0['all_reduces'] / steps:.0f} "
+              f"all_reduces a step (2 L), {1e3 * r0['reduce_s'] / steps:.3f} ms "
+              f"of them a step (host clock, gloo through the host)")
+        report[key] = {k: r0[k] for k in ("stats", "counts", "steps",
+                                          "all_reduces", "reduce_s", "builds")}
+        report[key]["seen"] = {k: sorted(v) for k, v in seen.items()}
+        for k, v in r0["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    # (b) the fp32 parity against the mesh-less engine on the card
+    got = ranks[0]["parity"]
+    err = check(f"phase 22 (b): mesh-{WORLD} kernel engine vs mesh-less, first "
+                f"16-token prefill step's logits (fp32, TF32 off, "
+                f"{P22_PARITY_LAYERS} layers)", got["logits"], base["logits"],
+                base["valid"], 1e-3)
+    pairs = [(a, b) for ra, rb in zip(got["tokens"], base["tokens"])
+             for a, b in zip(ra, rb)]
+    agree = sum(a == b for a, b in pairs)
+    print(f"  greedy tokens over 16 steps x 8 requests: {agree}/{len(pairs)} "
+          f"equal; rank 1's equal rank 0's: "
+          f"{ranks[1]['parity']['tokens'] == got['tokens']}")
+    if agree != len(pairs) or len(pairs) != 16 * 8 \
+            or ranks[1]["parity"]["tokens"] != got["tokens"]:
+        fail("phase 22 (b): the mesh engine's greedy tokens differ")
+    report["parity"] = {"logits_max_abs_err": err, "greedy_equal": agree}
+    # (c) NCCL at world 1
+    t0 = time.perf_counter()
+    nccl = spawn(p22_nccl_rank, 1, "nccl", "cuda", timeout_s=300)[0]
+    runs = nccl["runs"]
+    same = runs["mesh-less"]["results"] == runs["mesh 1"]["results"]
+    print(f"phase 22 (c): backend {nccl['backend']}, world {nccl['world']}: "
+          f"all_reduce on the card {nccl['all_reduce'].tolist()}; the mesh-1 "
+          f"engine's tokens equal the mesh-less engine's: {same} "
+          f"({len(runs['mesh 1']['results'])} requests, captures "
+          f"{runs['mesh 1']['captures']} / {runs['mesh-less']['captures']}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if nccl["backend"] != "nccl" or not same \
+            or nccl["all_reduce"].tolist() != [0.0, 1.0, 2.0, 3.0]:
+        fail("phase 22 (c): the NCCL mesh-1 engine differs from the mesh-less one")
+    report["nccl"] = {"backend": nccl["backend"], "tokens_equal": same}
+    # (d) federated: sharded_cohort + florist_sharded on a world of 2
+    t0 = time.perf_counter()
+    print(f"phase 22 (d): TinyLlama-1.1B at {TINY_LAYERS} layers, fp32 (TF32 "
+          f"off; then bf16 on the world), 8 clients of rank {TINY_RANK}, 4 a round, 4 steps of "
+          f"{FED_BATCH} x {FED_SEQ}, Gram route, {TINY_ROUNDS} rounds: "
+          f"sharded_cohort + florist_sharded on a gloo world of {WORLD} "
+          "against cohort + florist in this process")
+    one = p22_fed_side(torch, "cohort", "florist")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    fed = spawn(p22_fed_rank, WORLD, "gloo", DEVICE, args=(DEVICE,),
+                timeout_s=600)
+    half = {r: fed[r]["bf16"] for r in range(WORLD)}
+    fed = {r: fed[r]["fp32"] for r in range(WORLD)}
+    r0 = fed[0]
+    for (la, *ca), (lb, *cb) in zip(r0["history"], one["history"]):
+        print(f"  eval loss {la:.6f} (one process {lb:.6f}, |Δ| "
+              f"{abs(la - lb):.2e}, limit 2e-4); wire bytes and global rank "
+              f"{ca} ({cb})")
+        if abs(la - lb) > 2e-4 or ca != cb:
+            fail("phase 22 (d): the sharded round differs from the cohort round")
+    if r0["ranks"] != one["ranks"]:
+        fail(f"phase 22 (d): kept ranks differ: {r0['ranks']} vs {one['ranks']}")
+    pa, pb = ({p: prod for p, prod in _products_of(torch, t).items()}
+              for t in (r0["global"], one["global"]))
+    d = max(((pa[p] - pb[p]).abs().max() / pb[p].abs().max().clamp_min(1.0)).item()
+            for p in pb)
+    print(f"  ΔW max |Δ| / max(1, |ΔW|) {d:.2e} (limit 2e-3); kept ranks equal")
+    if d > 2e-3:
+        fail("phase 22 (d): the sharded ΔW differs")
+    from repro_torch.core.aggregators import adapter_leaf_paths, get_path
+    for path in adapter_leaf_paths(r0["global"]):
+        for k in ("A", "B"):
+            if not torch.equal(torch.as_tensor(get_path(r0["global"], path)[k]),
+                               torch.as_tensor(get_path(fed[1]["global"], path)[k])):
+                fail(f"phase 22 (d): rank 1's global {path} {k} differs from rank 0's")
+    want_shapes = {"lora_matmul": {(4 // WORLD,) + s for s in LORA_SHARD_SHAPES},
+                   "adapter_gram": set(GRAM_SHARD)}
+    for r in range(WORLD):
+        got = fed[r]
+        if got["counts"] != one["counts"]:
+            fail(f"phase 22 (d): rank {r} launched {got['counts']}, the "
+                 f"one-process cohort run {one['counts']}")
+        for k, v in got["seen"].items():
+            if not v or not v <= want_shapes[k]:
+                fail(f"phase 22 (d): rank {r} launched {k} at {sorted(v)}, "
+                     f"outside phase 2/3's {sorted(want_shapes[k])}")
+    print(f"  global adapters equal bit for bit on both ranks; launches a "
+          f"rank {json.dumps({k: v for k, v in r0['counts'].items() if v})} "
+          f"(= the one-process run's); shapes {sorted(r0['seen']['lora_matmul'])}"
+          f" {sorted(r0['seen']['adapter_gram'])}; peak live clients "
+          f"{r0['peak']}; {time.perf_counter() - t0:.1f} s")
+    # the bf16 run of the cohort phases on the same world: the bf16 routes
+    # of lora_matmul (C 2) and flash_attention (B 8) under the sharded path
+    h0 = half[0]
+    for r in range(WORLD):
+        got = half[r]
+        if got["counts"] != fed[r]["counts"]:
+            fail(f"phase 22 (d): rank {r}'s bf16 run launched {got['counts']}, "
+                 f"its fp32 run {fed[r]['counts']}")
+        for k, v in got["seen"].items():
+            if not v or not v <= want_shapes[k]:
+                fail(f"phase 22 (d): rank {r}'s bf16 run launched {k} at "
+                     f"{sorted(v)}, outside phase 2/3's {sorted(want_shapes[k])}")
+        if got["history"] != h0["history"] or got["ranks"] != h0["ranks"]:
+            fail(f"phase 22 (d): rank {r}'s bf16 history or kept ranks differ "
+                 "from rank 0's")
+        for path in adapter_leaf_paths(h0["global"]):
+            for k in ("A", "B"):
+                if not torch.equal(torch.as_tensor(get_path(h0["global"], path)[k]),
+                                   torch.as_tensor(get_path(got["global"], path)[k])):
+                    fail(f"phase 22 (d): rank {r}'s bf16 global {path} {k} "
+                         "differs from rank 0's")
+    losses = [h[0] for h in h0["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 22 (d): the bf16 run's eval losses {losses}")
+    print(f"  bf16 (the bf16 wire): eval loss "
+          + ", ".join(f"{x:.6f}" for x in losses) + " (fp32 run "
+          + ", ".join(f"{h[0]:.6f}" for h in r0["history"]) + "); kept ranks "
+          f"{h0['ranks']}; both ranks' histories, kept ranks and global "
+          f"adapters equal; launches a rank = the fp32 run's; shapes "
+          f"{sorted(h0['seen']['lora_matmul'])} "
+          f"{sorted(h0['seen']['adapter_gram'])}; peak live clients {h0['peak']}")
+    report["fed"] = {"history": r0["history"], "one_process": one["history"],
+                     "delta_w_rel": d, "counts": r0["counts"],
+                     "bf16_history": h0["history"]}
+    for k in r0["counts"]:                         # the fp32 and bf16 runs
+        counts[k] = counts.get(k, 0) + r0["counts"][k] + h0["counts"][k]
+    del one, fed, half, ranks
+    torch.cuda.empty_cache()
+    return report, counts
+
+
+def _products_of(torch, tree):
+    from repro_torch.core.aggregators import adapter_leaf_paths, fold_scale, get_path
+    out = {}
+    for path in adapter_leaf_paths(tree):
+        B, A = fold_scale(get_path(tree, path))
+        out[path] = (torch.as_tensor(B, device=DEVICE).double()
+                     @ torch.as_tensor(A, device=DEVICE).double())
+    return out
 
 
 if __name__ == "__main__":

@@ -16,15 +16,18 @@ round-robin, medians).  Also:
   a poison-containment probe (10% NaN and 10% scaled clients against the
   ``full`` gate) whose recall it reports;
 * ``--scale`` runs the population-scale arm (1024 clients, a sampled
-  participation fraction) for ``sequential`` and ``cohort``; its
-  ``sharded_cohort`` rows are reported as skipped: the client axis over a
-  device mesh is ``ROADMAP.md`` Queue 1 item 9.
+  participation fraction) for ``sequential``, ``cohort`` and
+  ``sharded_cohort`` (the client axis over a fed mesh, with FLoRIST's
+  layers split by ``florist_sharded``): one row on a one-rank mesh in this
+  process and, with ``--world N``, one on a spawned world of N ranks
+  (``--backend``, gloo by default; rank 0's times).
 
 Runs on ``cuda`` unless ``--device cpu``::
 
     PYTHONPATH=src python -m repro_torch.benchmarks.fed_bench --smoke [--json F]
     PYTHONPATH=src python -m repro_torch.benchmarks.fed_bench --faults
-    PYTHONPATH=src python -m repro_torch.benchmarks.fed_bench --scale
+    PYTHONPATH=src python -m repro_torch.benchmarks.fed_bench --scale \
+        [--world 2 --backend gloo]
 """
 from __future__ import annotations
 
@@ -39,12 +42,14 @@ import torch
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
 from repro_torch.core.aggregators.florist import FloristAggregator
+from repro_torch.core.distributed import ShardedFloristAggregator
 from repro_torch.core.federated import FederatedTrainer
 from repro_torch.core.privacy import noise_multiplier_for_epsilon
 from repro_torch.core.runtime import (FaultPlan, SampledScheduler, Transport,
                                       ValidationGate)
 from repro_torch.data.synthetic import make_eval_data, make_federated_data
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.topology import spawn, under_torchrun, world
 
 SMOKE_MODEL = ModelConfig(name="fedbench-tiny", family="dense", num_layers=2,
                           d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
@@ -52,9 +57,10 @@ SMOKE_MODEL = ModelConfig(name="fedbench-tiny", family="dense", num_layers=2,
 FULL_MODEL = ModelConfig(name="fedbench-small", family="dense", num_layers=4,
                          d_model=128, num_heads=4, num_kv_heads=2, head_dim=32,
                          d_ff=256, vocab_size=512, dtype="float32")
-SHARDED_SKIPPED = ("the sharded_cohort runner (the client axis over a device "
-                   "mesh) is not ported yet (ROADMAP.md Queue 1 item 9, "
-                   "multi-device)")
+SCALE_MODEL = ModelConfig(name="fedbench-nano", family="dense", num_layers=1,
+                          d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+                          d_ff=64, vocab_size=128, dtype="float32")
+SCALE_SHAPE = {"local_steps": 2, "batch_size": 2, "seq_len": 16}
 
 
 def make_trainer(cfg: ModelConfig, runner, scheduler, *, clients: int,
@@ -197,46 +203,76 @@ def faults_axis(dev, iters: int, log, clients: int = 32, sample: int = 16,
             "poison_quarantine_recall": round(recall, 4)}
 
 
-def scale_axis(dev, iters: int, log, clients: int = 1024,
-               participants: int = 64) -> Dict:
-    """Population-scale rounds: a sampled participation fraction of
-    ``clients`` through ``sequential`` and ``cohort``; ``sharded_cohort``
-    is reported as skipped.  ``peak_live_clients`` and FLoRIST's
-    ``peak_pending_blocks`` record the O(cohort) memory on both sides."""
-    cfg = ModelConfig(name="fedbench-nano", family="dense", num_layers=1,
-                      d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
-                      d_ff=64, vocab_size=128, dtype="float32")
-    local_steps, batch_size, seq_len = 2, 2, 16
+def _scale_trainer(name: str, dev, clients: int, participants: int):
     data = make_federated_data(num_clients=clients, mean_samples=6,
-                               seq_len=seq_len, vocab=cfg.vocab_size, seed=0)
-    results, trainers = [], {}
-    for name in ("sequential", "cohort"):
-        agg = FloristAggregator(tau=0.9, svd_method="svd", stream="auto",
-                                flush_every=participants)
-        tr = make_trainer(cfg, name,
-                          SampledScheduler(fraction=participants / clients),
-                          clients=clients, sample=participants,
-                          local_steps=local_steps, batch_size=batch_size,
-                          seq_len=seq_len, device=dev, aggregator=agg,
-                          clients_data=data)
-        trainers[name] = tr
-        tr.run_round(0)                                   # warm-up round
-        sec = statistics.median(_timed_round(tr, 1 + i) for i in range(iters))
-        results.append({"runner": name, "ms_per_round": round(sec, 3),
-                        "rounds_per_sec": round(1e3 / sec, 4)})
-        log(f"scale {name:15s} {sec:9.2f} ms/round ({1e3 / sec:.3f} rounds/s)")
-    results.append({"runner": "sharded_cohort", "skipped": SHARDED_SKIPPED})
-    log(f"scale sharded_cohort skipped: {SHARDED_SKIPPED}")
-    by = {r["runner"]: r.get("ms_per_round") for r in results}
-    return {"config": {"model": cfg.name, "num_clients": clients,
+                               seq_len=SCALE_SHAPE["seq_len"],
+                               vocab=SCALE_MODEL.vocab_size, seed=0)
+    agg_cls = (ShardedFloristAggregator if name == "sharded_cohort"
+               else FloristAggregator)
+    agg = agg_cls(tau=0.9, svd_method="svd", stream="auto",
+                  flush_every=participants)
+    return make_trainer(SCALE_MODEL, name,
+                        SampledScheduler(fraction=participants / clients),
+                        clients=clients, sample=participants, device=dev,
+                        aggregator=agg, clients_data=data, **SCALE_SHAPE)
+
+
+def _scale_rounds(name: str, dev, iters: int, clients: int,
+                  participants: int) -> Dict:
+    """One runner's warm-up round and ``iters`` timed rounds (on every rank
+    of a world, which all run them)."""
+    tr = _scale_trainer(name, dev, clients, participants)
+    tr.run_round(0)                                       # warm-up round
+    sec = statistics.median(_timed_round(tr, 1 + i) for i in range(iters))
+    return {"ms_per_round": sec, "peak_live_clients":
+            getattr(tr.runner, "peak_live_clients", 0),
+            "peak_pending_blocks": tr.aggregator.peak_pending_blocks,
+            "eval_loss": tr.history[-1].eval_loss, "world": world()[1]}
+
+
+def scale_axis(dev, iters: int, log, clients: int = 1024,
+               participants: int = 64, world_size: int = 1,
+               backend: str = "gloo") -> Dict:
+    """Population-scale rounds: a sampled participation fraction of
+    ``clients`` through ``sequential``, ``cohort`` and ``sharded_cohort``
+    (a one-rank mesh here, and a spawned world of ``world_size`` ranks when
+    it is above 1).  ``peak_live_clients`` and FLoRIST's
+    ``peak_pending_blocks`` record the O(cohort) memory on both sides.
+    The world is spawned here, so the axis refuses to run under
+    ``torchrun``."""
+    if under_torchrun():
+        raise RuntimeError("fed_bench --scale spawns its own world: run it "
+                           "as one process, not under torchrun")
+    results, runs = [], {}
+    arms = [("sequential", 1), ("cohort", 1), ("sharded_cohort", 1)]
+    if world_size > 1:
+        arms.append(("sharded_cohort", world_size))
+    for name, n in arms:
+        if n == 1:
+            run = _scale_rounds(name, dev, iters, clients, participants)
+        else:
+            run = spawn(_scale_rounds, n, backend, dev.type,
+                        args=(name, dev.type, iters, clients, participants))[0]
+        sec = run["ms_per_round"]
+        runs[(name, n)] = run
+        row = {"runner": name, "ms_per_round": round(sec, 3),
+               "rounds_per_sec": round(1e3 / sec, 4)}
+        if name == "sharded_cohort":
+            row.update(world=n, backend=backend if n > 1 else None,
+                       peak_live_clients=run["peak_live_clients"])
+        results.append(row)
+        log(f"scale {name:15s} world {n} {sec:9.2f} ms/round "
+            f"({1e3 / sec:.3f} rounds/s)")
+    by = {r["runner"]: r.get("ms_per_round") for r in results[:2]}
+    return {"config": {"model": SCALE_MODEL.name, "num_clients": clients,
                        "participants": participants,
-                       "local_steps": local_steps},
+                       "local_steps": SCALE_SHAPE["local_steps"]},
             "results": results,
             "speedup_cohort_vs_sequential":
                 round(by["sequential"] / by["cohort"], 2),
-            "peak_live_clients": trainers["cohort"].runner.peak_live_clients,
+            "peak_live_clients": runs[("cohort", 1)]["peak_live_clients"],
             "peak_pending_blocks":
-                trainers["cohort"].aggregator.peak_pending_blocks}
+                runs[("cohort", 1)]["peak_pending_blocks"]}
 
 
 def parse_args(argv=None):
@@ -253,6 +289,10 @@ def parse_args(argv=None):
     ap.add_argument("--sample", type=int, default=16)
     ap.add_argument("--local-steps", type=int, default=0,
                     help="local steps (default 12 with --smoke, else 8)")
+    ap.add_argument("--world", type=int, default=1,
+                    help="--scale: also run sharded_cohort on a spawned "
+                         "world of this many ranks")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     return ap.parse_args(argv)
@@ -267,7 +307,8 @@ def bench(args, device: DeviceLike = None, log: Callable = print) -> Dict:
                              sample=args.sample,
                              local_steps=args.local_steps or 12)
     elif args.scale:
-        report = scale_axis(dev, args.iters or 3, log)
+        report = scale_axis(dev, args.iters or 3, log,
+                            world_size=args.world, backend=args.backend)
     else:
         cfg = SMOKE_MODEL if args.smoke else FULL_MODEL
         local_steps = args.local_steps or (12 if args.smoke else 8)

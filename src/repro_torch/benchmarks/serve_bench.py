@@ -22,19 +22,23 @@ must not change after the first pass.
 The ``multi_adapter`` axis serves the workload through an
 ``AdapterRegistry`` with 1 / 8 / 32 live adapters of mixed ranks, requests
 round-robin across them, with a ``swap`` between the passes: churn must
-not capture again.  The ``mesh`` axis is not ported (``ROADMAP.md`` Queue 1
-item 9) and is reported as skipped.  Runs on ``cuda`` unless ``--device
-cpu`` is given::
+not capture again.  The ``mesh`` axis serves the workload tensor-parallel
+(``ServeEngine(mesh=make_serve_mesh(N))``, the dense route) at mesh 1 in
+this process and mesh 2 on a spawned world of two ranks (``--backend``,
+gloo by default: on one card both ranks share it and the collectives go
+through the host; rank 0's times), and checks that every rank emits the
+mesh-1 engine's tokens.  Runs on ``cuda`` unless ``--device cpu`` is
+given::
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_bench [--smoke] \\
-        [--json BENCH_serve.json] [--device cpu]
+        [--json BENCH_serve.json] [--backend gloo] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
 from repro_torch.serve.adapters import AdapterRegistry
 from repro_torch.serve.engine import SamplingParams, ServeEngine
+from repro_torch.topology import make_serve_mesh, spawn, under_torchrun
 from repro_torch.train.step import make_serve_step
 
 SMOKE_MODEL = ModelConfig(name="servebench-tiny", family="dense", num_layers=2,
@@ -54,8 +59,7 @@ SMOKE_MODEL = ModelConfig(name="servebench-tiny", family="dense", num_layers=2,
 FULL_MODEL = ModelConfig(name="servebench-small", family="dense", num_layers=4,
                          d_model=128, num_heads=8, num_kv_heads=4, head_dim=16,
                          d_ff=256, vocab_size=512, dtype="float32")
-MESH_SKIPPED = ("tensor-parallel serving (ServeEngine(mesh=...)) is not "
-                "ported yet (ROADMAP.md Queue 1 item 9, multi-device)")
+MESH_SIZES = (1, 2)
 
 
 def _seed_sample_logits(logits, params: SamplingParams, gen: torch.Generator):
@@ -200,6 +204,67 @@ def multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev,
     return axis
 
 
+def mesh_run(cfg: ModelConfig, n: int, slots: int, capacity: int, chunk: int,
+             requests: int, prompt_len: int, gen: int, device) -> Dict:
+    """One rank's mesh-``n`` engine (params from seed 0, the workload's
+    rng seeded alike on every rank) serving the workload twice: the faster
+    pass's tok/s, both passes' tokens, the builds and the ``all_reduce``
+    count and host time."""
+    params = T.init(cfg, 0, device)
+    eng = ServeEngine(cfg, params, batch_slots=slots, capacity=capacity,
+                      prefill_chunk=chunk, decode_impl="dense",
+                      mesh=make_serve_mesh(n, device=device))
+    rng = np.random.default_rng(1)
+    sp = SamplingParams(temperature=0.8, top_k=20, top_p=0.95, max_tokens=gen)
+    outs, dts = [], []
+    for _ in range(2):
+        for _ in range(requests):
+            eng.submit(rng.integers(1, cfg.vocab_size, prompt_len).tolist(), sp)
+        t0 = time.perf_counter()
+        outs.append(eng.run())
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        dts.append(time.perf_counter() - t0)
+    total = sum(len(v) for v in outs[-1].values())
+    return {"tok_per_s": total / min(dts), "tokens": outs,
+            "trace_counts": {str(k): v for k, v in eng.trace_counts.items()},
+            "all_reduces": eng.tp.all_reduces if eng.tp is not None else 0,
+            "reduce_s": eng.tp.reduce_s if eng.tp is not None else 0.0}
+
+
+def mesh_axis(cfg: ModelConfig, args, gen: int, capacity: int, dev,
+              log: Callable = print,
+              mesh_sizes: Sequence[int] = MESH_SIZES) -> Dict:
+    """The workload at each of ``mesh_sizes``: mesh 1 in this process, the
+    others on worlds spawned here (``args.backend``), so not under
+    ``torchrun``."""
+    if under_torchrun():
+        raise RuntimeError("serve_bench's mesh axis spawns its own worlds: "
+                           "run it as one process, not under torchrun")
+    shape = (args.slots, capacity, args.chunk, args.requests,
+             args.prompt_len, gen)
+    axis, ref = {}, None
+    for n in mesh_sizes:
+        if n == 1:
+            runs = {0: mesh_run(cfg, n, *shape, dev)}
+        else:
+            runs = spawn(mesh_run, n, args.backend, dev.type,
+                         args=(cfg, n) + shape + (dev.type,))
+        got = runs[0]
+        ref = ref or got["tokens"]
+        agree = all(r["tokens"] == ref for r in runs.values())
+        axis[f"mesh{n}"] = {
+            "tok_per_s": round(got["tok_per_s"], 2),
+            "backend": args.backend if n > 1 else None,
+            "all_reduces": got["all_reduces"],
+            "reduce_s": round(got["reduce_s"], 4),
+            "builds": got["trace_counts"], "tokens_match_mesh1": agree}
+        log(f"mesh {n}: {got['tok_per_s']:8.1f} tok/s, {got['all_reduces']} "
+            f"all_reduces ({got['reduce_s']:.3f} s), tokens match mesh 1: "
+            f"{agree}")
+    return axis
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--smoke", action="store_true",
@@ -212,13 +277,17 @@ def parse_args(argv=None):
                          "step count unless it is chunked")
     ap.add_argument("--gen", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of the mesh axis")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     return ap.parse_args(argv)
 
 
-def bench(args, device: DeviceLike = None, log: Callable = print) -> Dict:
-    """Every arm and axis; returns the reference's report."""
+def bench(args, device: DeviceLike = None, log: Callable = print,
+          mesh_sizes: Sequence[int] = MESH_SIZES) -> Dict:
+    """Every arm and axis (the mesh axis at ``mesh_sizes``); returns the
+    reference's report."""
     dev = resolve_device(device if device is not None else args.device)
     cfg = SMOKE_MODEL if args.smoke else FULL_MODEL
     gen = args.gen or (32 if args.smoke else 48)
@@ -268,7 +337,7 @@ def bench(args, device: DeviceLike = None, log: Callable = print) -> Dict:
     log(f"streamed decode vs dense: {jitS / jitN:.2f}x")
     log(f"captures (stable across passes): {trace_counts}")
     multi = multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev, log)
-    log(f"mesh axis skipped: {MESH_SKIPPED}")
+    mesh = mesh_axis(cfg, args, gen, capacity, dev, log, mesh_sizes)
     backend = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return {
         "config": {"model": cfg.name, "batch_slots": args.slots,
@@ -280,7 +349,7 @@ def bench(args, device: DeviceLike = None, log: Callable = print) -> Dict:
             "dense": jitN, "streamed": jitS,
             "speedup_streamed_vs_dense": round(jitS / jitN, 2)},
         "multi_adapter_axis": multi,
-        "mesh_axis": {"skipped": MESH_SKIPPED},
+        "mesh_axis": mesh,
         "speedup_jit_vs_eager": round(speedup, 2),
         "speedup_chunked_vs_width1": round(jitN / jit1, 2),
         "trace_counts": {arm: {str(k): v for k, v in c.items()}

@@ -1,8 +1,8 @@
 """Pluggable server-side aggregation strategies (port of
 ``repro.core.aggregators``).  Importing this package registers the paper's
-five methods (``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``);
-the reference's sharded ``florist_sharded`` raises ``NotImplementedError``
-naming ``ROADMAP.md`` Queue 1 item 9 (multi-device)."""
+five methods (``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``)
+and the layer-sharded ``florist_sharded``
+(:mod:`repro_torch.core.distributed`)."""
 from repro_torch.core.aggregators.base import (AggResult, Aggregator,
                                                accepted_config,
                                                adapter_leaf_paths,
@@ -18,6 +18,7 @@ from repro_torch.core.aggregators.ffa import FfaAggregator
 from repro_torch.core.aggregators.flexlora import FlexLoRAAggregator
 from repro_torch.core.aggregators.flora import FloraAggregator
 from repro_torch.core.aggregators.florist import FloristAggregator
+from repro_torch.core.distributed import ShardedFloristAggregator
 
 #: the paper's five methods, in the paper's comparison order
 METHODS = ("florist", "fedit", "ffa", "flora", "flexlora")
@@ -29,4 +30,5 @@ __all__ = [
     "leaf_dims", "leaf_rank", "make_aggregator", "ones_scale",
     "register_aggregator", "set_path", "FedItAggregator", "FfaAggregator",
     "FlexLoRAAggregator", "FloraAggregator", "FloristAggregator",
+    "ShardedFloristAggregator",
 ]

@@ -323,9 +323,6 @@ class Aggregator:
 
 _REGISTRY: Dict[str, Type[Aggregator]] = {}
 
-#: methods of the reference that this port does not carry yet
-NOT_PORTED = ("florist_sharded",)
-
 
 def register_aggregator(name: str):
     """Class decorator: make ``name`` constructible via
@@ -345,10 +342,6 @@ def get_aggregator_class(name: str) -> Type[Aggregator]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"aggregation method {name!r} is not ported yet (ROADMAP.md "
-                "Queue 1 item 9, multi-device)") from None
         raise ValueError(
             f"unknown aggregation method {name!r} "
             f"(registered: {sorted(_REGISTRY)})") from None

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
@@ -55,6 +56,7 @@ from repro_torch.data.synthetic import (ClientDataset, make_eval_data,
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora, merge_lora
+from repro_torch.topology.mesh import rank0_print, world
 from repro_torch.train.step import (make_cohort_train_step, make_eval_step,
                                     make_train_step)
 
@@ -405,20 +407,31 @@ class FederatedTrainer:
         rounds (default 1); with ``resume`` a killed run restarts from the
         last saved boundary and, every in-round decision being a pure
         function of the restored state, replays to a bit-identical
-        history."""
+        history.
+
+        In an SPMD world (a ``sharded_cohort`` runner or a ``florist_sharded``
+        aggregator over ``torch.distributed``) every rank runs this same
+        loop with the same seed, so sampling, batch draws, the codec's
+        rounding, DP noise, fault plans and the gate agree bit for bit
+        across ranks; only rank 0 prints and writes the checkpoint (the
+        others wait for it), and every rank restores."""
         start = 0
         if resume and checkpoint and os.path.exists(checkpoint):
             start = self.restore_checkpoint(checkpoint)
         every = checkpoint_every or (1 if checkpoint else 0)
+        rank, size = world()
         for rnd in range(start, num_rounds or self.fed.num_rounds):
             rec = self.run_round(rnd)
             if verbose:
-                print(f"[{self.aggregator.name:9s}] round {rnd:3d} "
-                      f"loss={rec.eval_loss:.4f} acc={rec.eval_acc:.3f} "
-                      f"down_rank={rec.download_rank:.0f} "
-                      f"up={rec.upload_bytes / 2**20:.2f}MB "
-                      f"down={rec.download_bytes / 2**20:.2f}MB "
-                      f"{rec.wall_secs:.2f}s")
+                rank0_print(f"[{self.aggregator.name:9s}] round {rnd:3d} "
+                            f"loss={rec.eval_loss:.4f} acc={rec.eval_acc:.3f} "
+                            f"down_rank={rec.download_rank:.0f} "
+                            f"up={rec.upload_bytes / 2**20:.2f}MB "
+                            f"down={rec.download_bytes / 2**20:.2f}MB "
+                            f"{rec.wall_secs:.2f}s")
             if checkpoint and every and (rnd + 1) % every == 0:
-                self.save_checkpoint(checkpoint, rnd + 1)
+                if rank == 0:
+                    self.save_checkpoint(checkpoint, rnd + 1)
+                if size > 1:
+                    dist.barrier()
         return self.history

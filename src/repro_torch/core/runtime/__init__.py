@@ -1,16 +1,15 @@
 """Federated round runtime (port of ``repro.core.runtime``): pluggable
-client runners (``sequential``, ``cohort``), round schedulers (``sync``,
+client runners (``sequential``, ``cohort``, ``sharded_cohort``), round schedulers (``sync``,
 ``partial``, ``async``, ``sampled``) and rank policies (``static``,
 ``resource``), the measured wire transport (``fp32``, ``bf16`` and
 ``int8`` codecs, local DP on the uplink, bounded retries), deterministic
 fault injection (:class:`FaultPlan`, :class:`SimClock`, server crash
-points) and the validation gate (``off`` / ``screen`` / ``full``).
-``sharded_cohort`` raises ``NotImplementedError`` naming ``ROADMAP.md``
-Queue 1 item 9."""
+points) and the validation gate (``off`` / ``screen`` / ``full``)."""
 from repro_torch.core.runtime.faults import (CRASH_POINTS, Fault, FaultPlan,
                                              ServerCrash, SimClock)
 from repro_torch.core.runtime.runners import (ClientRunner, CohortRunner,
                                               SequentialRunner,
+                                              ShardedCohortRunner,
                                               available_runners, make_runner)
 from repro_torch.core.runtime.schedulers import (AsyncScheduler, ClientTask,
                                                  PartialScheduler, RankPolicy,
@@ -41,6 +40,7 @@ __all__ = [
     "Fault", "FaultPlan", "GateStats", "PartialScheduler", "PayloadCorrupted",
     "PayloadError", "RankPolicy", "ResourceRankPolicy", "RoundPlan",
     "RoundScheduler", "SampledScheduler", "SequentialRunner", "ServerCrash",
+    "ShardedCohortRunner",
     "SimClock", "StaticRankPolicy", "SyncScheduler", "Transport",
     "TransportStats", "ValidationGate", "available_codecs",
     "available_rank_policies", "available_runners", "available_schedulers",

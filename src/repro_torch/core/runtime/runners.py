@@ -24,8 +24,10 @@ device→host copy per block (a cohort, or one client), every other leaf
   rows take expert capacity and enter its aux, as in the reference
   (:func:`_stack_cohort`).
 
-``sharded_cohort`` (the client axis over a device mesh) raises
-``NotImplementedError``: it is ``ROADMAP.md`` Queue 1 item 9.
+* ``sharded_cohort`` — the cohort runner with the client axis over a fed
+  mesh's ``data`` axis (:class:`ShardedCohortRunner`): every rank of an
+  SPMD world trains its share of each block of clients and one
+  ``all_gather`` hands every rank the whole block.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.aggregators.base import (adapter_leaf_paths, get_path,
+                                               set_path)
 from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
 
 
@@ -252,10 +256,28 @@ class CohortRunner(ClientRunner):
     def _pad(k_c: int) -> int:
         return 1 << (k_c - 1).bit_length()       # next power of two
 
+    def _train(self, ctx, step, rnd: int, stacked: Dict, batch: Dict,
+               clients: List[int]) -> Dict:
+        """The local steps of one stacked cohort (``batch`` its
+        ``(C, steps, batch, seq)`` arrays): one cohort-step call a step;
+        returns the trained tree."""
+        dev = ctx.device
+        toks = torch.as_tensor(batch["tokens"], device=dev)
+        mask = torch.as_tensor(batch["loss_mask"], device=dev)
+        opt_state = adamw_init(stacked)
+        for i in range(toks.shape[1]):
+            t0 = self._timer(dev) if self.record_steps else None
+            stacked, opt_state, _ = step(
+                ctx.params, stacked, opt_state,
+                {"tokens": toks[:, i], "loss_mask": mask[:, i]})
+            if self.record_steps:
+                self._log.append({"round": rnd, "clients": clients, "step": i,
+                                  "start": t0, "end": self._timer(dev)})
+        return stacked
+
     def run(self, ctx, plan, deliver: Callable) -> None:
         step = ctx._cohort_step()
         task_init = _init_getter(ctx)
-        dev = ctx.device
         order = {id(t): i for i, t in enumerate(plan.tasks)}
         buffered: Dict[int, Tuple] = {}
         for tasks in _group_cohorts(plan).values():
@@ -263,19 +285,8 @@ class CohortRunner(ClientRunner):
             stacked, batch, inits = _stack_cohort(ctx, plan.round, tasks,
                                                   task_init, pad_c)
             self.peak_live_clients = max(self.peak_live_clients, pad_c)
-            toks = torch.as_tensor(batch["tokens"], device=dev)
-            mask = torch.as_tensor(batch["loss_mask"], device=dev)
-            opt_state = adamw_init(stacked)
-            for i in range(toks.shape[1]):
-                t0 = self._timer(dev) if self.record_steps else None
-                stacked, opt_state, _ = step(
-                    ctx.params, stacked, opt_state,
-                    {"tokens": toks[:, i], "loss_mask": mask[:, i]})
-                if self.record_steps:
-                    self._log.append({"round": plan.round,
-                                      "clients": [t.client_id for t in tasks],
-                                      "step": i, "start": t0,
-                                      "end": self._timer(dev)})
+            stacked = self._train(ctx, step, plan.round, stacked, batch,
+                                  [t.client_id for t in tasks])
             for task, adapters, init in zip(
                     tasks, _unstack(stacked, len(tasks)), inits):
                 buffered[order[id(task)]] = (task, adapters, init)
@@ -283,16 +294,86 @@ class CohortRunner(ClientRunner):
             deliver(*buffered[i])
 
 
-_RUNNERS = {"sequential": SequentialRunner, "cohort": CohortRunner}
+def _gather_clients(mesh, stacked: Dict) -> Dict:
+    """Every rank's client slice of a stacked tree, concatenated along the
+    client axis in rank order on every rank, through one packed
+    ``all_gather`` over ``data``."""
+    paths = [p + (k,) for p in adapter_leaf_paths(stacked)
+             for k in get_path(stacked, p)]
+    out: Dict = {}
+    for p, t in zip(paths, mesh.all_gather_packed(
+            [get_path(stacked, p) for p in paths], "data")):
+        set_path(out, p, t)
+    return out
+
+
+class ShardedCohortRunner(CohortRunner):
+    """Cohort training with the client axis sharded over a fed mesh's
+    ``data`` axis (``N`` ranks of an SPMD world, every rank running the same
+    trainer with the same seed).
+
+    Each (rank, steps) cohort is cut into blocks of at most ``block``
+    clients; a block's client axis is padded to a power of two and then to
+    a multiple of ``N`` (replicas of its first client, never delivered).
+    Each rank stages the whole block's batches (the same draws everywhere),
+    trains its ``pad_c / N`` clients through the cohort step (one
+    ``lora_matmul`` launch a projection for all of them, attention at the
+    rank's batch) and one ``all_gather`` of the trained trees gives every
+    rank the block.  Blocks *stream*: each is delivered (cohort-grouped
+    order) before the next is staged, so a 1024-client round never holds
+    more than ``block`` trained trees; ``peak_live_clients`` records the
+    largest padded block.  ``mesh=None`` builds ``make_fed_mesh()`` over
+    the world at the first round (one rank without a process group)."""
+
+    name = "sharded_cohort"
+
+    def __init__(self, mesh=None, block: int = 256, record_steps: bool = False):
+        super().__init__(record_steps)
+        self.mesh = mesh
+        self.block = int(block)
+
+    def _mesh(self, device: torch.device):
+        if self.mesh is None:
+            from repro_torch.topology import make_fed_mesh
+            self.mesh = make_fed_mesh(device=device)
+        return self.mesh
+
+    def _pad_block(self, k_c: int, data: int) -> int:
+        return -(-self._pad(k_c) // data) * data
+
+    def run(self, ctx, plan, deliver: Callable) -> None:
+        step = ctx._cohort_step()
+        task_init = _init_getter(ctx)
+        mesh = self._mesh(ctx.device)
+        n, r = mesh.axis_size("data"), mesh.axis_index("data")
+        for tasks in _group_cohorts(plan).values():
+            for b0 in range(0, len(tasks), self.block):
+                block = tasks[b0: b0 + self.block]
+                pad_c = self._pad_block(len(block), n)
+                stacked, batch, inits = _stack_cohort(ctx, plan.round, block,
+                                                      task_init, pad_c)
+                self.peak_live_clients = max(self.peak_live_clients, pad_c)
+                k = pad_c // n
+                mine = slice(r * k, (r + 1) * k)
+                local = tree_map(lambda t: t[mine].contiguous(), stacked)
+                del stacked
+                local = self._train(
+                    ctx, step, plan.round, local,
+                    {key: v[mine] for key, v in batch.items()},
+                    [t.client_id for t in block[mine]] or [block[0].client_id])
+                trained = _gather_clients(mesh, local)
+                for task, adapters, init in zip(
+                        block, _unstack(trained, len(block)), inits):
+                    deliver(task, adapters, init)
+
+
+_RUNNERS = {"sequential": SequentialRunner, "cohort": CohortRunner,
+            "sharded_cohort": ShardedCohortRunner}
 
 
 def make_runner(spec: Any) -> ClientRunner:
     if isinstance(spec, ClientRunner):
         return spec
-    if spec == "sharded_cohort":
-        raise NotImplementedError(
-            "runner 'sharded_cohort' is not ported yet (ROADMAP.md Queue 1 "
-            "item 9, multi-device); use 'cohort' or 'sequential'")
     try:
         return _RUNNERS[spec]()
     except KeyError:

@@ -7,7 +7,8 @@ aggregation methods on a configurable model.  Port of the reference's
       [--runner cohort] [--scheduler async] [--codec int8] \
       [--clients 1024] [--participation 0.05] [--rank-policy resource] \
       [--dp-clip 1.0] [--dp-epsilon 8] [--checkpoint PATH [--resume]] \
-      [--validation full] [--device cpu]
+      [--validation full] [--runner sharded_cohort --method florist_sharded \
+      --world 2 --backend gloo] [--device cpu]
 
 ``--model 100m`` builds a ~100M-parameter decoder (12 L × 768); the default
 ``tiny`` profile runs in seconds on the card.  ``--runner cohort`` trains
@@ -20,13 +21,16 @@ profile; ``--dp-clip`` / ``--dp-sigma`` privatize every upload on the wire
 saves the round-boundary state atomically every ``--checkpoint-every``
 rounds, and ``--resume`` continues bit-identically from the last save.
 
-``--runner sharded_cohort`` and ``--method florist_sharded`` raise: the
-multi-device runtime is ``ROADMAP.md`` Queue 1 item 9.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+``--runner sharded_cohort`` shards each cohort's client axis over the
+ranks of a fed mesh and ``--method florist_sharded`` splits the server's
+layers over them; ``--world N`` spawns N local ranks (``--backend gloo``
+by default, on one card or the CPU; ``nccl`` where each rank has a card),
+or the ranks of ``torchrun`` are used.  Every rank runs the same trainer
+from the same seed; only rank 0 prints and writes the checkpoint.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 import argparse
-import os
-import time
+import types
 
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
@@ -36,6 +40,7 @@ from repro_torch.core.privacy import noise_multiplier_for_epsilon
 from repro_torch.core.runtime import (SampledScheduler, available_codecs,
                                       available_rank_policies,
                                       available_runners, available_schedulers)
+from repro_torch.topology import rank0_print, run_world, world
 
 PROFILES = {
     "tiny": ModelConfig(name="fed-tiny", family="dense", num_layers=4,
@@ -50,10 +55,20 @@ PROFILES = {
 }
 
 
-def main(argv=None) -> FederatedTrainer:
+def _record(trainer: FederatedTrainer) -> dict:
+    """What a spawned rank hands back: its history and global ranks."""
+    gs = trainer.global_state
+    return {"history": trainer.history,
+            "ranks": gs.ranks if gs is not None else None}
+
+
+def main(argv=None):
+    """Returns the trainer; with ``--world N > 1`` started here, a
+    namespace of rank 0's ``history`` and ``ranks`` and every rank's
+    record (``ranks_by_rank``)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--method", default="florist",
-                    choices=available_aggregators() + ["florist_sharded"])
+                    choices=available_aggregators())
     ap.add_argument("--model", default="tiny", choices=list(PROFILES))
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--local-steps", type=int, default=8)
@@ -61,7 +76,7 @@ def main(argv=None) -> FederatedTrainer:
     ap.add_argument("--heter", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runner", default="sequential",
-                    choices=available_runners() + ["sharded_cohort"])
+                    choices=available_runners())
     ap.add_argument("--scheduler", default="sync",
                     choices=available_schedulers())
     ap.add_argument("--codec", default="fp32", choices=available_codecs())
@@ -83,10 +98,24 @@ def main(argv=None) -> FederatedTrainer:
                     choices=["off", "screen", "full"])
     ap.add_argument("--min-clients", type=int, default=1,
                     help="round quorum: accepted updates required to fold")
+    ap.add_argument("--world", type=int, default=1,
+                    help="ranks of the SPMD world (spawned here, or torchrun's)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
+    ranks = run_world(_run, args.world, args.backend, args.device, args=(args,))
+    if len(ranks) > 1:                      # the world was spawned here
+        return types.SimpleNamespace(history=ranks[0]["history"],
+                                     ranks=ranks[0]["ranks"],
+                                     ranks_by_rank=ranks)
+    return ranks[min(ranks)]
 
+
+def _run(args):
+    """One rank's run: the trainer in a lone process, its record
+    (:func:`_record`) on a rank of a world."""
+    _, size = world()
     scheduler = args.scheduler
     if args.participation:
         scheduler = SampledScheduler(fraction=args.participation)
@@ -97,11 +126,11 @@ def main(argv=None) -> FederatedTrainer:
     cfg = PROFILES[args.model]
     c = args.clients
     # the heavy-tail profile, scaled to --clients (counts must sum to c)
-    dist = ((4, 4 * c // 10), (8, 2 * c // 10), (16, 2 * c // 10), (32, c // 10),
-            (64, c - (4 * c // 10) - 2 * (2 * c // 10) - c // 10))
+    ranks = ((4, 4 * c // 10), (8, 2 * c // 10), (16, 2 * c // 10), (32, c // 10),
+             (64, c - (4 * c // 10) - 2 * (2 * c // 10) - c // 10))
     fed = FedConfig(num_clients=c, clients_per_round=8, method=args.method,
                     tau=args.tau, homogeneous_rank=16,
-                    heterogeneous=args.heter, rank_distribution=dist,
+                    heterogeneous=args.heter, rank_distribution=ranks,
                     zero_padding=args.heter and args.method in ("fedit", "ffa"),
                     seed=args.seed)
     trainer = FederatedTrainer(cfg, fed, LoRAConfig(rank=16, alpha=16.0),
@@ -118,28 +147,16 @@ def main(argv=None) -> FederatedTrainer:
         else fed.clients_per_round
     total_steps = args.rounds * per_round * args.local_steps
     sched_name = scheduler if isinstance(scheduler, str) else scheduler.name
-    print(f"== federated fine-tune: {cfg.name} ({cfg.param_count():,} params), "
-          f"method={args.method}, runner={args.runner}, "
-          f"scheduler={sched_name}, codec={args.codec}, "
-          f"{args.rounds} rounds (~{total_steps} local steps total), "
-          f"device {trainer.device} ==")
-    start = 0
-    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
-        start = trainer.restore_checkpoint(args.checkpoint)
-        print(f"== resumed from {args.checkpoint} at round {start} ==")
-    t0 = time.time()
-    for rnd in range(start, args.rounds):
-        rec = trainer.run_round(rnd)
-        print(f"[{time.time() - t0:7.1f}s] round {rnd:3d} "
-              f"loss={rec.eval_loss:.4f} acc={rec.eval_acc:.3f} "
-              f"down_rank={rec.download_rank:.0f} "
-              f"wire_up_MB={rec.upload_bytes / 2**20:.2f} "
-              f"wire_down_MB={rec.download_bytes / 2**20:.2f} "
-              f"({rec.wall_secs:.2f}s/round)")
-        if args.checkpoint and (rnd + 1) % args.checkpoint_every == 0:
-            trainer.save_checkpoint(args.checkpoint, rnd + 1)
-    print("done.")
-    return trainer
+    rank0_print(f"== federated fine-tune: {cfg.name} ({cfg.param_count():,} "
+                f"params), method={args.method}, runner={args.runner}, "
+                f"scheduler={sched_name}, codec={args.codec}, {args.rounds} "
+                f"rounds (~{total_steps} local steps total), device "
+                f"{trainer.device}, {size} rank(s)"
+                f"{', backend ' + args.backend if size > 1 else ''} ==")
+    trainer.run(args.rounds, verbose=True, checkpoint=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume)
+    rank0_print("done.")
+    return _record(trainer) if size > 1 else trainer
 
 
 if __name__ == "__main__":

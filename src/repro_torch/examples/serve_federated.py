@@ -15,15 +15,20 @@ churn only rewrites fixed-shape device pools.
 The engine decodes through ``decode_impl="kernel"`` (``ring_decode`` and
 ``bgmv`` on the card) by default; ``"dense"`` runs the plain routes and
 ``"streamed"`` the reference's default, flash-decoding over kv blocks in
-plain PyTorch.  ``--mesh N > 0`` (tensor-parallel serving) is not ported
-yet and raises ``NotImplementedError``.  The last line reports the serving
-kernels' launches per engine step and the engine's graph captures, where
-the reference reports its trace counts.  Runs on ``cuda`` unless
+plain PyTorch.  ``--mesh N`` serves tensor-parallel on a serve mesh of N
+ranks (``ServeEngine(mesh=make_serve_mesh(N))``): N local ranks are
+spawned (``--backend gloo`` by default, every rank on one card or on the
+CPU; ``nccl`` where each rank has a card), or the ranks of ``torchrun``
+are used; every rank trains the same rounds from the same seed and serves
+the same requests, and only rank 0 prints.  The last line reports the
+serving kernels' launches per engine step and the engine's graph captures
+(builds under a mesh of more than one rank, whose steps run uncaptured),
+where the reference reports its trace counts.  Runs on ``cuda`` unless
 ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_federated [--rounds 2] \
       [--requests-per-round 2] [--batch-slots 4] [--temperature 0.0] \
-      [--decode-impl kernel] [--device cpu]
+      [--decode-impl kernel] [--mesh 2 --backend gloo] [--device cpu]
 """
 import argparse
 
@@ -35,6 +40,8 @@ from repro_torch.core.federated import FederatedTrainer
 from repro_torch.kernels import ops
 from repro_torch.serve.adapters import AdapterRegistry
 from repro_torch.serve.engine import SamplingParams, ServeEngine
+from repro_torch.topology import (make_serve_mesh, rank0_print, run_world,
+                                  world)
 
 SERVING_KERNELS = ("ring_decode", "bgmv")
 
@@ -43,7 +50,11 @@ def main(argv=None) -> dict:
     """Returns the engine, the trainer and what was served: ``outputs``
     (uid -> tokens), ``served_by`` (uid -> adapter id), ``in_flight`` (the
     adapter ids in the batch after each publish) and ``launches`` (the
-    serving kernels' launch counts over the engine's steps)."""
+    serving kernels' launch counts over the engine's steps).  With
+    ``--mesh N > 1`` started here, the N ranks run in their own processes:
+    rank 0's record comes back without the engine and the trainer, with
+    ``ranks_agree`` (every rank emitted the same tokens) and
+    ``all_reduces`` (rank 0's, over the engine's steps)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--requests-per-round", type=int, default=2)
@@ -58,15 +69,26 @@ def main(argv=None) -> dict:
                     help="serving attention interior (kernel = ring_decode "
                          "and bgmv on the card)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="model-parallel devices for the serve mesh "
-                         "(0 = no mesh, single device; not ported yet)")
+                    help="model-parallel ranks of the serve mesh (0 = no "
+                         "mesh, one device)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a spawned mesh")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (tensor-parallel serving, ServeEngine(mesh=...)) is not "
-            "ported yet (ROADMAP.md Queue 1 item 9, multi-device)")
+    ranks = run_world(_run, args.mesh, args.backend, args.device, args=(args,))
+    if len(ranks) == 1:
+        return next(iter(ranks.values()))
+    out = ranks[0]                          # the world was spawned here
+    out["ranks_agree"] = all(r["outputs"] == out["outputs"]
+                             for r in ranks.values())
+    return out
+
+
+def _run(args) -> dict:
+    """One rank's rounds and serving; only rank 0 prints."""
+    _, size = world()
+    log = rank0_print
 
     cfg = ModelConfig(name="serve-fed-tiny", family="dense", num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
@@ -83,9 +105,14 @@ def main(argv=None) -> dict:
     registry = AdapterRegistry(trainer.A_init_full, page_rank=4,
                                num_pages=16, max_adapters=8, max_rank=8,
                                device=trainer.device)
+    mesh = (make_serve_mesh(args.mesh, device=trainer.device)
+            if args.mesh else None)
     eng = ServeEngine(cfg, trainer.params, batch_slots=args.batch_slots,
                       capacity=64, seed=0, decode_impl=args.decode_impl,
-                      registry=registry, device=trainer.device)
+                      registry=registry, device=trainer.device, mesh=mesh)
+    if mesh is not None:
+        log(f"serve mesh {mesh.shape}: {size} rank(s), backend "
+            f"{mesh.backend or 'none (one rank)'}")
     rng = np.random.default_rng(0)
     sp = SamplingParams(temperature=args.temperature, top_k=8,
                         max_tokens=args.max_tokens)
@@ -104,7 +131,7 @@ def main(argv=None) -> dict:
     outputs = {}     # uid -> generated tokens
     in_flight_after = []
     start = serving_launches()     # the rounds launch neither kernel
-    print(f"== live round->deploy loop: {cfg.name}, {args.rounds} rounds ==")
+    log(f"== live round->deploy loop: {cfg.name}, {args.rounds} rounds ==")
     for rnd in range(args.rounds):
         rec = trainer.run_round(rnd)
         # Publish this round's aggregate.  Round 0 registers the name;
@@ -113,7 +140,7 @@ def main(argv=None) -> dict:
             new_id = registry.register("global", trainer.global_state.global_adapters)
         else:
             new_id = registry.swap("global", trainer.global_state.global_adapters)
-        print(f"round {rnd}: eval_loss={rec.eval_loss:.4f} "
+        log(f"round {rnd}: eval_loss={rec.eval_loss:.4f} "
               f"download_rank={rec.download_rank:.0f} -> published id {new_id}"
               f" (live ids: {registry.live_ids})")
 
@@ -124,25 +151,28 @@ def main(argv=None) -> dict:
         in_flight = sorted({served_by[s.uid] for s in eng.slots
                             if s is not None})
         in_flight_after.append(in_flight)
-        print(f"         batch now mixes adapter ids {in_flight} in flight")
+        log(f"         batch now mixes adapter ids {in_flight} in flight")
 
     outputs.update(eng.run())
     launches = {k: v - start[k] for k, v in serving_launches().items()}
     for uid in sorted(outputs):
-        print(f"  req {uid} [adapter id {served_by[uid]}]: {outputs[uid]}")
+        log(f"  req {uid} [adapter id {served_by[uid]}]: {outputs[uid]}")
     by_id = {i: sum(1 for a in served_by.values() if a == i)
              for i in sorted(set(served_by.values()))}
-    print(f"served {len(outputs)} requests across adapter versions {by_id} "
+    log(f"served {len(outputs)} requests across adapter versions {by_id} "
           f"over {args.batch_slots} slots")
     per_step = {k: v / max(eng.steps_run + eng.warmup_steps, 1)
                 for k, v in launches.items()}
-    print(f"serving-kernel launches per engine step across {args.rounds} "
+    log(f"serving-kernel launches per engine step across {args.rounds} "
           f"publishes ({eng.steps_run} steps, {eng.warmup_steps} before "
           f"captures): {per_step}; captures {eng.trace_counts} (hot-swap "
           f"never changes a shape)")
-    return {"engine": eng, "trainer": trainer, "registry": registry,
-            "outputs": outputs, "served_by": served_by,
-            "in_flight": in_flight_after, "launches": launches}
+    out = {"outputs": outputs, "served_by": served_by,
+           "in_flight": in_flight_after, "launches": launches,
+           "all_reduces": eng.tp.all_reduces if eng.tp is not None else 0}
+    if size > 1:
+        return out                       # a rank's record crosses processes
+    return dict(out, engine=eng, trainer=trainer, registry=registry)
 
 
 if __name__ == "__main__":

@@ -8,16 +8,21 @@ of ``repro.launch.fed`` for the flags this slice supports.
       [--rank-policy resource] [--dp-clip 1.0 --dp-epsilon 8] \
       [--validation full] [--min-clients 2] [--fault-drop 0.2 ...] \
       [--crash-at 2:mid_round] [--checkpoint PATH [--resume]] \
-      [--arch granite-moe-1b-a400m [--smoke]] [--device cpu]
+      [--arch granite-moe-1b-a400m [--smoke]] \
+      [--runner sharded_cohort --method florist_sharded --world 2 \
+       --backend gloo] [--device cpu]
 
 ``--method`` takes any registered aggregation strategy (the paper's five:
 ``florist``, ``fedit``, ``ffa``, ``flora``, ``flexlora``); ``--codec``
 any wire codec.  ``--checkpoint PATH`` saves the round-boundary state
 atomically every ``--checkpoint-every`` rounds and ``--resume`` restarts
 from it bit-identically; the ``--fault-*`` flags and ``--crash-at
-ROUND:POINT`` drive the deterministic fault injector.  ``--runner
-sharded_cohort`` raises: it is ``ROADMAP.md`` Queue 1 item 9.
-It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
+ROUND:POINT`` drive the deterministic fault injector.  ``--world N``
+runs the loop on N ranks of an SPMD world (spawned here with ``--backend``
+gloo or nccl, or ``torchrun``'s): ``--runner sharded_cohort`` shards each
+cohort's clients over them and ``--method florist_sharded`` the server's
+layers; every rank runs the same seed, rank 0 prints and writes ``--out``
+and the checkpoint.  It runs on ``cuda`` unless it is given ``--device cpu``; without CUDA and
 without ``--device cpu`` it raises.  The model is the reference launcher's
 small dense config (``--layers``, ``--d-model``), or with ``--arch`` a
 ported architecture, any of the reference's (``--smoke``: its reduced
@@ -33,6 +38,8 @@ import argparse
 import dataclasses
 import json
 
+import torch.distributed as dist
+
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
 from repro_torch.configs import get_config, get_smoke_config, lora_targets
@@ -43,6 +50,7 @@ from repro_torch.core.runtime import (CRASH_POINTS, FaultPlan, SampledScheduler,
                                       available_codecs, available_rank_policies,
                                       available_runners, available_schedulers)
 from repro_torch.device import resolve_device
+from repro_torch.topology import rank0_print, run_world, world
 
 
 def main(argv=None):
@@ -59,7 +67,7 @@ def main(argv=None):
     ap.add_argument("--local-steps", type=int, default=4)
     ap.add_argument("--svd", default="svd", choices=["svd", "gram"])
     ap.add_argument("--runner", default="sequential",
-                    choices=available_runners() + ["sharded_cohort"])
+                    choices=available_runners())
     ap.add_argument("--scheduler", default="sync",
                     choices=available_schedulers())
     ap.add_argument("--codec", default="fp32", choices=available_codecs())
@@ -105,10 +113,23 @@ def main(argv=None):
     ap.add_argument("--crash-at", default="",
                     help=f"inject a server crash, e.g. '2:mid_round' "
                          f"(points: {', '.join(CRASH_POINTS)})")
+    ap.add_argument("--world", type=int, default=1,
+                    help="ranks of the SPMD world (spawned here, or torchrun's)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a spawned world")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
+    ranks = run_world(_run, args.world, args.backend, args.device, args=(args,))
+    return ranks[min(ranks)]           # rank 0's history (torchrun: this rank's)
+
+
+def _run(args) -> list:
+    """One rank's federated loop; rank 0 prints and writes ``--out``."""
+    rank, size = world()
     device = resolve_device(args.device)
+    rank0_print(f"SPMD world: {size} rank(s), backend "
+                f"{dist.get_backend() if size > 1 else 'none (one process)'}")
 
     scheduler = args.scheduler
     if args.participation:
@@ -141,12 +162,12 @@ def main(argv=None):
         lora = LoRAConfig(rank=16, alpha=16.0)
     # paper's heavy-tail heterogeneous rank distribution, scaled to --clients
     c = args.clients
-    dist = ((4, 4 * c // 10), (8, 2 * c // 10), (16, 2 * c // 10),
-            (32, c // 10), (64, c - (4 * c // 10) - 2 * (2 * c // 10) - c // 10))
+    ranks = ((4, 4 * c // 10), (8, 2 * c // 10), (16, 2 * c // 10),
+             (32, c // 10), (64, c - (4 * c // 10) - 2 * (2 * c // 10) - c // 10))
     fed = FedConfig(num_clients=c, clients_per_round=args.sample,
                     num_rounds=args.rounds, method=args.method, tau=args.tau,
                     dirichlet_alpha=args.alpha, heterogeneous=args.heter,
-                    rank_distribution=dist,
+                    rank_distribution=ranks,
                     zero_padding=args.heter and args.method in ("fedit", "ffa"))
     tr = FederatedTrainer(cfg, fed, lora,
                           OptimConfig(lr=3e-4), local_steps=args.local_steps,
@@ -158,7 +179,7 @@ def main(argv=None):
                           min_clients=args.min_clients, device=device)
     hist = tr.run(args.rounds, verbose=True, checkpoint=args.checkpoint,
                   checkpoint_every=args.checkpoint_every, resume=args.resume)
-    if args.out:
+    if args.out and rank == 0:
         with open(args.out, "w") as f:
             json.dump([dataclasses.asdict(h) for h in hist], f, indent=2)
         print(f"history written to {args.out}")

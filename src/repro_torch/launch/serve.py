@@ -108,10 +108,12 @@ def make_adapter(params: Dict, targets: Sequence[str], rank: int,
     return ad
 
 
-def build(config: str = "llama3p2_1b", *,
-          device: DeviceLike = None) -> Dict[str, Any]:
+def build(config: str = "llama3p2_1b", *, device: DeviceLike = None,
+          mesh: Any = None) -> Dict[str, Any]:
     """The model (random weights from ``SEED``), the registry with
-    adapters of ``RANKS`` and the engine of ``config``."""
+    adapters of ``RANKS`` and the engine of ``config``; with ``mesh`` (a
+    serve mesh of :mod:`repro_torch.topology`) the engine is this rank's
+    of a tensor-parallel server, every rank building the same model."""
     cfg, capacity, prefill_chunk, prompt_lens = CONFIGS[config]
     dev = resolve_device(device)
     dtype = T.torch_dtype(cfg.dtype)
@@ -126,7 +128,7 @@ def build(config: str = "llama3p2_1b", *,
     eng = ServeEngine(cfg, params, registry=registry, batch_slots=SLOTS,
                       capacity=capacity, prefill_chunk=prefill_chunk,
                       max_tokens_cap=MAX_TOKENS, decode_impl="kernel",
-                      seed=SEED, device=dev, record_steps=True)
+                      seed=SEED, device=dev, record_steps=True, mesh=mesh)
     return {"cfg": cfg, "params": params, "registry": registry, "ids": ids,
             "engine": eng, "gen": gen, "targets": targets, "dtype": dtype,
             "prompt_lens": prompt_lens}

@@ -9,6 +9,19 @@ tensors over parameter dicts that keep the reference's layout and keys.
 ``lora_matmul`` kernel and full-sequence attention through the
 ``flash_attention`` kernel (:mod:`repro_torch.kernels.ops`); the reference
 selects the same routes with ``use_kernels`` and ``lora.USE_KERNEL``.
+
+The decode path takes ``tp``, a serve mesh's ``model`` axis
+(:class:`repro_torch.topology.serve.ModelParallel`), for head-parallel
+tensor parallelism: ``cfg`` then holds the rank's head counts and the
+parameters are the rank's Megatron shards (``wq wk wv w_gate w_up wq_b
+wkv_b`` column-parallel, ``wo w_down`` row-parallel).  Attention runs on
+the rank's KV heads and their query groups against its cache shard (MLA:
+its query heads against the replicated latent ring), and each
+row-parallel projection ends in one ``all_reduce`` of its partial output,
+the partial LoRA delta included (the delta is linear, so its scale is
+applied once).  MLA's ``wq_a`` and ``wkv_a`` are column-parallel under the
+rules but a norm needs their outputs whole, so those are gathered after
+the projection, as GSPMD does in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +42,11 @@ from repro_torch.serve.kvcache import (cache_kv, cache_update, dequant,
 
 Params = Dict[str, Any]
 DECODE_IMPLS = ("dense", "streamed", "kernel")
+
+
+def _row_out(tp, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection's output: the partial sums reduced."""
+    return y if tp is None else tp.reduce(y)
 
 
 def dense_init(generator: torch.Generator, shape, in_dim: int,
@@ -90,8 +108,9 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator, L: int,
 
 
 def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
-         use_kernel: bool = False):
-    """Project x (B,S,d) to roped q (B,S,H,hd) and k, v (B,S,K,hd)."""
+         use_kernel: bool = False, tp=None):
+    """Project x (B,S,d) to roped q (B,S,H,hd) and k, v (B,S,K,hd) (the
+    rank's heads under ``tp``; the replicated biases cut to them)."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     a = adapters or {}
@@ -99,7 +118,8 @@ def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
     k = lora_proj(x, p["wk"], a.get("wk"), use_kernel)
     v = lora_proj(x, p["wv"], a.get("wv"), use_kernel)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        cut = (lambda b: b) if tp is None else tp.local
+        q, k, v = q + cut(p["bq"]), k + cut(p["bk"]), v + cut(p["bv"])
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
@@ -160,7 +180,8 @@ def check_decode_impl(decode_impl: str) -> None:
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
-                     adapters=None, n_tokens=None, decode_impl: str = "dense"):
+                     adapters=None, n_tokens=None, decode_impl: str = "dense",
+                     tp=None):
     """Chunked cached decode with per-slot positions.
 
     x: (B,C,d); cache: {"k", "v": (B,cap,K,hd), "pos", "length": (B,)};
@@ -179,7 +200,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
     B, C, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
-    q, k, v = _qkv(cfg, p, x, adapters, qpos)
+    q, k, v = _qkv(cfg, p, x, adapters, qpos, tp=tp)
     cache = cache_update(cfg, cache, k, v, n_tokens)
     if decode_impl == "dense":
         kc, vc = cache_kv(cfg, cache)
@@ -204,7 +225,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
                v_scale=cache["v_scale"] if int8 else None)
     o = o.reshape(B, C, H * hd).to(x.dtype)
     a = adapters or {}
-    return lora_proj(o, p["wo"], a.get("wo")), cache
+    return _row_out(tp, lora_proj(o, p["wo"], a.get("wo"))), cache
 
 
 # -- MLA: multi-head latent attention (DeepSeek-V3) ---------------------------
@@ -232,7 +253,7 @@ def init_mla(cfg: ModelConfig, generator: torch.Generator, L: int,
 
 
 def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
-             use_kernel: bool = False):
+             use_kernel: bool = False, tp=None):
     """x (B,S,d) -> q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the
     normed latent c_kv (B,S,kvr) and the roped shared key k_rope (B,S,rope)."""
     B, S, _ = x.shape
@@ -240,11 +261,15 @@ def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     a = adapters or {}
     q = lora_proj(x, p["wq_a"], a.get("wq_a"), use_kernel)
+    if tp is not None:
+        q = tp.gather(q)
     q = rmsnorm(q, p["q_a_norm"], cfg.norm_eps)
     q = lora_proj(q, p["wq_b"], a.get("wq_b"), use_kernel).reshape(
         B, S, H, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     kv = lora_proj(x, p["wkv_a"], a.get("wkv_a"), use_kernel)
+    if tp is not None:
+        kv = tp.gather(kv)
     c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
     cos, sin = rope_freqs(rope, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -321,7 +346,7 @@ def mla_fwd(cfg: ModelConfig, p: Params, x, adapters=None, positions=None,
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
-               n_tokens=None, decode_impl: str = "dense"):
+               n_tokens=None, decode_impl: str = "dense", tp=None):
     """MLA chunked decode in the *absorbed* formulation: attention runs
     against the compressed latent cache and the per-head K/V expansion is
     never materialised.  Scores ``q_latᵀ c_kv + q_ropeᵀ k_rope`` with
@@ -347,7 +372,8 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
-    q_nope, q_rope, c_kv_t, k_rope_t = _mla_qkv(cfg, p, x, adapters, qpos)
+    q_nope, q_rope, c_kv_t, k_rope_t = _mla_qkv(cfg, p, x, adapters, qpos,
+                                                tp=tp)
     cache = mla_cache_update(cache, c_kv_t, k_rope_t, n_tokens)
 
     a = adapters or {}
@@ -394,7 +420,7 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
             c_kv_scale=cache["c_kv_scale"] if int8 else None,
             k_rope_scale=cache["k_rope_scale"] if int8 else None)
     o = torch.einsum(v_ein, out_lat, w_v).reshape(B, C, H * vd).to(x.dtype)
-    return lora_proj(o, p["wo"], a.get("wo")), cache
+    return _row_out(tp, lora_proj(o, p["wo"], a.get("wo"))), cache
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, L: int,
@@ -409,10 +435,11 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, L: int,
     }
 
 
-def mlp_fwd(p: Params, x, adapters=None, use_kernel: bool = False):
-    """SwiGLU with the SiLU taken in fp32."""
+def mlp_fwd(p: Params, x, adapters=None, use_kernel: bool = False, tp=None):
+    """SwiGLU with the SiLU taken in fp32 (``w_down``'s partial outputs
+    reduced under ``tp``)."""
     a = adapters or {}
     g = lora_proj(x, p["w_gate"], a.get("w_gate"), use_kernel)
     u = lora_proj(x, p["w_up"], a.get("w_up"), use_kernel)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return lora_proj(h, p["w_down"], a.get("w_down"), use_kernel)
+    return _row_out(tp, lora_proj(h, p["w_down"], a.get("w_down"), use_kernel))

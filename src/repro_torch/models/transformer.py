@@ -291,7 +291,7 @@ def _mask_state_rows(new: Dict, old: Dict, n_tokens) -> Dict:
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
-                  n_tokens=None, decode_impl: str = "dense"):
+                  n_tokens=None, decode_impl: str = "dense", tp=None):
     """One layer of any kind, one token chunk.  An RWKV6 or Mamba2 layer
     takes one token (C = 1) and writes its new state into the cache's
     buffers in place (rows with ``n_tokens`` 0 keep theirs).  A MoE layer routes the chunk's B·C tokens
@@ -324,20 +324,20 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
     dec_fn = Lyr.mla_decode if kind.startswith("mla") else Lyr.attention_decode
     h, cache = dec_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
                       cache, a.get("attn"), n_tokens=n_tokens,
-                      decode_impl=decode_impl)
+                      decode_impl=decode_impl, tp=tp)
     x = x + h
     xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
         h, _ = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"))
     else:
-        h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"))
+        h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), tp=tp)
     return x + h, cache
 
 
 def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
            adapters: Optional[Dict] = None,
            n_tokens: Optional[torch.Tensor] = None,
-           decode_impl: str = "dense") -> Tuple[torch.Tensor, Tuple]:
+           decode_impl: str = "dense", tp=None) -> Tuple[torch.Tensor, Tuple]:
     """One decode step over a token chunk ``batch["tokens"]: (B, C)``.
 
     ``n_tokens: (B,)`` gives the real tokens per row (None = all C; rows
@@ -347,8 +347,11 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
     written in place; the returned cache holds the same buffers and the
     advanced positions.  RWKV6 and the hybrid take C = 1.  The cache tuple
     follows the whole plan (``ci``), the hybrid's shared entries included;
-    ``params["blocks"]`` skips them (``seg_i``).  Returns (logits (B,C,V),
-    cache)."""
+    ``params["blocks"]`` skips them (``seg_i``).  ``tp`` (a serve mesh's
+    ``model`` axis, :class:`repro_torch.topology.serve.ModelParallel`) runs
+    the dense GQA and MLA layers head-parallel on the rank's shards, with
+    ``cfg`` holding the rank's head counts (see
+    :mod:`repro_torch.models.layers`).  Returns (logits (B,C,V), cache)."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     new_caches = []
@@ -371,7 +374,8 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
         for i in range(count):
             c_l = {k: v[i] for k, v in seg_c.items()}
             x, c_l = _block_decode(cfg, kind, _layer(seg_p, i), x, c_l,
-                                   _layer(seg_a, i), n_tokens, decode_impl)
+                                   _layer(seg_a, i), n_tokens, decode_impl,
+                                   tp)
             if "pos" in c_l:
                 pos.append(c_l["pos"])
                 length.append(c_l["length"])

@@ -10,6 +10,15 @@ axis.  Multi-tenant serving replaces the leaf with a :class:`PagedLoRA`:
 paged pools plus per-row adapter ids, so one decode step applies every
 batch row's own adapter at its own rank.
 
+Under tensor parallelism (a serve mesh's ``model`` axis) the paged pools
+are the rank's shards (:meth:`repro_torch.serve.adapters.AdapterRegistry.
+place`) and ``lora_proj`` needs no change: on a column-parallel target
+``bgmv`` writes the rank's ``dout`` slice beside the base product's; on a
+row-parallel target it returns the rank's partial ``s·B(A_local x_local)``,
+which is added to the base partial before the projection's single
+``all_reduce`` (:mod:`repro_torch.models.layers`): the delta is linear,
+so the sum is the whole delta and the scale is applied once.
+
 Adapter trees hold tensors, or numpy arrays where a tree comes off the
 federated wire (:mod:`repro_torch.core.runtime.transport`); ``match_rank``
 keeps numpy leaves on the host, as the reference does.

@@ -11,6 +11,13 @@ adapter *id*) are never perturbed.  Pools and tables are written in place.
 
 Adapter id 0 is reserved for the base model: its rank stays 0, so every
 lane of its delta is masked to an exact zero.
+
+Under a tensor-parallel serve mesh the engine calls
+:meth:`AdapterRegistry.place`: each rank then keeps only its shard of the
+pages (column-parallel targets the B pool's ``dout``, row-parallel targets
+the A pool's ``din``), the tables and ranks stay whole, and ``register`` /
+``swap`` / ``evict`` write only the rank's slice while the host metadata
+stays the same on every rank.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.peft.lora import PAGED_IMPLS, PagedLoRA
+from repro_torch.topology.partitioning import shard, shard_leaf
 
 
 def _is_adapter_leaf(node: Any) -> bool:
@@ -130,6 +138,23 @@ class AdapterRegistry:
         self._meta: Dict[int, Dict[str, Any]] = {}
         self._names: Dict[str, int] = {}
         self._versions: Dict[str, List[int]] = {}
+        self._mesh = None
+        self._specs: Dict = {}           # pool leaf path -> its spec leaf
+
+    def place(self, specs: Any, mesh) -> None:
+        """Keep only this rank's shard of every pool (``specs``: the
+        engine's adapter specs, :func:`repro_torch.topology.
+        serve_adapter_pspecs` of :attr:`device_state`); later writes cut
+        each adapter to the same slices."""
+        self._pools = shard(self._pools, specs["pools"], mesh)
+        self._specs = dict(adapter_leaves(specs["pools"]))
+        self._mesh = mesh
+
+    def _cut(self, path, part: str, t: torch.Tensor) -> torch.Tensor:
+        """A paged A or B block cut to the rank's slice of its pool."""
+        if self._mesh is None:
+            return t
+        return shard_leaf(t, self._specs[path][part], self._mesh)
 
     @property
     def device_state(self) -> Dict[str, Any]:
@@ -250,8 +275,9 @@ class AdapterRegistry:
             bp = torch.zeros(lead + (dout, rp), dtype=pool["B"].dtype,
                              device=self.device)
             bp[..., :rl] = b
-            ap = ap.reshape(lead + (n_pg, pr, din))
-            bp = bp.reshape(lead + (dout, n_pg, pr)).movedim(-2, -3)
+            ap = self._cut(path, "A", ap.reshape(lead + (n_pg, pr, din)))
+            bp = self._cut(path, "B", bp.reshape(lead + (dout, n_pg, pr))
+                           .movedim(-2, -3))
             if lead:                             # stacked: pages on axis 1
                 pool["A"][:, pg] = ap
                 pool["B"][:, pg] = bp

@@ -27,6 +27,19 @@ from ``(seed, uid)``, its draw counter and the vocabulary index
 admission order, and a graph replays them.  The streams are not the
 reference's ``fold_in`` streams.
 
+With ``mesh`` (a serve mesh ``(data=1, model=N)`` of
+:mod:`repro_torch.topology`) the engine is one rank of a tensor-parallel
+server: params, cache, state and adapters are cut to the rank's shards
+once, by the serve rules (:func:`repro_torch.topology.serve_pspecs`; the
+embedding and the head stay replicated, so every rank's sampler sees the
+same full logits and every rank emits the same tokens), and each step runs
+the layers head-parallel with one ``all_reduce`` a row-parallel projection
+(:mod:`repro_torch.models.layers`).  A mesh of more than one rank runs the
+steps uncaptured: gloo collectives cannot be captured into a CUDA graph
+(capture under NCCL is ``ROADMAP.md`` item 9b).  The dense GQA family and
+DeepSeek-V3's dense MLA layers serve under a mesh; every other family
+raises ``NotImplementedError`` naming item 9b.
+
 With ``record_steps=True`` the engine logs every step's width, its time
 (CUDA events around each replay on the card, a burst's time split evenly
 over its steps) and the number of tokens it emitted (written by the step
@@ -128,7 +141,8 @@ def request_key(seed: int, uid: int) -> int:
 
 
 def _build_engine_step(cfg: ModelConfig, width: int, stochastic: bool = True,
-                       decode_impl: str = "dense", lora_impl: str = "plain"):
+                       decode_impl: str = "dense", lora_impl: str = "plain",
+                       tp=None):
     """One engine step of token ``width`` as a function ``step(params,
     adapters, cache, state, emitted=None, i=0)`` that writes its results
     into the tensors it was given: the cache's ring buffers, recurrent
@@ -139,7 +153,8 @@ def _build_engine_step(cfg: ModelConfig, width: int, stochastic: bool = True,
     so a CUDA graph can capture it.  ``stochastic=False`` is the greedy-only
     variant (a plain argmax, no noise, no draws).  ``adapters`` is a
     single-tenant adapter tree or a registry's device state, attached
-    against ``state["adapter_ids"]`` with ``lora_impl``."""
+    against ``state["adapter_ids"]`` with ``lora_impl``.  ``tp`` runs the
+    layers head-parallel (``cfg`` then holds the rank's head counts)."""
     C = width
 
     def step(params, adapters, cache, state, emitted=None, i: int = 0):
@@ -160,7 +175,8 @@ def _build_engine_step(cfg: ModelConfig, width: int, stochastic: bool = True,
                             active.to(torch.int64)).to(torch.int32)
 
         lg, new_cache = T.decode(cfg, params, cache, {"tokens": toks}, adapters,
-                                 n_tokens=n_tok, decode_impl=decode_impl)
+                                 n_tokens=n_tok, decode_impl=decode_impl,
+                                 tp=tp)
         Kv.write_positions(cache, new_cache)
         last = (n_tok.long() - 1).clamp(0, C - 1)
         logits = lg.gather(1, last[:, None, None].expand(-1, 1, lg.shape[-1]))[:, 0]
@@ -196,18 +212,54 @@ def _build_engine_step(cfg: ModelConfig, width: int, stochastic: bool = True,
 
 
 def _build_engine_burst(cfg: ModelConfig, steps: int, stochastic: bool = True,
-                        decode_impl: str = "dense", lora_impl: str = "plain"):
+                        decode_impl: str = "dense", lora_impl: str = "plain",
+                        tp=None):
     """``steps`` width-1 engine steps as one function over the same
     arguments as :func:`_build_engine_step` (``emitted[i]`` for step
     ``i``).  Finished and inactive rows no-op (``n_tokens = 0``), so a
     fixed burst is safe when a slot completes mid-burst."""
-    step = _build_engine_step(cfg, 1, stochastic, decode_impl, lora_impl)
+    step = _build_engine_step(cfg, 1, stochastic, decode_impl, lora_impl, tp)
 
     def burst(params, adapters, cache, state, emitted=None):
         for i in range(steps):
             step(params, adapters, cache, state, emitted, i)
 
     return burst
+
+
+def check_tensor_parallel(cfg: ModelConfig, n: int) -> None:
+    """Raise unless ``cfg`` serves head-parallel on a ``model`` axis of
+    ``n`` ranks: the dense GQA family and DeepSeek-V3's dense MLA layers
+    (``NotImplementedError`` naming item 9b for any other family), with
+    every sharded width divisible by ``n`` (``ValueError``)."""
+    kinds = {k for k, c in T.layer_plan(cfg) if c}
+    if cfg.frontend or not (kinds <= {"dense"} or kinds <= {"mla_dense"}):
+        raise NotImplementedError(
+            f"tensor-parallel serving of {cfg.name!r} (family {cfg.family!r}"
+            f", layers {sorted(kinds)}) is not ported yet (ROADMAP.md Queue 1 "
+            "item 9b); under a mesh the port serves the dense GQA family and "
+            "DeepSeek-V3's dense MLA layers")
+    if cfg.use_mla:
+        widths = {"num_heads": cfg.num_heads, "q_lora_rank": cfg.q_lora_rank,
+                  "kv_lora_rank + qk_rope_head_dim":
+                      cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                  "d_ff": cfg.d_ff}
+    else:
+        widths = {"num_heads": cfg.num_heads,
+                  "num_kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff}
+    bad = {k: v for k, v in widths.items() if v % n}
+    if bad:
+        raise ValueError(f"a model axis of {n} ranks does not divide "
+                         f"{cfg.name!r}'s {bad}: head-parallel decode needs "
+                         "every sharded width divisible")
+
+
+def tensor_parallel_config(cfg: ModelConfig, n: int) -> ModelConfig:
+    """The config one rank's layers see: its share of the heads."""
+    if cfg.use_mla:
+        return cfg.replace(num_heads=cfg.num_heads // n)
+    return cfg.replace(num_heads=cfg.num_heads // n,
+                       num_kv_heads=cfg.num_kv_heads // n)
 
 
 @dataclasses.dataclass
@@ -238,7 +290,13 @@ class ServeEngine:
     built functions run uncaptured.  ``trace_counts`` counts the captures
     (builds on the CPU) by ``(width, "greedy" | "sampled")`` and
     ``("burst{n}", mode)``; ``warmup_steps`` the steps run (with every row
-    inactive) before captures, outside ``steps_run``."""
+    inactive) before captures, outside ``steps_run``.
+
+    ``mesh`` makes the engine one rank of a tensor-parallel server (see the
+    module docstring): its steps then run uncaptured on the card too, and
+    ``trace_counts`` counts builds, as on the CPU; ``dcfg`` is the config
+    the layers see (the rank's head counts), ``tp`` the ``model`` axis
+    with its ``all_reduce`` count."""
 
     def __init__(self, cfg: ModelConfig, params: Any, adapters: Any = None,
                  batch_slots: int = 4, capacity: int = 256,
@@ -247,11 +305,13 @@ class ServeEngine:
                  decode_impl: str = "dense",
                  registry: Optional[AdapterRegistry] = None,
                  lora_impl: Optional[str] = None, device: DeviceLike = None,
-                 record_steps: bool = False):
+                 record_steps: bool = False, mesh: Any = None):
         check_decode_impl(decode_impl)
         if registry is not None and adapters is not None:
             raise ValueError("pass a single-tenant adapter tree OR a "
                              "multi-tenant registry, not both")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -306,6 +366,11 @@ class ServeEngine:
         self._fns: Dict[Any, _EngineFn] = {}
         # (width, start, end, emitted counts, steps) per call while recording
         self._steps: Optional[List] = [] if record_steps else None
+        self.mesh = mesh
+        self.dcfg = cfg
+        self.tp = None
+        if mesh is not None:
+            self._install_mesh(mesh)
         if dev.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(dev)
@@ -427,11 +492,41 @@ class ServeEngine:
             return self.registry.device_state
         return self.adapters
 
+    def _install_mesh(self, mesh) -> None:
+        """Cut every engine-owned tree to this rank's shards, once, by the
+        serve rules, with the embedding and the head kept whole; the
+        registry keeps only its shard of the pages
+        (:meth:`AdapterRegistry.place`).  A one-rank mesh changes nothing."""
+        from repro_torch import topology
+        from repro_torch.topology.serve import ModelParallel
+        n = mesh.axis_size("model")
+        if mesh.axis_size("data") != 1 or "pod" in mesh.axis_names:
+            raise ValueError(f"a serve mesh is (data=1, model=N); got "
+                             f"{mesh.shape}")
+        if n > 1:
+            check_tensor_parallel(self.cfg, n)
+        specs = topology.serve_pspecs(mesh, self.cfg, self.params, self.cache,
+                                      self._state, self._adapters_arg())
+        for key in ("embed", "lm_head", "frontend_proj"):
+            if key in self.params:
+                specs["params"][key] = (None,) * self.params[key].ndim
+        self.params = topology.shard(self.params, specs["params"], mesh)
+        self.cache = topology.shard(self.cache, specs["cache"], mesh)
+        self._state = topology.shard(self._state, specs["state"], mesh)
+        if self.registry is not None:
+            self.registry.place(specs["adapters"], mesh)
+        elif self.adapters is not None:
+            self.adapters = topology.shard(self.adapters, specs["adapters"],
+                                           mesh)
+        if n > 1:
+            self.tp = ModelParallel(mesh)
+            self.dcfg = tensor_parallel_config(self.cfg, n)
+
     def _reserve_tickets(self):
         """``ring_decode``'s merge counters for the engine's largest call,
         before any capture (a graph keeps the address it captured); the
         hybrid's rings are its shared block's, at chunk 1."""
-        cfg = self.cfg
+        cfg = self.dcfg
         if self.decode_impl != "kernel" or cfg.use_mla or cfg.family == "ssm":
             return None
         from repro_torch.kernels import ring_decode
@@ -446,15 +541,15 @@ class ServeEngine:
         """One engine step of token width ``C``; device work only."""
         mode = self._mode()
         self._call((C, mode), lambda: _build_engine_step(
-            self.cfg, C, mode == "sampled", self.decode_impl, self.lora_impl),
-            1, C)
+            self.dcfg, C, mode == "sampled", self.decode_impl, self.lora_impl,
+            self.tp), 1, C)
 
     def _burst(self, n: int) -> None:
         """``n`` width-1 steps as one call (one graph replay on the card)."""
         mode = self._mode()
         self._call((f"burst{n}", mode), lambda: _build_engine_burst(
-            self.cfg, n, mode == "sampled", self.decode_impl, self.lora_impl),
-            n, 1)
+            self.dcfg, n, mode == "sampled", self.decode_impl, self.lora_impl,
+            self.tp), n, 1)
 
     def _call(self, key, build: Callable, steps: int, width: int) -> None:
         entry = self._fns.get(key)
@@ -462,7 +557,7 @@ class ServeEngine:
             emitted = (torch.zeros(steps, dtype=torch.int64, device=self.device)
                        if self._steps is not None else None)
             entry = _EngineFn(build(), steps, emitted)
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.tp is None:
                 self._capture(entry)
             self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
             self._fns[key] = entry

@@ -251,7 +251,12 @@ def test_registry_builds_the_five_methods():
         assert cls.name == m
         assert type(taggs.make_aggregator(m)).__name__ == \
             type(jaggs.make_aggregator(m)).__name__
-    with pytest.raises(NotImplementedError, match="not ported"):
-        taggs.make_aggregator("florist_sharded")
+    # the layer-sharded variant is ported (the multi-device slice): it
+    # registers beside the five, as the reference's does on import
+    import repro.core.distributed  # noqa: F401
+    agg = taggs.make_aggregator("florist_sharded")
+    assert type(agg).__name__ == \
+        type(jaggs.make_aggregator("florist_sharded")).__name__
+    assert isinstance(agg, taggs.FloristAggregator) and agg.svd_method == "gram"
     with pytest.raises(ValueError, match="unknown aggregation method"):
         taggs.make_aggregator("fedavg")

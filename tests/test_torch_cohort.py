@@ -28,7 +28,8 @@ from repro_torch.convert import adapters_from_numpy, params_from_numpy  # noqa: 
 from repro_torch.core.aggregators import (adapter_leaf_paths, fold_scale,  # noqa: E402
                                           get_path)
 from repro_torch.core.federated import FederatedTrainer  # noqa: E402
-from repro_torch.core.runtime import CohortRunner, make_runner  # noqa: E402
+from repro_torch.core.runtime import (CohortRunner, ShardedCohortRunner,  # noqa: E402
+                                      make_runner)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.optim.adamw import adamw_init, tree_map  # noqa: E402
 from repro_torch.peft.lora import lora_proj  # noqa: E402
@@ -217,7 +218,7 @@ def test_cohort_runner_delivers_in_plan_order_with_snapshots():
                                               for n in sizes.values())
 
 
-@pytest.mark.parametrize("runner", ["sequential", "cohort"])
+@pytest.mark.parametrize("runner", ["sequential", "cohort", "sharded_cohort"])
 def test_runners_deliver_one_form(runner):
     """Both runners hand ``deliver`` the same form: A and B as float32
     numpy (one host copy a block), ``scale`` a tensor on the trainer's
@@ -246,5 +247,32 @@ def test_runners_deliver_one_form(runner):
 
 
 def test_sharded_cohort_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_runner("sharded_cohort")
+    """Ported since the multi-device slice: ``make_runner`` builds the
+    sharded runner (block 256), and in one process (a one-rank fed mesh) it
+    trains each block of a cohort to the cohort runner's trees, delivered
+    block by block in cohort-grouped order."""
+    runner = make_runner("sharded_cohort")
+    assert isinstance(runner, ShardedCohortRunner) and runner.block == 256
+    cfg = ModelConfig(**{**QUICK, "num_layers": 1})
+    trees = {}
+    for name in ("cohort", ShardedCohortRunner(block=2)):
+        tr = FederatedTrainer(cfg, FedConfig(num_clients=8, clients_per_round=5,
+                                             heterogeneous=True,
+                                             rank_distribution=((4, 4), (8, 4)),
+                                             seed=1),
+                              LoRAConfig(rank=8, alpha=8.0), OptimConfig(),
+                              batch_size=2, local_steps=2, seq_len=8,
+                              runner=name, device="cpu")
+        plan = tr.scheduler.plan(0, tr)
+        got = []
+        tr.runner.run(tr, plan, lambda t, ad, init: got.append((t.client_id, ad)))
+        trees[tr.runner.name] = got
+    order = [t.client_id for r in dict.fromkeys(t.rank for t in plan.tasks)
+             for t in plan.tasks if t.rank == r]
+    assert [c for c, _ in trees["sharded_cohort"]] == order
+    ref = dict(trees["cohort"])
+    for cid, tree in trees["sharded_cohort"]:
+        for path in adapter_leaf_paths(tree):
+            for n in ("A", "B"):
+                _close(get_path(tree, path)[n], get_path(ref[cid], path)[n], 1e-5)
+    assert tr.runner.peak_live_clients == 2

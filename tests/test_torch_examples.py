@@ -74,15 +74,22 @@ def test_serve_federated_serves_every_request_across_a_swap(impl, capsys):
 
 
 def test_serve_federated_refuses_streamed_and_mesh(capsys):
-    """``--decode-impl streamed`` serves; ``--mesh`` still
-    raises, naming its item."""
+    """``--decode-impl streamed`` serves; ``--mesh 2`` serves too since the
+    multi-device slice (a gloo world of 2 on the CPU), every rank emitting
+    the mesh-less engine's tokens; a mesh that does not divide the heads
+    raises."""
     out = serve_federated.main(["--device", "cpu", "--decode-impl", "streamed"])
     assert len(out["outputs"]) == 4
     assert all(len(t) == 12 for t in out["outputs"].values())
     assert out["in_flight"][1] == [1, 2]
     assert out["engine"].decode_impl == "streamed"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        serve_federated.main(["--device", "cpu", "--mesh", "2"])
+    mesh = serve_federated.main(["--device", "cpu", "--mesh", "2",
+                                 "--decode-impl", "streamed"])
+    assert mesh["ranks_agree"] and mesh["outputs"] == out["outputs"]
+    assert mesh["in_flight"] == out["in_flight"]
+    assert mesh["all_reduces"] > 0 and "engine" not in mesh
+    with pytest.raises(Exception, match="does not divide"):
+        serve_federated.main(["--device", "cpu", "--mesh", "3"])
 
 
 def test_engine_streamed_raises_naming_its_slice():

@@ -65,8 +65,17 @@ def test_launcher_checkpoint_crash_and_resume(tmp_path):
 
 
 def test_launcher_refuses_sharded_cohort():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tfed.main(SMALL + ["--rounds", "1", "--runner", "sharded_cohort"])
+    """Ported since the multi-device slice: ``--runner sharded_cohort``
+    with ``--method florist_sharded`` runs, in one process (a one-rank
+    mesh) and on a gloo world of 2, and gives the cohort runner's FLoRIST
+    round."""
+    sharded = SMALL + ["--rounds", "1", "--runner", "sharded_cohort",
+                       "--method", "florist_sharded"]
+    want = tfed.main(SMALL + ["--rounds", "1", "--runner", "cohort"])
+    for got in (tfed.main(sharded), tfed.main(sharded + ["--world", "2"])):
+        assert got[0].eval_loss == pytest.approx(want[0].eval_loss, abs=1e-5)
+        assert got[0].upload_bytes == want[0].upload_bytes
+        assert got[0].download_rank == want[0].download_rank
 
 
 def test_fed_bench_runner_arm_and_dp_curve(tmp_path):
@@ -92,11 +101,16 @@ def test_fed_bench_faults_arm():
 
 
 def test_fed_bench_scale_arm_reports_sharded_as_skipped():
+    """The scale arm's ``sharded_cohort`` rows are real since the
+    multi-device slice: a one-rank mesh here and a gloo world of 2."""
     rep = fed_bench.scale_axis(torch.device("cpu"), 1, lambda *_: None,
-                               clients=48, participants=6)
-    rows = {r["runner"]: r for r in rep["results"]}
-    assert set(rows) == {"sequential", "cohort", "sharded_cohort"}
-    assert "Queue 1 item 9" in rows["sharded_cohort"]["skipped"]
+                               clients=48, participants=6, world_size=2)
+    rows = [(r["runner"], r.get("world", 1)) for r in rep["results"]]
+    assert rows == [("sequential", 1), ("cohort", 1), ("sharded_cohort", 1),
+                    ("sharded_cohort", 2)]
+    assert all(r["ms_per_round"] > 0 for r in rep["results"])
+    assert [r["peak_live_clients"] for r in rep["results"][2:]] == [8, 8]
+    assert rep["results"][3]["backend"] == "gloo"
     assert rep["peak_live_clients"] == 8
 
 
@@ -118,5 +132,16 @@ def test_federated_finetune_tiny_profile(tmp_path):
 @pytest.mark.parametrize("flags", [["--runner", "sharded_cohort"],
                                    ["--method", "florist_sharded"]])
 def test_federated_finetune_refuses_multi_device(flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        federated_finetune.main(["--device", "cpu", "--rounds", "1"] + flags)
+    """Both flags run since the multi-device slice, on a gloo world of 2
+    and in one process, to the cohort / florist run's losses."""
+    base = ["--device", "cpu", "--rounds", "1", "--local-steps", "1"]
+    want = federated_finetune.main(base + ["--runner", "cohort"])
+    one = federated_finetune.main(base + flags)
+    two = federated_finetune.main(base + flags + ["--world", "2"])
+    for got in (one, two):
+        assert got.history[0].eval_loss == pytest.approx(
+            want.history[0].eval_loss, abs=2e-4)
+    r0, r1 = two.ranks_by_rank[0], two.ranks_by_rank[1]
+    assert r0["ranks"] == r1["ranks"] == one.global_state.ranks
+    assert [(h.eval_loss, h.upload_bytes) for h in r0["history"]] == \
+        [(h.eval_loss, h.upload_bytes) for h in r1["history"]]

@@ -221,17 +221,20 @@ def test_validation_gate_screen():
 
 def test_unported_names_raise_not_implemented():
     """The names still unported raise, each naming the roadmap item that
-    ports it (the runtime's schedulers, runners, codecs and gate modes are
-    ported, granite-moe since the MoE slice, and the vision, audio and
-    hybrid configs since the front-end and Mamba2 slice, so only the
-    multi-device ones remain)."""
+    ports it: since the multi-device slice only tensor-parallel serving of
+    the families other than dense GQA and dense MLA remains (item 9b);
+    ``florist_sharded`` and ``sharded_cohort`` are built like the rest."""
     from repro_torch.configs import get_config
-    for make, item in ((lambda: make_aggregator("florist_sharded"), "Queue 1 item 9"),
-                       (lambda: make_runner("sharded_cohort"), "Queue 1 item 9")):
+    from repro_torch.serve.engine import check_tensor_parallel
+    for name in ("granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-1.2b",
+                 "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError, match="not ported") as e:
-            make()
-        assert item in str(e.value)
-    for ported in (lambda: make_runner("cohort"),
+            check_tensor_parallel(get_config(name), 2)
+        assert "Queue 1 item 9b" in str(e.value)
+    for ported in (lambda: make_aggregator("florist_sharded"),
+                   lambda: make_runner("sharded_cohort"),
+                   lambda: check_tensor_parallel(get_config("llama3p2_1b"), 2),
+                   lambda: make_runner("cohort"),
                    lambda: make_scheduler("async"), lambda: make_codec("int8"),
                    lambda: ValidationGate("full"),
                    lambda: get_config("granite-moe-1b-a400m"),

@@ -2,7 +2,8 @@
 CPU at a tiny size: the report carries the reference's keys
 (``benchmarks/serve_bench.py``), every arm serves every token, the engines'
 ``trace_counts`` stay fixed across passes and registry churn, the mesh axis
-is reported as skipped naming its item, and the eager baseline loop emits
+serves at mesh 1 and 2 with every rank on mesh 1's tokens, and the eager
+baseline loop emits
 the engine's greedy tokens.
 """
 import json
@@ -79,7 +80,15 @@ def test_captures_fixed_across_passes_and_churn(report):
 
 
 def test_mesh_axis_skipped_naming_its_item(report):
-    assert "Queue 1 item 9" in report["mesh_axis"]["skipped"]
+    """The mesh axis runs since the multi-device slice: mesh 1 here and
+    mesh 2 on a gloo world of two ranks, every rank emitting mesh 1's
+    tokens, with the row-parallel all_reduces counted."""
+    axis = report["mesh_axis"]
+    assert set(axis) == {"mesh1", "mesh2"}
+    assert all(a["tokens_match_mesh1"] and a["tok_per_s"] > 0
+               for a in axis.values())
+    assert axis["mesh1"]["all_reduces"] == 0 < axis["mesh2"]["all_reduces"]
+    assert axis["mesh2"]["backend"] == "gloo"
 
 
 def test_eager_loop_emits_the_engine_greedy_tokens():
