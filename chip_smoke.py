@@ -83,8 +83,8 @@ Phases (any failure exits non-zero; no exception is caught):
     calls after a warm-up; ``wkv6`` must run 24 and ``lora_matmul`` 120
     times a call; tokens/s and a profiled window.
 11. RWKV6 serving end to end: phase 4's traffic on RWKV6-1.6B at
-    published widths cut to 12 of its 24 layers, one token per engine
-    step; ``bgmv`` must run 60 times per engine step (5 targets x 12
+    published widths cut to 6 of its 24 layers, one token per engine
+    step; ``bgmv`` must run 30 times per engine step (5 targets x 6
     layers) and ``wkv6`` never; 16 of 16 requests with 32 tokens.
 12. RWKV6 in fp32 (TF32 off) at full width: (a) the prefill step's kernel
     route against its plain route, (b) phase 5 on this model, (c) the
@@ -197,7 +197,7 @@ Phases (any failure exits non-zero; no exception is caught):
     eval; (c) at 2 layers and full width in fp32 (TF32 off), two train
     steps on the kernel route against the plain route (phase 7's limits).
 19. RWKV6 training: (a) two FLoRIST rounds of RWKV6-1.6B at published
-    widths, cut to 6 of its 24 layers, through ``FederatedTrainer``
+    widths, cut to 3 of its 24 layers, through ``FederatedTrainer``
     (sequential runner; rank 16 on its five targets, 4 of 8 clients a
     round, 2 local steps of 2 × 256 tokens, the Gram route): the train
     steps' recurrence through ``wkv_scan``
@@ -288,8 +288,9 @@ Phases (any failure exits non-zero; no exception is caught):
     as a gloo world of 2 ranks spawned on cuda:0 (``topology.spawn``; gloo
     carries the collectives through the host, every kernel runs on the
     card at its shard's shape, and a rank's exception fails the script).
-    (a) Llama-3.2-1B, all 16 layers, bf16, tensor-parallel on a serve mesh
-    of 2 with phase 4's traffic, steps uncaptured: 16 of 16 requests on
+    (a) Llama-3.2-1B at 4 of its 16 layers (``P22_LLAMA_LAYERS``), bf16,
+    tensor-parallel on a serve mesh of 2 with phase 4's traffic, steps
+    uncaptured: 16 of 16 requests on
     each rank with the same tokens, ``ring_decode`` L a step at 16 / 4
     heads and ``bgmv`` 4 L a step at the shard widths (``BGMV_SHARD``),
     each rank's pools half of each target's sharded factor, 2 L
@@ -316,6 +317,30 @@ Phases (any failure exits non-zero; no exception is caught):
     ``mla_ring_decode`` at 64 heads, ``lora_matmul`` at C 2
     (``LORA_SHARD_SHAPES``), ``flash_attention`` at B 8 and
     ``adapter_gram`` at one rank's layer slice (``GRAM_SHARD``).
+23. Tensor-parallel serving of every other family, on one spawned gloo
+    world of 2 ranks on cuda:0 (as phase 22): (a) granite-moe-1b-a400m
+    (16 of 32 experts a rank), (b) DeepSeek-V3-L4 (128 of 256 experts a
+    rank, drawn only by their rank; the shared expert split), (c)
+    RWKV6-1.6B, (d) zamba2-1.2b (Mamba2's fused leaves cut segment by
+    segment), (e) phi-3-vision-4.2b and musicgen-medium, at published
+    widths (depths ``P23_SERVE``), bf16, each serving 8 requests of
+    32-128 prompt and 16 new tokens on the base id and adapters of ranks 4
+    and 8 with a mid-flight ``swap``, chunk 16, the kernel routes, steps
+    uncaptured: 8 of 8 requests on each rank with equal tokens, the
+    launches exact at the shard shapes (``RING_FAMILY_SHARD``,
+    ``BGMV_FAMILY_SHARD``, MLA's 64 heads; every launched shape one phase
+    2/3 checks), the ``all_reduce`` and ``all_to_all`` counts of every
+    step as its layers call for (a MoE layer's two ``all_to_all``s in a
+    chunk step, one ``all_reduce`` in a width-1 step), each rank's bytes
+    of params, pools and cache those its specs give it; the decode-step
+    wall and the collectives' host time are printed.  (f) fp32, TF32 off,
+    at ``P23_PARITY_LAYERS``: the mesh-2 kernel engine against the
+    mesh-less one in this process (a MoE model's chunks routed there slice
+    by slice, as the reference's ``_moe_fwd_sharded``: ``sliced_moe``),
+    first-step logits within 1e-3 of max(1, |logit|) and greedy tokens
+    equal over 16 steps; for (a) and (b) one expert-parallel chunk
+    through the first MoE layer against ``moe_fwd`` on each sequence
+    slice within 1e-5 of max(1, |y|).
 
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
@@ -323,19 +348,30 @@ phase 13 (b)'s client trees too; phase 17 cuts Qwen2.5-14B to 8 layers and
 Qwen1.5-32B to 4; phase 20 cuts DeepSeek-V3 to 4 of its 61 layers
 (``deepseek_v3_671b.L4``, 28.1 GB of bf16 weights).  To pay for phase 21
 (287.6 s on an H100 80GB HBM3 at 700 W with zamba2's graphed-vs-uncaptured
-pass at 38 layers): phase 11 serves RWKV6-1.6B at 12 of its 24
-layers (``RWKV_SERVE_LAYERS``; its prefill keeps 24), phase 19 trains it
-at 6 (``RWKV_TRAIN_LAYERS``, 12 before), phase 20 (a) and (d) run
+pass at 38 layers): phase 11 served RWKV6-1.6B at 12 of its 24
+layers (``RWKV_SERVE_LAYERS``; its prefill keeps 24), phase 19 trained
+it at 6 (``RWKV_TRAIN_LAYERS``, 12 before), phase 20 (a) and (d) run
 granite-moe at 12 of its 24 (``GRANITE_LAYERS``), phase 21 (c) holds
-zamba2's graphed tokens to its uncaptured ones at 12 of its 38 layers
-(``ZAMBA2_GRAPH_LAYERS``: two shared applications; its serving, launches
-and window stay at 38).  To pay for phase 22 (the script took 1242.7 s
+zamba2's graphed tokens to its uncaptured ones at 6 of its 38 layers
+(``ZAMBA2_GRAPH_LAYERS``: one shared application, 12 before phase 23; its
+serving, launches and window stay at 38).  To pay for phase 22 (the script took 1242.7 s
 from the build on with it, on an H100 80GB HBM3 at 700 W whose host ran
 phase 21 in 277.5 s): phase 21 (a) serves and trains phi-3-vision at 8 of
 its 32 layers (``PHI3_LAYERS``) and (b) musicgen at 12 of its 48
 (``MUSICGEN_LAYERS``), phase 15 (d) runs ``serve_bench``'s mesh axis at
 mesh 1 only (phase 22 serves on a world of 2), and each kernel time is
-the median of ``REPS`` = 20 launches (50 and then 30 before).
+the median of ``REPS`` = 20 launches (50 and then 30 before).  Phase 23
+serves granite-moe, RWKV6, phi-3-vision and musicgen at 2 of their
+layers and zamba2 at 6 (one shared-block application), and checks (f)
+at 2 layers (zamba2 6; DeepSeek-V3 one dense MLA and one MoE layer): a
+gloo step of two ranks on one card costs milliseconds a collective.  To
+pay for phase 23 (the script took 1127.0 s from the build on with it, on
+an H100 80GB HBM3 at 700 W whose host ran phase 21 in 149.8 s): phase 21
+(c)'s graph pass went from 12 to 6 layers, phase 22 (a) to Llama at 8 of
+its 16 layers and phase 23's serving from 4 to 2 layers (1121.2 s on a
+slower host, the build 85.3 s), then phase 22 (a) to 4 layers
+(``P22_LLAMA_LAYERS``), phase 11's RWKV6 serving to 6 of its 24 and
+phase 19's training to 3.
 Each phase's seconds are printed (``[phase N: s]``) and kept in the
 JSON.
 
@@ -382,9 +418,10 @@ def fail(msg: str) -> None:
 
 
 # depth cuts that pay for the later phases (the docstring's last paragraph)
-RWKV_SERVE_LAYERS = 12           # phase 11: RWKV6-1.6B served at 12 of 24
+RWKV_SERVE_LAYERS = 6            # phase 11: RWKV6-1.6B served at 6 of 24
 GRANITE_LAYERS = 12              # phase 20 (a), (d): granite-moe at 12 of 24
-ZAMBA2_GRAPH_LAYERS = 12         # phase 21 (c)'s graphed-vs-uncaptured pass
+ZAMBA2_GRAPH_LAYERS = 6          # phase 21 (c)'s graphed-vs-uncaptured pass
+P22_LLAMA_LAYERS = 4             # phase 22 (a): Llama-3.2-1B at 4 of 16 layers
 PHI3_LAYERS = 8                  # phase 21 (a): phi-3-vision at 8 of 32 layers
 MUSICGEN_LAYERS = 12             # phase 21 (b): musicgen at 12 of 48 layers
 
@@ -505,6 +542,8 @@ def main() -> None:
     done("21")
     report["phase22"], p22_counts = phase22(torch)
     done("22")
+    report["phase23"], p23_counts = phase23(torch)
+    done("23")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -593,7 +632,11 @@ def main() -> None:
             | ({"launches_phase22_path": p22_counts[name]}
                if name in p22_counts else {})
             | (other_path("shard_path", name, SHARD_CASES[name])
-               if name in SHARD_CASES else {}))
+               if name in SHARD_CASES else {})
+            | ({"launches_phase23_path": p23_counts[name]}
+               if name in p23_counts else {})
+            | (other_path("family_shard_path", name, FAMILY_SHARD_CASES[name])
+               if name in FAMILY_SHARD_CASES else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -783,7 +826,18 @@ def kernel_cases(torch):
             # of 2 (16 of 32 query heads over 4 of 8 KV heads), at a decode
             # step and at the 16-token prefill chunk
             ("bfloat16", 1, 0, 64, 1024, 16, 4, False),
-            ("bfloat16", 16, 0, 64, 1024, 16, 4, False)):
+            ("bfloat16", 16, 0, 64, 1024, 16, 4, False),
+            # phase 23: one rank's heads on a model axis of 2 of granite-moe
+            # (8 / 4), phi-3-vision (16 / 16 at hd 96), musicgen (12 / 12)
+            # at a decode step and a 16-token chunk, and zamba2's shared
+            # block (16 / 16; one token a step)
+            ("bfloat16", 1, 0, 64, 1024, 8, 4, False),
+            ("bfloat16", 16, 0, 64, 1024, 8, 4, False),
+            ("bfloat16", 1, 0, 96, 1024, 16, 16, False),
+            ("bfloat16", 16, 0, 96, 1024, 16, 16, False),
+            ("bfloat16", 1, 0, 64, 1024, 12, 12, False),
+            ("bfloat16", 16, 0, 64, 1024, 12, 12, False),
+            ("bfloat16", 1, 0, 64, 1024, 16, 16, False)):
         B = 8
         how = route(torch.float32 if kv_name == "float32" else torch.bfloat16,
                     getattr(torch, kv_name), H // K * C)
@@ -905,6 +959,18 @@ def bgmv_kernel_cases(torch):
     cases += [(dt, C, din, dout, (0, 3, 8, 16, 0), 4)
               for din, dout in BGMV_SHARD + BGMV_MLA_SHARD
               for dt, C in (("bfloat16", 1), ("bfloat16", 16))]
+    # phase 23: the other families' shard widths (BGMV_FAMILY_SHARD) not
+    # above, at a decode step and at the prefill chunk (RWKV6 and zamba2
+    # take one token a step; RWKV6's r/k/v/g inputs are fp32)
+    for key, shapes in BGMV_FAMILY_SHARD.items():
+        one_token = key in ("rwkv6_1p6b", "zamba2_1p2b")
+        for c in [("bfloat16", C, din, dout, (0, 3, 8, 16, 0), 4)
+                  for din, dout in shapes
+                  for C in ((1,) if one_token else (1, 16))] + (
+                [("float32/bfloat16", 1, 2048, 1024, (0, 3, 8, 16, 0), 4)]
+                if key == "rwkv6_1p6b" else []):
+            if c not in cases:
+                cases.append(c)
     cases += [(dt, 16, din, dout, (0, 30, 32, 64, 0), 16) for dt, din, dout in (
         ("bfloat16", 2048, 2048), ("bfloat16", 16384, 7168),
         ("float32/bfloat16", 2048, 2048))]
@@ -1184,6 +1250,29 @@ SHARD_CASES = {"ring_decode": RING_SHARD, "bgmv": BGMV_SHARD_MAIN,
 FLASH_PHI3 = "bf16, causal, B=4 S=1024 H=32 K=32 hd=96"
 RING_ZAMBA2 = "bf16 cache, C=1, B=8 H=32 K=32 hd=64 cap=1024"
 BGMV_ZAMBA2 = "bf16, C=1, B=8 din=2048 dout=8384 pr=4 Pmax=4"
+# phase 23's shard shapes on a model axis of 2, by model: ring_decode's
+# (H, K, hd) and bgmv's (din, dout) of one rank.  granite-moe: wq 1024 ->
+# 512, wk / wv 1024 -> 256, wo 512 -> 1024; RWKV6: wr wk wv wg 2048 -> 1024
+# (fp32 x), wo 1024 -> 2048; zamba2: the shared block as Llama's rank
+# (2048 -> 1024, 1024 -> 2048), Mamba2's in_proj cut segment by segment
+# (2048 -> 2048 + 2048 + 128 + 32 = 4256) and out_proj 2048 -> 2048;
+# phi-3-vision 3072 -> 1536 and 1536 -> 3072; musicgen 1536 -> 768 and 768
+# -> 1536; DeepSeek-V3-L4 as DeepSeek-V3-dense3's rank (its MoE layer's
+# attention too)
+RING_FAMILY_SHARD = {"granite_moe_1b_a400m": (8, 4, 64),
+                     "zamba2_1p2b": (16, 16, 64),
+                     "phi3_vision_4p2b": (16, 16, 96),
+                     "musicgen_medium": (12, 12, 64)}
+BGMV_FAMILY_SHARD = {
+    "granite_moe_1b_a400m": ((1024, 512), (1024, 256), (512, 1024)),
+    "deepseek_v3_l4": BGMV_MLA_SHARD,
+    "rwkv6_1p6b": ((2048, 1024), (1024, 2048)),
+    "zamba2_1p2b": ((2048, 1024), (1024, 2048), (2048, 4256), (2048, 2048)),
+    "phi3_vision_4p2b": ((3072, 1536), (1536, 3072)),
+    "musicgen_medium": ((1536, 768), (768, 1536))}
+RING_FAMILY_MAIN = "bf16 cache, C=1, B=8 H=8 K=4 hd=64 cap=1024"   # granite
+BGMV_FAMILY_MAIN = "bf16, C=1, B=8 din=2048 dout=4256 pr=4 Pmax=4"  # in_proj
+FAMILY_SHARD_CASES = {"ring_decode": RING_FAMILY_MAIN, "bgmv": BGMV_FAMILY_MAIN}
 
 
 def _causal_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -4539,7 +4628,7 @@ RWKV_TRAIN_ROUNDS, RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 2, 2, 256
 # phase 19 (a) trains RWKV6-1.6B at full width cut to this depth (of its
 # 24 layers): its host-bound step scales with depth, and the whole script
 # must stay inside its time on a slow host
-RWKV_TRAIN_LAYERS = 6
+RWKV_TRAIN_LAYERS = 3
 
 
 def _rwkv_trainer(cfg, params, runner="sequential"):
@@ -5628,7 +5717,8 @@ def p22_serving_rank(device: str = "cuda") -> dict:
     import torch
     from repro_torch.topology import make_serve_mesh
     _rank_start(device)
-    out = {"llama": p22_serve(torch, "llama3p2_1b")}
+    out = {"llama": p22_serve(torch, cut_config("llama3p2_1b",
+                                                P22_LLAMA_LAYERS))}
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     out["parity"] = p22_parity_side(torch, make_serve_mesh(WORLD, device=DEVICE))
@@ -5725,9 +5815,11 @@ def phase22(torch) -> tuple:
     ranks = spawn(p22_serving_rank, WORLD, "gloo", DEVICE, args=(DEVICE,),
                   timeout_s=600)
     print(f"  world of {WORLD}: {time.perf_counter() - t0:.1f} s, spawn included")
-    # (a) Llama-3.2-1B, all 16 layers, phase 4's traffic
+    # (a) Llama-3.2-1B at P22_LLAMA_LAYERS layers, phase 4's traffic
     for key, label in (("llama", "(a)"), ("mla", "(b)")):
         cfg = CONFIGS["llama3p2_1b" if key == "llama" else "deepseek_v3_dense3"][0]
+        if key == "llama":
+            cfg = cfg.replace(num_layers=P22_LLAMA_LAYERS)
         L = cfg.num_layers
         r0 = ranks[0][key]
         heads = (f"{r0['heads'][0]}" if cfg.use_mla
@@ -5919,6 +6011,403 @@ def phase22(torch) -> tuple:
     del one, fed, half, ranks
     torch.cuda.empty_cache()
     return report, counts
+
+
+# -- phase 23: tensor-parallel serving of every other family, one card --------
+
+# (label, launch.serve key, layers served (0: the config's own), published
+# layers): the depth cuts that keep the phase inside its budget
+P23_SERVE = (("(a)", "granite_moe_1b_a400m", 2, 24),
+             ("(b)", "deepseek_v3_l4", 0, 61),
+             ("(c)", "rwkv6_1p6b", 2, 24),
+             ("(d)", "zamba2_1p2b", 6, 38),
+             ("(e)", "phi3_vision_4p2b", 2, 32),
+             ("(e)", "musicgen_medium", 2, 48))
+# (f)'s fp32 depth: 2 layers (DeepSeek-V3: one dense MLA layer and its
+# first MoE layer), zamba2 6 (its first shared-block application)
+P23_PARITY_LAYERS = {"granite_moe_1b_a400m": 2, "deepseek_v3_l4": 2,
+                     "rwkv6_1p6b": 2, "zamba2_1p2b": 6,
+                     "phi3_vision_4p2b": 2, "musicgen_medium": 2}
+P23_REQUESTS = 8
+P23_NEW = 16
+P23_PROMPTS = (32, 128)
+P23_SWAP_AFTER = 4                # engine steps before the mid-flight swap
+
+
+def p23_collectives(cfg, width: int, n: int = WORLD) -> tuple:
+    """(all_reduces, all_to_alls) one engine step of ``width`` tokens makes
+    on a model axis of ``n``: one all_reduce a row-parallel projection
+    (attention's ``wo``, an MLP's ``w_down``, DeepSeek-V3's shared expert,
+    RWKV6's ``wo`` and ``wcv``, Mamba2's norm and ``out_proj``, the hybrid's
+    shared block's two), and a MoE layer's two all_to_alls in a chunk the
+    axis divides, else its one all_reduce."""
+    from repro_torch.models.transformer import layer_plan
+    ar = a2a = 0
+    for kind, count in layer_plan(cfg):
+        if kind.endswith("moe"):
+            ep = width % n == 0
+            ar += count * (1 + (not ep) + bool(cfg.num_shared_experts))
+            a2a += 2 * count * ep
+        else:
+            ar += 2 * count
+    return ar, a2a
+
+
+def _p23_model(torch, cfg, mesh, dev, seed: int, max_rank: int):
+    """Params (a MoE model's experts only the rank's), a registry with
+    adapters of ranks 4 and 8 and the swap's new version of the rank-8
+    one, made before the engine places the model."""
+    from repro_torch.configs import lora_targets
+    from repro_torch.launch.serve import make_adapter
+    from repro_torch.models import transformer as T
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.serve.adapters import AdapterRegistry
+    from repro_torch.serve.engine import rank_experts
+    dtype = T.torch_dtype(cfg.dtype)
+    params = T.init(cfg, seed, dev, experts=rank_experts(cfg, mesh))
+    targets = lora_targets(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    reg = AdapterRegistry(init_lora(params, targets, 4, 8.0, gen, dtype=dtype),
+                          page_rank=4, max_rank=max_rank, num_pages=32,
+                          max_adapters=8, device=dev)
+    ids = [0] + [reg.register(f"r{r}", make_adapter(params, targets, r, gen,
+                                                     dtype)) for r in (4, 8)]
+    return params, reg, ids, make_adapter(params, targets, 8, gen, dtype)
+
+
+def p23_serve(torch, key: str, layers: int, mesh) -> dict:
+    """One rank of (a)-(e): ``key`` at published widths (``layers`` of
+    them) on the serve mesh through ``decode_impl="kernel"``, chunk 16,
+    uncaptured: 8 requests of 32-128 prompt tokens and 16 new tokens on the
+    base id and adapters of ranks 4 and 8, the rank-8 one swapped after 4
+    steps; its tokens, launches and kernel shapes, collectives a step,
+    placed bytes and times."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CONFIGS
+    from repro_torch.serve.engine import SamplingParams, ServeEngine
+    cfg = CONFIGS[key][0]
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    params, reg, ids, swap_ad = _p23_model(torch, cfg, mesh, dev, 0, 8)
+    eng = ServeEngine(cfg, params, registry=reg, batch_slots=P23_REQUESTS,
+                      capacity=1024, prefill_chunk=16, max_tokens_cap=P23_NEW,
+                      decode_impl="kernel", device=dev, record_steps=True,
+                      mesh=mesh)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    served = {}
+
+    def submit(aid):
+        plen = int(rng.integers(P23_PROMPTS[0], P23_PROMPTS[1] + 1))
+        uid = eng.submit(rng.integers(1, cfg.vocab_size, plen).tolist(),
+                         SamplingParams(max_tokens=P23_NEW), adapter_id=aid)
+        served[uid] = aid
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with serving_shapes() as seen:
+        for i in range(P23_REQUESTS - 2):
+            submit(ids[i % 3])
+        results = eng.run_steps(P23_SWAP_AFTER)
+        new = reg.swap("r8", swap_ad)
+        for _ in range(2):
+            submit(new)
+        results.update(eng.run(max_steps=10_000))
+    log = eng.step_log()
+    wall = time.perf_counter() - t0
+    tp = eng.tp
+    dec = [s["ms"] for s in log if s["width"] == 1]
+    pre = [s["ms"] for s in log if s["width"] > 1]
+    res = {"results": results, "served_by": served, "counts": ops.launch_counts(),
+           "want": serve_launches(eng.dcfg, eng, eng.steps_run),
+           "steps": eng.steps_run,
+           "collectives": [(s["width"], s["all_reduces"], s["all_to_alls"])
+                           for s in log],
+           "placement": eng.placement, "seen": seen, "backend": mesh.backend,
+           "all_reduces": tp.all_reduces, "reduce_s": tp.reduce_s,
+           "all_to_alls": tp.all_to_alls, "a2a_s": tp.a2a_s,
+           "decode_ms": float(np.median(dec)) if dec else 0.0,
+           "prefill_ms": float(np.median(pre)) if pre else 0.0,
+           "wall_s": wall, "build_s": build_s,
+           "builds": {str(k): v for k, v in eng.trace_counts.items()},
+           "swap": new, "layers": cfg.num_layers}
+    del eng, reg, swap_ad
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def sliced_moe(n: int):
+    """Inside the block a mesh-less ``moe_fwd`` routes a chunk whose width
+    ``n`` divides as the reference's ``_moe_fwd_sharded`` does on a model
+    axis of ``n``: each sequence slice on its own, at the capacity of its
+    own tokens, aux the slices' mean (a width-1 step routes every token at
+    once, as on the mesh).  Where capacity binds, that is where the meshed
+    engine's drops differ from the mesh-less engine's: (f)'s oracle."""
+    import torch
+    from repro_torch.models import moe as Moe
+    whole = Moe.moe_fwd
+
+    def sliced(cfg, p, x, adapters=None, groups=0, use_kernel=False, tp=None):
+        S = x.shape[1]
+        if tp is not None or groups or S % n or S == 1:
+            return whole(cfg, p, x, adapters, groups, use_kernel, tp)
+        w = S // n
+        parts = [whole(cfg, p, x[:, r * w:(r + 1) * w], adapters)
+                 for r in range(n)]
+        return (torch.cat([y for y, _ in parts], dim=1),
+                torch.stack([a for _, a in parts]).mean())
+
+    Moe.moe_fwd = sliced
+    try:
+        yield
+    finally:
+        Moe.moe_fwd = whole
+
+
+def _p23_parity_cfg(key: str):
+    from repro_torch.launch.serve import CONFIGS
+    cfg = CONFIGS[key][0]
+    return cfg.replace(dtype="float32", num_layers=P23_PARITY_LAYERS[key],
+                       first_dense_layers=min(1, cfg.first_dense_layers))
+
+
+def p23_parity_side(torch, key: str, mesh) -> dict:
+    """(f) on one engine (``mesh`` None: mesh-less, in the parent): ``key``
+    at ``P23_PARITY_LAYERS`` in fp32 (TF32 off) through the kernel routes
+    with adapters of ranks 4 and 8 and the base id: the first 16-token
+    prefill step's logits (RWKV6 and zamba2: the logits after 8 one-token
+    steps), the greedy tokens of 8 requests over 16 steps, and for a MoE
+    model one 16-token chunk through its first MoE layer: expert parallel
+    on the mesh, ``moe_fwd`` on each rank's sequence slice without one.
+    The mesh-less side routes a MoE model's chunks as the mesh does
+    (:func:`sliced_moe`)."""
+    from repro_torch.device import parity_mode
+    parity_mode()
+    cfg = _p23_parity_cfg(key)
+    dev = torch.device(DEVICE) if mesh is None else mesh.device
+    with (sliced_moe(WORLD) if mesh is None else contextlib.nullcontext()):
+        return _p23_parity_run(torch, key, cfg, dev, mesh)
+
+
+def _p23_parity_run(torch, key, cfg, dev, mesh) -> dict:
+    import numpy as np
+    from repro_torch import topology
+    from repro_torch.models import moe as Moe
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.adapters import attach
+    from repro_torch.serve.engine import (SamplingParams, ServeEngine,
+                                          placement_specs)
+    params, reg, aid, _ = _p23_model(torch, cfg, mesh, dev, 1, 8)
+    B = 8
+    C, steps = (1, 8) if cfg.family in ("ssm", "hybrid") else (16, 1)
+    eng = ServeEngine(cfg, params, registry=reg, batch_slots=B, capacity=1024,
+                      prefill_chunk=16, decode_impl="kernel", device=dev,
+                      mesh=mesh)
+    del params
+    out = {}
+    if cfg.num_experts:
+        kinds = [k for k, _ in T.layer_plan(cfg) if k != "shared"]
+        seg = next(i for i, k in enumerate(kinds) if k.endswith("moe"))
+        p = T._layer(eng.params["blocks"][seg]["moe"], 0)
+        x = torch.randn((B, 16, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+        # mesh-less, moe_fwd is sliced_moe's: each slice on its own
+        y, aux = Moe.moe_fwd(cfg, p, x, tp=eng.tp)
+        out["moe"] = (y.cpu(), float(aux))
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, C * steps)),
+                           device=dev)
+    n = torch.tensor([16, 16, 9, 16, 3, 16, 16, 1] if C == 16
+                     else [1, 1, 1, 1, 0, 1, 1, 1], dtype=torch.int32,
+                     device=dev)
+    ids = torch.tensor([aid[i % 3] for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    cache = T.init_cache(cfg, B, 1024, torch.float32, prefill_chunk=C,
+                         device=dev)
+    if mesh is not None:
+        cache = topology.shard(cache, placement_specs(
+            cfg, mesh, {}, cache, {})["cache"], mesh)
+    for i in range(steps):
+        lg, cache = T.decode(eng.dcfg, eng.params, cache,
+                             {"tokens": toks[:, i * C:(i + 1) * C]},
+                             attach(reg.device_state, ids, impl="kernel"),
+                             n_tokens=n, decode_impl="kernel", tp=eng.tp)
+    prng = np.random.default_rng(4)
+    uids = [eng.submit(prng.integers(1, cfg.vocab_size,
+                                     int(prng.integers(32, 65))).tolist(),
+                       SamplingParams(max_tokens=16), adapter_id=aid[i % 3])
+            for i in range(B)]
+    res = eng.run()
+    out.update({"logits": lg.cpu(),
+                "valid": (torch.arange(C, device=dev)[None, :]
+                          < n[:, None]).cpu(),
+                "tokens": [res[u] for u in uids], "steps": steps})
+    del eng, reg, lg, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def p23_rank(device: str = "cuda") -> dict:
+    """Every case of phase 23 on one rank of the world of ``WORLD`` (gloo,
+    every rank on cuda:0): (a)-(e) serving, then (f)'s meshed sides."""
+    import torch
+    from repro_torch.topology import make_serve_mesh
+    _rank_start(device)
+    mesh = make_serve_mesh(WORLD, device=DEVICE)
+    out = {key: p23_serve(torch, key, layers, mesh)
+           for _, key, layers, _ in P23_SERVE}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    out["parity"] = {key: p23_parity_side(torch, key, mesh)
+                     for key in P23_PARITY_LAYERS}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def phase23(torch) -> tuple:
+    """Phase 23: tensor-parallel serving of every family phase 22 does not
+    serve, on one gloo world of ``WORLD`` ranks on cuda:0 (spawned once).
+    (a) granite-moe-1b-a400m (16 of 32 experts a rank), (b) DeepSeek-V3-L4
+    (128 of 256 experts a rank, the shared expert split), (c) RWKV6-1.6B,
+    (d) zamba2-1.2b, (e) phi-3-vision-4.2b and musicgen-medium, each at
+    published widths (depth cut: ``P23_SERVE``), with 8 requests, adapters
+    of ranks 4 and 8 and the base id, a mid-flight swap, chunk 16 and the
+    kernel routes: 8 of 8 requests on each rank with equal tokens, the
+    launches a step exact at the shard shapes phase 2/3 checks, the
+    collectives a step exact, each rank's bytes those its specs give it.
+    (f) fp32, TF32 off, at ``P23_PARITY_LAYERS``: the mesh-2 kernel engine
+    against the mesh-less one in this process, first-step logits within
+    1e-3 of max(1, |logit|), greedy tokens equal over 16 steps, and for
+    (a) and (b) one expert-parallel chunk through the first MoE layer
+    against ``moe_fwd`` on each sequence slice within 1e-5 of max(1, |y|).
+    Every rank must finish; a rank's exception fails the script."""
+    from repro_torch.launch.serve import CONFIGS
+    from repro_torch.topology import spawn
+    t_phase = time.perf_counter()
+    report, counts = {}, collections.Counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print("phase 23 (f): the mesh-less sides in this process")
+    base = {key: p23_parity_side(torch, key, None) for key in P23_PARITY_LAYERS}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    print(f"phase 23: a gloo world of {WORLD} ranks on cuda:0 (spawned; every "
+          "rank on the same card)")
+    ranks = spawn(p23_rank, WORLD, "gloo", DEVICE, args=(DEVICE,), timeout_s=900)
+    print(f"  world of {WORLD}: {time.perf_counter() - t0:.1f} s, spawn included")
+    for label, key, layers, full in P23_SERVE:
+        cfg = CONFIGS[key][0]
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        r0 = ranks[0][key]
+        depth = (f"{cfg.num_layers} of its {full} layers" if cfg.num_layers < full
+                 else f"{full} layers")
+        print(f"phase 23 {label}: {cfg.name} at published widths, {depth}, "
+              f"bf16, mesh (data=1, model={WORLD}), backend {r0['backend']}, "
+              f"uncaptured steps (builds {r0['builds']}); build "
+              f"{r0['build_s']:.1f} s")
+        for r in range(WORLD):
+            got = ranks[r][key]
+            res = got["results"]
+            if len(res) != P23_REQUESTS or any(len(t) != P23_NEW
+                                               for t in res.values()):
+                fail(f"phase 23 {label}: rank {r} served "
+                     f"{ {u: len(t) for u, t in res.items()} }")
+            if res != r0["results"]:
+                fail(f"phase 23 {label}: rank {r}'s tokens differ from rank 0's")
+            if got["counts"] != got["want"]:
+                fail(f"phase 23 {label}: rank {r} launched {got['counts']}, "
+                     f"expected {got['want']} over {got['steps']} steps")
+            bad = [c for c in got["collectives"]
+                   if c[1:] != p23_collectives(cfg, c[0])]
+            if bad or len(got["collectives"]) != got["steps"]:
+                fail(f"phase 23 {label}: rank {r}'s collectives a step "
+                     f"(width, all_reduces, all_to_alls) {bad[:3]}, expected "
+                     f"{p23_collectives(cfg, 1)} at width 1 and "
+                     f"{p23_collectives(cfg, 16)} at 16")
+            for tree, b in got["placement"].items():
+                if b["held"] != b["expected"]:
+                    fail(f"phase 23 {label}: rank {r} holds {b['held']} bytes "
+                         f"of {tree}, its specs give it {b['expected']}")
+        seen = r0["seen"]
+        ring = RING_FAMILY_SHARD.get(key)
+        if seen["ring_decode"] != ({ring} if ring else set()):
+            fail(f"phase 23 {label}: ring_decode called at {seen['ring_decode']}")
+        if cfg.use_mla and seen["mla_ring_decode"] != {cfg.num_heads // WORLD}:
+            fail(f"phase 23 {label}: mla_ring_decode at "
+                 f"{seen['mla_ring_decode']} heads")
+        if not seen["bgmv"] or not seen["bgmv"] <= set(BGMV_FAMILY_SHARD[key]):
+            fail(f"phase 23 {label}: bgmv called at {sorted(seen['bgmv'])}, "
+                 f"outside phase 2/3's {BGMV_FAMILY_SHARD[key]}")
+        widths = sorted({c[0] for c in r0["collectives"]})
+        per = {w: p23_collectives(cfg, w) for w in widths}
+        pl = r0["placement"]
+        steps = r0["steps"]
+        print(f"  both ranks served {P23_REQUESTS} of {P23_REQUESTS} requests "
+              f"x {P23_NEW} tokens (swap to id {r0['swap']} after "
+              f"{P23_SWAP_AFTER} steps), the same tokens on both; launches a "
+              f"rank {json.dumps({k: v for k, v in r0['counts'].items() if v})}"
+              f" over {steps} steps (= the expected); kernel shapes "
+              f"{json.dumps({k: sorted(v) for k, v in seen.items() if v})}")
+        print(f"  collectives a step (width: all_reduces, all_to_alls) "
+              f"{per}; a rank holds params {pl['params']['held'] / 2**30:.3f} "
+              f"GiB, pools {pl['adapters']['held'] / 2**20:.2f} MiB, cache "
+              f"{pl['cache']['held'] / 2**20:.2f} MiB (= its specs' shares)")
+        print(f"  rank 0 on {CARD}: decode step median {r0['decode_ms']:.3f} ms"
+              f", prefill step median {r0['prefill_ms']:.3f} ms (CUDA events "
+              f"around each uncaptured step), wall {r0['wall_s']:.2f} s; "
+              f"collectives' host time {1e3 * r0['reduce_s'] / steps:.3f} ms "
+              f"(all_reduce) + {1e3 * r0['a2a_s'] / steps:.3f} ms (all_to_all)"
+              f" a step (gloo through the host)")
+        report[key] = {k: r0[k] for k in (
+            "counts", "steps", "all_reduces", "reduce_s", "all_to_alls",
+            "a2a_s", "decode_ms", "prefill_ms", "wall_s", "build_s", "builds",
+            "placement", "layers")}
+        report[key]["seen"] = {k: sorted(v) for k, v in seen.items()}
+        report[key]["collectives_a_step"] = {str(w): c for w, c in per.items()}
+        counts.update(r0["counts"])
+    # (f) fp32 parity against the mesh-less engines in this process
+    report["parity"] = {}
+    for key in P23_PARITY_LAYERS:
+        cfg = _p23_parity_cfg(key)
+        got, want = ranks[0]["parity"][key], base[key]
+        what = ("first 16-token prefill step's logits" if want["steps"] == 1
+                else f"logits after {want['steps']} one-token steps")
+        err = check(f"phase 23 (f): {cfg.name} at {cfg.num_layers} layers, "
+                    f"mesh-{WORLD} kernel engine vs mesh-less, {what} (fp32, "
+                    "TF32 off)", got["logits"], want["logits"], want["valid"],
+                    1e-3)
+        pairs = [(a, b) for ra, rb in zip(got["tokens"], want["tokens"])
+                 for a, b in zip(ra, rb)]
+        agree = sum(a == b for a, b in pairs)
+        same = ranks[1]["parity"][key]["tokens"] == got["tokens"]
+        print(f"  greedy tokens over 16 steps x 8 requests: {agree}/"
+              f"{len(pairs)} equal; rank 1's equal rank 0's: {same}")
+        if agree != len(pairs) or len(pairs) != 16 * 8 or not same:
+            fail(f"phase 23 (f): {cfg.name}'s mesh engine's greedy tokens differ")
+        rec = {"logits_max_abs_err": err, "greedy_equal": agree}
+        if "moe" in want:
+            (y, aux), (wy, waux) = got["moe"], want["moe"]
+            e = float((y - wy).abs().max())
+            lim = 1e-5 * max(1.0, float(wy.abs().max()))
+            print(f"  one 16-token chunk (B 8) through the first MoE layer, "
+                  f"expert parallel vs moe_fwd on each of the {WORLD} sequence "
+                  f"slices: max |Δy| {e:.2e} (limit {lim:.2e}), |Δaux| "
+                  f"{abs(aux - waux):.2e} (limit 1e-6)")
+            if e > lim or abs(aux - waux) > 1e-6:
+                fail(f"phase 23 (f): {cfg.name}'s expert-parallel chunk differs")
+            rec.update(moe_max_abs_err=e, moe_aux_abs_err=abs(aux - waux))
+        report["parity"][key] = rec
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 23: {report['phase_s']:.1f} s")
+    del ranks, base
+    torch.cuda.empty_cache()
+    return report, {k: v for k, v in counts.items() if v}
 
 
 def _products_of(torch, tree):

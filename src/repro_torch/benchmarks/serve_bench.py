@@ -49,7 +49,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
 from repro_torch.serve.adapters import AdapterRegistry
-from repro_torch.serve.engine import SamplingParams, ServeEngine
+from repro_torch.serve.engine import SamplingParams, ServeEngine, rank_experts
 from repro_torch.topology import make_serve_mesh, spawn, under_torchrun
 from repro_torch.train.step import make_serve_step
 
@@ -206,14 +206,15 @@ def multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev,
 
 def mesh_run(cfg: ModelConfig, n: int, slots: int, capacity: int, chunk: int,
              requests: int, prompt_len: int, gen: int, device) -> Dict:
-    """One rank's mesh-``n`` engine (params from seed 0, the workload's
-    rng seeded alike on every rank) serving the workload twice: the faster
-    pass's tok/s, both passes' tokens, the builds and the ``all_reduce``
-    count and host time."""
-    params = T.init(cfg, 0, device)
+    """One rank's mesh-``n`` engine (params from seed 0, a MoE model's
+    experts only the rank's; the workload's rng seeded alike on every
+    rank) serving the workload twice: the faster pass's tok/s, both
+    passes' tokens, the builds and the ``all_reduce`` and ``all_to_all``
+    counts and host times."""
+    mesh = make_serve_mesh(n, device=device)
+    params = T.init(cfg, 0, device, experts=rank_experts(cfg, mesh))
     eng = ServeEngine(cfg, params, batch_slots=slots, capacity=capacity,
-                      prefill_chunk=chunk, decode_impl="dense",
-                      mesh=make_serve_mesh(n, device=device))
+                      prefill_chunk=chunk, decode_impl="dense", mesh=mesh)
     rng = np.random.default_rng(1)
     sp = SamplingParams(temperature=0.8, top_k=20, top_p=0.95, max_tokens=gen)
     outs, dts = [], []
@@ -229,7 +230,9 @@ def mesh_run(cfg: ModelConfig, n: int, slots: int, capacity: int, chunk: int,
     return {"tok_per_s": total / min(dts), "tokens": outs,
             "trace_counts": {str(k): v for k, v in eng.trace_counts.items()},
             "all_reduces": eng.tp.all_reduces if eng.tp is not None else 0,
-            "reduce_s": eng.tp.reduce_s if eng.tp is not None else 0.0}
+            "reduce_s": eng.tp.reduce_s if eng.tp is not None else 0.0,
+            "all_to_alls": eng.tp.all_to_alls if eng.tp is not None else 0,
+            "a2a_s": eng.tp.a2a_s if eng.tp is not None else 0.0}
 
 
 def mesh_axis(cfg: ModelConfig, args, gen: int, capacity: int, dev,
@@ -258,10 +261,12 @@ def mesh_axis(cfg: ModelConfig, args, gen: int, capacity: int, dev,
             "backend": args.backend if n > 1 else None,
             "all_reduces": got["all_reduces"],
             "reduce_s": round(got["reduce_s"], 4),
+            "all_to_alls": got["all_to_alls"], "a2a_s": round(got["a2a_s"], 4),
             "builds": got["trace_counts"], "tokens_match_mesh1": agree}
-        log(f"mesh {n}: {got['tok_per_s']:8.1f} tok/s, {got['all_reduces']} "
-            f"all_reduces ({got['reduce_s']:.3f} s), tokens match mesh 1: "
-            f"{agree}")
+        log(f"mesh {n} ({cfg.name}): {got['tok_per_s']:8.1f} tok/s, "
+            f"{got['all_reduces']} all_reduces ({got['reduce_s']:.3f} s), "
+            f"{got['all_to_alls']} all_to_alls ({got['a2a_s']:.3f} s), tokens "
+            f"match mesh 1: {agree}")
     return axis
 
 
@@ -279,6 +284,9 @@ def parse_args(argv=None):
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
                     help="torch.distributed backend of the mesh axis")
+    ap.add_argument("--mesh-config", default="",
+                    help="a key of repro_torch.launch.serve.CONFIGS for the "
+                         "mesh axis (default: the bench's model)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     return ap.parse_args(argv)
@@ -337,7 +345,11 @@ def bench(args, device: DeviceLike = None, log: Callable = print,
     log(f"streamed decode vs dense: {jitS / jitN:.2f}x")
     log(f"captures (stable across passes): {trace_counts}")
     multi = multi_adapter_axis(cfg, params, args, gen, capacity, rng, dev, log)
-    mesh = mesh_axis(cfg, args, gen, capacity, dev, log, mesh_sizes)
+    mcfg = cfg
+    if args.mesh_config:
+        from repro_torch.launch.serve import CONFIGS
+        mcfg = CONFIGS[args.mesh_config][0]
+    mesh = mesh_axis(mcfg, args, gen, capacity, dev, log, mesh_sizes)
     backend = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return {
         "config": {"model": cfg.name, "batch_slots": args.slots,

@@ -23,12 +23,16 @@ are used; every rank trains the same rounds from the same seed and serves
 the same requests, and only rank 0 prints.  The last line reports the
 serving kernels' launches per engine step and the engine's graph captures
 (builds under a mesh of more than one rank, whose steps run uncaptured),
-where the reference reports its trace counts.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+where the reference reports its trace counts.  ``--config`` trains and
+serves any model of ``repro_torch.launch.serve.CONFIGS`` (the smoke ones
+on the CPU; LoRA on the family's ``lora_targets``) in place of the
+example's tiny dense model.  Runs on ``cuda`` unless ``--device cpu`` is
+given.
 
   PYTHONPATH=src python -m repro_torch.examples.serve_federated [--rounds 2] \
       [--requests-per-round 2] [--batch-slots 4] [--temperature 0.0] \
-      [--decode-impl kernel] [--mesh 2 --backend gloo] [--device cpu]
+      [--decode-impl kernel] [--mesh 2 --backend gloo] [--device cpu] \
+      [--config granite_smoke]
 """
 import argparse
 
@@ -36,6 +40,7 @@ import numpy as np
 
 from repro_torch.common.config import (FedConfig, LoRAConfig, ModelConfig,
                                        OptimConfig)
+from repro_torch.configs import lora_targets
 from repro_torch.core.federated import FederatedTrainer
 from repro_torch.kernels import ops
 from repro_torch.serve.adapters import AdapterRegistry
@@ -53,8 +58,8 @@ def main(argv=None) -> dict:
     serving kernels' launch counts over the engine's steps).  With
     ``--mesh N > 1`` started here, the N ranks run in their own processes:
     rank 0's record comes back without the engine and the trainer, with
-    ``ranks_agree`` (every rank emitted the same tokens) and
-    ``all_reduces`` (rank 0's, over the engine's steps)."""
+    ``ranks_agree`` (every rank emitted the same tokens), ``all_reduces``
+    and ``all_to_alls`` (rank 0's, over the engine's steps)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--requests-per-round", type=int, default=2)
@@ -75,6 +80,9 @@ def main(argv=None) -> dict:
                     help="torch.distributed backend of a spawned mesh")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
+    ap.add_argument("--config", default="tiny",
+                    help="the example's tiny dense model, or any key of "
+                         "repro_torch.launch.serve.CONFIGS")
     args = ap.parse_args(argv)
     ranks = run_world(_run, args.mesh, args.backend, args.device, args=(args,))
     if len(ranks) == 1:
@@ -90,12 +98,17 @@ def _run(args) -> dict:
     _, size = world()
     log = rank0_print
 
-    cfg = ModelConfig(name="serve-fed-tiny", family="dense", num_layers=2,
-                      d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-                      d_ff=128, vocab_size=256, dtype="float32")
+    if args.config == "tiny":
+        cfg = ModelConfig(name="serve-fed-tiny", family="dense", num_layers=2,
+                          d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                          d_ff=128, vocab_size=256, dtype="float32")
+    else:
+        from repro_torch.launch.serve import CONFIGS
+        cfg = CONFIGS[args.config][0]
     fed = FedConfig(num_clients=8, clients_per_round=4, method="florist",
                     tau=0.9, homogeneous_rank=8, seed=0)
-    trainer = FederatedTrainer(cfg, fed, LoRAConfig(rank=8, alpha=8.0),
+    trainer = FederatedTrainer(cfg, fed, LoRAConfig(rank=8, alpha=8.0,
+                                                    targets=lora_targets(cfg)),
                                OptimConfig(lr=3e-3), batch_size=8,
                                local_steps=2, seq_len=32, device=args.device)
 
@@ -169,7 +182,8 @@ def _run(args) -> dict:
           f"never changes a shape)")
     out = {"outputs": outputs, "served_by": served_by,
            "in_flight": in_flight_after, "launches": launches,
-           "all_reduces": eng.tp.all_reduces if eng.tp is not None else 0}
+           "all_reduces": eng.tp.all_reduces if eng.tp is not None else 0,
+           "all_to_alls": eng.tp.all_to_alls if eng.tp is not None else 0}
     if size > 1:
         return out                       # a rank's record crosses processes
     return dict(out, engine=eng, trainer=trainer, registry=registry)

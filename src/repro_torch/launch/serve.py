@@ -41,6 +41,16 @@ states take no chunks; the shared block's six rings decode through
     python -m repro_torch.launch.serve --config zamba2_smoke --device cpu
     python -m repro_torch.launch.serve --config phi3_vision_smoke --device cpu
     python -m repro_torch.launch.serve --config musicgen_smoke --device cpu
+    python -m repro_torch.launch.serve --config granite_smoke --device cpu \
+        --mesh 2 --backend gloo
+
+``--mesh N`` serves tensor-parallel on a serve mesh of N ranks
+(``ServeEngine(mesh=make_serve_mesh(N))``, any config): N local ranks are
+spawned (``--backend gloo`` by default: every rank on one card, or on the
+CPU with ``--device cpu``; ``nccl`` where each rank has a card), or the
+ranks of ``torchrun`` are used.  Every rank builds the same model from
+``SEED`` and serves the same requests; a MoE model's ranks draw only their
+own experts (``T.init(..., experts=)``); rank 0 prints.
 """
 from __future__ import annotations
 
@@ -60,7 +70,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.peft.lora import init_lora
 from repro_torch.serve.adapters import AdapterRegistry, adapter_leaves
-from repro_torch.serve.engine import SamplingParams, ServeEngine
+from repro_torch.serve.engine import SamplingParams, ServeEngine, rank_experts
 
 SEED = 0
 SLOTS = 8
@@ -113,11 +123,12 @@ def build(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     """The model (random weights from ``SEED``), the registry with
     adapters of ``RANKS`` and the engine of ``config``; with ``mesh`` (a
     serve mesh of :mod:`repro_torch.topology`) the engine is this rank's
-    of a tensor-parallel server, every rank building the same model."""
+    of a tensor-parallel server, every rank building the same model (a MoE
+    model's experts only this rank's: ``rank_experts``)."""
     cfg, capacity, prefill_chunk, prompt_lens = CONFIGS[config]
     dev = resolve_device(device)
     dtype = T.torch_dtype(cfg.dtype)
-    params = T.init(cfg, SEED, dev)
+    params = T.init(cfg, SEED, dev, experts=rank_experts(cfg, mesh))
     targets = lora_targets(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     template = init_lora(params, targets, 4, 8.0, gen, dtype=dtype)
@@ -222,17 +233,49 @@ def serve(config: str = "llama3p2_1b", *, device: DeviceLike = None,
     return traffic(build(config, device=device), log)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _serve_rank(config: str, device: Optional[str], mesh_n: int) -> Dict:
+    """One rank's (or the one process's) build and traffic; rank 0 prints.
+    Returns what crosses processes: the results and the collectives."""
+    from repro_torch.topology import make_serve_mesh, rank0_print
+    mesh = make_serve_mesh(mesh_n, device=device) if mesh_n else None
+    if mesh is not None:
+        rank0_print(f"serve mesh {mesh.shape}: backend "
+                    f"{mesh.backend or 'none (one rank)'}")
+    out = traffic(build(config, device=mesh.device if mesh else device,
+                        mesh=mesh), rank0_print)
+    tp = out["engine"].tp
+    for uid in sorted(out["results"]):
+        toks = out["results"][uid]
+        rank0_print(f"req {uid} [adapter id {out['served_by'][uid]}]: "
+                    f"{len(toks)} tokens {toks[:8]}")
+    rank0_print(out["stats"])
+    if tp is not None:
+        rank0_print(f"rank 0: {tp.all_reduces} all_reduces ({tp.reduce_s:.3f}"
+                    f" s), {tp.all_to_alls} all_to_alls ({tp.a2a_s:.3f} s) "
+                    f"over {out['engine'].steps_run} steps")
+    return {"results": out["results"], "served_by": out["served_by"],
+            "stats": out["stats"]}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="llama3p2_1b", choices=sorted(CONFIGS))
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="model-parallel ranks of the serve mesh (0 = no "
+                         "mesh, one device)")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="torch.distributed backend of a spawned mesh")
     args = ap.parse_args(argv)
-    out = serve(args.config, device=args.device)
-    for uid in sorted(out["results"]):
-        toks = out["results"][uid]
-        print(f"req {uid} [adapter id {out['served_by'][uid]}]: "
-              f"{len(toks)} tokens {toks[:8]}")
-    print(out["stats"])
+    from repro_torch.topology import run_world
+    ranks = run_world(_serve_rank, args.mesh, args.backend, args.device,
+                      args=(args.config, args.device, args.mesh))
+    out = ranks[min(ranks)]
+    if len(ranks) > 1 and any(r["results"] != out["results"]
+                              for r in ranks.values()):
+        raise RuntimeError("the ranks of the serve mesh emitted different "
+                           "tokens")
+    return out
 
 
 if __name__ == "__main__":

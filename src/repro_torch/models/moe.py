@@ -21,9 +21,24 @@ data-dependent shapes), so the serving engine captures it in its graphs.
 of one slab: the cohort step's clients, as the reference's ``vmap`` of one
 client's step routes each client's rows alone.
 
-The reference's ``_moe_fwd_sharded`` (expert parallelism over a mesh) has
-no counterpart: the port runs on one device (``ROADMAP.md`` Queue 1 item
-9).
+``tp`` (a serve mesh's ``model`` axis of m ranks,
+:class:`repro_torch.topology.serve.ModelParallel`) runs the layer expert
+parallel, each rank holding experts ``[r·E/m, (r+1)·E/m)`` (the rules'
+expert axis over ``model``), on the two routes of the reference's
+``moe_fwd`` under a mesh:
+
+* a chunk whose width S divides m takes ``_moe_fwd_sharded``'s route: the
+  rank routes its sequence slice ``x[:, r·S/m:(r+1)·S/m]`` alone at the
+  capacity of its own B·S/m tokens, one tiled ``all_to_all`` sends the
+  ``(E, C, d)`` slots to the experts' owners and one brings them back,
+  the combine is local, aux is the mean over ranks, and one
+  ``all_gather`` makes the chunk whole again for the next layer;
+* any other chunk (the engine's width-1 decode steps) takes the reference's
+  other route: every rank routes all B·S tokens at the global capacity,
+  runs only its own experts' slots and combines those rows, and one
+  ``all_reduce`` sums the partial rows.
+
+DeepSeek-V3's shared expert is Megatron-split (``mlp_fwd(..., tp=)``).
 """
 from __future__ import annotations
 
@@ -41,35 +56,43 @@ INIT_CHUNK = 1 << 28
 
 
 def _normal_stack(gen: torch.Generator, shape, in_dim: int,
-                  dtype: torch.dtype) -> torch.Tensor:
+                  dtype: torch.dtype, keep: Optional[Tuple[int, int]] = None
+                  ) -> torch.Tensor:
     """N(0, 1/in_dim) weights of ``shape`` = (L, E, a, b), drawn a few
     experts at a time into the model dtype, so no fp32 temporary of the
-    whole stack is made (one DeepSeek-V3 layer's is 15 GB)."""
+    whole stack is made (one DeepSeek-V3 layer's is 15 GB).  ``keep`` =
+    (e0, e1) keeps experts [e0, e1) only: every expert is still drawn, in
+    the same order, so the kept ones equal the whole stack's."""
     L, E, a, b = shape
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    e_lo, e_hi = keep or (0, E)
+    out = torch.empty((L, e_hi - e_lo, a, b), dtype=dtype, device=gen.device)
     n = max(1, min(E, INIT_CHUNK // max(1, a * b)))
     std = in_dim ** -0.5
     for li in range(L):
         for e0 in range(0, E, n):
             e1 = min(E, e0 + n)
             w = torch.randn((e1 - e0, a, b), generator=gen, device=gen.device)
-            out[li, e0:e1] = (w * std).to(dtype)
+            lo, hi = max(e0, e_lo), min(e1, e_hi)
+            if lo < hi:
+                out[li, lo - e_lo:hi - e_lo] = (w[lo - e0:hi - e0] * std).to(dtype)
     return out
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, L: int,
-             dtype: torch.dtype) -> Params:
+             dtype: torch.dtype, experts: Optional[Tuple[int, int]] = None
+             ) -> Params:
     """Stacked MoE weights of ``L`` layers: the router ``(L, d, E)`` in
     fp32, the experts ``w_gate``/``w_up`` ``(L, E, d, e_ff)`` and
     ``w_down`` ``(L, E, e_ff, d)`` in the model dtype, and DeepSeek-V3's
     shared expert (a SwiGLU of ``e_ff · num_shared_experts``).  ``L = 0``
-    gives the zero-size leaves of an empty segment."""
+    gives the zero-size leaves of an empty segment.  ``experts`` = (e0, e1)
+    makes only those experts' stacks (``_normal_stack``'s ``keep``)."""
     d, E = cfg.d_model, cfg.num_experts
     e_ff = cfg.moe_d_ff or cfg.d_ff
     p = {"router": Lyr.dense_init(gen, (L, d, E), d, torch.float32),
-         "w_gate": _normal_stack(gen, (L, E, d, e_ff), d, dtype),
-         "w_up": _normal_stack(gen, (L, E, d, e_ff), d, dtype),
-         "w_down": _normal_stack(gen, (L, E, e_ff, d), e_ff, dtype)}
+         "w_gate": _normal_stack(gen, (L, E, d, e_ff), d, dtype, experts),
+         "w_up": _normal_stack(gen, (L, E, d, e_ff), d, dtype, experts),
+         "w_down": _normal_stack(gen, (L, E, e_ff, d), e_ff, dtype, experts)}
     if cfg.num_shared_experts:
         p["shared"] = Lyr.init_mlp(cfg, gen, L, dtype,
                                    d_ff=e_ff * cfg.num_shared_experts)
@@ -135,14 +158,19 @@ def _route_and_dispatch(cfg: ModelConfig, router_w: torch.Tensor,
     return buf[:, :E], (dst_e, dst_c, w), aux
 
 
-def _combine(eo: torch.Tensor, meta, k: int) -> torch.Tensor:
+def _combine(eo: torch.Tensor, meta, k: int, e0: int = 0) -> torch.Tensor:
     """Each token's k expert outputs, weighted and summed in choice order:
-    ``eo (G, E, C, d)`` -> ``(G, T, d)``; a dropped choice has weight 0."""
+    ``eo (G, E', C, d)`` -> ``(G, T, d)``, ``eo`` holding experts ``[e0,
+    e0 + E')`` (all of them by default); a dropped choice, or one of an
+    expert outside them, has weight 0."""
     dst_e, dst_c, w = meta
-    G, E, C, d = eo.shape
+    G, El, C, d = eo.shape
     n = dst_e.shape[1]
-    slot = ((dst_e % E) * C + dst_c)[..., None].expand(G, n, d)
-    rows = eo.reshape(G, E * C, d).gather(1, slot) * w[..., None].to(eo.dtype)
+    le = dst_e - e0
+    mine = (le >= 0) & (le < El)
+    slot = (torch.where(mine, le, 0) * C + dst_c)[..., None].expand(G, n, d)
+    rows = (eo.reshape(G, El * C, d).gather(1, slot)
+            * (w * mine)[..., None].to(eo.dtype))
     return rows.reshape(G, n // k, k, d).sum(2)
 
 
@@ -157,7 +185,7 @@ def _experts(p: Params, ebuf: torch.Tensor) -> torch.Tensor:
 
 def moe_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
             adapters: Optional[Dict] = None, groups: int = 0,
-            use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            use_kernel: bool = False, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss).
 
     ``groups`` = G > 0 splits the batch into G slabs of B/G rows routed
@@ -165,7 +193,11 @@ def moe_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
     shape (G,) (the cohort step's clients); 0 routes all B·S tokens at
     once and returns a scalar aux.  The shared expert (DeepSeek-V3) runs
     on every token through :func:`repro_torch.models.layers.mlp_fwd` with
-    ``adapters["shared"]`` (``use_kernel`` as there)."""
+    ``adapters["shared"]`` (``use_kernel`` as there).  ``tp`` runs the
+    layer expert parallel on the rank's experts (the module docstring's
+    two routes; ``groups`` 0)."""
+    if tp is not None and tp.size > 1:
+        return _moe_fwd_tp(cfg, p, x, adapters, tp)
     B, S, d = x.shape
     G = groups or 1
     xt = x.reshape(G, (B // G) * S, d)
@@ -180,3 +212,38 @@ def moe_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out = out + Lyr.mlp_fwd(p["shared"], x, (adapters or {}).get("shared"),
                                 use_kernel=use_kernel)
     return out, (aux if groups else aux[0])
+
+
+def _moe_fwd_tp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                adapters: Optional[Dict], tp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_fwd` on a ``model`` axis of m ranks, ``p`` holding this
+    rank's E/m experts and its shard of the shared expert."""
+    B, S, d = x.shape
+    k, m = cfg.experts_per_token, tp.size
+    El = cfg.num_experts // m
+    if S % m == 0:
+        Sl = S // m
+        xl = x[:, tp.index * Sl:(tp.index + 1) * Sl]
+        buf, meta, aux = _route_and_dispatch(
+            cfg, p["router"], xl.reshape(1, B * Sl, d), _capacity(cfg, B * Sl))
+        ebuf = tp.all_to_all(buf[0], split_dim=0, concat_dim=1)  # (E/m, m·C, d)
+        eo = tp.all_to_all(_experts(p, ebuf), split_dim=1, concat_dim=0)
+        out = _combine(eo[None], meta, k)                          # (1, B·Sl, d)
+        # the slices and the ranks' aux in one all_gather, in fp32 (exact
+        # for bf16 rows)
+        flat = torch.cat([out.reshape(-1).float(), aux.float()])
+        allf = tp.mesh.all_gather(flat, "model", dim=0).reshape(m, -1)
+        out = (allf[:, :-1].reshape(m, B, Sl, d).transpose(0, 1)
+               .reshape(B, S, d).to(x.dtype))
+        aux = allf[:, -1].mean()
+    else:
+        buf, meta, aux = _route_and_dispatch(
+            cfg, p["router"], x.reshape(1, B * S, d), _capacity(cfg, B * S))
+        e0 = tp.index * El
+        eo = _experts(p, buf[0, e0:e0 + El])                       # (E/m, C, d)
+        out = tp.reduce(_combine(eo[None], meta, k, e0)).reshape(B, S, d)
+        aux = aux[0]
+    if cfg.num_shared_experts:
+        out = out + Lyr.mlp_fwd(p["shared"], x, (adapters or {}).get("shared"),
+                                tp=tp)
+    return out, aux

@@ -20,6 +20,19 @@ model the shifted token is fp32, so the token shift, ddlerp and the
 projections of the mixed inputs compute in fp32 against the bf16 weights
 (:func:`repro_torch.peft.lora.matmul`); the full-sequence forward shifts
 in zeros of the activations' dtype and stays in it.
+
+The decode path takes ``tp``, a serve mesh's ``model`` axis
+(:class:`repro_torch.topology.serve.ModelParallel`), and runs head
+parallel on the rank's Megatron shards: ``wr wk wv wg`` and ``wck wcr``
+column-parallel (the rank's H/m heads, its ``d_ff``/m channels),
+``wo`` and ``wcv`` row-parallel with one ``all_reduce`` each.  The rank's
+heads take their own decay (``w0``, ``wd2``'s columns), bonus ``u`` and
+group-norm weights, cut from the replicated leaves; the group norm is per
+head, so it needs no collective.  ``dd_w1`` and ``wd1`` are
+column-parallel under the rules but their outputs feed a ``tanh`` and a
+replicated product whole, so they are gathered after the projection, as
+``wcr``'s output is before it gates the reduced ``wcv`` output.  The WKV
+state is the rank's ``(B, H/m, hd, hd)``; ``tm_x`` and ``cm_x`` stay whole.
 """
 from __future__ import annotations
 
@@ -91,21 +104,32 @@ def _shift(x: torch.Tensor, last=None) -> torch.Tensor:
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
-def _ddlerp(p: Params, x, xx) -> torch.Tensor:
+def _whole(tp, y: torch.Tensor, width: int) -> torch.Tensor:
+    """A column-parallel output made whole (gathered where the rank holds
+    a cut of its ``width`` columns)."""
+    return y if tp is None or y.shape[-1] == width else tp.gather(y)
+
+
+def _ddlerp(p: Params, x, xx, tp=None) -> torch.Tensor:
     """Data-dependent lerp producing the five mixed inputs (r,k,v,w,g):
     (B,S,5,d)."""
     B, S, _ = x.shape
     base = x + xx * p["mu_x"]
-    dl = p["dd_w1"].shape[1] // 5
-    h = torch.tanh(matmul(base, p["dd_w1"]).float()).reshape(B, S, 5, dl)
+    dl = p["dd_w2"].shape[-2]
+    h = _whole(tp, matmul(base, p["dd_w1"]), 5 * dl)
+    h = torch.tanh(h.float()).reshape(B, S, 5, dl)
     off = torch.einsum("bsfl,fld->bsfd", h.to(x.dtype), p["dd_w2"])
     return x[:, :, None] + xx[:, :, None] * (p["mu"][None, None] + off)
 
 
-def _decay(p: Params, xw) -> torch.Tensor:
-    """Data-dependent per-channel log-decay w < 0, fp32: (B,S,d)."""
-    dd = torch.tanh(matmul(xw, p["wd1"]).float()) @ p["wd2"].float()
-    return -torch.exp(p["w0"] + dd)
+def _decay(p: Params, xw, tp=None) -> torch.Tensor:
+    """Data-dependent per-channel log-decay w < 0, fp32: (B,S,d) (the
+    rank's d/m channels under ``tp``)."""
+    h = _whole(tp, matmul(xw, p["wd1"]), p["wd2"].shape[-2])
+    wd2, w0 = p["wd2"], p["w0"]
+    if tp is not None:
+        wd2, w0 = tp.local(wd2), tp.local(w0)
+    return -torch.exp(w0 + torch.tanh(h.float()) @ wd2.float())
 
 
 def _group_norm(x, w, b, H: int, eps: float) -> torch.Tensor:
@@ -138,47 +162,56 @@ def recurrence_route(adapters, state=None, use_kernel: bool = False) -> str:
 
 
 def time_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
-             use_kernel: bool = False):
+             use_kernel: bool = False, tp=None):
     """x: (B,S,d).  ``state``: None (full sequence) or one layer's decode
     state ``{"tm_x", "wkv", ...}`` (then S = 1).  Returns (out (B,S,d), new
-    state ``{"tm_x", "wkv"}`` or None)."""
-    B, S, d = x.shape
+    state ``{"tm_x", "wkv"}`` or None).  ``tp``: head parallel on the
+    rank's shards (decode; the module docstring)."""
+    B, S, _ = x.shape
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    u, ln_w, ln_b = p["u"], p["ln_x_w"], p["ln_x_b"]
+    if tp is not None:
+        H = H // tp.size
+        u, ln_w, ln_b = tp.local(u, 0), tp.local(ln_w), tp.local(ln_b)
+    d = H * hd
     a = adapters or {}
     last = state["tm_x"] if state is not None else None
     xx = _shift(x, last) - x
-    xr, xk, xv, xw, xg = _ddlerp(p, x, xx).unbind(2)
+    xr, xk, xv, xw, xg = _ddlerp(p, x, xx, tp).unbind(2)
     r = lora_proj(xr, p["wr"], a.get("wr"), use_kernel).reshape(B, S, H, hd)
     k = lora_proj(xk, p["wk"], a.get("wk"), use_kernel).reshape(B, S, H, hd)
     v = lora_proj(xv, p["wv"], a.get("wv"), use_kernel).reshape(B, S, H, hd)
     g = F.silu(lora_proj(xg, p["wg"], a.get("wg"), use_kernel).float())
-    w = _decay(p, xw).reshape(B, S, H, hd)
+    w = _decay(p, xw, tp).reshape(B, S, H, hd)
 
     route = recurrence_route(a, state, use_kernel)
     if route == "decode":                      # O(1) decode update
         s = state["wkv"]                                    # (B,H,hd,hd) fp32
         rt, kt, vt = (t[:, 0].float() for t in (r, k, v))
         kv = kt[..., :, None] * vt[..., None, :]
-        y = torch.einsum("bhk,bhkv->bhv", rt, s + p["u"][..., None] * kv)[:, None]
+        y = torch.einsum("bhk,bhkv->bhv", rt, s + u[..., None] * kv)[:, None]
         new_state = {"tm_x": x[:, -1],
                      "wkv": torch.exp(w[:, 0])[..., None] * s + kv}
     elif route == "kernel":
-        y = kops.wkv6(r, k, v, w, p["u"])
+        y = kops.wkv6(r, k, v, w, u)
         new_state = None
     else:
-        y, _ = wkv_scan(r, k, v, w, p["u"])
+        y, _ = wkv_scan(r, k, v, w, u)
         new_state = None
 
-    y = _group_norm(y.reshape(B, -1, d), p["ln_x_w"].float(),
-                    p["ln_x_b"].float(), H, cfg.norm_eps)
+    y = _group_norm(y.reshape(B, -1, d), ln_w.float(), ln_b.float(), H,
+                    cfg.norm_eps)
     y = (y * g).to(x.dtype)
-    return lora_proj(y, p["wo"], a.get("wo"), use_kernel), new_state
+    out = lora_proj(y, p["wo"], a.get("wo"), use_kernel)
+    return (out if tp is None else tp.reduce(out)), new_state
 
 
 def channel_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
-                use_kernel: bool = False):
+                use_kernel: bool = False, tp=None):
     """Squared-ReLU channel mix with a sigmoid receptance gate.  Returns
-    (out (B,S,d), ``{"cm_x"}`` or None)."""
+    (out (B,S,d), ``{"cm_x"}`` or None).  ``tp``: ``wck`` column- and
+    ``wcv`` row-parallel (one ``all_reduce``), ``wcr``'s output gathered
+    before it gates the reduced output."""
     a = adapters or {}
     last = state["cm_x"] if state is not None else None
     xx = _shift(x, last) - x
@@ -186,9 +219,12 @@ def channel_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
     xr = x + xx * p["mu_cr"]
     k = lora_proj(xk, p["wck"], a.get("wck"), use_kernel)
     k = torch.square(F.relu(k.float())).to(x.dtype)
-    rgate = torch.sigmoid(lora_proj(xr, p["wcr"], a.get("wcr"), use_kernel).float())
-    out = (rgate * lora_proj(k, p["wcv"], a.get("wcv"), use_kernel).float()
-           ).to(x.dtype)
+    r = _whole(tp, lora_proj(xr, p["wcr"], a.get("wcr"), use_kernel),
+               x.shape[-1])
+    v = lora_proj(k, p["wcv"], a.get("wcv"), use_kernel)
+    if tp is not None:
+        v = tp.reduce(v)
+    out = (torch.sigmoid(r.float()) * v.float()).to(x.dtype)
     return out, ({"cm_x": x[:, -1]} if state is not None else None)
 
 

@@ -24,6 +24,18 @@ with the inputs is one batched matmul and the (…, c, c, H, hd) product is
 never made, and when autograd records the call they are rebuilt in the
 backward pass (:func:`torch.utils.checkpoint.checkpoint`) instead of being
 kept across the layers: the layer keeps only its (B, nc, H, c, hd) inputs.
+
+Decode takes ``tp``, a serve mesh's ``model`` axis
+(:class:`repro_torch.topology.serve.ModelParallel`), and runs head
+parallel on the rank's H/m SSM heads.  ``in_proj``'s output fuses ``z |
+x | B | C | dt``, so the engine cuts it segment by segment, not
+contiguously: the rank's heads' columns of z, x and dt, and B and C whole
+(``n_groups`` = 1: every head reads them); ``conv_w``, ``conv_b`` and the
+conv state follow that cut of ``x | B | C``.  The rank's ``A_log``, ``D``,
+``dt_bias`` and norm weight are cut from the replicated leaves.  The gated
+RMSNorm runs over the whole ``d_inner``: one fp32 ``all_reduce`` of the
+rows' partial sums of squares, then the rank's channels scale; ``out_proj``
+is row-parallel with one ``all_reduce``.
 """
 from __future__ import annotations
 
@@ -76,19 +88,29 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu((out + b).float()).to(x.dtype)
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """(z, xBC, dt) of the joint input projection."""
-    din, st = cfg.d_inner, cfg.ssm_state
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, din: int = 0):
+    """(z, xBC, dt) of the joint input projection (``din``: the rank's
+    share of ``d_inner`` under tensor parallelism)."""
+    din, st = din or cfg.d_inner, cfg.ssm_state
     return (zxbcdt[..., :din], zxbcdt[..., din: 2 * din + 2 * st],
             zxbcdt[..., 2 * din + 2 * st:])
 
 
 def _gate_out(cfg: ModelConfig, p: Params, y, z, dtype, adapters,
-              use_kernel: bool):
-    """The gated RMSNorm and ``out_proj`` of the SSD output y (fp32)."""
+              use_kernel: bool, tp=None):
+    """The gated RMSNorm and ``out_proj`` of the SSD output y (fp32); under
+    ``tp`` the norm's mean square sums every rank's channels."""
     y = y.to(dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(dtype), p["norm"], cfg.norm_eps)
-    return lora_proj(y, p["out_proj"], adapters.get("out_proj"), use_kernel)
+    g = y * F.silu(z.float()).to(dtype)
+    if tp is None:
+        y = rmsnorm(g, p["norm"], cfg.norm_eps)
+    else:
+        gf = g.float()
+        var = tp.reduce(gf.square().sum(-1, keepdim=True)) / cfg.d_inner
+        y = (gf * torch.rsqrt(var + cfg.norm_eps)
+             * tp.local(p["norm"]).float()).to(dtype)
+    out = lora_proj(y, p["out_proj"], adapters.get("out_proj"), use_kernel)
+    return out if tp is None else tp.reduce(out)
 
 
 def mamba2_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, adapters=None,
@@ -181,14 +203,19 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, device) -> Dict:
 
 
 def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state: Dict,
-                  adapters=None):
+                  adapters=None, tp=None):
     """One token, x (B,1,d).  Returns (y (B,1,d), new state); the state
-    passed in is not written."""
+    passed in is not written.  ``tp``: head parallel on the rank's
+    segment-cut shards (the module docstring)."""
     Bsz = x.shape[0]
     din, st, H, hd = cfg.d_inner, cfg.ssm_state, cfg.num_ssm_heads, cfg.ssm_head_dim
+    a_log, d_skip, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if tp is not None:
+        din, H = din // tp.size, H // tp.size
+        a_log, d_skip, dt_bias = (tp.local(t) for t in (a_log, d_skip, dt_bias))
     a = adapters or {}
     zxbcdt = lora_proj(x, p["in_proj"], a.get("in_proj"))
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    z, xBC, dt = _split_proj(cfg, zxbcdt, din)
     cdt = torch.promote_types(state["conv"].dtype, xBC.dtype)
     hist = torch.cat([state["conv"].to(cdt), xBC.to(cdt)], dim=1)   # (B,K,cdim)
     w = p["conv_w"]
@@ -197,10 +224,10 @@ def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, state: Dict,
     xBC = F.silu(conv_out.float()).to(x.dtype)
     xs = xBC[:, :din].reshape(Bsz, H, hd).float()
     Bm, Cm = xBC[:, din: din + st].float(), xBC[:, din + st:].float()
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])                 # (B,H)
-    dec = torch.exp(dt * -torch.exp(p["A_log"]))
+    dt = F.softplus(dt[:, 0].float() + dt_bias)                      # (B,H)
+    dec = torch.exp(dt * -torch.exp(a_log))
     h = (state["ssm"] * dec[..., None, None]
          + dt[:, :, None, None] * Bm[:, None, :, None] * xs[:, :, None, :])
-    y = torch.einsum("bk,bhkd->bhd", Cm, h) + p["D"][None, :, None] * xs
-    out = _gate_out(cfg, p, y.reshape(Bsz, 1, din), z, x.dtype, a, False)
+    y = torch.einsum("bk,bhkd->bhd", Cm, h) + d_skip[None, :, None] * xs
+    out = _gate_out(cfg, p, y.reshape(Bsz, 1, din), z, x.dtype, a, False, tp)
     return out, {"conv": hist[:, 1:], "ssm": h}

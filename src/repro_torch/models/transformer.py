@@ -91,7 +91,7 @@ def num_shared_applications(cfg: ModelConfig) -> int:
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
-                dtype: torch.dtype) -> Params:
+                dtype: torch.dtype, experts=None) -> Params:
     """``L`` stacked layers of one kind."""
     dev = gen.device
     d = cfg.d_model
@@ -107,19 +107,22 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
            "attn": attn_init(cfg, gen, L, dtype),
            "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
     if kind.endswith("moe"):
-        blk["moe"] = Moe.init_moe(cfg, gen, L, dtype)
+        blk["moe"] = Moe.init_moe(cfg, gen, L, dtype, experts)
     else:
         blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
     return blk
 
 
-def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
+def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+         experts: Optional[Tuple[int, int]] = None) -> Params:
     """Random weights from a seeded ``torch.Generator``, with the
     reference's distributions: embedding N(0, 0.02²), projections
     N(0, 1/fan_in), norms one.  Expert stacks are drawn a few experts at a
-    time on the device (:func:`repro_torch.models.moe.init_moe`).  A
-    front end adds ``frontend_proj`` (frontend_dim, d); the hybrid its
-    ``shared_blk``, made once and unstacked."""
+    time on the device (:func:`repro_torch.models.moe.init_moe`);
+    ``experts`` = (e0, e1) keeps only those experts (one expert-parallel
+    rank's, equal to the whole model's: every rank draws the same
+    stream).  A front end adds ``frontend_proj`` (frontend_dim, d); the
+    hybrid its ``shared_blk``, made once and unstacked."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -133,7 +136,7 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None) -> Params:
     if cfg.frontend:
         fd = cfg.frontend_dim or d
         params["frontend_proj"] = Lyr.dense_init(gen, (fd, d), fd, dtype)
-    params["blocks"] = tuple(_init_block(cfg, kind, gen, L, dtype)
+    params["blocks"] = tuple(_init_block(cfg, kind, gen, L, dtype, experts)
                              for kind, L in layer_plan(cfg) if kind != "shared")
     if cfg.family == "hybrid":
         params["shared_blk"] = _layer(_init_block(cfg, "shared", gen, 1, dtype), 0)
@@ -296,7 +299,8 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
     takes one token (C = 1) and writes its new state into the cache's
     buffers in place (rows with ``n_tokens`` 0 keep theirs).  A MoE layer routes the chunk's B·C tokens
     at once, as the reference's decode does (rows with ``n_tokens`` 0
-    take capacity too)."""
+    take capacity too); under ``tp`` it runs expert parallel
+    (:func:`repro_torch.models.moe.moe_fwd`)."""
     a = a or {}
     if kind == "mamba":
         if x.shape[1] != 1:
@@ -304,7 +308,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
                              f"got a chunk of {x.shape[1]} tokens")
         h, new = Ssm.mamba2_decode(cfg, p["mixer"],
                                    Lyr.rmsnorm(x, p["ln"], cfg.norm_eps),
-                                   cache, a.get("mixer"))
+                                   cache, a.get("mixer"), tp=tp)
         for k, t in _mask_state_rows(new, cache, n_tokens).items():
             cache[k].copy_(t)
         return x + h, cache
@@ -313,11 +317,11 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
             raise ValueError("RWKV decode is a single-token recurrence: "
                              f"got a chunk of {x.shape[1]} tokens")
         h, st = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                              a.get("mix"), state=cache)
+                              a.get("mix"), state=cache, tp=tp)
         x = x + h
         h, st2 = Rwkv.channel_mix(cfg, p["mix"],
                                   Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
-                                  a.get("mix"), state=cache)
+                                  a.get("mix"), state=cache, tp=tp)
         for k, t in _mask_state_rows({**st, **st2}, cache, n_tokens).items():
             cache[k].copy_(t)
         return x + h, cache
@@ -328,7 +332,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: Params, x, cache, a: Dict,
     x = x + h
     xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
-        h, _ = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"))
+        h, _ = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"), tp=tp)
     else:
         h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), tp=tp)
     return x + h, cache
@@ -349,9 +353,12 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
     follows the whole plan (``ci``), the hybrid's shared entries included;
     ``params["blocks"]`` skips them (``seg_i``).  ``tp`` (a serve mesh's
     ``model`` axis, :class:`repro_torch.topology.serve.ModelParallel`) runs
-    the dense GQA and MLA layers head-parallel on the rank's shards, with
-    ``cfg`` holding the rank's head counts (see
-    :mod:`repro_torch.models.layers`).  Returns (logits (B,C,V), cache)."""
+    every layer on the rank's shards: attention (GQA, MLA, the hybrid's
+    shared block) head-parallel with ``cfg`` holding the rank's attention
+    head counts (:mod:`repro_torch.models.layers`), RWKV6 and Mamba2 on
+    the rank's heads (:mod:`repro_torch.models.rwkv`,
+    :mod:`repro_torch.models.ssm`) and MoE expert parallel
+    (:mod:`repro_torch.models.moe`).  Returns (logits (B,C,V), cache)."""
     x = embed_inputs(cfg, params, batch)
     a_blocks = (adapters or {}).get("blocks", ())
     new_caches = []
@@ -361,7 +368,7 @@ def decode(cfg: ModelConfig, params: Params, cache: Tuple, batch: Dict,
         if kind == "shared":
             sa = (adapters or {}).get("shared_blk") or {}
             x, c = _block_decode(cfg, kind, params["shared_blk"], x, seg_c, sa,
-                                 n_tokens, decode_impl)
+                                 n_tokens, decode_impl, tp)
             new_caches.append(c)
             continue
         seg_i += 1

@@ -16,8 +16,12 @@ place`) and ``lora_proj`` needs no change: on a column-parallel target
 ``bgmv`` writes the rank's ``dout`` slice beside the base product's; on a
 row-parallel target it returns the rank's partial ``s·B(A_local x_local)``,
 which is added to the base partial before the projection's single
-``all_reduce`` (:mod:`repro_torch.models.layers`): the delta is linear,
-so the sum is the whole delta and the scale is applied once.
+``all_reduce`` (:mod:`repro_torch.models.layers`, RWKV6's ``wo`` and
+``wcv``, Mamba2's ``out_proj``): the delta is linear, so the sum is the
+whole delta and the scale is applied once.  Mamba2's ``in_proj`` B pool is
+cut segment by segment as its weight is (the rank's heads' columns of z,
+x and dt, B and C whole), so ``bgmv`` writes the rank's fused columns in
+the order the base product has them.
 
 Adapter trees hold tensors, or numpy arrays where a tree comes off the
 federated wire (:mod:`repro_torch.core.runtime.transport`); ``match_rank``

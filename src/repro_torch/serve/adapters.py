@@ -15,9 +15,10 @@ lane of its delta is masked to an exact zero.
 Under a tensor-parallel serve mesh the engine calls
 :meth:`AdapterRegistry.place`: each rank then keeps only its shard of the
 pages (column-parallel targets the B pool's ``dout``, row-parallel targets
-the A pool's ``din``), the tables and ranks stay whole, and ``register`` /
-``swap`` / ``evict`` write only the rank's slice while the host metadata
-stays the same on every rank.
+the A pool's ``din``; Mamba2's fused ``in_proj`` B pool segment by segment,
+as the engine places its weight), the tables and ranks stay whole, and
+``register`` / ``swap`` / ``evict`` write only the rank's slice while the
+host metadata stays the same on every rank.
 """
 from __future__ import annotations
 

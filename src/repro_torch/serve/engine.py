@@ -29,21 +29,31 @@ reference's ``fold_in`` streams.
 
 With ``mesh`` (a serve mesh ``(data=1, model=N)`` of
 :mod:`repro_torch.topology`) the engine is one rank of a tensor-parallel
-server: params, cache, state and adapters are cut to the rank's shards
-once, by the serve rules (:func:`repro_torch.topology.serve_pspecs`; the
-embedding and the head stay replicated, so every rank's sampler sees the
-same full logits and every rank emits the same tokens), and each step runs
-the layers head-parallel with one ``all_reduce`` a row-parallel projection
-(:mod:`repro_torch.models.layers`).  A mesh of more than one rank runs the
-steps uncaptured: gloo collectives cannot be captured into a CUDA graph
-(capture under NCCL is ``ROADMAP.md`` item 9b).  The dense GQA family and
-DeepSeek-V3's dense MLA layers serve under a mesh; every other family
-raises ``NotImplementedError`` naming item 9b.
+server, for every family: params, cache, state and adapters are cut to the
+rank's shards once, by the serve rules
+(:func:`repro_torch.topology.serve_pspecs`; the embedding and the head stay
+replicated, so every rank's sampler sees the same full logits and every
+rank emits the same tokens), and each step runs attention, RWKV6 and
+Mamba2 head-parallel with one ``all_reduce`` a row-parallel projection and
+MoE layers expert parallel (:func:`repro_torch.models.transformer.decode`:
+``all_to_all`` in the prefill chunks that the axis divides, one
+``all_reduce`` in width-1 steps).  Where a fused leaf needs a finer cut
+than a rule's contiguous one, the engine's placement makes it and the
+rules stay the reference's ``PartitionSpec``s: Mamba2's ``in_proj``
+(``z | x | B | C | dt``), ``conv_w``, ``conv_b``, conv state and
+``in_proj`` B pool are cut segment by segment
+(:class:`repro_torch.topology.partitioning.Segments`: the rank's heads of
+z, x and dt, B and C whole).  Expert stacks that already hold E/N experts
+(``T.init(..., experts=)``: a rank that never makes the others' experts)
+are kept as this rank's.  A mesh of more than one rank runs the steps
+uncaptured: gloo collectives cannot be captured into a CUDA graph (capture
+under NCCL is ``ROADMAP.md`` item 9c).
 
 With ``record_steps=True`` the engine logs every step's width, its time
 (CUDA events around each replay on the card, a burst's time split evenly
-over its steps) and the number of tokens it emitted (written by the step
-into a device buffer); :meth:`ServeEngine.step_log` reads the log.
+over its steps), the number of tokens it emitted (written by the step into
+a device buffer) and, under a mesh, its ``all_reduce`` and ``all_to_all``
+counts; :meth:`ServeEngine.step_log` reads the log.
 """
 from __future__ import annotations
 
@@ -228,38 +238,119 @@ def _build_engine_burst(cfg: ModelConfig, steps: int, stochastic: bool = True,
 
 
 def check_tensor_parallel(cfg: ModelConfig, n: int) -> None:
-    """Raise unless ``cfg`` serves head-parallel on a ``model`` axis of
-    ``n`` ranks: the dense GQA family and DeepSeek-V3's dense MLA layers
-    (``NotImplementedError`` naming item 9b for any other family), with
-    every sharded width divisible by ``n`` (``ValueError``)."""
+    """Raise ``ValueError`` unless every width that tensor-parallel decode
+    cuts on a ``model`` axis of ``n`` ranks divides by ``n``: attention
+    heads and KV heads (MLA: its heads, ``q_lora_rank`` and the joint
+    latent), ``d_ff`` where a dense MLP, a shared block or RWKV6's channel
+    mix cuts it, RWKV6's heads, Mamba2's SSM heads, the experts and
+    DeepSeek-V3's shared expert."""
     kinds = {k for k, c in T.layer_plan(cfg) if c}
-    if cfg.frontend or not (kinds <= {"dense"} or kinds <= {"mla_dense"}):
-        raise NotImplementedError(
-            f"tensor-parallel serving of {cfg.name!r} (family {cfg.family!r}"
-            f", layers {sorted(kinds)}) is not ported yet (ROADMAP.md Queue 1 "
-            "item 9b); under a mesh the port serves the dense GQA family and "
-            "DeepSeek-V3's dense MLA layers")
-    if cfg.use_mla:
-        widths = {"num_heads": cfg.num_heads, "q_lora_rank": cfg.q_lora_rank,
-                  "kv_lora_rank + qk_rope_head_dim":
-                      cfg.kv_lora_rank + cfg.qk_rope_head_dim,
-                  "d_ff": cfg.d_ff}
-    else:
-        widths = {"num_heads": cfg.num_heads,
-                  "num_kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff}
+    widths = {}
+    if kinds & {"dense", "moe", "shared"}:
+        widths.update(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+    if kinds & {"mla_dense", "mla_moe"}:
+        widths.update({"num_heads": cfg.num_heads,
+                       "q_lora_rank": cfg.q_lora_rank,
+                       "kv_lora_rank + qk_rope_head_dim":
+                           cfg.kv_lora_rank + cfg.qk_rope_head_dim})
+    if kinds & {"dense", "mla_dense", "shared", "rwkv"}:
+        widths["d_ff"] = cfg.d_ff
+    if kinds & {"moe", "mla_moe"}:
+        widths["num_experts"] = cfg.num_experts
+        if cfg.num_shared_experts:
+            widths["moe_d_ff · num_shared_experts"] = (
+                (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts)
+    if "rwkv" in kinds:
+        widths["RWKV heads (d_model / rwkv_head_dim)"] = cfg.num_rwkv_heads
+    if "mamba" in kinds:
+        widths["SSM heads (d_inner / ssm_head_dim)"] = cfg.num_ssm_heads
     bad = {k: v for k, v in widths.items() if v % n}
     if bad:
         raise ValueError(f"a model axis of {n} ranks does not divide "
-                         f"{cfg.name!r}'s {bad}: head-parallel decode needs "
-                         "every sharded width divisible")
+                         f"{cfg.name!r}'s {bad}: tensor-parallel decode "
+                         "needs every width it cuts divisible")
+
+
+def rank_experts(cfg: ModelConfig, mesh) -> Optional[tuple]:
+    """The experts ``[e0, e1)`` this rank of ``mesh`` holds under expert
+    parallelism (``T.init``'s ``experts``), or None (no mesh, one rank, no
+    experts, or an axis that does not divide them: every expert)."""
+    n = mesh.axis_size("model") if mesh is not None else 1
+    E = cfg.num_experts
+    if n == 1 or not E or E % n:
+        return None
+    r = mesh.axis_index("model")
+    return r * E // n, (r + 1) * E // n
 
 
 def tensor_parallel_config(cfg: ModelConfig, n: int) -> ModelConfig:
-    """The config one rank's layers see: its share of the heads."""
+    """The config one rank's layers see: its share of the attention heads
+    (RWKV6, Mamba2 and MoE layers take their shares from ``tp``)."""
     if cfg.use_mla:
         return cfg.replace(num_heads=cfg.num_heads // n)
     return cfg.replace(num_heads=cfg.num_heads // n,
                        num_kv_heads=cfg.num_kv_heads // n)
+
+
+def _fused_specs(cfg: ModelConfig, tree: Any, specs: Any, n: int) -> Any:
+    """``specs`` with Mamba2's fused leaves cut segment by segment and
+    expert stacks that hold E/n experts taken as this rank's (the module
+    docstring); the other specs as they are."""
+    from repro_torch.topology.partitioning import Segments, map_with_path
+    din, st, H = cfg.d_inner, cfg.ssm_state, cfg.num_ssm_heads
+    zxbcdt = Segments("model", (din, din, 2 * st, H), (True, True, False, True))
+    xbc = Segments("model", (din, 2 * st), (True, False))
+
+    def at(path):
+        node = specs
+        for k in path:
+            node = node[k]
+        return node
+
+    def fix(path, leaf):
+        spec = list(at(path))
+        if cfg.family == "hybrid":
+            if path[-2:] == ("mixer", "in_proj"):
+                spec[-1] = zxbcdt
+            elif path[-2:] in (("mixer", "conv_w"), ("mixer", "conv_b")) \
+                    or path[-1] == "conv":
+                spec[-1] = xbc
+            elif path[-3:] == ("mixer", "in_proj", "B"):
+                spec[-2] = zxbcdt
+        if (cfg.num_experts and len(path) > 1 and path[-2] == "moe"
+                and path[-1] in ("w_gate", "w_up", "w_down")
+                and leaf.shape[-3] == cfg.num_experts // n):
+            spec = [None] * leaf.ndim
+        return tuple(spec)
+
+    return map_with_path(fix, tree)
+
+
+def placement_specs(cfg: ModelConfig, mesh, params: Any, cache: Any,
+                    state: Any, adapters: Any = None) -> Dict[str, Any]:
+    """The specs a meshed engine places its trees by: the serve rules
+    (:func:`repro_torch.topology.serve_pspecs`) with the embedding and the
+    head replicated and, on more than one rank, :func:`_fused_specs`'
+    finer cuts."""
+    from repro_torch import topology
+    trees = {"params": params, "cache": cache, "state": state,
+             "adapters": adapters}
+    specs = topology.serve_pspecs(mesh, cfg, params, cache, state, adapters)
+    for key in ("embed", "lm_head"):
+        if key in params:
+            specs["params"][key] = (None,) * params[key].ndim
+    n = mesh.axis_size("model")
+    if n > 1:
+        specs = {k: _fused_specs(cfg, trees[k], specs[k], n)
+                 if trees[k] is not None else None for k in specs}
+    return specs
+
+
+def _bytes(tree: Any) -> int:
+    from repro_torch.topology.partitioning import tree_map
+    total = []
+    tree_map(lambda t: total.append(t.numel() * t.element_size()), tree)
+    return sum(total)
 
 
 @dataclasses.dataclass
@@ -296,7 +387,10 @@ class ServeEngine:
     module docstring): its steps then run uncaptured on the card too, and
     ``trace_counts`` counts builds, as on the CPU; ``dcfg`` is the config
     the layers see (the rank's head counts), ``tp`` the ``model`` axis
-    with its ``all_reduce`` count."""
+    with its ``all_reduce`` and ``all_to_all`` counts, ``placement`` each
+    placed tree's bytes held on this rank and the bytes its specs give
+    the rank (``{"params" | "cache" | "state" | "adapters": {"held",
+    "expected"}}``)."""
 
     def __init__(self, cfg: ModelConfig, params: Any, adapters: Any = None,
                  batch_slots: int = 4, capacity: int = 256,
@@ -364,11 +458,13 @@ class ServeEngine:
         self.warmup_steps = 0                   # steps run before captures
         self.trace_counts: Dict[Any, int] = {}
         self._fns: Dict[Any, _EngineFn] = {}
-        # (width, start, end, emitted counts, steps) per call while recording
+        # (width, start, end, emitted counts, steps, collectives) per call
+        # while recording
         self._steps: Optional[List] = [] if record_steps else None
         self.mesh = mesh
         self.dcfg = cfg
         self.tp = None
+        self.placement: Dict[str, Dict[str, int]] = {}
         if mesh is not None:
             self._install_mesh(mesh)
         if dev.type == "cuda":
@@ -378,22 +474,24 @@ class ServeEngine:
 
     # -- public API -----------------------------------------------------------
     def step_log(self) -> List[Dict[str, Any]]:
-        """Every recorded step as ``{"width", "ms", "emitted", "burst"}``:
-        its token width, its time (device time between CUDA events around
-        the graph's replay on the card, host time on the CPU), the tokens
-        it emitted, and the steps of its call: a burst of ``n`` steps is
-        timed as one and each of its steps gets ``ms`` = the burst's time /
-        n, marked ``"burst": n`` (1 for a step timed alone).  Synchronises
-        once."""
+        """Every recorded step as ``{"width", "ms", "emitted", "burst",
+        "all_reduces", "all_to_alls"}``: its token width, its time (device
+        time between CUDA events around the graph's replay on the card,
+        host time on the CPU), the tokens it emitted, the steps of its call
+        (a burst of ``n`` steps is timed as one and each of its steps gets
+        ``ms`` = the burst's time / n, marked ``"burst": n``; 1 for a step
+        timed alone) and the collectives it made under a mesh (a burst's
+        split evenly; 0 without a mesh).  Synchronises once."""
         if self._steps is None:
             raise RuntimeError("the engine was built without record_steps=True")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out = []
-        for C, a, b, emitted, n in self._steps:
+        for C, a, b, emitted, n, (ar, a2a) in self._steps:
             ms = (a.elapsed_time(b) if isinstance(a, torch.cuda.Event)
                   else (b - a) * 1e3)
-            out.extend({"width": C, "ms": ms / n, "emitted": int(e), "burst": n}
+            out.extend({"width": C, "ms": ms / n, "emitted": int(e), "burst": n,
+                        "all_reduces": ar // n, "all_to_alls": a2a // n}
                        for e in emitted.tolist())
         return out
 
@@ -493,11 +591,12 @@ class ServeEngine:
         return self.adapters
 
     def _install_mesh(self, mesh) -> None:
-        """Cut every engine-owned tree to this rank's shards, once, by the
-        serve rules, with the embedding and the head kept whole; the
-        registry keeps only its shard of the pages
-        (:meth:`AdapterRegistry.place`).  A one-rank mesh changes nothing."""
+        """Cut every engine-owned tree to this rank's shards, once, by
+        :func:`placement_specs`; the registry keeps only its shard of the
+        pages (:meth:`AdapterRegistry.place`).  A one-rank mesh changes
+        nothing."""
         from repro_torch import topology
+        from repro_torch.topology.partitioning import local_bytes
         from repro_torch.topology.serve import ModelParallel
         n = mesh.axis_size("model")
         if mesh.axis_size("data") != 1 or "pod" in mesh.axis_names:
@@ -505,11 +604,10 @@ class ServeEngine:
                              f"{mesh.shape}")
         if n > 1:
             check_tensor_parallel(self.cfg, n)
-        specs = topology.serve_pspecs(mesh, self.cfg, self.params, self.cache,
-                                      self._state, self._adapters_arg())
-        for key in ("embed", "lm_head", "frontend_proj"):
-            if key in self.params:
-                specs["params"][key] = (None,) * self.params[key].ndim
+        trees = {"params": self.params, "cache": self.cache,
+                 "state": self._state, "adapters": self._adapters_arg()}
+        specs = placement_specs(self.cfg, mesh, *trees.values())
+        expected = {k: local_bytes(t, specs[k], mesh) for k, t in trees.items()}
         self.params = topology.shard(self.params, specs["params"], mesh)
         self.cache = topology.shard(self.cache, specs["cache"], mesh)
         self._state = topology.shard(self._state, specs["state"], mesh)
@@ -518,6 +616,10 @@ class ServeEngine:
         elif self.adapters is not None:
             self.adapters = topology.shard(self.adapters, specs["adapters"],
                                            mesh)
+        held = {"params": self.params, "cache": self.cache,
+                "state": self._state, "adapters": self._adapters_arg()}
+        self.placement = {k: {"held": _bytes(held[k]), "expected": expected[k]}
+                          for k in trees}
         if n > 1:
             self.tp = ModelParallel(mesh)
             self.dcfg = tensor_parallel_config(self.cfg, n)
@@ -562,6 +664,7 @@ class ServeEngine:
             self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
             self._fns[key] = entry
         start = self._mark() if self._steps is not None else None
+        tp0 = self._collectives()
         if entry.graph is not None:
             entry.graph.replay()
             ops.add_launches(entry.launches)
@@ -570,8 +673,14 @@ class ServeEngine:
                      self._state, entry.emitted)
         self.steps_run += steps
         if start is not None:
+            made = [b - a for a, b in zip(tp0, self._collectives())]
             self._steps.append((width, start, self._mark(),
-                                entry.emitted.clone(), steps))
+                                entry.emitted.clone(), steps, made))
+
+    def _collectives(self):
+        """(all_reduces, all_to_alls) made so far by this rank's steps."""
+        tp = self.tp
+        return (0, 0) if tp is None else (tp.all_reduces, tp.all_to_alls)
 
     def _capture(self, entry: _EngineFn) -> None:
         """Warm ``entry.fn`` up on a side stream with every row inactive

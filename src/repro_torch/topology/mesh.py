@@ -46,9 +46,9 @@ class Mesh:
 
     ``shape`` maps axis name to size (in axis order, the name→size mapping
     the reference's ``Mesh.shape`` is); ``coords`` this rank's index on
-    each axis; ``device`` this rank's device.  ``all_reduce`` and
-    ``all_gather`` run over one axis's group and are identities on an axis
-    of size 1.  A mesh built with ``abstract=True``
+    each axis; ``device`` this rank's device.  ``all_reduce``,
+    ``all_gather`` and ``all_to_all`` run over one axis's group and are
+    identities on an axis of size 1.  A mesh built with ``abstract=True``
     (:func:`abstract_mesh`) has no groups: the partition rules read only
     its ``shape``."""
 
@@ -118,6 +118,24 @@ class Mesh:
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=self._groups[axis])
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, axis: str = "model",
+                   split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
+        """The tiled all-to-all of ``jax.lax.all_to_all(..., tiled=True)``:
+        ``t`` is cut into ``n`` equal blocks along ``split_dim``, block j
+        goes to the rank of index j on ``axis``, and the blocks this rank
+        receives are concatenated along ``concat_dim`` in axis-index order.
+        One ``all_to_all_single`` (through a CPU copy under gloo)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        src = self._stage(t).movedim(split_dim, 0)
+        src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
+        src = src.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self._groups[axis])
+        parts = [b.movedim(0, split_dim) for b in out.unbind(0)]
+        return torch.cat(parts, dim=concat_dim).to(t.device)
 
     def all_gather_packed(self, ts: Sequence[torch.Tensor],
                           axis: str = "model") -> Tuple[torch.Tensor, ...]:

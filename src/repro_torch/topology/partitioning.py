@@ -16,10 +16,14 @@ names, or ``None`` (replicated), in the place the reference's
 
 A spec is applied only where every named axis divides its dim; otherwise
 the axis drops to replicated.  :func:`shard` cuts a tree to this rank's
-slices by a spec tree, :func:`gather` (``all_gather``) puts them back.
+slices by a spec tree, :func:`gather` (``all_gather``) puts them back.  A
+spec entry may also be a :class:`Segments`: a fused dim cut segment by
+segment (the rules never make one; a caller that knows a fused layout, the
+serving engine's Mamba2 placement, puts it in).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Tuple
 
 import torch
@@ -182,6 +186,33 @@ def cache_pspecs(mesh, cfg: ModelConfig, cache: Any) -> Any:
 
 # -- applying specs ----------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """A spec entry for a dim that fuses segments of ``widths``: each
+    segment whose ``cut`` is true is cut contiguously over ``axis`` (this
+    rank keeps its share of it), the others stay whole, and the rank's
+    pieces keep the segments' order."""
+    axis: str
+    widths: Tuple[int, ...]
+    cut: Tuple[bool, ...]
+
+    def pieces(self, mesh, local: bool = False):
+        """(offset, width) of this rank's piece of each segment in the
+        whole dim (``local``: in the rank's dim), and the segment's cut."""
+        n, idx = mesh.axis_size(self.axis), mesh.axis_index(self.axis)
+        off = 0
+        for w, c in zip(self.widths, self.cut):
+            if c and w % n:
+                raise ValueError(f"axis {self.axis!r} of size {n} does not "
+                                 f"divide a segment of {w}")
+            piece = w // n if c else w
+            yield (off if local or not c else off + idx * piece), piece, c
+            off += piece if local else w
+
+    def local_width(self, mesh) -> int:
+        return sum(w for _, w, _ in self.pieces(mesh, local=True))
+
+
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
@@ -198,11 +229,31 @@ def _zip_specs(fn: Callable, tree: Any, specs: Any) -> Any:
     return tree
 
 
+def local_numel(shape, spec: Tuple, mesh) -> int:
+    """The elements of this rank's slice of a leaf of ``shape`` under
+    ``spec`` (what :func:`shard_leaf` keeps), from the shape alone."""
+    total = 1
+    for dim, entry in zip(shape, spec):
+        if isinstance(entry, Segments):
+            dim = entry.local_width(mesh)
+        else:
+            for a in _axes(entry):
+                dim //= mesh.axis_size(a)
+        total *= dim
+    for dim in tuple(shape)[len(spec):]:
+        total *= dim
+    return total
+
+
 def shard_leaf(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
     """This rank's slice of ``t`` under ``spec`` (a contiguous copy on the
     mesh's device where a dim is cut; ``t`` itself where none is)."""
     out = t
     for d, entry in enumerate(spec):
+        if isinstance(entry, Segments):
+            out = torch.cat([out.narrow(d, o, w)
+                             for o, w, _ in entry.pieces(mesh)], dim=d)
+            continue
         n, idx = 1, 0
         for a in _axes(entry):                 # row-major over the axes
             n *= mesh.axis_size(a)
@@ -219,6 +270,15 @@ def shard_leaf(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
     return out.clone(memory_format=torch.contiguous_format)
 
 
+def local_bytes(tree: Any, specs: Any, mesh) -> int:
+    """The bytes of this rank's slices of every leaf of ``tree`` under
+    ``specs``, from the shapes alone."""
+    sizes = []
+    _zip_specs(lambda t, s: sizes.append(local_numel(t.shape, s, mesh)
+                                         * t.element_size()), tree, specs)
+    return sum(sizes)
+
+
 def shard(tree: Any, specs: Any, mesh) -> Any:
     """This rank's slices of every leaf of ``tree`` (the port's
     ``to_shardings`` + ``device_put``)."""
@@ -229,6 +289,13 @@ def gather_leaf(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
     """The whole tensor from every rank's slice (``all_gather``, the
     innermost axis of a tuple entry first)."""
     for d, entry in enumerate(spec):
+        if isinstance(entry, Segments):
+            t = torch.cat([mesh.all_gather(t.narrow(d, o, w).contiguous(),
+                                           entry.axis, dim=d) if c
+                           else t.narrow(d, o, w)
+                           for o, w, c in entry.pieces(mesh, local=True)],
+                          dim=d)
+            continue
         for a in reversed(_axes(entry)):
             t = mesh.all_gather(t, a, dim=d)
     return t

@@ -133,12 +133,15 @@ def serve_pspecs(mesh, cfg: ModelConfig, params: Any, cache: Any, state: Any,
 
 class ModelParallel:
     """A serve mesh's ``model`` axis as the decode layers use it (the
-    port's counterpart of GSPMD's collectives around Megatron layers):
-    ``reduce`` sums a row-parallel projection's partial output (one
-    ``all_reduce``, in fp32), ``gather`` makes a column-parallel output
-    whole along its last dim (``all_gather``), ``local`` cuts a replicated
-    per-column vector (a bias) to this rank's columns.  ``all_reduces`` and
-    ``reduce_s`` count the reductions and their host time."""
+    port's counterpart of GSPMD's collectives around Megatron layers and of
+    the reference's expert-parallel ``shard_map``): ``reduce`` sums a
+    row-parallel projection's partial output (one ``all_reduce``, in fp32),
+    ``gather`` makes a column-parallel output whole along its last dim
+    (``all_gather``), ``all_to_all`` exchanges a MoE layer's capacity slots
+    with the experts' owners, ``local`` cuts a replicated vector (a bias, a
+    norm's weight, a per-head constant) to this rank's share of one dim.
+    ``all_reduces`` / ``reduce_s`` and ``all_to_alls`` / ``a2a_s`` count
+    the reductions and the exchanges and their host time."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -146,6 +149,8 @@ class ModelParallel:
         self.index = mesh.axis_index("model")
         self.all_reduces = 0
         self.reduce_s = 0.0
+        self.all_to_alls = 0
+        self.a2a_s = 0.0
 
     def reduce(self, y: "torch.Tensor") -> "torch.Tensor":
         t0 = time.perf_counter()
@@ -157,6 +162,14 @@ class ModelParallel:
     def gather(self, y: "torch.Tensor") -> "torch.Tensor":
         return self.mesh.all_gather(y.contiguous(), "model", dim=-1)
 
-    def local(self, b: "torch.Tensor") -> "torch.Tensor":
-        n = b.shape[-1] // self.size
-        return b[..., self.index * n: (self.index + 1) * n]
+    def all_to_all(self, t: "torch.Tensor", split_dim: int,
+                   concat_dim: int) -> "torch.Tensor":
+        t0 = time.perf_counter()
+        out = self.mesh.all_to_all(t, "model", split_dim, concat_dim)
+        self.a2a_s += time.perf_counter() - t0
+        self.all_to_alls += 1
+        return out
+
+    def local(self, b: "torch.Tensor", dim: int = -1) -> "torch.Tensor":
+        n = b.shape[dim] // self.size
+        return b.narrow(dim, self.index * n, n)

@@ -220,17 +220,18 @@ def test_validation_gate_screen():
 
 
 def test_unported_names_raise_not_implemented():
-    """The names still unported raise, each naming the roadmap item that
-    ports it: since the multi-device slice only tensor-parallel serving of
-    the families other than dense GQA and dense MLA remains (item 9b);
-    ``florist_sharded`` and ``sharded_cohort`` are built like the rest."""
+    """No name is left unported: since the second multi-device slice
+    ``check_tensor_parallel`` takes every family (MoE, RWKV6, the Mamba2
+    hybrid, the front ends) at a model axis of 2 and raises ``ValueError``
+    naming a width the axis does not divide; ``florist_sharded`` and
+    ``sharded_cohort`` are built like the rest."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import check_tensor_parallel
     for name in ("granite-moe-1b-a400m", "rwkv6-1.6b", "zamba2-1.2b",
                  "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="not ported") as e:
-            check_tensor_parallel(get_config(name), 2)
-        assert "Queue 1 item 9b" in str(e.value)
+        check_tensor_parallel(get_config(name), 2)
+        with pytest.raises(ValueError, match="does not divide"):
+            check_tensor_parallel(get_config(name), 3)
     for ported in (lambda: make_aggregator("florist_sharded"),
                    lambda: make_runner("sharded_cohort"),
                    lambda: check_tensor_parallel(get_config("llama3p2_1b"), 2),

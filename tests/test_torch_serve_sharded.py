@@ -10,8 +10,9 @@ port's mesh-less engine is the yardstick for sampled tokens (the same
 seed), multi-tenant mixed ranks with a ``swap``, the int8 cache and a
 dense-only MLA smoke model.  Every rank emits the same tokens, each step
 makes two ``all_reduce``s a layer, the builds equal the mesh-less
-engine's, and every other family refuses naming item 9b.  One world of
-each size (a module fixture) runs every case.
+engine's, granite-moe builds under the mesh (its serving is held by
+``tests/test_torch_serve_sharded_families.py``) and an indivisible width
+raises.  One world of each size (a module fixture) runs every case.
 """
 import numpy as np
 import pytest
@@ -106,9 +107,12 @@ def _cases(np_params, n):
     if n and n > 1:
         gcfg = granite_moe_1b_a400m.SMOKE
         try:
-            engine(gcfg, T.init(gcfg, 0, "cpu"))
-        except NotImplementedError as e:
-            out["refusal"] = str(e)
+            geng = engine(gcfg, T.init(gcfg, 0, "cpu"))
+            out["other_family"] = (
+                geng.tp.size, geng.dcfg.num_heads,
+                tuple(geng.params["blocks"][0]["moe"]["w_up"].shape))
+        except ValueError as e:
+            out["other_family"] = str(e)
         try:
             engine(cfg.replace(num_heads=6, num_kv_heads=3), T.init(
                 cfg.replace(num_heads=6, num_kv_heads=3), 0, "cpu"))
@@ -176,7 +180,17 @@ def test_two_all_reduces_a_layer_a_step_and_no_extra_builds(world, reference):
 
 
 def test_other_families_refuse_naming_item_9b(world):
+    """Since the second multi-device slice no family refuses: granite-moe
+    builds under the mesh (its heads and experts cut to the rank's), and
+    a width the axis does not divide still raises."""
+    from repro_torch.configs import granite_moe_1b_a400m
     n, res = world
-    assert "Queue 1 item 9b" in res[0]["refusal"]
-    assert "not ported" in res[0]["refusal"]
+    g = granite_moe_1b_a400m.SMOKE
+    if g.num_kv_heads % n:                    # 2 KV heads on 4 ranks
+        assert "does not divide" in res[0]["other_family"]
+        assert "num_kv_heads" in res[0]["other_family"]
+    else:
+        assert res[0]["other_family"] == (
+            n, g.num_heads // n,
+            (g.num_layers, g.num_experts // n, g.d_model, g.moe_d_ff))
     assert "does not divide" in res[0]["indivisible"]
