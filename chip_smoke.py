@@ -121,7 +121,8 @@ Phases (any failure exits non-zero; no exception is caught):
     the mix's widest round (Σ r_k 208); (b) Fig 6 (the same call as (a)'s
     FLoRIST row), Fig 2 (one round at τ 1.0), Fig 5 (two rounds at each
     τ, homogeneous rank 8); (c) Table 2's rows at the bench's own config
-    (fp32, both arms, two rounds) on the card against the CPU: names,
+    (fp32, both arms, one round since phase 24) on the card against the
+    CPU: names,
     kept and download ranks and ``most_efficient`` equal, losses within
     1e-4 · max(1, |loss|); (d) ``agg_bench`` at its non-smoke shape, the
     Gram rows' ``adapter_gram`` launches exact; (e) the quickstart and
@@ -177,7 +178,7 @@ Phases (any failure exits non-zero; no exception is caught):
     ``decode_impl="kernel"`` on the graphed engine, adapters on ``wq wk wv
     wo`` and a swap, launches exact (``ring_decode`` L and ``bgmv`` 4 · L
     an engine step), 16 of 16 requests, and a profiled burst window on
-    live-adapter rows; Qwen2-0.5B and Qwen3-4B at full depth,
+    live-adapter rows; Qwen2-0.5B at full depth, Qwen3-4B at 12 of its 36,
     Qwen2.5-14B cut to 8 of its 48 layers and Qwen1.5-32B to 4 of its
     64; (b) phase 5 on each at 2 layers and full width in fp32 (TF32
     off), the greedy tokens required equal (``qkv_bias`` and ``qk_norm``
@@ -211,9 +212,9 @@ Phases (any failure exits non-zero; no exception is caught):
     16 (c)'s limits).
 
 20. MoE and MLA's full-sequence path (random seeded weights, bf16): (a)
-    granite-moe-1b-a400m at published widths cut to 12 of its 24 layers
+    granite-moe-1b-a400m at published widths cut to 6 of its 24 layers
     (d 1024, 16 H / 8 KV, 32 experts top-8, e_ff 512) serves phase 4's
-    traffic on the graphed engine (``ring_decode`` 12 and ``bgmv`` 48 an
+    traffic on the graphed engine (``ring_decode`` 6 and ``bgmv`` 24 an
     engine step, 16 of 16 requests, a profiled burst window on live
     adapters), and its graphed tokens equal its uncaptured tokens bit for
     bit (phase 15 (a)'s check); (b) DeepSeek-V3-L4 (the three dense MLA
@@ -224,11 +225,11 @@ Phases (any failure exits non-zero; no exception is caught):
     on inputs skewed toward one expert (tokens dropped) and 8.0 (none):
     the same experts and slots kept for every token, outputs within 1e-5 ·
     max(1, |y|), aux within 1e-6; (d) FLoRIST through ``FederatedTrainer``:
-    granite at 12 of 24 layers (2 rounds, cohort runner, 4 of 8 clients of
+    granite at 6 of 24 layers (2 rounds, cohort runner, 4 of 8 clients of
     rank 16, 2 local steps of 4 × 512) and DeepSeek-V3-L4 (1 round,
     sequential runner, 2 of 4 clients, 2 local steps of 4 × 512, LoRA on
-    the five MLA targets): launches exact (granite ``lora_matmul`` 48 and
-    ``flash_attention`` 12 a forward, DeepSeek ``lora_matmul`` 16 and no
+    the five MLA targets): launches exact (granite ``lora_matmul`` 24 and
+    ``flash_attention`` 6 a forward, DeepSeek ``lora_matmul`` 16 and no
     ``flash_attention``, ``adapter_gram`` 2 a stacked shape), every
     ``lora_matmul`` (C, din, dout) and ``adapter_gram`` (G, m, r, layout)
     the rounds launch one that phases 2/3 and 16 (a) held to its plain
@@ -341,6 +342,39 @@ Phases (any failure exits non-zero; no exception is caught):
     equal over 16 steps; for (a) and (b) one expert-parallel chunk
     through the first MoE layer against ``moe_fwd`` on each sequence
     slice within 1e-5 of max(1, |y|).
+24. Training with a ``model`` axis (``make_train_step`` /
+    ``make_eval_step`` / ``make_prefill_step(mesh=)``; ZeRO-3 over
+    ``data``), random seeded weights, each rank drawing only its shards
+    (``T.init(..., keep=init_keep(...))``), adapters r 16 on
+    ``lora_targets`` with B ≠ 0, 512-token rows with ragged masks, every
+    run's one-process side first in this process, then a gloo world of 2
+    on cuda:0 for (a)-(c), (e) and one of 4 for (d): (a) Llama-3.2-1B, 16
+    layers, mesh (data=1, model=2), bf16, the kernel routes
+    (head-parallel), 2 train steps of 2 x 512 and an eval; (b) the same at
+    2 layers in fp32 (TF32 off) on both routes, with the prefill; (c)
+    DeepSeek-V3-dense3 (``mla_absorbed``'s sequence-parallel branch) as
+    (a), and at 1 layer as (b); (d) Qwen2-0.5B at ``P24_QWEN_LAYERS`` = 4
+    of 24 layers on (data=1, model=4) (2 KV heads: ``dispatch_flash``'s
+    sequence-parallel branch on the plain route, q/k/v gathered on the
+    kernel route) in fp32 on the plain route and one bf16 step of the
+    kernel route; (e) Qwen2.5-14B whole (48 layers, 14.77 B parameters,
+    above ``ZERO3_THRESHOLD``) on (data=2, model=1), 1 x 512 a rank, bf16,
+    the kernels, 1 step.  Checks: the adapters bit-equal on every rank
+    after each step; fp32: the loss within 1e-5 of the one-process step's,
+    every adapter leaf's gradient within 1e-4 · max(1, max |g|), the
+    prefill's whole (B, V) logits on every rank within 1e-4 of max(1,
+    |logit|); bf16: the loss within 2e-3 of max(1, |loss|), every leaf's
+    gradient (and all of them as one vector) within max(0.15, 4 x its own
+    bf16 conditioning) (max(0.05, ...)) in relative L2, the adapters' mean
+    |Δ| within 0.25·lr after each step (:func:`p24_compare` gives the
+    reasons); the launches a step exact (``lora_matmul`` 4 L, and
+    ``flash_attention`` L for GQA, a forward) at shapes phase 2/3 holds to
+    their plain versions (``LORA_TRAIN_SHARD``, ``FLASH_TRAIN_SHARD``);
+    the collectives a step, the eval's and the prefill's as
+    ``topology.train.step_collectives`` counts them; each rank's param
+    bytes its specs' share, (e)'s ranks half of every ``_COL`` / ``_ROW``
+    weight; step times (CUDA events), the collectives' host time and peak
+    memory are printed.
 
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
@@ -351,16 +385,18 @@ Qwen1.5-32B to 4; phase 20 cuts DeepSeek-V3 to 4 of its 61 layers
 pass at 38 layers): phase 11 served RWKV6-1.6B at 12 of its 24
 layers (``RWKV_SERVE_LAYERS``; its prefill keeps 24), phase 19 trained
 it at 6 (``RWKV_TRAIN_LAYERS``, 12 before), phase 20 (a) and (d) run
-granite-moe at 12 of its 24 (``GRANITE_LAYERS``), phase 21 (c) holds
+granite-moe at 12 of its 24 (``GRANITE_LAYERS``; 6 since phase 24),
+phase 21 (c) holds
 zamba2's graphed tokens to its uncaptured ones at 6 of its 38 layers
 (``ZAMBA2_GRAPH_LAYERS``: one shared application, 12 before phase 23; its
 serving, launches and window stay at 38).  To pay for phase 22 (the script took 1242.7 s
 from the build on with it, on an H100 80GB HBM3 at 700 W whose host ran
 phase 21 in 277.5 s): phase 21 (a) serves and trains phi-3-vision at 8 of
-its 32 layers (``PHI3_LAYERS``) and (b) musicgen at 12 of its 48
-(``MUSICGEN_LAYERS``), phase 15 (d) runs ``serve_bench``'s mesh axis at
+its 32 layers (``PHI3_LAYERS``; 4 since phase 24) and (b) musicgen at 12
+of its 48 (``MUSICGEN_LAYERS``; 6 since phase 24), phase 15 (d) runs ``serve_bench``'s mesh axis at
 mesh 1 only (phase 22 serves on a world of 2), and each kernel time is
-the median of ``REPS`` = 20 launches (50 and then 30 before).  Phase 23
+the median of ``REPS`` = 20 launches (50 and then 30 before; 10 since
+phase 24).  Phase 23
 serves granite-moe, RWKV6, phi-3-vision and musicgen at 2 of their
 layers and zamba2 at 6 (one shared-block application), and checks (f)
 at 2 layers (zamba2 6; DeepSeek-V3 one dense MLA and one MoE layer): a
@@ -371,7 +407,16 @@ an H100 80GB HBM3 at 700 W whose host ran phase 21 in 149.8 s): phase 21
 its 16 layers and phase 23's serving from 4 to 2 layers (1121.2 s on a
 slower host, the build 85.3 s), then phase 22 (a) to 4 layers
 (``P22_LLAMA_LAYERS``), phase 11's RWKV6 serving to 6 of its 24 and
-phase 19's training to 3.
+phase 19's training to 3.  To pay for phase 24 (163.8 s alone on an
+H100 80GB HBM3 at 700 W before the pinned staging; its ZeRO-3 step's 672
+weight gathers through the host take most of it): phase 14 (c) runs
+Table 2's bench parity for ``BENCH_PARITY_ROUNDS`` = 1 round (2 before),
+each kernel time is the median of ``REPS`` = 10 launches, phase 17
+serves Qwen3-4B
+at ``QWEN3_LAYERS`` = 12 of its 36 layers, phase 20 runs granite-moe at
+6 of its 24 (``GRANITE_LAYERS``), phase 21 phi-3-vision at 4 of 32 and
+musicgen at 6 of 48, and the gloo collectives stage through pinned host
+memory (``topology.mesh``).
 Each phase's seconds are printed (``[phase N: s]``) and kept in the
 JSON.
 
@@ -393,7 +438,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12, "int8": 1979e12}
-REPS = 20
+REPS = 10
 DEVICE = "cuda"
 CARD = "the card"                # nvidia-smi's name and power limit, set by main
 # the CUDA kernels of src/repro_torch/kernels/csrc, by function name
@@ -419,11 +464,12 @@ def fail(msg: str) -> None:
 
 # depth cuts that pay for the later phases (the docstring's last paragraph)
 RWKV_SERVE_LAYERS = 6            # phase 11: RWKV6-1.6B served at 6 of 24
-GRANITE_LAYERS = 12              # phase 20 (a), (d): granite-moe at 12 of 24
+GRANITE_LAYERS = 6               # phase 20 (a), (d): granite-moe at 6 of 24
 ZAMBA2_GRAPH_LAYERS = 6          # phase 21 (c)'s graphed-vs-uncaptured pass
 P22_LLAMA_LAYERS = 4             # phase 22 (a): Llama-3.2-1B at 4 of 16 layers
-PHI3_LAYERS = 8                  # phase 21 (a): phi-3-vision at 8 of 32 layers
-MUSICGEN_LAYERS = 12             # phase 21 (b): musicgen at 12 of 48 layers
+PHI3_LAYERS = 4                  # phase 21 (a): phi-3-vision at 4 of 32 layers
+MUSICGEN_LAYERS = 6              # phase 21 (b): musicgen at 6 of 48 layers
+QWEN3_LAYERS = 12                # phase 17 (a): Qwen3-4B at 12 of 36 layers
 
 
 CUT_OF = {}                      # a cut config's key -> the key it cuts
@@ -486,7 +532,8 @@ def main() -> None:
                               + mla_kernel_cases(torch)
                               + train_kernel_cases(torch)
                               + cohort_kernel_cases(torch)
-                              + wkv6_kernel_cases(torch))
+                              + wkv6_kernel_cases(torch)
+                              + train_shard_kernel_cases(torch))
     report["smoke_widths"] = smoke_widths(torch)
     done("2/3")
     report["e2e"], counts = end_to_end(torch)
@@ -544,6 +591,8 @@ def main() -> None:
     done("22")
     report["phase23"], p23_counts = phase23(torch)
     done("23")
+    report["phase24"], p24_counts = phase24(torch)
+    done("24")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -636,7 +685,10 @@ def main() -> None:
             | ({"launches_phase23_path": p23_counts[name]}
                if name in p23_counts else {})
             | (other_path("family_shard_path", name, FAMILY_SHARD_CASES[name])
-               if name in FAMILY_SHARD_CASES else {}))
+               if name in FAMILY_SHARD_CASES else {})
+            | ({"launches_phase24_path": p24_counts.get(name, 0)}
+               | other_path("train_shard_path", name, P24_CASES[name])
+               if name in P24_CASES else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -3314,6 +3366,7 @@ def table4_counterpart(torch):
 # -- phase 14: the paper's evaluation at full width ---------------------------
 
 EVAL_ROUNDS = 2                      # Table 2's arm, Figs 6 and 5 a τ
+BENCH_PARITY_ROUNDS = 1              # (c)'s rounds (2 before phase 24)
 
 
 def paper_evaluation(torch):
@@ -3551,7 +3604,8 @@ def tree_to(tree, device):
 
 def bench_parity(torch):
     """(c): Table 2's rows at the bench's own config (``BENCH_MODEL``, fp32)
-    for both arms at two rounds, on the card (kernel routes, TF32 off) and
+    for both arms at ``BENCH_PARITY_ROUNDS`` rounds, on the card (kernel
+    routes, TF32 off) and
     on the CPU (plain routes), from the same weights and A init (made on
     the CPU).  Row names, kept and download ranks and ``most_efficient``
     must be equal, and each round's eval loss within 1e-4 · max(1, |loss|)
@@ -3560,7 +3614,8 @@ def bench_parity(torch):
     from repro_torch.benchmarks import table2_accuracy_efficiency as t2
     from repro_torch.device import parity_mode
     print("phase 14 (c): Table 2 at the bench config (bench-tiny, fp32), both "
-          "arms, 2 rounds, card against CPU; " + parity_mode())
+          f"arms, {BENCH_PARITY_ROUNDS} round(s), card against CPU; "
+          + parity_mode())
     base = {}
     for heter in (False, True):
         tr = common.bench_trainer("florist", heterogeneous=heter, device="cpu")
@@ -3583,7 +3638,7 @@ def bench_parity(torch):
         t2.bench_fed = bench_fed
         try:
             t = time.perf_counter()
-            rows = t2.run(rounds=2)
+            rows = t2.run(rounds=BENCH_PARITY_ROUNDS)
             if dev == DEVICE:
                 torch.cuda.synchronize()
             return rows, got, time.perf_counter() - t
@@ -4392,6 +4447,7 @@ def phase16(torch):
 # launch.serve's Qwen configs and the published depth of each
 QWEN_SERVE = (("qwen2_0p5b", 24), ("qwen3_4b", 36), ("qwen2p5_14b_l8", 48),
               ("qwen1p5_32b_l4", 64))
+QWEN_SERVE_CUTS = {"qwen3_4b": QWEN3_LAYERS}     # served at this depth
 
 
 def phase17(torch):
@@ -4408,9 +4464,11 @@ def phase17(torch):
     out = {"serve": {}, "parity": {}}
     counts = collections.Counter()
     for key, full in QWEN_SERVE:
-        L = CONFIGS[key][0].num_layers
+        served = (cut_config(key, QWEN_SERVE_CUTS[key])
+                  if key in QWEN_SERVE_CUTS else key)
+        L = CONFIGS[served][0].num_layers
         out["serve"][key], c = end_to_end(
-            torch, "17 (a)", key,
+            torch, "17 (a)", served,
             windows=("profiled_burst_adapters",),
             full_layers=full if L != full else 0)
         counts.update(c)
@@ -6418,6 +6476,535 @@ def _products_of(torch, tree):
         out[path] = (torch.as_tensor(B, device=DEVICE).double()
                      @ torch.as_tensor(A, device=DEVICE).double())
     return out
+
+
+# -- phase 24: training with a model axis ---------------------------------------
+
+P24_SEQ = 512                    # tokens a row of every phase 24 batch
+P24_RANK = 16
+P24_LR = 1e-4
+P24_PARITY_LAYERS = 2            # (b): Llama-3.2-1B's fp32 parity depth
+P24_DSV3_PARITY_LAYERS = 1       # (c)'s fp32 parity depth
+P24_QWEN_LAYERS = 4              # (d): Qwen2-0.5B at 4 of its 24 layers
+# phase 24's kernel shapes on a rank: lora_matmul's (M, din, dout) at r 16
+# and flash_attention's (B, S, H, K, hd).  Llama-3.2-1B at model 2 (M 2 x
+# 512): wq 2048 -> 1024, wk / wv 2048 -> 256, wo 1024 -> 2048;
+# DeepSeek-V3's DENSE3 at model 2: wq_a 7168 -> 768, wkv_a 7168 -> 288,
+# wq_b 1536 -> 12288, wo 8192 -> 7168 (wkv_b is folded on the absorbed
+# route); Qwen2-0.5B at model 4: wq 896 -> 224, wk / wv 896 -> 32, wo 224
+# -> 896; Qwen2.5-14B whole after ZeRO-3's gather at M 1 x 512: wq / wo
+# 5120 -> 5120, wk / wv 5120 -> 1024
+LORA_TRAIN_SHARD = ((1024, 2048, 1024), (1024, 2048, 256), (1024, 1024, 2048),
+                    (1024, 7168, 768), (1024, 7168, 288), (1024, 1536, 12288),
+                    (1024, 8192, 7168), (1024, 896, 224), (1024, 896, 32),
+                    (1024, 224, 896), (512, 5120, 5120), (512, 5120, 1024))
+LORA_TRAIN_SHARD_FP32 = LORA_TRAIN_SHARD[:7]     # (b) and (c)'s fp32 sides
+FLASH_TRAIN_SHARD = ((2, 512, 16, 4, 64), (2, 512, 14, 2, 64),
+                     (1, 512, 40, 8, 128))
+FLASH_TRAIN_SHARD_FP32 = FLASH_TRAIN_SHARD[:1]
+LORA_P24 = "bf16, M=1024 din=2048 dout=1024 r=16"            # Llama's wq shard
+FLASH_P24 = "bf16, causal, B=2 S=512 H=16 K=4 hd=64"
+P24_CASES = {"lora_matmul": LORA_P24, "flash_attention": FLASH_P24}
+
+
+def train_shard_kernel_cases(torch):
+    """Phase 2/3's cases at phase 24's shard shapes."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("phase 2/3: lora_matmul and flash_attention at phase 24's shard "
+          "shapes")
+    recs = [lora_case(torch, gen, sms, dt, M, din, dout, P24_RANK)
+            for dt, shapes in ((torch.bfloat16, LORA_TRAIN_SHARD),
+                               (torch.float32, LORA_TRAIN_SHARD_FP32))
+            for M, din, dout in shapes]
+    recs += [flash_case(torch, gen, dt, B, S, S, H, K, hd, True, 0)
+             for dt, shapes in ((torch.bfloat16, FLASH_TRAIN_SHARD),
+                                (torch.float32, FLASH_TRAIN_SHARD_FP32))
+             for B, S, H, K, hd in shapes]
+    return recs
+
+
+@contextlib.contextmanager
+def train_shapes():
+    """The (dtype, M, din, dout) of each ``lora_matmul`` launch and the
+    (dtype, B, S, H, K, hd) of each ``flash_attention`` launch inside."""
+    from repro_torch.kernels import ops
+    seen = {"lora_matmul": set(), "flash_attention": set()}
+    lora, flash = ops.lora_matmul_cuda, ops.flash_attention_cuda
+
+    def lora_seen(x, w, a, b):
+        seen["lora_matmul"].add((str(x.dtype), x.shape[1]) + tuple(w.shape))
+        return lora(x, w, a, b)
+
+    def flash_seen(q, k, v, causal, window):
+        seen["flash_attention"].add((str(q.dtype),) + tuple(q.shape)
+                                    + (k.shape[2],))
+        return flash(q, k, v, causal, window)
+
+    ops.lora_matmul_cuda, ops.flash_attention_cuda = lora_seen, flash_seen
+    try:
+        yield seen
+    finally:
+        ops.lora_matmul_cuda, ops.flash_attention_cuda = lora, flash
+
+
+def p24_checked(torch) -> dict:
+    """The shapes phase 2/3 holds to their plain versions, as
+    :func:`train_shapes` records them."""
+    b, f = str(torch.bfloat16), str(torch.float32)
+    return {"lora_matmul": {(b,) + s for s in LORA_TRAIN_SHARD}
+            | {(f,) + s for s in LORA_TRAIN_SHARD_FP32},
+            "flash_attention": {(dt, B, S, H, hd, K) for dt, shapes in (
+                (b, FLASH_TRAIN_SHARD), (f, FLASH_TRAIN_SHARD_FP32))
+                for B, S, H, K, hd in shapes}}
+
+
+def _whole_like(torch, cfg, params, mesh):
+    """Meta tensors of the whole model's shapes beside ``params`` (the
+    rank's shards): what ``init_lora`` reads to make whole adapters."""
+    from repro_torch.topology.partitioning import (_axes, map_with_path,
+                                                   param_pspec)
+    from repro_torch.topology.train import zero3_on
+    if mesh is None:
+        return params
+    zero3 = zero3_on(cfg)
+
+    def whole(path, t):
+        shape = list(t.shape)
+        for d, entry in enumerate(param_pspec(mesh, cfg, path, t, zero3)):
+            for a in _axes(entry):
+                shape[d] *= mesh.axis_size(a)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return map_with_path(whole, params)
+
+
+def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
+             evaluate: bool = False, prefill: bool = False,
+             seed: int = 1) -> dict:
+    """One side of a phase 24 comparison: ``cfg`` with seeded weights (the
+    rank's shards drawn by ``init_keep`` under ``mesh``, the whole model
+    without one), whole rank-16 adapters on ``lora_targets`` with B ≠ 0,
+    ``steps`` train steps on seeded batches of ``rows`` x P24_SEQ tokens
+    (the rank's rows under a mesh; a ragged mask), then an eval and a
+    prefill on the first batch.  Returns per step the loss, the adapters,
+    the launches, the collectives and their host time and the step's
+    device time; the first step's gradients; eval metrics, prefill logits,
+    the kernel shapes, peak memory and the rank's param bytes."""
+    import numpy as np
+    from repro_torch.common.config import OptimConfig
+    from repro_torch.configs import lora_targets
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves
+    from repro_torch.peft.lora import init_lora
+    from repro_torch.topology.train import init_keep, shard_batch
+    from repro_torch.train import step as St
+    dev = torch.device(DEVICE) if mesh is None else mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_init = time.perf_counter()
+    if mesh is not None and mesh.size > 1:
+        # the ranks draw in turn (each holds a whole leaf while it cuts it),
+        # in step through a one-element all_reduce on the host
+        import torch.distributed as dist
+        cut = init_keep(cfg, mesh)
+
+        def keep(path, t):
+            torch.cuda.empty_cache()         # the last leaf's whole copies
+            return cut(path, t)
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                params = T.init(cfg, seed, dev, keep=keep)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.all_reduce(torch.zeros(1))
+    else:
+        params = T.init(cfg, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    ad = _nonzero_b(init_lora(_whole_like(torch, cfg, params, mesh),
+                              lora_targets(cfg), P24_RANK, float(P24_RANK),
+                              gen), gen)
+    rng = np.random.default_rng(seed + 2)
+    batches = []
+    for _ in range(steps):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (rows, P24_SEQ)), device=dev)
+        mask = torch.as_tensor((rng.random((rows, P24_SEQ)) > 0.1)
+                               .astype(np.float32), device=dev)
+        b = {"tokens": toks, "loss_mask": mask}
+        batches.append(b if mesh is None else shard_batch(cfg, b, mesh))
+    optim = OptimConfig(lr=P24_LR)
+    step = St.make_train_step(cfg, optim, loss_chunk=512,
+                              use_kernels=use_kernels, mesh=mesh)
+    tp = step.tp
+    opt = adamw_init(ad)
+    out = {"loss": [], "adapters": [], "launches": [], "collectives": [],
+           "host_s": [], "step_ms": [], "init_s": time.perf_counter() - t_init,
+           "paths": ["/".join(map(str, q)) for q in _leaf_paths(ad)]}
+    if mesh is None and cfg.dtype != "float32":
+        # the one-process gradients' own bf16 conditioning: how far they
+        # move when the embedding is perturbed by bf16 rounding (a
+        # relative 2^-8 · N(0, 1))
+        noise = torch.randn(params["embed"].shape, generator=gen, device=dev)
+        emb = params["embed"]
+        pert = dict(params, embed=(emb.float() * (1 + 2.0 ** -8 * noise)
+                                   ).to(emb.dtype))
+        del noise
+        out["grads_perturbed"] = [g.float().cpu() for g in tree_leaves(
+            step.grads(pert, ad, batches[0])[1])]
+        del pert
+    with train_shapes() as seen:
+        for i, b in enumerate(batches):
+            ops.reset_launch_counts()
+            if tp is not None:
+                tp.reset_counts()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            if i == 0:
+                m, grads = step.grads(params, ad, b)
+                ad, opt = adamw_update(optim, grads, opt, ad)
+                out["grads"] = [g.float().cpu() for g in tree_leaves(grads)]
+            else:
+                ad, opt, m = step(params, ad, opt, b)
+            ev1.record()
+            torch.cuda.synchronize()
+            out["step_ms"].append(ev0.elapsed_time(ev1))
+            out["loss"].append(float(m["loss"]))
+            out["adapters"].append([a.cpu() for a in tree_leaves(ad)])
+            out["launches"].append(ops.launch_counts())
+            out["collectives"].append(dict(tp.counts) if tp else {})
+            out["host_s"].append(sum(tp.host_s.values()) if tp else 0.0)
+        if evaluate:
+            ev = St.make_eval_step(cfg, 512, use_kernels, mesh=mesh)
+            ops.reset_launch_counts()
+            em = ev(params, ad, batches[0])
+            out["eval"] = {k: float(v) for k, v in em.items()}
+            out["eval_launches"] = ops.launch_counts()
+            out["eval_collectives"] = dict(ev.tp.counts) if ev.tp else {}
+        if prefill:
+            pf = St.make_prefill_step(cfg, use_kernels, mesh=mesh)
+            out["prefill"] = pf(params, ad, {"tokens": batches[0]["tokens"]}
+                                ).float().cpu()
+            out["prefill_collectives"] = dict(pf.tp.counts) if pf.tp else {}
+    out["seen"] = seen
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    from repro_torch.topology.partitioning import (local_bytes, map_with_path,
+                                                   params_pspecs)
+    held = []
+    map_with_path(lambda _, t: held.append(t.numel() * t.element_size()),
+                  params)
+    out["param_bytes"] = sum(held)
+    if mesh is not None:
+        whole = _whole_like(torch, cfg, params, mesh)
+        out["param_bytes_spec"] = local_bytes(
+            whole, params_pspecs(mesh, cfg, whole), mesh)
+        out["halves"] = _p24_halves(params, whole)
+    del params, ad, opt, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p24_halves(params, whole) -> dict:
+    """For each _COL / _ROW weight, the share of the whole it holds."""
+    from repro_torch.topology.partitioning import _COL_MODEL, _ROW_MODEL
+    shares = {}
+    for seg_s, seg_w in zip(params["blocks"], whole["blocks"]):
+        for sub in ("attn", "mlp"):
+            for name, t in seg_s.get(sub, {}).items():
+                if name in _COL_MODEL + _ROW_MODEL and t.numel():
+                    shares.setdefault(name, set()).add(
+                        t.numel() / seg_w[sub][name].numel())
+    return {k: sorted(v) for k, v in shares.items()}
+
+
+def p24_cfg(key: str, layers: int = 0, dtype: str = ""):
+    """Phase 24's configs: ``launch.serve.CONFIGS``' Llama-3.2-1B and
+    DeepSeek-V3-dense3, the trainer's Qwen2-0.5B, Qwen2.5-14B whole."""
+    from repro_torch.configs import qwen2_0p5b, qwen2p5_14b
+    from repro_torch.launch.serve import CONFIGS
+    cfg = {"llama": lambda: CONFIGS["llama3p2_1b"][0],
+           "dsv3": lambda: CONFIGS["deepseek_v3_dense3"][0],
+           "qwen05": lambda: qwen2_0p5b.CONFIG,
+           "qwen14": lambda: qwen2p5_14b.CONFIG}[key]()
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+        if cfg.use_mla:
+            cfg = cfg.replace(first_dense_layers=layers)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+# (label, config, layers, world, model, dtype, kernels, steps, rows, eval,
+#  prefill)
+P24_RUNS = (
+    ("(a)", "llama", 0, 2, 2, "", True, 2, 2, True, False),
+    ("(b) kernel", "llama", P24_PARITY_LAYERS, 2, 2, "float32", True, 1, 2,
+     False, True),
+    ("(b) plain", "llama", P24_PARITY_LAYERS, 2, 2, "float32", False, 1, 2,
+     False, True),
+    ("(c)", "dsv3", 0, 2, 2, "", True, 2, 2, False, False),
+    ("(c) fp32 kernel", "dsv3", P24_DSV3_PARITY_LAYERS, 2, 2, "float32",
+     True, 1, 2, False, True),
+    ("(c) fp32 plain", "dsv3", P24_DSV3_PARITY_LAYERS, 2, 2, "float32",
+     False, 1, 2, False, True),
+    ("(e)", "qwen14", 0, 2, 1, "", True, 1, 2, False, False),
+    ("(d) plain", "qwen05", P24_QWEN_LAYERS, 4, 4, "float32", False, 1, 2,
+     False, True),
+    ("(d) kernel", "qwen05", P24_QWEN_LAYERS, 4, 4, "", True, 1, 2, False,
+     False),
+)
+
+
+def _p24_run(torch, run, mesh) -> dict:
+    label, key, layers, _, _, dtype, uk, steps, rows, ev, pre = run
+    from repro_torch.device import parity_mode
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    if dtype == "float32":
+        parity_mode()
+    try:
+        return p24_side(torch, p24_cfg(key, layers, dtype), mesh, uk, steps,
+                        rows, ev, pre)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def p24_rank(world: int, device: str = "cuda") -> dict:
+    """Every run of phase 24 in a world of ``world`` ranks on one rank."""
+    import traceback
+
+    import torch
+    from repro_torch.topology import make_host_mesh, world as rank_of
+    _rank_start(device)
+    rank = rank_of()[0]
+    out = {}
+    for run in P24_RUNS:
+        if run[3] != world:
+            continue
+        t0 = time.perf_counter()
+        try:
+            out[run[0]] = _p24_run(torch, run, make_host_mesh(
+                model=run[4], device=DEVICE))
+        except Exception:
+            # a rank's traceback is printed before the world fails (spawn
+            # reports the lowest failed rank's only)
+            print(f"[rank {rank}] phase 24 {run[0]} raised:\n"
+                  f"{traceback.format_exc()}", flush=True)
+            raise
+        print(f"  [rank {rank}] phase 24 {run[0]}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _cos_rel(torch, g, w):
+    """(relative L2 distance, cosine) of two gradient leaves."""
+    g, w = g.double().flatten(), w.double().flatten()
+    n = float(w.norm())
+    if n == 0.0:
+        return float(g.norm()), 1.0
+    return float((g - w).norm()) / n, float(g @ w) / (float(g.norm()) * n + 1e-300)
+
+
+def p24_compare(torch, run, ranks, ref) -> dict:
+    """Hold one run's ranks to each other, to the one-process side and to
+    the design's counts; print and return its numbers."""
+    from repro_torch.topology.train import step_collectives
+    label, key, layers, world, model, dtype, uk, steps, rows, ev, pre = run
+    cfg = p24_cfg(key, layers, dtype)
+    data = world // model
+    got = [ranks[r][label] for r in range(world)]
+    g0 = got[0]
+    fp32 = dtype == "float32"
+    name = (f"phase 24 {label}: {cfg.name} ({cfg.num_layers} layers, "
+            f"{'fp32' if fp32 else 'bf16'}, {'kernel' if uk else 'plain'} "
+            f"route) on (data={data}, model={model})")
+    print(name)
+    # every rank's adapters the same bits after each step
+    for r in range(1, world):
+        for s in range(steps):
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got[r]["adapters"][s], g0["adapters"][s])):
+                fail(f"{name}: rank {r}'s adapters differ from rank 0's "
+                     f"after step {s + 1}")
+    rec = {"loss": g0["loss"], "loss_one_process": ref["loss"],
+           "step_ms": g0["step_ms"], "host_s": g0["host_s"],
+           "collectives": g0["collectives"], "launches": g0["launches"],
+           "peak_gib": g0["peak_gib"], "param_bytes": g0["param_bytes"],
+           "one_process_step_ms": ref["step_ms"], "init_s": g0["init_s"],
+           "one_process_peak_gib": ref["peak_gib"]}
+    # the loss and the first step's gradients against the one-process step
+    rels = [_cos_rel(torch, g, w) for g, w in zip(g0["grads"], ref["grads"])]
+    dl = max(abs(a - b) for a, b in zip(g0["loss"], ref["loss"]))
+    if fp32:
+        gerr = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                   for g, w in zip(g0["grads"], ref["grads"]) if w.numel())
+        print(f"  loss {g0['loss'][0]:.7f} vs one process {ref['loss'][0]:.7f}"
+              f" (|Δ| {dl:.2e}, limit 1e-5); gradients: max |Δg| / max(1, "
+              f"max |g|) over leaves {gerr:.2e} (limit 1e-4)")
+        if dl > 1e-5 or gerr > 1e-4:
+            fail(f"{name}: loss or gradients differ from the one-process step")
+        rec.update(loss_abs_err=dl, grads_max_rel_err=gerr)
+        if pre:
+            e = float((g0["prefill"] - ref["prefill"]).abs().max())
+            lim = 1e-4 * max(1.0, float(ref["prefill"].abs().max()))
+            print(f"  prefill's whole (B, V) logits on every rank: max |Δ| "
+                  f"{e:.2e} (limit {lim:.2e})")
+            if e > lim or any(not torch.equal(x["prefill"], g0["prefill"])
+                              for x in got):
+                fail(f"{name}: prefill logits differ")
+            rec["prefill_max_abs_err"] = e
+    else:
+        # bf16 (8 significant bits): the mesh rounds each row-parallel
+        # partial to bf16 before the fp32 sum, so activations differ from
+        # the one-process step by ~1 bf16 ulp a layer.  How far that moves
+        # a gradient is the gradient's own bf16 conditioning: how far the
+        # one-process gradient moves when the embedding is perturbed by
+        # bf16 rounding (a relative 2^-8 · N(0, 1)); at full depth it is
+        # up to ~25% for the leaves whose gradients are smallest (on an
+        # H100 80GB HBM3, Llama-3.2-1B's `wk` scale leaf: 0.31 from the
+        # one-process step at a cosine of 0.956, 0.36 of the limit
+        # below).  Limits: the loss within 2e-3 of
+        # max(1, |loss|) (the CE averages ~1000 tokens); every leaf's
+        # gradient, and all leaves as one vector, within max(0.15, 4 x its
+        # conditioning) and max(0.05, 4 x the vector's conditioning) of
+        # its norm (relative L2: a part dropped or counted twice moves a
+        # well-conditioned leaf by 30% or more); and the adapters after
+        # each step within a mean |Δ| of 0.25·lr (Adam moves an entry by
+        # about ±lr whatever its gradient's size, so only entries whose
+        # gradient is within noise of zero may step the other way; a wrong
+        # gradient turns half of them: ~lr)
+        lim_l = 2e-3 * max(1.0, abs(ref["loss"][0]))
+        cond = [_cos_rel(torch, q, w)[0] for q, w in
+                zip(ref["grads_perturbed"], ref["grads"])]
+        share = [r / max(0.15, 4 * c) for (r, _), c in zip(rels, cond)]
+        flat = [torch.cat([t.flatten() for t in ts]) for ts in (
+            g0["grads"], ref["grads"], ref["grads_perturbed"])]
+        all_rel, all_cos = _cos_rel(torch, flat[0], flat[1])
+        all_cond = _cos_rel(torch, flat[2], flat[1])[0]
+        share.append(all_rel / max(0.05, 4 * all_cond))
+        worst_rel = max(r for r, _ in rels)
+        worst_cos = min(c for _, c in rels)
+        order = sorted(range(len(rels)), key=lambda i: -share[i])[:3]
+        print("  leaves nearest their limits (relative L2, conditioning): "
+              + ", ".join(f"{ref['paths'][i]} {rels[i][0]:.3f} "
+                          f"({cond[i]:.3f})" for i in order)
+              + f"; all leaves {all_rel:.3e} ({all_cond:.3e}), cosine "
+              f"{all_cos:.6f}")
+        mean_d = [float(torch.cat([(a - b).abs().flatten() for a, b in zip(
+            g0["adapters"][s], ref["adapters"][s])]).mean()) for s in range(steps)]
+        print(f"  loss {['%.5f' % x for x in g0['loss']]} vs one process "
+              f"{['%.5f' % x for x in ref['loss']]} (|Δ| at most {dl:.2e}, "
+              f"limit {lim_l:.2e}); first step's gradients: worst leaf relative "
+              f"L2 {worst_rel:.3e} (the one process's own bf16 conditioning "
+              f"at most {max(cond):.3e}; nearest its limit at "
+              f"{max(share):.2f} of it), cosine at least {worst_cos:.6f}; "
+              f"adapters' mean |Δ| after each step "
+              f"{['%.2e' % x for x in mean_d]} (limit {0.25 * P24_LR:.1e})")
+        if dl > lim_l or max(share) > 1 or max(mean_d) > 0.25 * P24_LR:
+            fail(f"{name}: the mesh's step differs from the one-process step")
+        rec.update(loss_abs_err=dl, grads_worst_rel_l2=worst_rel,
+                   grads_worst_cond=max(cond), grads_worst_share=max(share),
+                   grads_worst_cos=worst_cos, grads_all_rel_l2=all_rel,
+                   grads_all_cond=all_cond, adapters_mean_abs_diff=mean_d)
+    # launches a step, exact at the rank's shard shapes
+    per_fwd = {"lora_matmul": (4 * cfg.num_layers if uk else 0),
+               "flash_attention": (cfg.num_layers if uk and not cfg.use_mla
+                                   else 0)}
+    for x in got:
+        for s, c in enumerate(x["launches"]):
+            have = {k: c.get(k, 0) for k in per_fwd}
+            if have != per_fwd or sum(c.values()) != sum(per_fwd.values()):
+                fail(f"{name}: step {s + 1} launched {c}, expected {per_fwd}")
+        if ev and {k: x["eval_launches"].get(k, 0) for k in per_fwd} != per_fwd:
+            fail(f"{name}: the eval launched {x['eval_launches']}")
+    checked = p24_checked(torch)
+    for k, shapes in g0["seen"].items():
+        if not shapes <= checked[k]:
+            fail(f"{name}: {k} launched at {sorted(shapes - checked[k])}, "
+                 "outside phase 2/3's cases")
+    # the collectives a step, as the design counts them
+    kw = dict(loss_chunk=512, use_kernels=uk)
+    S = P24_SEQ
+    want = step_collectives(cfg, model, data, S, **kw)
+    for x in got:
+        for s, c in enumerate(x["collectives"]):
+            if c != want:
+                fail(f"{name}: step {s + 1}'s collectives {c}, the design's "
+                     f"{want}")
+        if ev and x["eval_collectives"] != step_collectives(
+                cfg, model, data, S, kind="eval", **kw):
+            fail(f"{name}: the eval's collectives {x['eval_collectives']}")
+        if pre and x["prefill_collectives"] != step_collectives(
+                cfg, model, data, S, kind="prefill", **kw):
+            fail(f"{name}: the prefill's collectives {x['prefill_collectives']}")
+    # each rank's base bytes: its specs' share
+    for x in got:
+        if x["param_bytes"] != x["param_bytes_spec"]:
+            fail(f"{name}: a rank holds {x['param_bytes']} bytes of params, "
+                 f"its specs give it {x['param_bytes_spec']}")
+    steps_ms = g0["step_ms"]
+    print(f"  adapters bit-equal on the {world} ranks after each step; "
+          f"launches a step {json.dumps({k: v for k, v in per_fwd.items() if v})}"
+          f" (= the design's), shapes {json.dumps({k: sorted(v) for k, v in g0['seen'].items() if v})}")
+    print(f"  collectives a step {json.dumps(want)} (= the design's), host "
+          f"time {['%.3f' % x for x in g0['host_s']]} s; step on {CARD}: "
+          f"{['%.1f' % x for x in steps_ms]} ms (rank 0, CUDA events; gloo "
+          f"through the host, {world} ranks on one card) vs one process "
+          f"{['%.1f' % x for x in ref['step_ms']]} ms; a rank holds "
+          f"{g0['param_bytes'] / 2**30:.3f} GiB of params (= its specs' "
+          f"share), peak allocated {g0['peak_gib']:.2f} GiB (one process "
+          f"{ref['peak_gib']:.2f}); set-up {g0['init_s']:.1f} s (the "
+          f"ranks' inits in turn)")
+    rec["collectives_design"] = want
+    if "halves" in g0:
+        rec["halves"] = g0["halves"]
+    return rec
+
+
+def phase24(torch) -> tuple:
+    """Phase 24: training with a ``model`` axis (and ZeRO-3 over
+    ``data``), every run's one-process side first in this process, then a
+    gloo world of 2 ranks on cuda:0 for (a), (b), (c), (e) and one of 4
+    for (d) (see the module docstring)."""
+    from repro_torch.topology import spawn
+    t_phase = time.perf_counter()
+    print("phase 24: the one-process sides in this process")
+    refs = {}
+    for run in P24_RUNS:
+        t0 = time.perf_counter()
+        refs[run[0]] = _p24_run(torch, run, None)
+        print(f"  {run[0]}: one process {time.perf_counter() - t0:.1f} s, "
+              f"step {['%.1f' % x for x in refs[run[0]]['step_ms']]} ms")
+    report, counts = {}, collections.Counter()
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB on the card ({torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          "reserved) while the worlds run")
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        ranks = spawn(p24_rank, world, "gloo", DEVICE, args=(world, DEVICE),
+                      timeout_s=900)
+        print(f"phase 24: a gloo world of {world} ranks on cuda:0: "
+              f"{time.perf_counter() - t0:.1f} s, spawn included")
+        for run in P24_RUNS:
+            if run[3] != world:
+                continue
+            report[run[0]] = p24_compare(torch, run, ranks, refs[run[0]])
+            for c in ranks[0][run[0]]["launches"]:
+                counts.update(c)
+        del ranks
+    e = report["(e)"]["halves"]
+    print(f"phase 24 (e): ZeRO-3 share of each _COL / _ROW weight a rank "
+          f"holds: {e}; peak allocated a rank {report['(e)']['peak_gib']:.2f}"
+          f" GiB")
+    if any(v != [0.5] for v in e.values()):
+        fail(f"phase 24 (e): a rank's ZeRO-3 shares are {e}, not halves")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 24: {report['phase_s']:.1f} s")
+    del refs
+    torch.cuda.empty_cache()
+    return report, {k: v for k, v in counts.items() if v}
 
 
 if __name__ == "__main__":

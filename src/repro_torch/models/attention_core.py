@@ -3,8 +3,10 @@ masks for decode attention, the streamed decode route
 (``ring_flash_decode``, ``mla_ring_flash_decode``: an online softmax over
 kv blocks of the ring, the reference's XLA flash-decoding), and
 ``flash_torch``, the chunked online-softmax attention of full sequences
-(``flash_jax``), and ``mla_absorbed``, MLA's full-sequence attention in
-the absorbed form.
+(``flash_jax``), ``dispatch_flash``, its head-, sequence- and
+batch-parallel branches under a train mesh, and ``mla_absorbed``, MLA's
+full-sequence attention in the absorbed form, with its sequence-parallel
+branch.
 
 Slot ``s`` of a row's ring holds absolute position
 ``p_abs = last - (last - s) mod cap`` with ``last = pos - 1``.  The modulo is
@@ -201,7 +203,7 @@ def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, window: int = 0,
                 scale: Optional[float] = None, q_chunk: int = 512,
-                kv_chunk: int = 1024) -> torch.Tensor:
+                kv_chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
     """q: (B,S,H,dq), k: (B,T,K,dq), v: (B,T,K,dv) -> (B,S,H,dv) fp32.
 
     Chunked online softmax over (q chunk, kv chunk) tiles, live scores
@@ -209,6 +211,8 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scans).  Differentiable by autograd; it is the port's non-kernel
     training attention and what the ``flash_attention`` kernel's backward
     recomputes through.  Scores are scaled by ``scale``, by default 1/√dq.
+    ``q_offset`` is the position of q's row 0 (a sequence-parallel rank's
+    rows); the causal and window masks are in whole-sequence positions.
     """
     B, S, H, dq = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -227,7 +231,7 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for iq in range(nq):
         q_blk = qf[:, iq]
-        qpos = iq * bq + torch.arange(bq, device=dev)
+        qpos = q_offset + iq * bq + torch.arange(bq, device=dev)
         m_run = torch.full((B, K, g, bq), NEG_INF, device=dev)
         l_run = torch.zeros((B, K, g, bq), device=dev)
         acc = torch.zeros((B, K, g, bq, dv), device=dev)
@@ -248,10 +252,79 @@ def flash_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.stack(outs, dim=1).reshape(B, S, H, dv)
 
 
+def flash_branch(tp, kv_heads: int, S: int, sequence: bool = True) -> str:
+    """The reference's ``dispatch_flash`` tests under a train mesh's
+    ``model`` axis (``tp``): ``"heads"`` with no axis or when it divides
+    the KV heads, else ``"sequence"`` when it divides S (and ``sequence``
+    allows it), else the ``"batch"`` fallback, replicated over ``model``.
+    The reference also falls back when the data axes do not divide the
+    global batch, a condition of ``shard_map``'s block specs; a rank here
+    holds its own rows, so the port has no such test."""
+    if tp is None or tp.size == 1 or kv_heads % tp.size == 0:
+        return "heads"
+    if sequence and S % tp.size == 0:
+        return "sequence"
+    return "batch"
+
+
+def dispatch_flash(q, k, v, heads, *, kv_heads: int, tp=None, attend=None,
+                   sequence: bool = True, causal: bool = True,
+                   window: int = 0, scale: Optional[float] = None,
+                   q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+    """Mesh-aware attention (the reference's ``dispatch_flash``) on the
+    rank's column slices of the projections: q (B,S,cq), k (B,S,ck), v
+    (B,S,cv), whole heads when ``kv_heads`` divides the ``model`` axis,
+    else cut anywhere (Qwen2-0.5B's 128-wide ``wk`` is half a KV head a
+    rank at model 4).  ``heads(q, k, v, rows)`` makes (B,s,H',hd) heads of
+    whole columns (bias added already; reshape, ``qk_norm``, RoPE at the
+    positions ``rows``, a slice of the sequence).  Branches
+    (:func:`flash_branch`):
+
+    * ``"heads"``: no mesh, or head parallelism on the rank's heads; no
+      collective;
+    * ``"sequence"``: q exchanged from column slices to the rank's S/M
+      query rows with every column (``all_to_all``), K/V gathered whole
+      (one ``all_gather``, a reduce-scatter backward), each rank's rows at
+      ``q_offset = index · S/M`` against the whole K/V, the output
+      exchanged back to column slices for the row-parallel ``wo``;
+    * ``"batch"``: q, k, v gathered whole (one ``all_gather``), attention
+      on every rank, the rank's output columns kept.
+
+    ``attend(q, k, v, q_offset, q_chunk)`` is the attention itself
+    (default :func:`flash_torch`; the kernel route passes the
+    ``flash_attention`` kernel with ``sequence=False``: in the reference
+    the kernel runs on q/k/v gathered whole, not through this dispatch).
+    Returns (B, S, c_out) in q's dtype, the rank's columns of the heads'
+    outputs."""
+    if attend is None:
+        def attend(qh, kh, vh, q_offset, qc):
+            return flash_torch(qh, kh, vh, causal=causal, window=window,
+                               scale=scale, q_chunk=qc, kv_chunk=kv_chunk,
+                               q_offset=q_offset)
+    B, S = q.shape[:2]
+    branch = flash_branch(tp, kv_heads, S, sequence)
+    if branch == "heads":
+        o = attend(*heads(q, k, v, slice(0, S)), 0, q_chunk)
+        return o.reshape(B, S, -1).to(q.dtype)
+    if branch == "sequence":
+        ls = S // tp.size
+        off = tp.index * ls
+        qs = tp.exchange(q, split_dim=1, concat_dim=2)      # (B, S/M, cq·M)
+        kw, vw = tp.gather_packed([k, v])
+        o = attend(*heads(qs, kw, vw, slice(off, off + ls)), off,
+                   min(q_chunk, ls))
+        return tp.exchange(o.reshape(B, ls, -1).to(q.dtype), split_dim=2,
+                           concat_dim=1)
+    qw, kw, vw = tp.gather_packed([q, k, v])
+    o = attend(*heads(qw, kw, vw, slice(0, S)), 0, q_chunk)
+    return tp.local(o.reshape(B, S, -1).to(q.dtype))
+
+
 def mla_absorbed(q_nope, q_rope, c_kv, k_rope, w_kvb, *, num_heads: int,
                  nope_dim: int, v_dim: int, causal: bool = True,
                  window: int = 0, q_chunk: int = 512,
-                 kv_chunk: int = 1024) -> torch.Tensor:
+                 kv_chunk: int = 1024, tp=None,
+                 q_offset: int = 0) -> torch.Tensor:
     """Absorbed-MLA attention over a full sequence (the reference's
     single-device ``mla_absorbed``).
 
@@ -262,7 +335,29 @@ def mla_absorbed(q_nope, q_rope, c_kv, k_rope, w_kvb, *, num_heads: int,
     weight a client (client c's rows at [c·B/C, (c+1)·B/C)).  One "kv head"
     (MQA): keys ``[c_kv | k_rope]``, queries ``[q_nope·W_k | q_rope]``,
     values the latent, through :func:`flash_torch` at the un-absorbed
-    scale 1/√(nope + rope).  Returns (B,S,H,v_dim) fp32."""
+    scale 1/√(nope + rope).  Returns (B,S,H,v_dim) fp32.
+
+    Under a train mesh's ``model`` axis (``tp``) that divides S, the
+    reference's sequence-parallel branch: q_nope / q_rope arrive as the
+    rank's heads (column-parallel ``wq_b``) and are exchanged to the
+    rank's S/M query rows with every head (one ``all_to_all``), the latent
+    stream and ``w_kvb`` (gathered whole by the caller, its LoRA folded)
+    are whole on every rank, the rows attend at ``q_offset = index ·
+    S/M``, and the output goes back to the rank's heads (an
+    ``all_to_all``) for the row-parallel ``wo``.  Otherwise the heads
+    given are the rank's and ``w_kvb`` holds their columns."""
+    if tp is not None and tp.size > 1 and q_nope.shape[1] % tp.size == 0:
+        B, S = q_nope.shape[:2]
+        ls = S // tp.size
+        nope = q_nope.shape[-1]
+        q = tp.exchange(torch.cat([q_nope, q_rope], dim=-1), split_dim=1,
+                        concat_dim=2)                       # (B, S/M, H, ·)
+        o = mla_absorbed(q[..., :nope], q[..., nope:], c_kv, k_rope, w_kvb,
+                         num_heads=num_heads, nope_dim=nope_dim, v_dim=v_dim,
+                         causal=causal, window=window,
+                         q_chunk=min(q_chunk, ls), kv_chunk=kv_chunk,
+                         q_offset=tp.index * ls)
+        return tp.exchange(o, split_dim=2, concat_dim=1)
     B, S, H, _ = q_nope.shape
     kvr = c_kv.shape[-1]
     scale = 1.0 / math.sqrt(nope_dim + q_rope.shape[-1])
@@ -275,7 +370,8 @@ def mla_absorbed(q_nope, q_rope, c_kv, k_rope, w_kvb, *, num_heads: int,
     k_eff = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :].float()
     v_eff = c_kv[:, :, None, :].float()
     out_lat = flash_torch(q_eff, k_eff, v_eff, causal=causal, window=window,
-                          scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                          scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          q_offset=q_offset)
     out_lat = out_lat.reshape(G, B // G, S, H, kvr)
     return torch.einsum("gbshk,gkhv->gbshv", out_lat, w_v).reshape(
         B, S, H, v_dim)

@@ -22,6 +22,22 @@ the partial LoRA delta included (the delta is linear, so its scale is
 applied once).  MLA's ``wq_a`` and ``wkv_a`` are column-parallel under the
 rules but a norm needs their outputs whole, so those are gathered after
 the projection, as GSPMD does in the reference.
+
+The full-sequence path (``attention_fwd``, ``mla_fwd``, ``mlp_fwd``) takes
+``tp``, a train mesh (:class:`repro_torch.topology.train.TrainParallel`),
+where the reference runs under ``jit`` with the Megatron specs: ``cfg``
+keeps the whole model's counts and the parameters are the rank's shards
+by ``params_pspecs`` (``wq wk wv w_gate w_up wq_a wq_b wkv_a wkv_b``
+column-parallel, ``wo w_down`` row-parallel, ZeRO-3's other dim over
+``data`` gathered at use).  A column-parallel projection takes its input
+through ``copy`` and a row-parallel one ends in ``reduce``; the replicated
+adapters are cut to the weight's shard (:func:`lora_proj_shard`) and the
+replicated biases to the rank's columns.  Attention dispatches as the
+reference's ``dispatch_flash`` does (head-, sequence- or batch-parallel),
+with ``qk_norm`` and RoPE applied once the heads are whole; MLA gathers
+``wq_a`` / ``wkv_a``'s outputs for their norms (one ``all_gather``) and
+runs ``mla_absorbed``'s sequence-parallel branch with ``wkv_b`` gathered
+whole and its LoRA folded.
 """
 from __future__ import annotations
 
@@ -32,11 +48,15 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.attention_core import (flash_torch, mla_absorbed,
+from repro_torch.models.attention_core import (dispatch_flash, flash_torch,
+                                              mla_absorbed,
                                               mla_ring_flash_decode,
                                               ring_attend_mask,
                                               ring_flash_decode)
-from repro_torch.peft.lora import PagedLoRA, lora_proj, paged_delta_weight
+from repro_torch.peft.lora import (COL, ROW, PagedLoRA, lora_proj,
+                                   lora_proj_shard, paged_delta_weight,
+                                   shard_adapter)
+from repro_torch.topology.train import TrainParallel
 from repro_torch.serve.kvcache import (cache_kv, cache_update, dequant,
                                        mla_cache_update)
 
@@ -49,11 +69,28 @@ def _row_out(tp, y: torch.Tensor) -> torch.Tensor:
     return y if tp is None else tp.reduce(y)
 
 
+def _train(tp) -> bool:
+    return isinstance(tp, TrainParallel)
+
+
+def _col_in(tp, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel projection's replicated input under a train mesh
+    (``copy``: its gradient's parts summed in the backward)."""
+    return tp.copy(x) if _train(tp) else x
+
+
+def _proj(x, w, adapter, use_kernel: bool, tp, kind: str) -> torch.Tensor:
+    """``lora_proj``, on the rank's shard under a train mesh."""
+    if _train(tp):
+        return lora_proj_shard(x, w, adapter, use_kernel, tp, kind)
+    return lora_proj(x, w, adapter, use_kernel)
+
+
 def dense_init(generator: torch.Generator, shape, in_dim: int,
                dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, 1/in_dim) weights, as the reference's ``dense_init``."""
     w = torch.randn(shape, generator=generator, device=generator.device)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
@@ -87,16 +124,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
 
 
+def _kept(keep):
+    """``keep(name, leaf)``, applied to each weight as it is drawn (a
+    rank's shard of it), or the identity."""
+    return keep or (lambda name, t: t)
+
+
 def init_attention(cfg: ModelConfig, generator: torch.Generator, L: int,
-                   dtype: torch.dtype) -> Params:
-    """Stacked ``(L, ...)`` attention weights of ``L`` layers."""
+                   dtype: torch.dtype, keep=None) -> Params:
+    """Stacked ``(L, ...)`` attention weights of ``L`` layers (each
+    projection through ``keep`` as soon as it is drawn)."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = generator.device
+    k = _kept(keep)
     p = {
-        "wq": dense_init(generator, (L, d, H * hd), d, dtype),
-        "wk": dense_init(generator, (L, d, K * hd), d, dtype),
-        "wv": dense_init(generator, (L, d, K * hd), d, dtype),
-        "wo": dense_init(generator, (L, H * hd, d), H * hd, dtype),
+        "wq": k("wq", dense_init(generator, (L, d, H * hd), d, dtype)),
+        "wk": k("wk", dense_init(generator, (L, d, K * hd), d, dtype)),
+        "wv": k("wv", dense_init(generator, (L, d, K * hd), d, dtype)),
+        "wo": k("wo", dense_init(generator, (L, H * hd, d), H * hd, dtype)),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
@@ -107,27 +152,33 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator, L: int,
     return p
 
 
-def _qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
-         use_kernel: bool = False, tp=None):
-    """Project x (B,S,d) to roped q (B,S,H,hd) and k, v (B,S,K,hd) (the
-    rank's heads under ``tp``; the replicated biases cut to them)."""
-    B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _qkv_cols(cfg: ModelConfig, p: Params, x, adapters, use_kernel: bool,
+              tp) -> tuple:
+    """Project x (B,S,d) to q, k, v columns, biases added (the rank's
+    columns under ``tp``, the replicated biases cut to them)."""
     a = adapters or {}
-    q = lora_proj(x, p["wq"], a.get("wq"), use_kernel)
-    k = lora_proj(x, p["wk"], a.get("wk"), use_kernel)
-    v = lora_proj(x, p["wv"], a.get("wv"), use_kernel)
+    xi = _col_in(tp, x)
+    q = _proj(xi, p["wq"], a.get("wq"), use_kernel, tp, COL)
+    k = _proj(xi, p["wk"], a.get("wk"), use_kernel, tp, COL)
+    v = _proj(xi, p["wv"], a.get("wv"), use_kernel, tp, COL)
     if cfg.qkv_bias:
         cut = (lambda b: b) if tp is None else tp.local
         q, k, v = q + cut(p["bq"]), k + cut(p["bk"]), v + cut(p["bv"])
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    return q, k, v
+
+
+def _heads(cfg: ModelConfig, p: Params, q, k, v, rope_q, rope_k) -> tuple:
+    """Columns of whole heads to roped (B,S,H',hd) q and k and (B,S,K',hd)
+    v: ``qk_norm`` per head, RoPE by the (cos, sin) tables of q's and k's
+    positions."""
+    hd = cfg.head_dim
+    q = q.reshape(*q.shape[:2], -1, hd)
+    k = k.reshape(*k.shape[:2], -1, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return (apply_rope(q, *rope_q), apply_rope(k, *rope_k),
+            v.reshape(*v.shape[:2], -1, hd))
 
 
 def causal_mask(S: int, T: int, window: int = 0, device=None) -> torch.Tensor:
@@ -141,37 +192,58 @@ def causal_mask(S: int, T: int, window: int = 0, device=None) -> torch.Tensor:
     return m
 
 
+def _dense_attend(qh, kh, vh, window: int) -> torch.Tensor:
+    """Dense causal attention of (B,S,H,hd) q over (B,S,K,hd) k/v, fp32."""
+    B, S, H, hd = qh.shape
+    K = kh.shape[2]
+    g = H // K
+    qf = qh.float().reshape(B, S, K, g, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qf, kh.float()).reshape(B, H, S, S)
+    s = s * (1.0 / math.sqrt(hd))
+    mask = causal_mask(S, S, window, qh.device)
+    s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    w = torch.softmax(s, dim=-1).reshape(B, K, g, S, S)
+    return torch.einsum("bkgst,btkh->bskgh", w, vh.float()).reshape(B, S, H, hd)
+
+
 def attention_fwd(cfg: ModelConfig, p: Params, x, adapters=None,
-                  positions=None, use_kernel: bool = False) -> torch.Tensor:
+                  positions=None, use_kernel: bool = False,
+                  tp=None) -> torch.Tensor:
     """Full-sequence causal attention (train / eval).  x: (B,S,d).
 
     Three routes, as in the reference: the ``flash_attention`` kernel
     (``use_kernel``; any S), chunked ``flash_torch`` when
-    ``S % min(S, 512) == 0``, and dense einsum attention otherwise.
+    ``S % min(S, 512) == 0`` (through :func:`dispatch_flash`, which under
+    a train mesh ``tp`` picks the head-, sequence- or batch-parallel
+    branch), and dense einsum attention otherwise.  Under ``tp`` the kernel
+    and dense routes run on the rank's heads when the axis divides the KV
+    heads and on q/k/v gathered whole otherwise, as GSPMD runs the
+    reference's (no dispatch there).
     """
     B, S, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q, k, v = _qkv(cfg, p, x, adapters, positions, use_kernel)
-    if use_kernel:
-        o = kops.flash_attention(q, k, v, causal=True,
-                                 window=cfg.sliding_window)
-    elif S % min(S, 512) == 0:
-        o = flash_torch(q, k, v, causal=True, window=cfg.sliding_window,
-                        q_chunk=512, kv_chunk=1024)
-    else:
-        g = H // K
-        qf = q.float().reshape(B, S, K, g, hd)
-        s = torch.einsum("bskgh,btkh->bkgst", qf, k.float()).reshape(B, H, S, S)
-        s = s * (1.0 / math.sqrt(hd))
-        mask = causal_mask(S, S, cfg.sliding_window, x.device)
-        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
-        w = torch.softmax(s, dim=-1).reshape(B, K, g, S, S)
-        o = torch.einsum("bkgst,btkh->bskgh", w, v.float())
-    o = o.reshape(B, S, H * hd).to(x.dtype)
     a = adapters or {}
-    return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
+    q, k, v = _qkv_cols(cfg, p, x, adapters, use_kernel, tp)
+    cos, sin = rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+
+    def heads(qc, kc, vc, rows):
+        return _heads(cfg, p, qc, kc, vc, (cos[rows], sin[rows]), (cos, sin))
+
+    window = cfg.sliding_window
+    if use_kernel:
+        def attend(qh, kh, vh, q_offset, qc):
+            return kops.flash_attention(qh, kh, vh, causal=True, window=window)
+    elif S % min(S, 512) == 0:
+        attend = None
+    else:
+        def attend(qh, kh, vh, q_offset, qc):
+            return _dense_attend(qh, kh, vh, window)
+    o = dispatch_flash(q, k, v, heads, kv_heads=cfg.num_kv_heads,
+                       tp=tp if _train(tp) else None, attend=attend,
+                       sequence=attend is None, causal=True, window=window,
+                       q_chunk=512, kv_chunk=1024).to(x.dtype)
+    return _row_out(tp, _proj(o, p["wo"], a.get("wo"), use_kernel, tp, ROW))
 
 
 def check_decode_impl(decode_impl: str) -> None:
@@ -200,7 +272,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
     B, C, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     qpos = cache["pos"].long()[:, None] + torch.arange(C, device=x.device)[None, :]
-    q, k, v = _qkv(cfg, p, x, adapters, qpos, tp=tp)
+    rope = rope_freqs(cfg.head_dim, cfg.rope_theta, qpos)
+    q, k, v = _heads(cfg, p, *_qkv_cols(cfg, p, x, adapters, False, tp), rope,
+                     rope)
     cache = cache_update(cfg, cache, k, v, n_tokens)
     if decode_impl == "dense":
         kc, vc = cache_kv(cfg, cache)
@@ -231,7 +305,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x, cache: Dict,
 # -- MLA: multi-head latent attention (DeepSeek-V3) ---------------------------
 
 def init_mla(cfg: ModelConfig, generator: torch.Generator, L: int,
-             dtype: torch.dtype) -> Params:
+             dtype: torch.dtype, keep=None) -> Params:
     """Stacked ``(L, ...)`` MLA weights of ``L`` layers: the low-rank query
     path (``wq_a``, ``q_a_norm``, ``wq_b``), the joint latent projection
     ``wkv_a`` (latent plus the shared RoPE key), its norm, the latent
@@ -241,35 +315,41 @@ def init_mla(cfg: ModelConfig, generator: torch.Generator, L: int,
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     H = cfg.num_heads
     dev = generator.device
+    k = _kept(keep)
     return {
-        "wq_a": dense_init(generator, (L, d, qr), d, dtype),
+        "wq_a": k("wq_a", dense_init(generator, (L, d, qr), d, dtype)),
         "q_a_norm": torch.ones((L, qr), dtype=dtype, device=dev),
-        "wq_b": dense_init(generator, (L, qr, H * (nope + rope)), qr, dtype),
-        "wkv_a": dense_init(generator, (L, d, kvr + rope), d, dtype),
+        "wq_b": k("wq_b", dense_init(generator, (L, qr, H * (nope + rope)),
+                                     qr, dtype)),
+        "wkv_a": k("wkv_a", dense_init(generator, (L, d, kvr + rope), d,
+                                       dtype)),
         "kv_a_norm": torch.ones((L, kvr), dtype=dtype, device=dev),
-        "wkv_b": dense_init(generator, (L, kvr, H * (nope + vd)), kvr, dtype),
-        "wo": dense_init(generator, (L, H * vd, d), H * vd, dtype),
+        "wkv_b": k("wkv_b", dense_init(generator, (L, kvr, H * (nope + vd)),
+                                       kvr, dtype)),
+        "wo": k("wo", dense_init(generator, (L, H * vd, d), H * vd, dtype)),
     }
 
 
 def _mla_qkv(cfg: ModelConfig, p: Params, x, adapters, positions,
              use_kernel: bool = False, tp=None):
     """x (B,S,d) -> q_nope (B,S,H,nope), roped q_rope (B,S,H,rope), the
-    normed latent c_kv (B,S,kvr) and the roped shared key k_rope (B,S,rope)."""
+    normed latent c_kv (B,S,kvr) and the roped shared key k_rope (B,S,rope)
+    (the rank's heads under ``tp``; ``wq_a`` / ``wkv_a``'s outputs gathered
+    whole for their norms, in one collective under a train mesh)."""
     B, S, _ = x.shape
-    H = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     a = adapters or {}
-    q = lora_proj(x, p["wq_a"], a.get("wq_a"), use_kernel)
-    if tp is not None:
-        q = tp.gather(q)
+    xi = _col_in(tp, x)
+    q = _proj(xi, p["wq_a"], a.get("wq_a"), use_kernel, tp, COL)
+    kv = _proj(xi, p["wkv_a"], a.get("wkv_a"), use_kernel, tp, COL)
+    if _train(tp):
+        q, kv = tp.gather_packed([q, kv])
+    elif tp is not None:
+        q, kv = tp.gather(q), tp.gather(kv)
     q = rmsnorm(q, p["q_a_norm"], cfg.norm_eps)
-    q = lora_proj(q, p["wq_b"], a.get("wq_b"), use_kernel).reshape(
-        B, S, H, nope + rope)
+    q = _proj(q, p["wq_b"], a.get("wq_b"), use_kernel, tp, COL).reshape(
+        B, S, -1, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    kv = lora_proj(x, p["wkv_a"], a.get("wkv_a"), use_kernel)
-    if tp is not None:
-        kv = tp.gather(kv)
     c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
     cos, sin = rope_freqs(rope, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -290,19 +370,34 @@ def fold_lora(w: torch.Tensor, adapter: Dict) -> torch.Tensor:
 
 
 def _mla_expand_kv(cfg: ModelConfig, p: Params, c_kv, adapters,
-                   use_kernel: bool = False):
+                   use_kernel: bool = False, tp=None):
     """The latent c_kv (B,T,kvr) expanded to per-head k_nope (B,T,H,nope)
-    and v (B,T,H,vd) through ``wkv_b``."""
+    and v (B,T,H,vd) through ``wkv_b`` (the rank's heads under ``tp``)."""
     B, T, _ = c_kv.shape
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     a = adapters or {}
-    kv = lora_proj(c_kv, p["wkv_b"], a.get("wkv_b"), use_kernel).reshape(
-        B, T, cfg.num_heads, nope + vd)
+    kv = _proj(c_kv, p["wkv_b"], a.get("wkv_b"), use_kernel, tp,
+               COL).reshape(B, T, -1, nope + vd)
     return kv[..., :nope], kv[..., nope:]
 
 
+def _absorbed_weight(p: Params, a_kvb, tp, sequence: bool) -> torch.Tensor:
+    """``wkv_b`` with its LoRA folded, for the absorbed route: whole on
+    every rank for the sequence-parallel branch (gathered over ``model``:
+    the base is frozen), else the rank's heads' columns with the adapter's
+    B cut to them (ZeRO-3's ``data`` cut gathered first)."""
+    if not _train(tp):
+        return p["wkv_b"] if a_kvb is None else fold_lora(p["wkv_b"], a_kvb)
+    with tp.full_weight(p["wkv_b"], 0) as w:
+        if sequence:
+            w = tp.all_gather(w, "model", w.dim() - 1)
+        else:
+            a_kvb = shard_adapter(a_kvb, tp, COL, w.shape[-1])
+        return w if a_kvb is None else fold_lora(w, a_kvb)
+
+
 def mla_fwd(cfg: ModelConfig, p: Params, x, adapters=None, positions=None,
-            use_kernel: bool = False) -> torch.Tensor:
+            use_kernel: bool = False, tp=None) -> torch.Tensor:
     """MLA over a full sequence (train / prefill), x (B,S,d), the
     reference's two routes: when ``S % min(S, 512) == 0`` the absorbed
     route (:func:`~repro_torch.models.attention_core.mla_absorbed`: MQA of
@@ -314,26 +409,33 @@ def mla_fwd(cfg: ModelConfig, p: Params, x, adapters=None, positions=None,
     run on the decode path.  ``use_kernel`` sends ``wq_a``, ``wq_b``,
     ``wkv_a``, ``wo`` (and the expanded route's ``wkv_b``) through
     ``lora_matmul``; the attention itself is plain on both routes, as in
-    the reference."""
+    the reference.  Under a train mesh ``tp`` the absorbed route is
+    sequence-parallel where the ``model`` axis divides S and
+    head-parallel (the rank's heads, no collective) otherwise; the
+    expanded route is head-parallel."""
     B, S, _ = x.shape
-    H, nope, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)
     a = adapters or {}
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, adapters, positions,
-                                            use_kernel)
+                                            use_kernel, tp)
+    H = q_nope.shape[2]
     if S % min(S, 512) == 0:
         a_kvb = a.get("wkv_b")
         if isinstance(a_kvb, PagedLoRA):
             raise NotImplementedError(
                 "paged multi-tenant adapters only run through the decode "
                 "path (mla_decode); mla_fwd is the training/full-seq path")
-        w_kvb = p["wkv_b"] if a_kvb is None else fold_lora(p["wkv_b"], a_kvb)
+        sequence = _train(tp) and tp.size > 1 and S % tp.size == 0
+        w_kvb = _absorbed_weight(p, a_kvb, tp, sequence)
         o = mla_absorbed(q_nope, q_rope, c_kv.float(), k_rope.float(), w_kvb,
-                         num_heads=H, nope_dim=nope, v_dim=vd, causal=True,
-                         window=cfg.sliding_window)
+                         num_heads=H * (tp.size if sequence else 1),
+                         nope_dim=nope, v_dim=vd, causal=True,
+                         window=cfg.sliding_window,
+                         tp=tp if sequence else None)
     else:
-        k_nope, v = _mla_expand_kv(cfg, p, c_kv, adapters, use_kernel)
+        k_nope, v = _mla_expand_kv(cfg, p, c_kv, adapters, use_kernel, tp)
         scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
         s = (torch.einsum("bshc,bthc->bhst", q_nope.float(), k_nope.float())
              + torch.einsum("bshc,btc->bhst", q_rope.float(), k_rope.float()))
@@ -342,7 +444,7 @@ def mla_fwd(cfg: ModelConfig, p: Params, x, adapters=None, positions=None,
         s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
         o = torch.einsum("bhst,bthv->bshv", torch.softmax(s, dim=-1), v.float())
     o = o.reshape(B, S, H * vd).to(x.dtype)
-    return lora_proj(o, p["wo"], a.get("wo"), use_kernel)
+    return _row_out(tp, _proj(o, p["wo"], a.get("wo"), use_kernel, tp, ROW))
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
@@ -424,22 +526,26 @@ def mla_decode(cfg: ModelConfig, p: Params, x, cache: Dict, adapters=None,
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, L: int,
-             dtype: torch.dtype, d_ff: int = 0) -> Params:
+             dtype: torch.dtype, d_ff: int = 0, keep=None) -> Params:
     """Stacked SwiGLU weights of ``L`` layers, ``d_ff`` wide (default the
     config's; a MoE's shared expert passes its own)."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
+    k = _kept(keep)
     return {
-        "w_gate": dense_init(generator, (L, d, ff), d, dtype),
-        "w_up": dense_init(generator, (L, d, ff), d, dtype),
-        "w_down": dense_init(generator, (L, ff, d), ff, dtype),
+        "w_gate": k("w_gate", dense_init(generator, (L, d, ff), d, dtype)),
+        "w_up": k("w_up", dense_init(generator, (L, d, ff), d, dtype)),
+        "w_down": k("w_down", dense_init(generator, (L, ff, d), ff, dtype)),
     }
 
 
 def mlp_fwd(p: Params, x, adapters=None, use_kernel: bool = False, tp=None):
     """SwiGLU with the SiLU taken in fp32 (``w_down``'s partial outputs
-    reduced under ``tp``)."""
+    reduced under ``tp``; a train mesh's ``w_gate`` / ``w_up`` take x
+    through ``copy``)."""
     a = adapters or {}
-    g = lora_proj(x, p["w_gate"], a.get("w_gate"), use_kernel)
-    u = lora_proj(x, p["w_up"], a.get("w_up"), use_kernel)
+    xi = _col_in(tp, x)
+    g = _proj(xi, p["w_gate"], a.get("w_gate"), use_kernel, tp, COL)
+    u = _proj(xi, p["w_up"], a.get("w_up"), use_kernel, tp, COL)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return _row_out(tp, lora_proj(h, p["w_down"], a.get("w_down"), use_kernel))
+    return _row_out(tp, _proj(h, p["w_down"], a.get("w_down"), use_kernel,
+                              tp, ROW))

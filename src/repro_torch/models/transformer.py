@@ -91,8 +91,9 @@ def num_shared_applications(cfg: ModelConfig) -> int:
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
-                dtype: torch.dtype, experts=None) -> Params:
-    """``L`` stacked layers of one kind."""
+                dtype: torch.dtype, experts=None, keep=None) -> Params:
+    """``L`` stacked layers of one kind (a dense or MLA layer's weights
+    through ``keep(sub, name, leaf)`` as each is drawn)."""
     dev = gen.device
     d = cfg.d_model
     if kind == "mamba":
@@ -103,18 +104,21 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
                 "ln2": torch.ones((L, d), dtype=dtype, device=dev),
                 "mix": Rwkv.init_rwkv6(cfg, gen, L, dtype)}
     attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
+
+    def sub(name):
+        return None if keep is None else (lambda leaf, t: keep(name, leaf, t))
     blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
-           "attn": attn_init(cfg, gen, L, dtype),
+           "attn": attn_init(cfg, gen, L, dtype, keep=sub("attn")),
            "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
     if kind.endswith("moe"):
         blk["moe"] = Moe.init_moe(cfg, gen, L, dtype, experts)
     else:
-        blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype)
+        blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype, keep=sub("mlp"))
     return blk
 
 
 def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
-         experts: Optional[Tuple[int, int]] = None) -> Params:
+         experts: Optional[Tuple[int, int]] = None, keep=None) -> Params:
     """Random weights from a seeded ``torch.Generator``, with the
     reference's distributions: embedding N(0, 0.02²), projections
     N(0, 1/fan_in), norms one.  Expert stacks are drawn a few experts at a
@@ -122,51 +126,107 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     ``experts`` = (e0, e1) keeps only those experts (one expert-parallel
     rank's, equal to the whole model's: every rank draws the same
     stream).  A front end adds ``frontend_proj`` (frontend_dim, d); the
-    hybrid its ``shared_blk``, made once and unstacked."""
+    hybrid its ``shared_blk``, made once and unstacked.  ``keep(path,
+    leaf)`` takes each embedding, head and dense or MLA weight as soon as
+    it is drawn and returns what the tree keeps of it (a train mesh rank's
+    shard, :func:`repro_torch.topology.train.init_keep`): the whole model
+    is never held, and each shard equals the same slice of the whole
+    init."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, V = cfg.d_model, cfg.vocab_size
+    kept = keep or (lambda path, t: t)
     params: Params = {
-        "embed": (torch.randn((V, d), generator=gen, device=dev) * 0.02).to(dtype),
+        "embed": kept(("embed",), torch.randn(
+            (V, d), generator=gen, device=dev).mul_(0.02).to(dtype)),
         "final_norm": torch.ones((d,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = Lyr.dense_init(gen, (d, V), d, dtype)
+        params["lm_head"] = kept(("lm_head",),
+                                 Lyr.dense_init(gen, (d, V), d, dtype))
     if cfg.frontend:
         fd = cfg.frontend_dim or d
         params["frontend_proj"] = Lyr.dense_init(gen, (fd, d), fd, dtype)
-    params["blocks"] = tuple(_init_block(cfg, kind, gen, L, dtype, experts)
-                             for kind, L in layer_plan(cfg) if kind != "shared")
+    kinds = [(kind, L) for kind, L in layer_plan(cfg) if kind != "shared"]
+    params["blocks"] = tuple(
+        _init_block(cfg, kind, gen, L, dtype, experts,
+                    None if keep is None else
+                    (lambda sub, name, t, i=i: keep(("blocks", i, sub, name), t)))
+        for i, (kind, L) in enumerate(kinds))
     if cfg.family == "hybrid":
         params["shared_blk"] = _layer(_init_block(cfg, "shared", gen, 1, dtype), 0)
     return params
 
 
-def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
+def _vocab_cut(cfg: ModelConfig, rows: int, tp) -> bool:
+    """Whether a table of ``rows`` vocab rows (or columns) is the rank's
+    ``model`` slice (the rules cut it where the axis divides V)."""
+    return tp is not None and tp.size > 1 and rows * tp.size == cfg.vocab_size
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict,
+                 tp=None) -> torch.Tensor:
     """(B, S, d) inputs: the projected ``patch_embeds`` (vision) before the
     token embeddings, or the projected ``frame_embeds`` (audio) in place of
-    tokens, each cast to the model dtype after the product."""
+    tokens, each cast to the model dtype after the product.  Under a train
+    mesh ``tp`` whose ``model`` axis cut the embedding's vocab rows, the
+    lookup is vocab-parallel: each rank looks up the tokens in its rows,
+    zeroes the others and one ``all_reduce`` sums (exact: one rank holds
+    each row)."""
     dtype = torch_dtype(cfg.dtype)
     parts = []
     key = {"vision": "patch_embeds", "audio": "frame_embeds"}.get(cfg.frontend)
     if key in batch:
         parts.append(matmul(batch[key], params["frontend_proj"]).to(dtype))
     if "tokens" in batch:
-        parts.append(params["embed"][batch["tokens"]])
+        emb, toks = params["embed"], batch["tokens"]
+        n = emb.shape[0]
+        if _vocab_cut(cfg, n, tp):
+            t = toks.long() - tp.index * n
+            mine = (t >= 0) & (t < n)
+            rows = emb[t.clamp(0, n - 1)] * mine[..., None].to(emb.dtype)
+            parts.append(tp.reduce(rows))
+        else:
+            parts.append(emb[toks])
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """(B, S, V) logits; under a train mesh ``tp`` whose ``model`` axis cut
+    the head's vocab the rank's columns are gathered (no gradient: the
+    prefill's whole logits on every rank)."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return hidden @ head
+    out = hidden @ head
+    if _vocab_cut(cfg, head.shape[1], tp):
+        out = tp.all_gather(out, "model", out.dim() - 1)
+    return out
+
+
+TRAIN_MESH_KINDS = ("dense", "mla_dense")
+
+
+def check_train_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise unless a train mesh of more than one rank can run ``cfg``:
+    the dense GQA and dense MLA layers only (``ROADMAP.md`` item 9d holds
+    the other families)."""
+    if mesh is None or mesh.size == 1:
+        return
+    kinds = {k for k, n in layer_plan(cfg) if n}
+    if cfg.frontend or not kinds <= set(TRAIN_MESH_KINDS):
+        raise ValueError(
+            f"{cfg.name}: training on a mesh of {mesh.size} ranks runs the "
+            f"dense GQA and dense MLA layers only, not {sorted(kinds)}"
+            f"{' with a ' + cfg.frontend + ' front end' if cfg.frontend else ''}"
+            " (ROADMAP.md item 9d)")
 
 
 def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
-               use_kernels: bool, groups: int = 0):
+               use_kernels: bool, groups: int = 0, tp=None):
     """One layer over a full sequence.  Returns (x, aux): a MoE layer's
     load-balancing loss (per cohort client, (groups,), when ``groups``),
-    else None."""
+    else None.  ``tp``: a train mesh (dense and MLA layers only)."""
     a = a or {}
     if kind == "mamba":
         h = Ssm.mamba2_fwd(cfg, p["mixer"], Lyr.rmsnorm(x, p["ln"], cfg.norm_eps),
@@ -182,20 +242,20 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
         return x + h, None
     attn_fn = Lyr.mla_fwd if kind.startswith("mla") else Lyr.attention_fwd
     h = attn_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                a.get("attn"), use_kernel=use_kernels)
+                a.get("attn"), use_kernel=use_kernels, tp=tp)
     x = x + h
     xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
         h, aux = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"), groups=groups,
                              use_kernel=use_kernels)
         return x + h, aux
-    h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), use_kernel=use_kernels)
+    h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), use_kernel=use_kernels, tp=tp)
     return x + h, None
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict,
             adapters: Optional[Dict] = None, use_kernels: bool = False,
-            cohort: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+            cohort: int = 0, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over ``batch["tokens"]: (B, S)`` (and a front
     end's ``patch_embeds`` or ``frame_embeds``).  Returns
     (final hidden (B,S,d), aux loss): the sum of the MoE layers'
@@ -212,8 +272,15 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
     takes ``adapters["shared_blk"]`` as they are: 2-D leaves, or (C, r, d)
     client stacks in a cohort (no layer axis to index).  The reference's
     ``remat`` has no counterpart: autograd keeps the activations (a Mamba2
-    layer's intra-chunk tensors excepted, :mod:`repro_torch.models.ssm`)."""
-    x = embed_inputs(cfg, params, batch)
+    layer's intra-chunk tensors excepted, :mod:`repro_torch.models.ssm`).
+    ``tp`` (a train mesh, :class:`repro_torch.topology.train.
+    TrainParallel`; ``params`` the rank's shards) runs the dense and MLA
+    segments tensor-parallel (:mod:`repro_torch.models.layers`) after a
+    vocab-parallel embedding; the hidden states come back whole on every
+    rank."""
+    if tp is not None:
+        check_train_mesh(cfg, tp.mesh)
+    x = embed_inputs(cfg, params, batch, tp)
     a_blocks = (adapters or {}).get("blocks", ())
     aux = torch.zeros((cohort,) if cohort else (), dtype=torch.float32,
                       device=x.device)
@@ -229,7 +296,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
         for i in range(count):
             x, aux_l = _block_fwd(cfg, kind, _layer(seg_p, i), x,
                                   _layer(seg_a, i, 1 if cohort else 0),
-                                  use_kernels, cohort)
+                                  use_kernels, cohort, tp)
             if aux_l is not None:
                 aux = aux + aux_l
         seg_i += 1

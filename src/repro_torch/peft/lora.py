@@ -160,6 +160,46 @@ def lora_proj(x: torch.Tensor, w: torch.Tensor,
     return matmul(x, w) + lora_delta(x, adapter)
 
 
+# a weight's parallel kind: its columns (out) or its rows (in) cut over model
+COL, ROW = "col", "row"
+
+
+def shard_adapter(adapter: Optional[Dict], tp, kind: str, width: int
+                  ) -> Optional[Dict]:
+    """A replicated classic adapter cut to its weight's ``model`` shard,
+    ``width`` wide on the cut dim: B's rows under a column-parallel weight,
+    A's columns under a row-parallel one (a plain ``narrow``: each rank's
+    gradient is its part of the whole, :mod:`repro_torch.topology.train`).
+    The scale is kept: a row-parallel partial delta is summed with the
+    base's partial product, so it is applied once."""
+    if adapter is None or tp is None or tp.size == 1:
+        return adapter
+    key, dim = ("B", -2) if kind == COL else ("A", -1)
+    whole = adapter[key].shape[dim]
+    if width * tp.size != whole:
+        raise ValueError(
+            f"a {kind}-parallel weight {width} wide on a model axis of "
+            f"{tp.size} under an adapter {whole} wide: the training path "
+            "takes weights the rules cut over model")
+    return dict(adapter, **{key: tp.local(adapter[key], dim)})
+
+
+def lora_proj_shard(x: torch.Tensor, w: torch.Tensor,
+                    adapter: Optional[Dict], use_kernel: bool, tp,
+                    kind: str) -> torch.Tensor:
+    """``lora_proj`` on the rank's shard of a Megatron weight under a train
+    mesh (``tp`` a :class:`repro_torch.topology.train.TrainParallel`):
+    column-parallel (``kind`` COL, w (din, dout/M), the rank's output
+    columns) or row-parallel (ROW, w (din/M, dout), x the rank's input
+    columns, a partial output the caller reduces).  Under ZeRO-3 the
+    weight's other dim is gathered over ``data`` first, and only its shard
+    is kept for the backward (:meth:`TrainParallel.full_weight`)."""
+    with tp.full_weight(w, 0 if kind == COL else -1) as wf:
+        width = wf.shape[-1] if kind == COL else wf.shape[-2]
+        return lora_proj(x, wf, shard_adapter(adapter, tp, kind, width),
+                         use_kernel)
+
+
 def target_leaves(params: Any, targets: Sequence[str]
                   ) -> List[Tuple[Tuple, torch.Tensor]]:
     """All (path, leaf) pairs whose last key is in ``targets`` and that are

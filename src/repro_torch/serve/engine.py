@@ -47,7 +47,7 @@ z, x and dt, B and C whole).  Expert stacks that already hold E/N experts
 (``T.init(..., experts=)``: a rank that never makes the others' experts)
 are kept as this rank's.  A mesh of more than one rank runs the steps
 uncaptured: gloo collectives cannot be captured into a CUDA graph (capture
-under NCCL is ``ROADMAP.md`` item 9c).
+under NCCL is ``ROADMAP.md`` item 9d).
 
 With ``record_steps=True`` the engine logs every step's width, its time
 (CUDA events around each replay on the card, a burst's time split evenly

@@ -96,28 +96,56 @@ class Mesh:
     # -- collectives over one axis -------------------------------------------
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
         """The tensor a collective runs on: gloo moves CUDA tensors through
-        the host anyway, so they go to a CPU copy here."""
-        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+        the host anyway, so they go to a pinned CPU copy here (a new
+        tensor; page-locked, so both copies run at the link's rate and the
+        copy back to the card does not hold the host)."""
+        if not (self.backend == "gloo" and t.is_cuda):
+            return t
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t)
+
+    @staticmethod
+    def _like(src: torch.Tensor) -> torch.Tensor:
+        """A receive buffer like ``src`` (pinned where ``src`` is)."""
+        return torch.empty(src.shape, dtype=src.dtype,
+                           pin_memory=src.is_pinned())
+
+    @staticmethod
+    def _back(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return t.to(device, non_blocking=True)
 
     def all_reduce(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """The sum of ``t`` over ``axis`` (a new tensor; ``t`` is kept)."""
         if self.axis_size(axis) == 1:
             return t
-        buf = self._stage(t).clone()
+        buf = self._stage(t)
+        if buf is t:
+            buf = t.clone()
         dist.all_reduce(buf, group=self._groups[axis])
-        return buf.to(t.device)
+        return self._back(buf, t.device)
+
+    def all_reduce_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every axis (the whole world: a mesh spans
+        it) in one ``all_reduce`` (a new tensor; ``t`` is kept)."""
+        if self.size == 1:
+            return t
+        buf = self._stage(t)
+        if buf is t:
+            buf = t.clone()
+        dist.all_reduce(buf)
+        return self._back(buf, t.device)
 
     def all_gather(self, t: torch.Tensor, axis: str = "model",
                    dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` on ``axis``, concatenated along ``dim`` in
-        axis-index order."""
+        axis-index order (on ``t``'s device)."""
         n = self.axis_size(axis)
         if n == 1:
             return t
-        src = self._stage(t).contiguous()
-        parts = [torch.empty_like(src) for _ in range(n)]
+        src = self._stage(t.contiguous())
+        parts = [self._like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=self._groups[axis])
-        return torch.cat(parts, dim=dim).to(t.device)
+        return torch.cat([self._back(p, t.device) for p in parts], dim=dim)
 
     def all_to_all(self, t: torch.Tensor, axis: str = "model",
                    split_dim: int = 0, concat_dim: int = 0) -> torch.Tensor:
@@ -125,17 +153,18 @@ class Mesh:
         ``t`` is cut into ``n`` equal blocks along ``split_dim``, block j
         goes to the rank of index j on ``axis``, and the blocks this rank
         receives are concatenated along ``concat_dim`` in axis-index order.
-        One ``all_to_all_single`` (through a CPU copy under gloo)."""
+        One ``all_to_all_single`` (through a pinned CPU copy under gloo)."""
         n = self.axis_size(axis)
         if n == 1:
             return t
-        src = self._stage(t).movedim(split_dim, 0)
+        src = t.movedim(split_dim, 0)
         src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
-        src = src.contiguous()
-        out = torch.empty_like(src)
+        src = self._stage(src.contiguous())
+        out = self._like(src)
         dist.all_to_all_single(out, src, group=self._groups[axis])
-        parts = [b.movedim(0, split_dim) for b in out.unbind(0)]
-        return torch.cat(parts, dim=concat_dim).to(t.device)
+        out = self._back(out, t.device)
+        return torch.cat([b.movedim(0, split_dim) for b in out.unbind(0)],
+                         dim=concat_dim)
 
     def all_gather_packed(self, ts: Sequence[torch.Tensor],
                           axis: str = "model") -> Tuple[torch.Tensor, ...]:

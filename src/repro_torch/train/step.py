@@ -14,6 +14,21 @@ cohort runner stacks only ``tokens`` and ``loss_mask``.
 next-token logits (RWKV6's recurrence through the ``wkv6`` kernel with
 ``use_kernels``; MoE and MLA models alike); ``make_serve_step`` the chunked
 decode step against a ring cache that serves a batch's next-token logits.
+
+The train, eval and prefill steps take ``mesh=``, a train mesh ``(data,
+model)`` (``topology.make_host_mesh(model=)``), where the reference runs
+``launch/dryrun.py``'s builds under ``jit``: each rank is given its
+shards of the params and its rows of the batch
+(:func:`repro_torch.topology.train.shard_params` / ``shard_batch``) and
+the whole, replicated adapters and optimizer state.  The dense GQA and
+dense MLA models run tensor-parallel over ``model``
+(:mod:`repro_torch.models.layers`), ZeRO-3 above the rules' threshold;
+the loss is the global masked mean.  Each rank's adapter gradient is its
+part of the whole; the parts are summed over ``model`` and ``data`` in
+one packed ``all_reduce`` after the last microbatch, and ``b_only``, the
+clip and AdamW then act on the whole gradients, so the adapters stay
+equal on every rank.  Other families raise on a mesh of more than one
+rank (``ROADMAP.md`` item 9d).
 """
 from __future__ import annotations
 
@@ -24,11 +39,20 @@ import torch
 from repro_torch.common.config import ModelConfig, OptimConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
+from repro_torch.topology.train import train_parallel
 from repro_torch.train.loss import chunked_ce
 
 
+def _mesh_parallel(cfg: ModelConfig, mesh):
+    """The train mesh as the layers use it, or None without one."""
+    if mesh is None:
+        return None
+    T.check_train_mesh(cfg, mesh)
+    return train_parallel(cfg, mesh)
+
+
 def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
-            loss_chunk: int = 512, use_kernels: bool = False):
+            loss_chunk: int = 512, use_kernels: bool = False, tp=None):
     """(loss, metrics) of one batch ``{"tokens", "loss_mask"}``: the masked
     CE plus ``router_aux_coef · aux`` when the config sets the coefficient
     (the MoE layers' load-balancing loss), as in the reference;
@@ -38,9 +62,9 @@ def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
     vision batch's P ``patch_embeds`` positions are dropped from the hidden
     states before the CE, so the loss is over the text tail only.
     The reference's ``remat`` has no counterpart: autograd keeps the
-    activations."""
+    activations.  ``tp``: a train mesh (the module docstring)."""
     hidden, aux = T.forward(cfg, params, batch, adapters,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, tp=tp)
     tokens = batch.get("labels", batch.get("tokens"))
     mask = batch.get("loss_mask")
     if mask is None:
@@ -48,7 +72,8 @@ def loss_fn(cfg: ModelConfig, params, adapters, batch: Dict,
                           device=tokens.device)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         hidden = hidden[:, batch["patch_embeds"].shape[1]:]
-    loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask, loss_chunk)
+    loss, metrics = chunked_ce(cfg, params, hidden, tokens, mask, loss_chunk,
+                               tp=tp)
     if cfg.router_aux_coef:
         loss = loss + cfg.router_aux_coef * aux
     metrics["aux"] = aux
@@ -77,27 +102,36 @@ def _unflatten(tree: Dict, leaves):
 
 def make_train_step(cfg: ModelConfig, optim: OptimConfig,
                     loss_chunk: int = 512, use_kernels: bool = False,
-                    b_only: bool = False, grad_accum: int = 1):
+                    b_only: bool = False, grad_accum: int = 1, mesh=None):
     """Returns ``train_step(params, adapters, opt_state, batch) ->
     (adapters, opt_state, metrics)``.
 
     ``b_only`` freezes A (FFA-LoRA).  ``grad_accum`` splits the batch into
     that many microbatches along axis 0, sums their fp32 gradients and
-    divides by the count; metrics are the microbatch mean.
+    divides by the count; metrics are the microbatch mean.  ``mesh``: a
+    train mesh (the module docstring); ``params`` and ``batch`` are then
+    the rank's shards and rows (``shard_batch(..., grad_accum)`` keeps
+    each microbatch's rows together), and the step's ``tp`` (its
+    collective counts) is ``train_step.tp``.  ``train_step.grads(params,
+    adapters, batch)`` returns (metrics, the whole gradient tree) without
+    the update.
     """
+    tp = _mesh_parallel(cfg, mesh)
 
     def grads_of(params, adapters, batch):
         leaves = [t.detach().requires_grad_(True)
                   for t in tree_leaves(adapters)]
         a = _unflatten(adapters, leaves)
-        loss, metrics = loss_fn(cfg, params, a, batch, loss_chunk, use_kernels)
+        loss, metrics = loss_fn(cfg, params, a, batch, loss_chunk, use_kernels,
+                                tp)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         gs = [torch.zeros_like(t) if g is None else g
               for g, t in zip(gs, leaves)]
-        return ({k: v.detach() for k, v in metrics.items()},
-                _unflatten(adapters, gs))
+        return {k: v.detach() for k, v in metrics.items()}, gs
 
-    def train_step(params, adapters, opt_state, batch):
+    def whole_grads(params, adapters, batch):
+        """(metrics, the step's whole gradient tree): summed over the
+        microbatches and the mesh, divided by ``grad_accum``."""
         if grad_accum == 1:
             metrics, grads = grads_of(params, adapters, batch)
         else:
@@ -108,17 +142,26 @@ def make_train_step(cfg: ModelConfig, optim: OptimConfig,
                 m, g = grads_of(params, adapters, mb)
                 ms.append(m)
                 if grads is None:
-                    grads = tree_map(lambda t: torch.zeros(
-                        t.shape, dtype=torch.float32, device=t.device), g)
-                grads = tree_map(lambda x, y: x + y.float(), grads, g)
-            grads = tree_map(lambda t: t / grad_accum, grads)
+                    grads = [torch.zeros(t.shape, dtype=torch.float32,
+                                         device=t.device) for t in g]
+                grads = [x + y.float() for x, y in zip(grads, g)]
             metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
                        for k in ms[0]}
+        if tp is not None:
+            grads = tp.sum_grads(grads)
+        if grad_accum != 1:
+            grads = [g / grad_accum for g in grads]
+        return metrics, _unflatten(adapters, grads)
+
+    def train_step(params, adapters, opt_state, batch):
+        metrics, grads = whole_grads(params, adapters, batch)
         if b_only:
             grads = _mask_a_grads(grads)
         adapters, opt_state = adamw_update(optim, grads, opt_state, adapters)
         return adapters, opt_state, metrics
 
+    train_step.tp = tp
+    train_step.grads = whole_grads
     return train_step
 
 
@@ -169,27 +212,38 @@ def make_cohort_train_step(cfg: ModelConfig, optim: OptimConfig,
 
 
 def make_eval_step(cfg: ModelConfig, loss_chunk: int = 512,
-                   use_kernels: bool = False):
+                   use_kernels: bool = False, mesh=None):
     """Returns ``eval_step(params, adapters, batch) -> metrics`` (no
-    gradients)."""
+    gradients; ``mesh`` as :func:`make_train_step`'s, the metrics those of
+    the whole batch on every rank)."""
+    tp = _mesh_parallel(cfg, mesh)
+
     def eval_step(params, adapters, batch):
         with torch.no_grad():
             _, metrics = loss_fn(cfg, params, adapters, batch, loss_chunk,
-                                 use_kernels)
+                                 use_kernels, tp)
         return metrics
+    eval_step.tp = tp
     return eval_step
 
 
-def make_prefill_step(cfg: ModelConfig, use_kernels: bool = False):
+def make_prefill_step(cfg: ModelConfig, use_kernels: bool = False, mesh=None):
     """Returns ``prefill_step(params, adapters, batch) -> (B, V)``: the
     full-sequence forward over ``batch`` (``tokens`` (B, S), and a front
     end's embeddings) and the logits of the last position, without
-    gradients."""
+    gradients.  Under a train mesh ``mesh`` the rank's rows go through the
+    sharded forward and the whole (B, V) logits come back on every rank
+    (the vocab-sharded logits gathered over ``model``, the rows over
+    ``data``)."""
+    tp = _mesh_parallel(cfg, mesh)
+
     def prefill_step(params, adapters, batch):
         with torch.no_grad():
             hidden, _ = T.forward(cfg, params, batch, adapters,
-                                  use_kernels=use_kernels)
-            return T.logits(cfg, params, hidden[:, -1:])[:, 0]
+                                  use_kernels=use_kernels, tp=tp)
+            out = T.logits(cfg, params, hidden[:, -1:], tp)[:, 0]
+            return out if tp is None else tp.all_gather(out, "data", 0)
+    prefill_step.tp = tp
     return prefill_step
 
 
