@@ -366,7 +366,7 @@ Phases (any failure exits non-zero; no exception is caught):
     |logit|); bf16: the loss within 2e-3 of max(1, |loss|), every leaf's
     gradient (and all of them as one vector) within max(0.15, 4 x its own
     bf16 conditioning) (max(0.05, ...)) in relative L2, the adapters' mean
-    |Δ| within 0.25·lr after each step (:func:`p24_compare` gives the
+    |Δ| within 0.25·lr after each step (:func:`train_compare` gives the
     reasons); the launches a step exact (``lora_matmul`` 4 L, and
     ``flash_attention`` L for GQA, a forward) at shapes phase 2/3 holds to
     their plain versions (``LORA_TRAIN_SHARD``, ``FLASH_TRAIN_SHARD``);
@@ -375,6 +375,40 @@ Phases (any failure exits non-zero; no exception is caught):
     bytes its specs' share, (e)'s ranks half of every ``_COL`` / ``_ROW``
     weight; step times (CUDA events), the collectives' host time and peak
     memory are printed.
+25. Training with a ``model`` axis for every other family, as phase 24
+    (the same generalized sides, :func:`train_compare`'s checks and
+    limits), each rank drawing only its shards (a MoE layer only its
+    experts, ``train_experts``; Mamba2's fused leaves segment by segment,
+    ``train_pspecs``), r 16 on ``lora_targets``, 512-token rows with ragged
+    masks: (a) granite-moe-1b-a400m at 4 of its 24 layers on a gloo world
+    of 4 meshed (data=2, model=2), its 32 experts 8 a rank over
+    ``("data", "model")``, two bf16 kernel-route steps of 1 x 512 a rank,
+    an eval and a prefill; (b) DeepSeek-V3-L4 (3 dense MLA layers and the
+    first MoE layer, 128 of 256 experts a rank) on (data=1, model=2), one
+    bf16 step of 2 x 512, its peak allocated a rank printed; (c)
+    RWKV6-1.6B at 2 of 24 layers, one bf16 step through ``wkv_scan``, an
+    eval and a prefill through ``wkv6`` on 16 heads a rank; (d)
+    zamba2-1.2b at 6 of 38 layers (one shared-block application); (e)
+    phi-3-vision-4.2b at 4 of 32 layers on a vision batch of 2 x (576
+    patch embeddings + 448 tokens) and musicgen-medium at 6 of 48 on frame
+    embeddings; (b)-(e) on a gloo world of 2, (data=1, model=2), each an
+    eval and a prefill with its step but (b).  Each model also at 2 layers
+    (zamba2 6) in fp32 (TF32 off) on both routes with the prefill
+    (DeepSeek-V3 on one row).  A MoE model runs at the published capacity
+    factor 1.25 in bf16 (its slabs drop picks) and at E / k in fp32, which
+    drops nothing (:func:`p25_cfg` gives the reason).  The one-process
+    side of a MoE model routes each (data, model) slab on its own
+    (:func:`slab_moe`: the reference's ``_moe_fwd_sharded``).  Checks as
+    phase 24's: the adapters bit-equal on every rank, fp32 loss 1e-5,
+    gradients 1e-4 · max(1, max |g|), prefill logits 1e-4 · max(1,
+    |logit|), bf16 phase 24's limits, the launches of each step, eval and
+    prefill exact (:func:`train_launches`; ``wkv6`` only outside a train
+    step) at shapes phase 2/3 holds to their plain versions
+    (``LORA_FAMILY_TRAIN``, in fp32 ``LORA_FAMILY_TRAIN_FP32``,
+    ``FLASH_FAMILY_TRAIN``, ``WKV6_FAMILY_TRAIN``),
+    the collectives as ``step_collectives`` counts them (the experts'
+    exchanges over ``("data", "model")``), each rank's bytes its specs'
+    share.
 
 Depth cuts to keep the whole script inside its time: phases 13, 14 and 16
 run TinyLlama-1.1B at 2 of its 22 layers (``TINY_LAYERS``; full width),
@@ -416,7 +450,8 @@ serves Qwen3-4B
 at ``QWEN3_LAYERS`` = 12 of its 36 layers, phase 20 runs granite-moe at
 6 of its 24 (``GRANITE_LAYERS``), phase 21 phi-3-vision at 4 of 32 and
 musicgen at 6 of 48, and the gloo collectives stage through pinned host
-memory (``topology.mesh``).
+memory (``topology.mesh``).  Phase 25 came with no cut (the script took
+841.7 s from the build on with it, on an H100 80GB HBM3 at 700 W).
 Each phase's seconds are printed (``[phase N: s]``) and kept in the
 JSON.
 
@@ -533,7 +568,8 @@ def main() -> None:
                               + train_kernel_cases(torch)
                               + cohort_kernel_cases(torch)
                               + wkv6_kernel_cases(torch)
-                              + train_shard_kernel_cases(torch))
+                              + train_shard_kernel_cases(torch)
+                              + family_train_kernel_cases(torch))
     report["smoke_widths"] = smoke_widths(torch)
     done("2/3")
     report["e2e"], counts = end_to_end(torch)
@@ -593,6 +629,8 @@ def main() -> None:
     done("23")
     report["phase24"], p24_counts = phase24(torch)
     done("24")
+    report["phase25"], p25_counts = phase25(torch)
+    done("25")
 
     def case_rec(name, case):
         return next(r for r in report["kernel_cases"]
@@ -688,7 +726,10 @@ def main() -> None:
                if name in FAMILY_SHARD_CASES else {})
             | ({"launches_phase24_path": p24_counts.get(name, 0)}
                | other_path("train_shard_path", name, P24_CASES[name])
-               if name in P24_CASES else {}))
+               if name in P24_CASES else {})
+            | ({"launches_phase25_path": p25_counts.get(name, 0)}
+               | other_path("family_train_shard_path", name, P25_CASES[name])
+               if name in P25_CASES else {}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t0
@@ -1779,7 +1820,6 @@ def wkv6_kernel_cases(torch):
     then head dim 32 (the SMOKE config's; 64 heads of a 2048-wide model);
     then the main shape at strong decay.  First the launch arithmetic of
     ``kernels/wkv6.py`` against the built kernel's shared-memory structs."""
-    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import wkv6 as wk
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1807,39 +1847,16 @@ def wkv6_kernel_cases(torch):
                                 (torch.bfloat16, 8, 1024, 64, 32, -3),
                                 (torch.float32, 8, 200, 64, 32, -3),
                                 (torch.bfloat16, 8, 1024, 32, 64, 1)):
-        r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-                   for _ in range(3))
-        w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) + mu)
-        u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
-        got = ops.wkv6(r, k, v, w, u)
-        want = ref.wkv6_ref(r, k, v, w, u)
-        torch.cuda.synchronize()
-        case = (f"{'bf16' if dt == torch.bfloat16 else 'fp32'} r/k/v, "
-                f"B={B} S={S} H={H} hd={hd}"
-                + (", strong decay w=-exp(N(1,1))" if mu == 1 else ""))
-        err = check_rows(f"wkv6[{case}]", *(
-            t.permute(0, 2, 1, 3).reshape(B * H, S * hd) for t in (got, want)),
-            1e-4, floor=1.0)
-        if not bool(torch.isfinite(got).all()):
-            fail(f"wkv6[{case}]: non-finite output")
-        ms = gpu_ms(torch, lambda: ops.wkv6(r, k, v, w, u))
-        plain = gpu_ms(torch, lambda: ref.wkv6_ref(r, k, v, w, u))
-        n = B * S * H * hd
-        nbytes = 3 * n * r.element_size() + 4 * n + 4 * H * hd + 4 * n
-        # the chunked form's tensor-core products, per token and head: r̃·S
-        # and the update Σ k̃ vᵀ (2hd² each), P·V over a chunk (2·C·hd)
-        ops_n = (4 * hd * hd + 2 * wk.CHUNK * hd) * B * S * H
-        rec = _record(
-            "wkv6", case, "src/repro_torch/kernels/csrc/wkv6.cu",
-            "src/repro/kernels/wkv6.py:47", err, ms, plain, None, nbytes,
-            ops_n, "tf32")
+        rec = wkv6_case(torch, gen, dt, B, S, H, hd, mu)
         # the sequential form's bound (5·hd² + 5·hd fp32 operations a token
         # and head on the CUDA cores), the old design's, for the record
+        n = B * S * H * hd
+        nbytes = 3 * n * (2 if dt == torch.bfloat16 else 4) + 8 * n + 4 * H * hd
         rec["sequential_bound_ms"] = max(
             nbytes / HBM_BYTES_PER_S, (5 * hd * hd + 5 * hd) * B * S * H
             / PEAK_OPS["float32"]) * 1e3
         print(f"    sequential form's bound {rec['sequential_bound_ms']:.4f} ms")
-        if case == WKV6_MAIN:
+        if rec["case"] == WKV6_MAIN:
             rec["plan"] = dataclasses.asdict(main_plan)
         records.append(rec)
     return records
@@ -6481,6 +6498,7 @@ def _products_of(torch, tree):
 # -- phase 24: training with a model axis ---------------------------------------
 
 P24_SEQ = 512                    # tokens a row of every phase 24 batch
+VISION_ROW = 1024                # positions of a phase 25 vision row
 P24_RANK = 16
 P24_LR = 1e-4
 P24_PARITY_LAYERS = 2            # (b): Llama-3.2-1B's fp32 parity depth
@@ -6527,11 +6545,12 @@ def train_shard_kernel_cases(torch):
 
 @contextlib.contextmanager
 def train_shapes():
-    """The (dtype, M, din, dout) of each ``lora_matmul`` launch and the
-    (dtype, B, S, H, K, hd) of each ``flash_attention`` launch inside."""
+    """The (dtype, M, din, dout) of each ``lora_matmul`` launch, the
+    (dtype, B, S, H, hd, K) of each ``flash_attention`` launch and the
+    (dtype, B, S, H, hd) of each ``wkv6`` launch inside."""
     from repro_torch.kernels import ops
-    seen = {"lora_matmul": set(), "flash_attention": set()}
-    lora, flash = ops.lora_matmul_cuda, ops.flash_attention_cuda
+    seen = {"lora_matmul": set(), "flash_attention": set(), "wkv6": set()}
+    lora, flash, wkv = ops.lora_matmul_cuda, ops.flash_attention_cuda, ops.wkv6_cuda
 
     def lora_seen(x, w, a, b):
         seen["lora_matmul"].add((str(x.dtype), x.shape[1]) + tuple(w.shape))
@@ -6542,28 +6561,37 @@ def train_shapes():
                                     + (k.shape[2],))
         return flash(q, k, v, causal, window)
 
-    ops.lora_matmul_cuda, ops.flash_attention_cuda = lora_seen, flash_seen
+    def wkv_seen(r, k, v, w, u):
+        seen["wkv6"].add((str(r.dtype),) + tuple(r.shape))
+        return wkv(r, k, v, w, u)
+
+    ops.lora_matmul_cuda, ops.flash_attention_cuda, ops.wkv6_cuda = (
+        lora_seen, flash_seen, wkv_seen)
     try:
         yield seen
     finally:
-        ops.lora_matmul_cuda, ops.flash_attention_cuda = lora, flash
+        ops.lora_matmul_cuda, ops.flash_attention_cuda, ops.wkv6_cuda = (
+            lora, flash, wkv)
 
 
-def p24_checked(torch) -> dict:
-    """The shapes phase 2/3 holds to their plain versions, as
-    :func:`train_shapes` records them."""
+def train_checked(torch) -> dict:
+    """The shapes phase 2/3 holds to their plain versions at phases 24 and
+    25's shard shapes, as :func:`train_shapes` records them."""
     b, f = str(torch.bfloat16), str(torch.float32)
-    return {"lora_matmul": {(b,) + s for s in LORA_TRAIN_SHARD}
-            | {(f,) + s for s in LORA_TRAIN_SHARD_FP32},
+    return {"lora_matmul": {(b,) + s for s in LORA_TRAIN_SHARD + LORA_FAMILY_TRAIN}
+            | {(f,) + s for s in LORA_TRAIN_SHARD_FP32 + LORA_FAMILY_TRAIN_FP32},
             "flash_attention": {(dt, B, S, H, hd, K) for dt, shapes in (
-                (b, FLASH_TRAIN_SHARD), (f, FLASH_TRAIN_SHARD_FP32))
-                for B, S, H, K, hd in shapes}}
+                (b, FLASH_TRAIN_SHARD + FLASH_FAMILY_TRAIN),
+                (f, FLASH_TRAIN_SHARD_FP32 + FLASH_FAMILY_TRAIN))
+                for B, S, H, K, hd in shapes},
+            "wkv6": {(dt,) + WKV6_FAMILY_TRAIN for dt in (b, f)}}
 
 
 def _whole_like(torch, cfg, params, mesh):
     """Meta tensors of the whole model's shapes beside ``params`` (the
     rank's shards): what ``init_lora`` reads to make whole adapters."""
-    from repro_torch.topology.partitioning import (_axes, map_with_path,
+    from repro_torch.topology.partitioning import (Segments, _axes,
+                                                   fused_pspec, map_with_path,
                                                    param_pspec)
     from repro_torch.topology.train import zero3_on
     if mesh is None:
@@ -6572,11 +6600,77 @@ def _whole_like(torch, cfg, params, mesh):
 
     def whole(path, t):
         shape = list(t.shape)
-        for d, entry in enumerate(param_pspec(mesh, cfg, path, t, zero3)):
+        spec = fused_pspec(cfg, mesh, path, param_pspec(mesh, cfg, path, t,
+                                                        zero3))
+        if (path[-1] in ("w_gate", "w_up", "w_down") and "moe" in path
+                and "shared" not in path):       # an expert stack: all E
+            shape[-3] = cfg.num_experts
+            spec = [None] * len(shape)
+        for d, entry in enumerate(spec):
+            if isinstance(entry, Segments):
+                shape[d] = sum(entry.widths)
+                continue
             for a in _axes(entry):
                 shape[d] *= mesh.axis_size(a)
         return torch.empty(shape, dtype=t.dtype, device="meta")
     return map_with_path(whole, params)
+
+
+_INIT_CACHE = {}                 # the last run's params, for a run that shares them
+
+
+def _train_init(torch, cfg, mesh, dev, seed: int):
+    """Seeded params (under ``mesh`` each rank draws only its shards, the
+    ranks in turn: each holds a whole leaf while it cuts it; a MoE layer's
+    expert stacks only the rank's experts); reused by the next run of the
+    same config, mesh and seed (a route comparison's second route)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.topology.train import init_keep, train_experts
+    key = (cfg, None if mesh is None else tuple(mesh.shape.items()), seed)
+    if key in _INIT_CACHE:
+        return _INIT_CACHE[key]
+    _INIT_CACHE.clear()
+    torch.cuda.empty_cache()
+    if mesh is not None and mesh.size > 1:
+        # in step through a one-element all_reduce on the host
+        import torch.distributed as dist
+        cut = init_keep(cfg, mesh)
+
+        def keep(path, t):
+            torch.cuda.empty_cache()         # the last leaf's whole copies
+            return cut(path, t)
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                params = T.init(cfg, seed, dev, experts=train_experts(cfg, mesh),
+                                keep=keep)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.all_reduce(torch.zeros(1))
+    else:
+        params = T.init(cfg, seed, dev)
+    _INIT_CACHE[key] = params
+    return params
+
+
+def train_batch(torch, cfg, rng, rows: int, dev) -> dict:
+    """A seeded batch of ``rows`` with a ragged mask (10% of positions
+    off): P24_SEQ tokens; a vision batch's ``num_patches`` patch
+    embeddings before ``VISION_ROW`` - ``num_patches`` text tokens (phase
+    21's layout); an audio batch's P24_SEQ frames with their labels."""
+    S = VISION_ROW - cfg.num_patches if cfg.frontend == "vision" else P24_SEQ
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows, S)), device=dev)
+    mask = torch.as_tensor((rng.random((rows, S)) > 0.1).astype("float32"),
+                           device=dev)
+    if cfg.frontend == "audio":
+        emb = rng.normal(size=(rows, S, cfg.frontend_dim)).astype("float32")
+        return {"frame_embeds": torch.as_tensor(emb, device=dev).to(
+            getattr(torch, cfg.dtype)), "labels": toks, "loss_mask": mask}
+    b = {"tokens": toks, "loss_mask": mask}
+    if cfg.frontend == "vision":
+        emb = rng.normal(size=(rows, cfg.num_patches, cfg.frontend_dim))
+        b["patch_embeds"] = torch.as_tensor(emb.astype("float32"), device=dev
+                                            ).to(getattr(torch, cfg.dtype))
+    return b
 
 
 def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
@@ -6595,31 +6689,14 @@ def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
     from repro_torch.common.config import OptimConfig
     from repro_torch.configs import lora_targets
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import adamw_init, adamw_update, tree_leaves
     from repro_torch.peft.lora import init_lora
-    from repro_torch.topology.train import init_keep, shard_batch
+    from repro_torch.topology.train import shard_batch
     from repro_torch.train import step as St
     dev = torch.device(DEVICE) if mesh is None else mesh.device
     torch.cuda.reset_peak_memory_stats(dev)
     t_init = time.perf_counter()
-    if mesh is not None and mesh.size > 1:
-        # the ranks draw in turn (each holds a whole leaf while it cuts it),
-        # in step through a one-element all_reduce on the host
-        import torch.distributed as dist
-        cut = init_keep(cfg, mesh)
-
-        def keep(path, t):
-            torch.cuda.empty_cache()         # the last leaf's whole copies
-            return cut(path, t)
-        for r in range(mesh.size):
-            if r == mesh.rank:
-                params = T.init(cfg, seed, dev, keep=keep)
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-            dist.all_reduce(torch.zeros(1))
-    else:
-        params = T.init(cfg, seed, dev)
+    params = _train_init(torch, cfg, mesh, dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     ad = _nonzero_b(init_lora(_whole_like(torch, cfg, params, mesh),
                               lora_targets(cfg), P24_RANK, float(P24_RANK),
@@ -6627,11 +6704,7 @@ def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
     rng = np.random.default_rng(seed + 2)
     batches = []
     for _ in range(steps):
-        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                            (rows, P24_SEQ)), device=dev)
-        mask = torch.as_tensor((rng.random((rows, P24_SEQ)) > 0.1)
-                               .astype(np.float32), device=dev)
-        b = {"tokens": toks, "loss_mask": mask}
+        b = train_batch(torch, cfg, rng, rows, dev)
         batches.append(b if mesh is None else shard_batch(cfg, b, mesh))
     optim = OptimConfig(lr=P24_LR)
     step = St.make_train_step(cfg, optim, loss_chunk=512,
@@ -6643,12 +6716,13 @@ def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
            "paths": ["/".join(map(str, q)) for q in _leaf_paths(ad)]}
     if mesh is None and cfg.dtype != "float32":
         # the one-process gradients' own bf16 conditioning: how far they
-        # move when the embedding is perturbed by bf16 rounding (a
-        # relative 2^-8 · N(0, 1))
-        noise = torch.randn(params["embed"].shape, generator=gen, device=dev)
-        emb = params["embed"]
-        pert = dict(params, embed=(emb.float() * (1 + 2.0 ** -8 * noise)
-                                   ).to(emb.dtype))
+        # move when the embedding (an audio model's frame projection) is
+        # perturbed by bf16 rounding (a relative 2^-8 · N(0, 1))
+        name = "frontend_proj" if cfg.frontend == "audio" else "embed"
+        noise = torch.randn(params[name].shape, generator=gen, device=dev)
+        emb = params[name]
+        pert = dict(params, **{name: (emb.float() * (1 + 2.0 ** -8 * noise)
+                                      ).to(emb.dtype)})
         del noise
         out["grads_perturbed"] = [g.float().cpu() for g in tree_leaves(
             step.grads(pert, ad, batches[0])[1])]
@@ -6683,13 +6757,16 @@ def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
             out["eval_collectives"] = dict(ev.tp.counts) if ev.tp else {}
         if prefill:
             pf = St.make_prefill_step(cfg, use_kernels, mesh=mesh)
-            out["prefill"] = pf(params, ad, {"tokens": batches[0]["tokens"]}
-                                ).float().cpu()
+            ops.reset_launch_counts()
+            out["prefill"] = pf(params, ad, {
+                k: v for k, v in batches[0].items()
+                if k not in ("loss_mask", "labels")}).float().cpu()
+            out["prefill_launches"] = ops.launch_counts()
             out["prefill_collectives"] = dict(pf.tp.counts) if pf.tp else {}
     out["seen"] = seen
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    from repro_torch.topology.partitioning import (local_bytes, map_with_path,
-                                                   params_pspecs)
+    from repro_torch.topology.partitioning import local_bytes, map_with_path
+    from repro_torch.topology.train import train_pspecs
     held = []
     map_with_path(lambda _, t: held.append(t.numel() * t.element_size()),
                   params)
@@ -6697,7 +6774,7 @@ def p24_side(torch, cfg, mesh, use_kernels: bool, steps: int, rows: int,
     if mesh is not None:
         whole = _whole_like(torch, cfg, params, mesh)
         out["param_bytes_spec"] = local_bytes(
-            whole, params_pspecs(mesh, cfg, whole), mesh)
+            whole, train_pspecs(mesh, cfg, whole), mesh)
         out["halves"] = _p24_halves(params, whole)
     del params, ad, opt, step, batches
     torch.cuda.empty_cache()
@@ -6768,30 +6845,33 @@ def _p24_run(torch, run, mesh) -> dict:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def p24_rank(world: int, device: str = "cuda") -> dict:
-    """Every run of phase 24 in a world of ``world`` ranks on one rank."""
+def train_rank(phase: str, world: int, device: str = "cuda") -> dict:
+    """Every run of phase ``phase`` (24 or 25) in a world of ``world``
+    ranks on one rank."""
     import traceback
 
     import torch
     from repro_torch.topology import make_host_mesh, world as rank_of
     _rank_start(device)
     rank = rank_of()[0]
+    runs, run_fn = TRAIN_PHASES[phase]
     out = {}
-    for run in P24_RUNS:
+    for run in runs:
         if run[3] != world:
             continue
         t0 = time.perf_counter()
         try:
-            out[run[0]] = _p24_run(torch, run, make_host_mesh(
+            out[run[0]] = run_fn(torch, run, make_host_mesh(
                 model=run[4], device=DEVICE))
         except Exception:
             # a rank's traceback is printed before the world fails (spawn
             # reports the lowest failed rank's only)
-            print(f"[rank {rank}] phase 24 {run[0]} raised:\n"
+            print(f"[rank {rank}] phase {phase} {run[0]} raised:\n"
                   f"{traceback.format_exc()}", flush=True)
             raise
-        print(f"  [rank {rank}] phase 24 {run[0]}: "
+        print(f"  [rank {rank}] phase {phase} {run[0]}: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _INIT_CACHE.clear()
     return out
 
 
@@ -6804,17 +6884,40 @@ def _cos_rel(torch, g, w):
     return float((g - w).norm()) / n, float(g @ w) / (float(g.norm()) * n + 1e-300)
 
 
-def p24_compare(torch, run, ranks, ref) -> dict:
+def train_launches(cfg, use_kernels: bool, kind: str) -> dict:
+    """The kernels one forward of ``cfg`` launches on the kernel route
+    (``kind`` train, eval or prefill): ``lora_matmul`` an adapted
+    projection (four an attention layer or shared-block application, MLA's
+    ``wkv_b`` folded; five an RWKV6 layer; two a Mamba2 layer),
+    ``flash_attention`` a GQA attention, ``wkv6`` an RWKV6 layer outside a
+    train step."""
+    from repro_torch.models.transformer import layer_plan
+    lora = flash = wkv = 0
+    for kind_, n in layer_plan(cfg):
+        n = 1 if kind_ == "shared" else n
+        if kind_ == "rwkv":
+            lora, wkv = lora + 5 * n, wkv + n
+        elif kind_ == "mamba":
+            lora += 2 * n
+        else:
+            lora += 4 * n
+            flash += 0 if cfg.use_mla else n
+    return {"lora_matmul": lora * use_kernels,
+            "flash_attention": flash * use_kernels,
+            "wkv6": wkv * use_kernels * (kind != "train")}
+
+
+def train_compare(torch, phase: str, run, ranks, ref) -> dict:
     """Hold one run's ranks to each other, to the one-process side and to
     the design's counts; print and return its numbers."""
     from repro_torch.topology.train import step_collectives
     label, key, layers, world, model, dtype, uk, steps, rows, ev, pre = run
-    cfg = p24_cfg(key, layers, dtype)
+    cfg = TRAIN_CFG[phase](key, layers, dtype)
     data = world // model
     got = [ranks[r][label] for r in range(world)]
     g0 = got[0]
     fp32 = dtype == "float32"
-    name = (f"phase 24 {label}: {cfg.name} ({cfg.num_layers} layers, "
+    name = (f"phase {phase} {label}: {cfg.name} ({cfg.num_layers} layers, "
             f"{'fp32' if fp32 else 'bf16'}, {'kernel' if uk else 'plain'} "
             f"route) on (data={data}, model={model})")
     print(name)
@@ -6905,25 +7008,30 @@ def p24_compare(torch, run, ranks, ref) -> dict:
                    grads_worst_cond=max(cond), grads_worst_share=max(share),
                    grads_worst_cos=worst_cos, grads_all_rel_l2=all_rel,
                    grads_all_cond=all_cond, adapters_mean_abs_diff=mean_d)
-    # launches a step, exact at the rank's shard shapes
-    per_fwd = {"lora_matmul": (4 * cfg.num_layers if uk else 0),
-               "flash_attention": (cfg.num_layers if uk and not cfg.use_mla
-                                   else 0)}
+    # launches a step, an eval and a prefill, exact at the rank's shard
+    # shapes
+    per_fwd = train_launches(cfg, uk, "train")
+    per_eval = train_launches(cfg, uk, "eval")
     for x in got:
         for s, c in enumerate(x["launches"]):
             have = {k: c.get(k, 0) for k in per_fwd}
             if have != per_fwd or sum(c.values()) != sum(per_fwd.values()):
                 fail(f"{name}: step {s + 1} launched {c}, expected {per_fwd}")
-        if ev and {k: x["eval_launches"].get(k, 0) for k in per_fwd} != per_fwd:
-            fail(f"{name}: the eval launched {x['eval_launches']}")
-    checked = p24_checked(torch)
+        for what, on in (("eval", ev), ("prefill", pre)):
+            c = x.get(f"{what}_launches", {})
+            if on and ({k: c.get(k, 0) for k in per_eval} != per_eval
+                       or sum(c.values()) != sum(per_eval.values())):
+                fail(f"{name}: the {what} launched {c}, expected {per_eval}")
+    checked = train_checked(torch)
     for k, shapes in g0["seen"].items():
         if not shapes <= checked[k]:
             fail(f"{name}: {k} launched at {sorted(shapes - checked[k])}, "
                  "outside phase 2/3's cases")
-    # the collectives a step, as the design counts them
-    kw = dict(loss_chunk=512, use_kernels=uk)
-    S = P24_SEQ
+    # the collectives a step, as the design counts them (a vision row's
+    # text tokens after its patches)
+    patches = cfg.num_patches if cfg.frontend == "vision" else 0
+    kw = dict(loss_chunk=512, use_kernels=uk, patches=patches)
+    S = VISION_ROW - patches if patches else P24_SEQ
     want = step_collectives(cfg, model, data, S, **kw)
     for x in got:
         for s, c in enumerate(x["collectives"]):
@@ -6944,6 +7052,7 @@ def p24_compare(torch, run, ranks, ref) -> dict:
     steps_ms = g0["step_ms"]
     print(f"  adapters bit-equal on the {world} ranks after each step; "
           f"launches a step {json.dumps({k: v for k, v in per_fwd.items() if v})}"
+          f"{' (an eval / prefill ' + json.dumps({k: v for k, v in per_eval.items() if v}) + ')' if (ev or pre) and per_eval != per_fwd else ''}"
           f" (= the design's), shapes {json.dumps({k: sorted(v) for k, v in g0['seen'].items() if v})}")
     print(f"  collectives a step {json.dumps(want)} (= the design's), host "
           f"time {['%.3f' % x for x in g0['host_s']]} s; step on {CARD}: "
@@ -6976,6 +7085,7 @@ def phase24(torch) -> tuple:
               f"step {['%.1f' % x for x in refs[run[0]]['step_ms']]} ms")
     report, counts = {}, collections.Counter()
     import gc
+    _INIT_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
@@ -6983,14 +7093,15 @@ def phase24(torch) -> tuple:
           "reserved) while the worlds run")
     for world in (2, 4):
         t0 = time.perf_counter()
-        ranks = spawn(p24_rank, world, "gloo", DEVICE, args=(world, DEVICE),
-                      timeout_s=900)
+        ranks = spawn(train_rank, world, "gloo", DEVICE,
+                      args=("24", world, DEVICE), timeout_s=900)
         print(f"phase 24: a gloo world of {world} ranks on cuda:0: "
               f"{time.perf_counter() - t0:.1f} s, spawn included")
         for run in P24_RUNS:
             if run[3] != world:
                 continue
-            report[run[0]] = p24_compare(torch, run, ranks, refs[run[0]])
+            report[run[0]] = train_compare(torch, "24", run, ranks,
+                                           refs[run[0]])
             for c in ranks[0][run[0]]["launches"]:
                 counts.update(c)
         del ranks
@@ -7005,6 +7116,266 @@ def phase24(torch) -> tuple:
     del refs
     torch.cuda.empty_cache()
     return report, {k: v for k, v in counts.items() if v}
+
+
+# -- phase 25: training with a model axis for every other family --------------
+
+# phase 25's kernel shapes on a rank at model 2 (M = the rank's rows x 512, a
+# vision row 1024 positions), bf16 and fp32: lora_matmul's (M, din, dout) at
+# r 16, beyond phase 24's: granite-moe at one row a rank, wq 1024 -> 512, wk
+# / wv 1024 -> 256, wo 512 -> 1024; zamba2's Mamba2 in_proj cut segment by
+# segment, 2048 -> 2048 + 2048 + 128 + 32 = 4256, and out_proj 2048 ->
+# 2048; phi-3-vision 3072 -> 1536, 1536 -> 3072; musicgen 1536 -> 768, 768
+# -> 1536.  RWKV6's wr wk wv wg 2048 -> 1024 and wo 1024 -> 2048 and
+# zamba2's shared block are Llama's rank's (phase 24), DeepSeek-V3-L4's
+# projections DeepSeek-V3-dense3's.  flash_attention's (B, S, H, K, hd) and
+# wkv6's (B, S, H, hd).
+LORA_FAMILY_TRAIN = ((512, 1024, 512), (512, 1024, 256), (512, 512, 1024),
+                     (1024, 2048, 4256), (1024, 2048, 2048),
+                     (2048, 3072, 1536), (2048, 1536, 3072),
+                     (1024, 1536, 768), (1024, 768, 1536))
+# DeepSeek-V3-L4's fp32 run takes one row a rank: its projections at M 512
+LORA_FAMILY_TRAIN_FP32 = LORA_FAMILY_TRAIN + (
+    (512, 7168, 768), (512, 7168, 288), (512, 1536, 12288), (512, 8192, 7168))
+FLASH_FAMILY_TRAIN = ((1, 512, 8, 4, 64), (2, 512, 16, 16, 64),
+                      (2, 1024, 16, 16, 96), (2, 512, 12, 12, 64))
+WKV6_FAMILY_TRAIN = (2, 512, 16, 64)
+LORA_P25 = "bf16, M=1024 din=2048 dout=4256 r=16"        # zamba2's in_proj
+FLASH_P25 = "bf16, causal, B=2 S=1024 H=16 K=16 hd=96"   # phi-3-vision's rank
+WKV6_P25 = "bf16 r/k/v, B=2 S=512 H=16 hd=64"            # RWKV6's rank
+P25_CASES = {"lora_matmul": LORA_P25, "flash_attention": FLASH_P25,
+             "wkv6": WKV6_P25}
+
+
+def wkv6_case(torch, gen, dt, B, S, H, hd, mu=-3):
+    """One ``wkv6`` case at decays w = -exp(N(mu, 1)) against its plain
+    version (each (b, h) row within 1e-4 of max(1, its max |plain|): the
+    reasons are :func:`wkv6_kernel_cases`'), its time, the plain version's
+    and its bound; returns the record."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import wkv6 as wk
+    dev = torch.device(DEVICE)
+    r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    w = -torch.exp(torch.randn(B, S, H, hd, generator=gen, device=dev) + mu)
+    u = torch.randn(H, hd, generator=gen, device=dev) * 0.5
+    got = ops.wkv6(r, k, v, w, u)
+    want = ref.wkv6_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    case = (f"{'bf16' if dt == torch.bfloat16 else 'fp32'} r/k/v, "
+            f"B={B} S={S} H={H} hd={hd}"
+            + (", strong decay w=-exp(N(1,1))" if mu == 1 else ""))
+    err = check_rows(f"wkv6[{case}]", *(
+        t.permute(0, 2, 1, 3).reshape(B * H, S * hd) for t in (got, want)),
+        1e-4, floor=1.0)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"wkv6[{case}]: non-finite output")
+    ms = gpu_ms(torch, lambda: ops.wkv6(r, k, v, w, u))
+    plain = gpu_ms(torch, lambda: ref.wkv6_ref(r, k, v, w, u))
+    n = B * S * H * hd
+    nbytes = 3 * n * r.element_size() + 4 * n + 4 * H * hd + 4 * n
+    # the chunked form's tensor-core products, per token and head: r̃·S and
+    # the update Σ k̃ vᵀ (2hd² each), P·V over a chunk (2·C·hd)
+    ops_n = (4 * hd * hd + 2 * wk.CHUNK * hd) * B * S * H
+    return _record("wkv6", case, "src/repro_torch/kernels/csrc/wkv6.cu",
+                   "src/repro/kernels/wkv6.py:47", err, ms, plain, None,
+                   nbytes, ops_n, "tf32")
+
+
+def family_train_kernel_cases(torch):
+    """Phase 2/3's cases at phase 25's shard shapes (the limits of
+    :func:`train_kernel_cases`, :func:`flash_case` and
+    :func:`wkv6_kernel_cases`)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print("phase 2/3: lora_matmul, flash_attention and wkv6 at phase 25's "
+          "shard shapes")
+    recs = [lora_case(torch, gen, sms, dt, M, din, dout, P24_RANK)
+            for dt, shapes in ((torch.bfloat16, LORA_FAMILY_TRAIN),
+                               (torch.float32, LORA_FAMILY_TRAIN_FP32))
+            for M, din, dout in shapes]
+    recs += [flash_case(torch, gen, dt, B, S, S, H, K, hd, True, 0)
+             for dt in (torch.bfloat16, torch.float32)
+             for B, S, H, K, hd in FLASH_FAMILY_TRAIN]
+    recs += [wkv6_case(torch, gen, dt, *WKV6_FAMILY_TRAIN)
+             for dt in (torch.bfloat16, torch.float32)]
+    return recs
+
+
+@contextlib.contextmanager
+def slab_moe(data: int, model: int):
+    """Inside the block a mesh-less ``moe_fwd`` routes a batch as the
+    reference's ``_moe_fwd_sharded`` does on a ``(data, model)`` mesh where
+    it runs (the axis divides S, the experts cut): each slab of B/data
+    rows by S/model positions on its own, at its own capacity, aux the
+    slabs' mean.  Phase 25's one-process oracle of a MoE model; yields a
+    counter of the (token, choice) picks that the slabs' capacities drop
+    (each expert's picks in a slab beyond its slots)."""
+    import torch
+    from repro_torch.models import moe as Moe
+    from repro_torch.topology.mesh import abstract_mesh
+    from repro_torch.topology.train import expert_axes
+    whole = Moe.moe_fwd
+    mesh = abstract_mesh({"data": data, "model": model})
+    drops = collections.Counter()
+
+    def sliced(cfg, p, x, adapters=None, groups=0, use_kernel=False, tp=None):
+        B, S, d = x.shape
+        if (tp is not None or groups or model == 1 or S % model
+                or not expert_axes(cfg, mesh)):
+            return whole(cfg, p, x, adapters, groups, use_kernel, tp)
+        h, w = B // data, S // model
+        rows, auxes = [], []
+        for q in range(data):
+            cols = []
+            for r in range(model):
+                xs = x[q * h:(q + 1) * h, r * w:(r + 1) * w]
+                y, a = whole(cfg, p, xs, adapters, use_kernel=use_kernel)
+                top = Moe.router_scores(cfg, p["router"], xs.reshape(-1, d)
+                                        ).topk(cfg.experts_per_token).indices
+                load = torch.bincount(top.flatten(), minlength=cfg.num_experts)
+                drops["picks"] += int((load - Moe._capacity(cfg, h * w)
+                                       ).clamp(min=0).sum())
+                cols.append(y)
+                auxes.append(a)
+            rows.append(torch.cat(cols, dim=1))
+        return torch.cat(rows, dim=0), torch.stack(auxes).mean()
+
+    Moe.moe_fwd = sliced
+    try:
+        yield drops
+    finally:
+        Moe.moe_fwd = whole
+
+
+def p25_cfg(key: str, layers: int = 0, dtype: str = ""):
+    """Phase 25's configs: ``launch.serve.CONFIGS``' six models of the
+    other families at ``layers`` (DeepSeek-V3-L4 at 2: one dense MLA layer
+    and its first MoE layer).  A bf16 MoE run keeps the published capacity
+    factor 1.25, so its slabs drop picks and bf16's limits hold expert
+    parallelism where capacity binds.  An fp32 MoE run takes f = E / k, so
+    a slab's slots hold every one of its tokens and nothing is dropped
+    (:func:`_p25_run` fails if a pick is): a random router sends most
+    picks to a few experts, and where capacity binds a pick that fp32
+    rounding flips at the top-k boundary moves every later pick of two
+    experts' queues, which drops other tokens on the two sides
+    (DeepSeek-V3's fp32 loss then differed by 3.5e-5 at 1.25, on an
+    NVIDIA H100 80GB HBM3 at 700 W), beyond fp32's 1e-5.  The binding
+    case in fp32 is held on the CPU against the reference's per-slab math
+    (``tests/test_torch_train_sharded_families.py``)."""
+    from repro_torch.launch.serve import CONFIGS
+    cfg = CONFIGS[key][0]
+    if layers:
+        cfg = cfg.replace(num_layers=layers,
+                          first_dense_layers=min(layers - 1,
+                                                 cfg.first_dense_layers))
+    if dtype:
+        cfg = cfg.replace(dtype=dtype)
+    if cfg.num_experts and cfg.dtype == "float32":
+        cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                          / cfg.experts_per_token)
+    return cfg
+
+
+# (label, config, layers, world, model, dtype, kernels, steps, rows, eval,
+#  prefill): the bf16 runs at phase 25's depths, and each model at 2 layers
+#  (zamba2 6: one shared-block application) in fp32 on both routes
+# DeepSeek-V3-L4's fp32 run at one 512-token row: its slots for every
+# token are (257, 256, 7168) fp32 a slab, 1.9 GB an exchange, beside each
+# rank's 27 GB of fp32 weights (two rows would need 3.8 GB)
+P25_FP32_ROWS = {"deepseek_v3_l4": 1}
+P25_FP32_LAYERS = {"granite_moe_1b_a400m": 2, "deepseek_v3_l4": 2,
+                   "rwkv6_1p6b": 2, "zamba2_1p2b": 6, "phi3_vision_4p2b": 2,
+                   "musicgen_medium": 2}
+P25_RUNS = tuple(
+    run for label, key, layers, world, steps, ev in (
+        ("(a)", "granite_moe_1b_a400m", 4, 4, 2, True),
+        ("(b)", "deepseek_v3_l4", 4, 2, 1, False),
+        ("(c)", "rwkv6_1p6b", 2, 2, 1, True),
+        ("(d)", "zamba2_1p2b", 6, 2, 1, True),
+        ("(e) phi-3-vision", "phi3_vision_4p2b", 4, 2, 1, True),
+        ("(e) musicgen", "musicgen_medium", 6, 2, 1, True))
+    for run in (
+        (label, key, layers, world, 2, "", True, steps, 2, ev, ev),
+        (f"{label} fp32 kernel", key, P25_FP32_LAYERS[key], world, 2,
+         "float32", True, 1, P25_FP32_ROWS.get(key, 2), False, True),
+        (f"{label} fp32 plain", key, P25_FP32_LAYERS[key], world, 2,
+         "float32", False, 1, P25_FP32_ROWS.get(key, 2), False, True)))
+
+
+def _p25_run(torch, run, mesh) -> dict:
+    label, key, layers, world, model, dtype, uk, steps, rows, ev, pre = run
+    from repro_torch.device import parity_mode
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    if dtype == "float32":
+        parity_mode()
+    cfg = p25_cfg(key, layers, dtype)
+    oracle = (slab_moe(world // model, model) if mesh is None
+              else contextlib.nullcontext(collections.Counter()))
+    try:
+        with oracle as drops:
+            out = p24_side(torch, cfg, mesh, uk, steps, rows, ev, pre)
+        if dtype == "float32" and drops["picks"]:
+            fail(f"phase 25 {label}: a capacity of every slab's tokens "
+                 f"dropped {drops['picks']} picks")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase25(torch) -> tuple:
+    """Phase 25: training with a ``model`` axis for MoE (expert parallelism
+    over ``("data", "model")``), RWKV6, the Mamba2 hybrid and the front
+    ends: every run's one-process side first in this process (a MoE
+    model's slabs routed by :func:`slab_moe`), then a gloo world of 4
+    ranks on cuda:0 for (a) and one of 2 for (b)-(e) (see the module
+    docstring)."""
+    from repro_torch.topology import spawn
+    t_phase = time.perf_counter()
+    print("phase 25: the one-process sides in this process")
+    refs = {}
+    for run in P25_RUNS:
+        t0 = time.perf_counter()
+        refs[run[0]] = _p25_run(torch, run, None)
+        print(f"  {run[0]}: one process {time.perf_counter() - t0:.1f} s, "
+              f"step {['%.1f' % x for x in refs[run[0]]['step_ms']]} ms")
+    report, counts = {}, collections.Counter()
+    import gc
+    _INIT_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for world in (4, 2):
+        free, total = torch.cuda.mem_get_info()
+        print(f"phase 25: before the world of {world}, this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} reserved; the card "
+              f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+        t0 = time.perf_counter()
+        ranks = spawn(train_rank, world, "gloo", DEVICE,
+                      args=("25", world, DEVICE), timeout_s=900)
+        print(f"phase 25: a gloo world of {world} ranks on cuda:0: "
+              f"{time.perf_counter() - t0:.1f} s, spawn included")
+        for run in P25_RUNS:
+            if run[3] != world:
+                continue
+            report[run[0]] = train_compare(torch, "25", run, ranks,
+                                           refs[run[0]])
+            for c in ranks[0][run[0]]["launches"]:
+                counts.update(c)
+            for what in ("eval", "prefill"):
+                counts.update(ranks[0][run[0]].get(f"{what}_launches", {}))
+        del ranks
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 25: {report['phase_s']:.1f} s")
+    del refs
+    torch.cuda.empty_cache()
+    return report, {k: v for k, v in counts.items() if v}
+
+
+TRAIN_PHASES = {"24": (P24_RUNS, _p24_run), "25": (P25_RUNS, _p25_run)}
+TRAIN_CFG = {"24": p24_cfg, "25": p25_cfg}
 
 
 if __name__ == "__main__":

@@ -79,10 +79,12 @@ def _col_in(tp, x: torch.Tensor) -> torch.Tensor:
     return tp.copy(x) if _train(tp) else x
 
 
-def _proj(x, w, adapter, use_kernel: bool, tp, kind: str) -> torch.Tensor:
-    """``lora_proj``, on the rank's shard under a train mesh."""
+def _proj(x, w, adapter, use_kernel: bool, tp, kind: str,
+          segments=None) -> torch.Tensor:
+    """``lora_proj``, on the rank's shard under a train mesh (``segments``:
+    a fused dim's cut, :func:`lora_proj_shard`)."""
     if _train(tp):
-        return lora_proj_shard(x, w, adapter, use_kernel, tp, kind)
+        return lora_proj_shard(x, w, adapter, use_kernel, tp, kind, segments)
     return lora_proj(x, w, adapter, use_kernel)
 
 

@@ -39,6 +39,10 @@ expert axis over ``model``), on the two routes of the reference's
   ``all_reduce`` sums the partial rows.
 
 DeepSeek-V3's shared expert is Megatron-split (``mlp_fwd(..., tp=)``).
+
+``tp`` may also be a train mesh (:class:`repro_torch.topology.train.
+TrainParallel`): the same two routes under autograd, the sharded one over
+the batch's ``data`` rows too (:func:`_moe_fwd_train`).
 """
 from __future__ import annotations
 
@@ -195,8 +199,12 @@ def moe_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor,
     on every token through :func:`repro_torch.models.layers.mlp_fwd` with
     ``adapters["shared"]`` (``use_kernel`` as there).  ``tp`` runs the
     layer expert parallel on the rank's experts (the module docstring's
-    two routes; ``groups`` 0)."""
-    if tp is not None and tp.size > 1:
+    two routes; ``groups`` 0): a serve mesh's ``model`` axis, or a train
+    mesh (:func:`_moe_fwd_train`)."""
+    if Lyr._train(tp):
+        if tp.mesh.size > 1:
+            return _moe_fwd_train(cfg, p, x, adapters, tp, use_kernel)
+    elif tp is not None and tp.size > 1:
         return _moe_fwd_tp(cfg, p, x, adapters, tp)
     B, S, d = x.shape
     G = groups or 1
@@ -246,4 +254,73 @@ def _moe_fwd_tp(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.num_shared_experts:
         out = out + Lyr.mlp_fwd(p["shared"], x, (adapters or {}).get("shared"),
                                 tp=tp)
+    return out, aux
+
+
+def _moe_fwd_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   adapters: Optional[Dict], tp, use_kernel: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_fwd` on a train mesh (``tp`` a :class:`repro_torch.
+    topology.train.TrainParallel`; x the rank's rows, whole over
+    ``model``; ``p`` holding the rank's experts,
+    :func:`repro_torch.topology.train.train_experts`), under autograd.
+
+    Where the reference's ``_moe_fwd_sharded`` runs (a ``model`` axis of
+    m > 1 that divides S, and the experts cut over ``("data", "model")``
+    or ``("model",)``), the rank routes its slab, its B rows by its S/m
+    positions, at the slab's capacity, one ``exchange`` over the expert
+    axes sends the slots to the experts' owners and one brings them back,
+    the combine is local, the slab rejoins the residual by ``join`` (its
+    gradient is whole on every rank) and aux is the slabs' mean over every
+    axis (``reduce`` of aux / ranks).  Otherwise the reference's mesh-less
+    math: every rank routes every token of the batch (gathered over
+    ``data``) at the global capacity, runs its experts and combines their
+    rows; the partial rows are summed by one ``reduce`` (over both axes
+    and then the rank's rows kept by ``split``, where the experts are cut
+    over both) and aux, the same on every rank, keeps 1 / ranks of its
+    gradient (:func:`repro_torch.topology.train.once`).  DeepSeek-V3's
+    shared expert is Megatron-split (``mlp_fwd(..., tp=)``)."""
+    from repro_torch.topology.train import expert_axes, once
+    B, S, d = x.shape
+    k, m, ranks = cfg.experts_per_token, tp.size, tp.mesh.size
+    axes = expert_axes(cfg, tp.mesh)
+    xc = tp.copy(x)
+    if m > 1 and S % m == 0 and axes:
+        Sl = S // m
+        xl = xc[:, tp.index * Sl:(tp.index + 1) * Sl]
+        buf, meta, aux = _route_and_dispatch(
+            cfg, p["router"], xl.reshape(1, B * Sl, d), _capacity(cfg, B * Sl))
+        # each slot buffer is dropped once the next is made: at DeepSeek-V3's
+        # widths one is E·C·d, gigabytes in fp32 at a capacity of every token
+        buf = tp.exchange(buf[0], 0, 1, axes)                    # (E/ep, ep·C, d)
+        buf = _experts(p, buf)
+        buf = tp.exchange(buf, 1, 0, axes)                       # (E, C, d)
+        out = tp.join(_combine(buf[None], meta, k).reshape(B, Sl, d), 1)
+        aux = tp.reduce(aux[0] / ranks, ("data", "model"))
+    else:
+        xa = tp.gather(xc, 0, "data")
+        Ba = xa.shape[0]
+        buf, meta, aux = _route_and_dispatch(
+            cfg, p["router"], xa.reshape(1, Ba * S, d), _capacity(cfg, Ba * S))
+        El = p["w_gate"].shape[-3]
+        e0 = tp.mesh.axis_index(axes) * El if axes else 0
+        if axes == ("data", "model"):
+            # every rank's experts differ: sum every rank's rows, keep ours
+            out = _combine(_experts(p, buf[0, e0:e0 + El])[None], meta, k, e0)
+            out = tp.split(tp.reduce(out.reshape(Ba, S, d), ("data", "model")),
+                           0, "data")
+        elif axes or tp.index == 0:
+            # the data ranks hold the same experts (replicated ones run on
+            # model rank 0 only): each combines its own rows
+            own = slice(tp.data_index * B * S * k,
+                        (tp.data_index + 1) * B * S * k)
+            out = tp.reduce(_combine(_experts(p, buf[0, e0:e0 + El])[None],
+                                     tuple(t[:, own] for t in meta), k, e0
+                                     ).reshape(B, S, d))
+        else:
+            out = tp.reduce(torch.zeros_like(x))
+        aux = once(aux[0], ranks)
+    if cfg.num_shared_experts:
+        out = out + Lyr.mlp_fwd(p["shared"], x, (adapters or {}).get("shared"),
+                                use_kernel=use_kernel, tp=tp)
     return out, aux

@@ -33,6 +33,17 @@ column-parallel under the rules but their outputs feed a ``tanh`` and a
 replicated product whole, so they are gathered after the projection, as
 ``wcr``'s output is before it gates the reduced ``wcv`` output.  The WKV
 state is the rank's ``(B, H/m, hd, hd)``; ``tm_x`` and ``cm_x`` stay whole.
+
+The full-sequence path takes ``tp``, a train mesh
+(:class:`repro_torch.topology.train.TrainParallel`), in the same layout
+under autograd: each mix takes its input through one ``copy``, so all it
+computes from it (the token shift, ``ddlerp``, the decay) is the rank's
+part of the gradient; ``dd_w1`` and ``wd1``'s outputs are made whole by
+``gather`` (their gradients are parts: the reduce-scatter sums them) and
+``wcr``'s by ``join`` (it gates the reduced, replicated output: its
+gradient is whole on every rank); ``wo`` and ``wcv`` end in ``reduce``.
+The recurrence runs on the rank's H/m heads: ``wkv_scan`` under grad, the
+``wkv6`` kernel in eval and prefill (:func:`recurrence_route`).
 """
 from __future__ import annotations
 
@@ -44,8 +55,8 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.models.layers import dense_init
-from repro_torch.peft.lora import lora_proj, matmul
+from repro_torch.models.layers import _proj, dense_init
+from repro_torch.peft.lora import COL, ROW
 
 Params = Dict[str, Any]
 
@@ -104,10 +115,15 @@ def _shift(x: torch.Tensor, last=None) -> torch.Tensor:
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
-def _whole(tp, y: torch.Tensor, width: int) -> torch.Tensor:
+def _whole(tp, y: torch.Tensor, width: int, join: bool = False
+           ) -> torch.Tensor:
     """A column-parallel output made whole (gathered where the rank holds
-    a cut of its ``width`` columns)."""
-    return y if tp is None or y.shape[-1] == width else tp.gather(y)
+    a cut of its ``width`` columns): by ``gather`` where it feeds the
+    rank's own work, by ``join`` (with ``join`` set) where it feeds work
+    every rank does whole (:mod:`repro_torch.topology.train`)."""
+    if tp is None or y.shape[-1] == width:
+        return y
+    return tp.join(y) if join else tp.gather(y)
 
 
 def _ddlerp(p: Params, x, xx, tp=None) -> torch.Tensor:
@@ -116,7 +132,7 @@ def _ddlerp(p: Params, x, xx, tp=None) -> torch.Tensor:
     B, S, _ = x.shape
     base = x + xx * p["mu_x"]
     dl = p["dd_w2"].shape[-2]
-    h = _whole(tp, matmul(base, p["dd_w1"]), 5 * dl)
+    h = _whole(tp, _proj(base, p["dd_w1"], None, False, tp, COL), 5 * dl)
     h = torch.tanh(h.float()).reshape(B, S, 5, dl)
     off = torch.einsum("bsfl,fld->bsfd", h.to(x.dtype), p["dd_w2"])
     return x[:, :, None] + xx[:, :, None] * (p["mu"][None, None] + off)
@@ -125,7 +141,8 @@ def _ddlerp(p: Params, x, xx, tp=None) -> torch.Tensor:
 def _decay(p: Params, xw, tp=None) -> torch.Tensor:
     """Data-dependent per-channel log-decay w < 0, fp32: (B,S,d) (the
     rank's d/m channels under ``tp``)."""
-    h = _whole(tp, matmul(xw, p["wd1"]), p["wd2"].shape[-2])
+    h = _whole(tp, _proj(xw, p["wd1"], None, False, tp, COL),
+               p["wd2"].shape[-2])
     wd2, w0 = p["wd2"], p["w0"]
     if tp is not None:
         wd2, w0 = tp.local(wd2), tp.local(w0)
@@ -166,22 +183,24 @@ def time_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
     """x: (B,S,d).  ``state``: None (full sequence) or one layer's decode
     state ``{"tm_x", "wkv", ...}`` (then S = 1).  Returns (out (B,S,d), new
     state ``{"tm_x", "wkv"}`` or None).  ``tp``: head parallel on the
-    rank's shards (decode; the module docstring)."""
+    rank's shards (decode, or a train mesh's full sequence; the module
+    docstring)."""
     B, S, _ = x.shape
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
     u, ln_w, ln_b = p["u"], p["ln_x_w"], p["ln_x_b"]
     if tp is not None:
         H = H // tp.size
         u, ln_w, ln_b = tp.local(u, 0), tp.local(ln_w), tp.local(ln_b)
+        x = tp.copy(x)
     d = H * hd
     a = adapters or {}
     last = state["tm_x"] if state is not None else None
     xx = _shift(x, last) - x
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx, tp).unbind(2)
-    r = lora_proj(xr, p["wr"], a.get("wr"), use_kernel).reshape(B, S, H, hd)
-    k = lora_proj(xk, p["wk"], a.get("wk"), use_kernel).reshape(B, S, H, hd)
-    v = lora_proj(xv, p["wv"], a.get("wv"), use_kernel).reshape(B, S, H, hd)
-    g = F.silu(lora_proj(xg, p["wg"], a.get("wg"), use_kernel).float())
+    r = _proj(xr, p["wr"], a.get("wr"), use_kernel, tp, COL).reshape(B, S, H, hd)
+    k = _proj(xk, p["wk"], a.get("wk"), use_kernel, tp, COL).reshape(B, S, H, hd)
+    v = _proj(xv, p["wv"], a.get("wv"), use_kernel, tp, COL).reshape(B, S, H, hd)
+    g = F.silu(_proj(xg, p["wg"], a.get("wg"), use_kernel, tp, COL).float())
     w = _decay(p, xw, tp).reshape(B, S, H, hd)
 
     route = recurrence_route(a, state, use_kernel)
@@ -202,7 +221,7 @@ def time_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
     y = _group_norm(y.reshape(B, -1, d), ln_w.float(), ln_b.float(), H,
                     cfg.norm_eps)
     y = (y * g).to(x.dtype)
-    out = lora_proj(y, p["wo"], a.get("wo"), use_kernel)
+    out = _proj(y, p["wo"], a.get("wo"), use_kernel, tp, ROW)
     return (out if tp is None else tp.reduce(out)), new_state
 
 
@@ -211,17 +230,19 @@ def channel_mix(cfg: ModelConfig, p: Params, x, adapters=None, state=None,
     """Squared-ReLU channel mix with a sigmoid receptance gate.  Returns
     (out (B,S,d), ``{"cm_x"}`` or None).  ``tp``: ``wck`` column- and
     ``wcv`` row-parallel (one ``all_reduce``), ``wcr``'s output gathered
-    before it gates the reduced output."""
+    (``join``) before it gates the reduced output."""
     a = adapters or {}
+    if tp is not None:
+        x = tp.copy(x)
     last = state["cm_x"] if state is not None else None
     xx = _shift(x, last) - x
     xk = x + xx * p["mu_ck"]
     xr = x + xx * p["mu_cr"]
-    k = lora_proj(xk, p["wck"], a.get("wck"), use_kernel)
+    k = _proj(xk, p["wck"], a.get("wck"), use_kernel, tp, COL)
     k = torch.square(F.relu(k.float())).to(x.dtype)
-    r = _whole(tp, lora_proj(xr, p["wcr"], a.get("wcr"), use_kernel),
-               x.shape[-1])
-    v = lora_proj(k, p["wcv"], a.get("wcv"), use_kernel)
+    r = _whole(tp, _proj(xr, p["wcr"], a.get("wcr"), use_kernel, tp, COL),
+               x.shape[-1], join=True)
+    v = _proj(k, p["wcv"], a.get("wcv"), use_kernel, tp, ROW)
     if tp is not None:
         v = tp.reduce(v)
     out = (torch.sigmoid(r.float()) * v.float()).to(x.dtype)

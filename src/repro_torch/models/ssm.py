@@ -25,6 +25,9 @@ never made, and when autograd records the call they are rebuilt in the
 backward pass (:func:`torch.utils.checkpoint.checkpoint`) instead of being
 kept across the layers: the layer keeps only its (B, nc, H, c, hd) inputs.
 
+The full-sequence path takes ``tp``, a train mesh, and runs on the
+rank's heads in the same layout (:func:`mamba2_fwd`).
+
 Decode takes ``tp``, a serve mesh's ``model`` axis
 (:class:`repro_torch.topology.serve.ModelParallel`), and runs head
 parallel on the rank's H/m SSM heads.  ``in_proj``'s output fuses ``z |
@@ -46,8 +49,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm
-from repro_torch.peft.lora import lora_proj
+from repro_torch.models.layers import _proj, dense_init, rmsnorm
+from repro_torch.peft.lora import COL, ROW, lora_proj
+from repro_torch.topology.partitioning import mamba_segments
 
 Params = Dict[str, Any]
 
@@ -99,36 +103,59 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, din: int = 0):
 def _gate_out(cfg: ModelConfig, p: Params, y, z, dtype, adapters,
               use_kernel: bool, tp=None):
     """The gated RMSNorm and ``out_proj`` of the SSD output y (fp32); under
-    ``tp`` the norm's mean square sums every rank's channels."""
+    ``tp`` the norm's mean square sums every rank's channels (under a
+    train mesh through ``reduce`` and then ``copy``: each rank's gradient
+    of the sum is the part its channels take, and the backward adds the
+    parts), and ``out_proj`` is row-parallel."""
     y = y.to(dtype)
     g = y * F.silu(z.float()).to(dtype)
     if tp is None:
         y = rmsnorm(g, p["norm"], cfg.norm_eps)
     else:
         gf = g.float()
-        var = tp.reduce(gf.square().sum(-1, keepdim=True)) / cfg.d_inner
+        var = tp.copy(tp.reduce(gf.square().sum(-1, keepdim=True))) / cfg.d_inner
         y = (gf * torch.rsqrt(var + cfg.norm_eps)
              * tp.local(p["norm"]).float()).to(dtype)
-    out = lora_proj(y, p["out_proj"], adapters.get("out_proj"), use_kernel)
+    out = _proj(y, p["out_proj"], adapters.get("out_proj"), use_kernel, tp, ROW)
     return out if tp is None else tp.reduce(out)
 
 
 def mamba2_fwd(cfg: ModelConfig, p: Params, x: torch.Tensor, adapters=None,
-               use_kernel: bool = False) -> torch.Tensor:
-    """One Mamba2 mixer over a full sequence, x (B,S,d) -> (B,S,d)."""
+               use_kernel: bool = False, tp=None) -> torch.Tensor:
+    """One Mamba2 mixer over a full sequence, x (B,S,d) -> (B,S,d).
+
+    ``tp``: a train mesh (:class:`repro_torch.topology.train.
+    TrainParallel`), ``p`` the rank's shards (``in_proj``, ``conv_w`` and
+    ``conv_b`` cut segment by segment,
+    :func:`repro_torch.topology.partitioning.mamba_segments`): x enters
+    through one ``copy``, ``in_proj`` gives the rank's heads' z, x and dt
+    and the whole B and C (its adapter's B cut by the same segments), the
+    conv and the chunked SSD run on the rank's H/m heads, and the gated
+    norm and ``out_proj`` are :func:`_gate_out`'s.  B and C are whole on
+    every rank but feed only its heads, so each rank's gradient of them
+    is a part: the ``copy`` adds the parts once, and the packed gradient
+    sum adds the adapter's."""
     Bsz, S, _ = x.shape
     din, st, H, hd = cfg.d_inner, cfg.ssm_state, cfg.num_ssm_heads, cfg.ssm_head_dim
+    a_log, d_skip, dt_bias = p["A_log"], p["D"], p["dt_bias"]
     a = adapters or {}
-    zxbcdt = lora_proj(x, p["in_proj"], a.get("in_proj"), use_kernel)
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    if tp is not None:
+        din, H = din // tp.size, H // tp.size
+        a_log, d_skip, dt_bias = (tp.local(t) for t in (a_log, d_skip, dt_bias))
+        zxbcdt = _proj(tp.copy(x), p["in_proj"], a.get("in_proj"), use_kernel,
+                       tp, COL, mamba_segments(cfg)[0])
+    else:
+        zxbcdt = lora_proj(x, p["in_proj"], a.get("in_proj"), use_kernel)
+    z, xBC, dt = _split_proj(cfg, zxbcdt, din)
     xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     xs = xBC[..., :din].reshape(Bsz, S, H, hd)
     Bm, Cm = xBC[..., din: din + st], xBC[..., din + st:]
-    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B,S,H)
-    dA = dt * -torch.exp(p["A_log"])
+    dt = F.softplus(dt.float() + dt_bias)                      # (B,S,H)
+    dA = dt * -torch.exp(a_log)
     y = _ssd_chunked(xs, dt, dA, Bm, Cm)
-    y = y + p["D"][None, None, :, None] * xs.float()
-    return _gate_out(cfg, p, y.reshape(Bsz, S, din), z, x.dtype, a, use_kernel)
+    y = y + d_skip[None, None, :, None] * xs.float()
+    return _gate_out(cfg, p, y.reshape(Bsz, S, din), z, x.dtype, a, use_kernel,
+                     tp)
 
 
 def _intra_chunk(cum_h: torch.Tensor, scores: torch.Tensor,

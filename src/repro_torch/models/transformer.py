@@ -96,22 +96,36 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, L: int,
     through ``keep(sub, name, leaf)`` as each is drawn)."""
     dev = gen.device
     d = cfg.d_model
-    if kind == "mamba":
-        return {"ln": torch.ones((L, d), dtype=dtype, device=dev),
-                "mixer": Ssm.init_mamba2(cfg, gen, L, dtype)}
-    if kind == "rwkv":
-        return {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
-                "ln2": torch.ones((L, d), dtype=dtype, device=dev),
-                "mix": Rwkv.init_rwkv6(cfg, gen, L, dtype)}
-    attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
 
     def sub(name):
         return None if keep is None else (lambda leaf, t: keep(name, leaf, t))
+
+    def kept(name, tree):
+        return tree if keep is None else {n: keep(name, n, t)
+                                          for n, t in tree.items()}
+    if kind == "mamba":
+        return {"ln": torch.ones((L, d), dtype=dtype, device=dev),
+                "mixer": kept("mixer", Ssm.init_mamba2(cfg, gen, L, dtype))}
+    if kind == "rwkv":
+        return {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
+                "ln2": torch.ones((L, d), dtype=dtype, device=dev),
+                "mix": kept("mix", Rwkv.init_rwkv6(cfg, gen, L, dtype))}
+    attn_init = Lyr.init_mla if kind.startswith("mla") else Lyr.init_attention
     blk = {"ln1": torch.ones((L, d), dtype=dtype, device=dev),
            "attn": attn_init(cfg, gen, L, dtype, keep=sub("attn")),
            "ln2": torch.ones((L, d), dtype=dtype, device=dev)}
     if kind.endswith("moe"):
-        blk["moe"] = Moe.init_moe(cfg, gen, L, dtype, experts)
+        moe = Moe.init_moe(cfg, gen, L, dtype, experts)
+        if keep is not None:
+            # the shared expert's weights (and the router, replicated) as
+            # the rules cut them; the expert stacks too unless ``experts``
+            # already kept the rank's
+            moe = {n: (t if experts is not None and n in ("w_gate", "w_up", "w_down")
+                       else ({sn: keep("moe", ("shared", sn), st)
+                              for sn, st in t.items()} if n == "shared"
+                             else keep("moe", n, t)))
+                   for n, t in moe.items()}
+        blk["moe"] = moe
     else:
         blk["mlp"] = Lyr.init_mlp(cfg, gen, L, dtype, keep=sub("mlp"))
     return blk
@@ -128,10 +142,11 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     stream).  A front end adds ``frontend_proj`` (frontend_dim, d); the
     hybrid its ``shared_blk``, made once and unstacked.  ``keep(path,
     leaf)`` takes each embedding, head and dense or MLA weight as soon as
-    it is drawn and returns what the tree keeps of it (a train mesh rank's
-    shard, :func:`repro_torch.topology.train.init_keep`): the whole model
-    is never held, and each shard equals the same slice of the whole
-    init."""
+    it is drawn (an RWKV6, Mamba2 or MoE block's weights as the block is
+    made; expert stacks only where ``experts`` is None) and returns what
+    the tree keeps of it (a train mesh rank's shard,
+    :func:`repro_torch.topology.train.init_keep`): the whole model is never
+    held, and each shard equals the same slice of the whole init."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -147,16 +162,28 @@ def init(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
                                  Lyr.dense_init(gen, (d, V), d, dtype))
     if cfg.frontend:
         fd = cfg.frontend_dim or d
-        params["frontend_proj"] = Lyr.dense_init(gen, (fd, d), fd, dtype)
+        params["frontend_proj"] = kept(("frontend_proj",),
+                                       Lyr.dense_init(gen, (fd, d), fd, dtype))
     kinds = [(kind, L) for kind, L in layer_plan(cfg) if kind != "shared"]
     params["blocks"] = tuple(
-        _init_block(cfg, kind, gen, L, dtype, experts,
-                    None if keep is None else
-                    (lambda sub, name, t, i=i: keep(("blocks", i, sub, name), t)))
+        _init_block(cfg, kind, gen, L, dtype, experts, _block_keep(keep, ("blocks", i)))
         for i, (kind, L) in enumerate(kinds))
     if cfg.family == "hybrid":
-        params["shared_blk"] = _layer(_init_block(cfg, "shared", gen, 1, dtype), 0)
+        params["shared_blk"] = _layer(_init_block(
+            cfg, "shared", gen, 1, dtype, keep=_block_keep(keep, ("shared_blk",))), 0)
     return params
+
+
+def _block_keep(keep, prefix: Tuple):
+    """``keep(sub, name, leaf)`` of one block under the tree path
+    ``prefix`` (``name`` a key, or a tuple of keys under a sub-tree)."""
+    if keep is None:
+        return None
+
+    def block_keep(sub, name, t):
+        tail = name if isinstance(name, tuple) else (name,)
+        return keep(prefix + (sub,) + tail, t)
+    return block_keep
 
 
 def _vocab_cut(cfg: ModelConfig, rows: int, tp) -> bool:
@@ -173,12 +200,18 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: Dict,
     mesh ``tp`` whose ``model`` axis cut the embedding's vocab rows, the
     lookup is vocab-parallel: each rank looks up the tokens in its rows,
     zeroes the others and one ``all_reduce`` sums (exact: one rank holds
-    each row)."""
+    each row).  The front end's ``frontend_proj`` is column-parallel there
+    (the rules' ``(None, model)``): each rank projects onto its columns
+    and one ``all_gather`` makes the product whole before the cast (no
+    gradient flows past the frozen projection of the data)."""
     dtype = torch_dtype(cfg.dtype)
     parts = []
     key = {"vision": "patch_embeds", "audio": "frame_embeds"}.get(cfg.frontend)
     if key in batch:
-        parts.append(matmul(batch[key], params["frontend_proj"]).to(dtype))
+        y = matmul(batch[key], params["frontend_proj"])
+        if tp is not None and y.shape[-1] != cfg.d_model:
+            y = tp.all_gather(y, "model", y.dim() - 1)
+        parts.append(y.to(dtype))
     if "tokens" in batch:
         emb, toks = params["embed"], batch["tokens"]
         n = emb.shape[0]
@@ -204,41 +237,57 @@ def logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     return out
 
 
-TRAIN_MESH_KINDS = ("dense", "mla_dense")
-
-
 def check_train_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise unless a train mesh of more than one rank can run ``cfg``:
-    the dense GQA and dense MLA layers only (``ROADMAP.md`` item 9d holds
-    the other families)."""
-    if mesh is None or mesh.size == 1:
+    """Raise ``ValueError`` unless the ``model`` axis of a train mesh
+    divides every width that the layers of ``cfg`` take by the rank's
+    share with no fallback: RWKV6's and Mamba2's heads (the rank's heads
+    of a recurrence) and the ``d_ff`` of a column- then row-parallel pair
+    (a dense MLP, the hybrid's shared block, RWKV6's channel mix,
+    DeepSeek-V3's shared expert), which a rule left whole would have
+    summed once a rank.  Attention that the axis does not divide falls
+    back as the reference's ``dispatch_flash`` does, MoE layers route as
+    the reference's mesh-less ``moe_fwd`` where ``_moe_fwd_sharded`` would
+    not run, and an output the rules leave whole (RWKV6's ``dd_w1`` /
+    ``wd1``) is not gathered."""
+    n = 1 if mesh is None else mesh.axis_size("model")
+    if n == 1:
         return
-    kinds = {k for k, n in layer_plan(cfg) if n}
-    if cfg.frontend or not kinds <= set(TRAIN_MESH_KINDS):
-        raise ValueError(
-            f"{cfg.name}: training on a mesh of {mesh.size} ranks runs the "
-            f"dense GQA and dense MLA layers only, not {sorted(kinds)}"
-            f"{' with a ' + cfg.frontend + ' front end' if cfg.frontend else ''}"
-            " (ROADMAP.md item 9d)")
+    kinds = {k for k, c in layer_plan(cfg) if c}
+    widths = {}
+    if kinds & {"dense", "mla_dense", "shared"}:
+        widths["d_ff"] = cfg.d_ff
+    if kinds & {"moe", "mla_moe"} and cfg.num_shared_experts:
+        widths["moe_d_ff · num_shared_experts"] = (
+            (cfg.moe_d_ff or cfg.d_ff) * cfg.num_shared_experts)
+    if "rwkv" in kinds:
+        widths.update({"RWKV heads (d_model / rwkv_head_dim)":
+                       cfg.num_rwkv_heads, "d_ff": cfg.d_ff})
+    if "mamba" in kinds:
+        widths["SSM heads (d_inner / ssm_head_dim)"] = cfg.num_ssm_heads
+    bad = {k: v for k, v in widths.items() if v % n}
+    if bad:
+        raise ValueError(f"{cfg.name}: a model axis of {n} ranks does not "
+                         f"divide {bad}, which training on the mesh cuts "
+                         "by the rank's share")
 
 
 def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
                use_kernels: bool, groups: int = 0, tp=None):
     """One layer over a full sequence.  Returns (x, aux): a MoE layer's
     load-balancing loss (per cohort client, (groups,), when ``groups``),
-    else None.  ``tp``: a train mesh (dense and MLA layers only)."""
+    else None.  ``tp``: a train mesh (every kind of layer)."""
     a = a or {}
     if kind == "mamba":
         h = Ssm.mamba2_fwd(cfg, p["mixer"], Lyr.rmsnorm(x, p["ln"], cfg.norm_eps),
-                           a.get("mixer"), use_kernel=use_kernels)
+                           a.get("mixer"), use_kernel=use_kernels, tp=tp)
         return x + h, None
     if kind == "rwkv":
         h, _ = Rwkv.time_mix(cfg, p["mix"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                             a.get("mix"), use_kernel=use_kernels)
+                             a.get("mix"), use_kernel=use_kernels, tp=tp)
         x = x + h
         h, _ = Rwkv.channel_mix(cfg, p["mix"],
                                 Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps),
-                                a.get("mix"), use_kernel=use_kernels)
+                                a.get("mix"), use_kernel=use_kernels, tp=tp)
         return x + h, None
     attn_fn = Lyr.mla_fwd if kind.startswith("mla") else Lyr.attention_fwd
     h = attn_fn(cfg, p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.norm_eps),
@@ -247,7 +296,7 @@ def _block_fwd(cfg: ModelConfig, kind: str, p: Params, x, a: Dict,
     xn = Lyr.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if kind.endswith("moe"):
         h, aux = Moe.moe_fwd(cfg, p["moe"], xn, a.get("moe"), groups=groups,
-                             use_kernel=use_kernels)
+                             use_kernel=use_kernels, tp=tp)
         return x + h, aux
     h = Lyr.mlp_fwd(p["mlp"], xn, a.get("mlp"), use_kernel=use_kernels, tp=tp)
     return x + h, None
@@ -274,10 +323,14 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
     ``remat`` has no counterpart: autograd keeps the activations (a Mamba2
     layer's intra-chunk tensors excepted, :mod:`repro_torch.models.ssm`).
     ``tp`` (a train mesh, :class:`repro_torch.topology.train.
-    TrainParallel`; ``params`` the rank's shards) runs the dense and MLA
-    segments tensor-parallel (:mod:`repro_torch.models.layers`) after a
-    vocab-parallel embedding; the hidden states come back whole on every
-    rank."""
+    TrainParallel`; ``params`` the rank's shards by ``train_pspecs``) runs
+    every segment tensor-parallel after a vocab-parallel embedding and a
+    column-parallel front end: dense, MLA and the hybrid's shared block
+    (:mod:`repro_torch.models.layers`), RWKV6 and Mamba2 on the rank's
+    heads (:mod:`repro_torch.models.rwkv`, :mod:`repro_torch.models.ssm`)
+    and MoE expert parallel (:mod:`repro_torch.models.moe`); the hidden
+    states come back whole on every rank, and aux is the MoE layers' sum
+    on every rank."""
     if tp is not None:
         check_train_mesh(cfg, tp.mesh)
     x = embed_inputs(cfg, params, batch, tp)
@@ -289,7 +342,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict,
         if kind == "shared":
             sa = (adapters or {}).get("shared_blk") or {}
             x, _ = _block_fwd(cfg, kind, params["shared_blk"], x, sa,
-                              use_kernels, cohort)
+                              use_kernels, cohort, tp)
             continue
         seg_p = params["blocks"][seg_i]
         seg_a = a_blocks[seg_i] if seg_i < len(a_blocks) and a_blocks[seg_i] else {}

@@ -21,7 +21,8 @@ which is added to the base partial before the projection's single
 whole delta and the scale is applied once.  Mamba2's ``in_proj`` B pool is
 cut segment by segment as its weight is (the rank's heads' columns of z,
 x and dt, B and C whole), so ``bgmv`` writes the rank's fused columns in
-the order the base product has them.
+the order the base product has them; on a train mesh its replicated
+adapter's B is cut by the same segments (:func:`shard_adapter`).
 
 Adapter trees hold tensors, or numpy arrays where a tree comes off the
 federated wire (:mod:`repro_torch.core.runtime.transport`); ``match_rank``
@@ -164,40 +165,52 @@ def lora_proj(x: torch.Tensor, w: torch.Tensor,
 COL, ROW = "col", "row"
 
 
-def shard_adapter(adapter: Optional[Dict], tp, kind: str, width: int
-                  ) -> Optional[Dict]:
+def shard_adapter(adapter: Optional[Dict], tp, kind: str, width: int,
+                  segments=None) -> Optional[Dict]:
     """A replicated classic adapter cut to its weight's ``model`` shard,
     ``width`` wide on the cut dim: B's rows under a column-parallel weight,
     A's columns under a row-parallel one (a plain ``narrow``: each rank's
     gradient is its part of the whole, :mod:`repro_torch.topology.train`).
-    The scale is kept: a row-parallel partial delta is summed with the
-    base's partial product, so it is applied once."""
+    ``segments`` (a :class:`repro_torch.topology.partitioning.Segments`,
+    column-parallel only) cuts B's rows segment by segment as the fused
+    weight is cut: Mamba2's ``in_proj``, whose B and C rows every rank
+    keeps, so each rank's gradient of them is a part too.  The scale is
+    kept: a row-parallel partial delta is summed with the base's partial
+    product, so it is applied once."""
     if adapter is None or tp is None or tp.size == 1:
         return adapter
     key, dim = ("B", -2) if kind == COL else ("A", -1)
     whole = adapter[key].shape[dim]
-    if width * tp.size != whole:
+    want = segments.local_width(tp.mesh) if segments is not None else (
+        whole // tp.size if whole % tp.size == 0 else -1)
+    if width != want or (segments is not None and sum(segments.widths) != whole):
         raise ValueError(
             f"a {kind}-parallel weight {width} wide on a model axis of "
             f"{tp.size} under an adapter {whole} wide: the training path "
             "takes weights the rules cut over model")
+    if segments is not None:
+        return dict(adapter, B=torch.cat(
+            [adapter["B"].narrow(-2, o, n) for o, n, _ in
+             segments.pieces(tp.mesh)], dim=-2))
     return dict(adapter, **{key: tp.local(adapter[key], dim)})
 
 
 def lora_proj_shard(x: torch.Tensor, w: torch.Tensor,
                     adapter: Optional[Dict], use_kernel: bool, tp,
-                    kind: str) -> torch.Tensor:
+                    kind: str, segments=None) -> torch.Tensor:
     """``lora_proj`` on the rank's shard of a Megatron weight under a train
     mesh (``tp`` a :class:`repro_torch.topology.train.TrainParallel`):
     column-parallel (``kind`` COL, w (din, dout/M), the rank's output
-    columns) or row-parallel (ROW, w (din/M, dout), x the rank's input
-    columns, a partial output the caller reduces).  Under ZeRO-3 the
-    weight's other dim is gathered over ``data`` first, and only its shard
-    is kept for the backward (:meth:`TrainParallel.full_weight`)."""
+    columns; ``segments``: a fused dim cut segment by segment, as
+    :func:`shard_adapter` takes it) or row-parallel (ROW, w (din/M,
+    dout), x the rank's input columns, a partial output the caller
+    reduces).  Under ZeRO-3 the weight's other dim is gathered over
+    ``data`` first, and only its shard is kept for the backward
+    (:meth:`TrainParallel.full_weight`)."""
     with tp.full_weight(w, 0 if kind == COL else -1) as wf:
         width = wf.shape[-1] if kind == COL else wf.shape[-2]
-        return lora_proj(x, wf, shard_adapter(adapter, tp, kind, width),
-                         use_kernel)
+        return lora_proj(x, wf, shard_adapter(adapter, tp, kind, width,
+                                              segments), use_kernel)
 
 
 def target_leaves(params: Any, targets: Sequence[str]

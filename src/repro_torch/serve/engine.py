@@ -47,7 +47,8 @@ z, x and dt, B and C whole).  Expert stacks that already hold E/N experts
 (``T.init(..., experts=)``: a rank that never makes the others' experts)
 are kept as this rank's.  A mesh of more than one rank runs the steps
 uncaptured: gloo collectives cannot be captured into a CUDA graph (capture
-under NCCL is ``ROADMAP.md`` item 9d).
+under NCCL is ``ROADMAP.md`` item 9e, for a machine with more than one
+card).
 
 With ``record_steps=True`` the engine logs every step's width, its time
 (CUDA events around each replay on the card, a burst's time split evenly
@@ -292,14 +293,16 @@ def tensor_parallel_config(cfg: ModelConfig, n: int) -> ModelConfig:
                        num_kv_heads=cfg.num_kv_heads // n)
 
 
-def _fused_specs(cfg: ModelConfig, tree: Any, specs: Any, n: int) -> Any:
-    """``specs`` with Mamba2's fused leaves cut segment by segment and
-    expert stacks that hold E/n experts taken as this rank's (the module
-    docstring); the other specs as they are."""
-    from repro_torch.topology.partitioning import Segments, map_with_path
-    din, st, H = cfg.d_inner, cfg.ssm_state, cfg.num_ssm_heads
-    zxbcdt = Segments("model", (din, din, 2 * st, H), (True, True, False, True))
-    xbc = Segments("model", (din, 2 * st), (True, False))
+def _fused_specs(cfg: ModelConfig, tree: Any, specs: Any, mesh) -> Any:
+    """``specs`` with Mamba2's fused leaves cut segment by segment (the
+    weights by :func:`repro_torch.topology.partitioning.fused_pspec`, the
+    conv state and the ``in_proj`` B pool likewise) and expert stacks that
+    hold E/n experts taken as this rank's (the module docstring); the
+    other specs as they are."""
+    from repro_torch.topology.partitioning import (fused_pspec, map_with_path,
+                                                   mamba_segments)
+    zxbcdt, xbc = mamba_segments(cfg)
+    n = mesh.axis_size("model")
 
     def at(path):
         node = specs
@@ -308,12 +311,9 @@ def _fused_specs(cfg: ModelConfig, tree: Any, specs: Any, n: int) -> Any:
         return node
 
     def fix(path, leaf):
-        spec = list(at(path))
+        spec = list(fused_pspec(cfg, mesh, path, at(path)))
         if cfg.family == "hybrid":
-            if path[-2:] == ("mixer", "in_proj"):
-                spec[-1] = zxbcdt
-            elif path[-2:] in (("mixer", "conv_w"), ("mixer", "conv_b")) \
-                    or path[-1] == "conv":
+            if path[-1] == "conv":
                 spec[-1] = xbc
             elif path[-3:] == ("mixer", "in_proj", "B"):
                 spec[-2] = zxbcdt
@@ -339,9 +339,8 @@ def placement_specs(cfg: ModelConfig, mesh, params: Any, cache: Any,
     for key in ("embed", "lm_head"):
         if key in params:
             specs["params"][key] = (None,) * params[key].ndim
-    n = mesh.axis_size("model")
-    if n > 1:
-        specs = {k: _fused_specs(cfg, trees[k], specs[k], n)
+    if mesh.axis_size("model") > 1:
+        specs = {k: _fused_specs(cfg, trees[k], specs[k], mesh)
                  if trees[k] is not None else None for k in specs}
     return specs
 

@@ -47,10 +47,11 @@ class Mesh:
     ``shape`` maps axis name to size (in axis order, the name→size mapping
     the reference's ``Mesh.shape`` is); ``coords`` this rank's index on
     each axis; ``device`` this rank's device.  ``all_reduce``,
-    ``all_gather`` and ``all_to_all`` run over one axis's group and are
-    identities on an axis of size 1.  A mesh built with ``abstract=True``
-    (:func:`abstract_mesh`) has no groups: the partition rules read only
-    its ``shape``."""
+    ``all_gather`` and ``all_to_all`` run over one axis's group, or over
+    a tuple of axes (the world's group when they are every axis of size
+    > 1), and are identities where the size is 1.  A mesh built with
+    ``abstract=True`` (:func:`abstract_mesh`) has no groups: the partition
+    rules read only its ``shape``."""
 
     def __init__(self, shape: Dict[str, int], *, rank: int = 0,
                  device: Optional[torch.device] = None,
@@ -87,11 +88,41 @@ class Mesh:
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
                 f"backend={self.backend})")
 
-    def axis_size(self, name: str) -> int:
+    def axis_size(self, name) -> int:
+        """The size of axis ``name``, or of a tuple of axes (their
+        product)."""
+        if isinstance(name, tuple):
+            return int(np.prod([self.shape.get(a, 1) for a in name]))
         return self.shape.get(name, 1)
 
-    def axis_index(self, name: str) -> int:
+    def axis_index(self, name) -> int:
+        """This rank's index on ``name``, or on a tuple of axes (row-major
+        over them: data-major for ``("data", "model")``, as the
+        reference's ``all_to_all`` over that tuple orders its blocks)."""
+        if isinstance(name, tuple):
+            idx = 0
+            for a in name:
+                idx = idx * self.shape.get(a, 1) + self.coords.get(a, 0)
+            return idx
         return self.coords.get(name, 0)
+
+    def live_axes(self, axis) -> Tuple[str, ...]:
+        """The axes of size > 1 among ``axis`` (a name or a tuple)."""
+        names = axis if isinstance(axis, tuple) else (axis,)
+        return tuple(a for a in names if self.shape.get(a, 1) > 1)
+
+    def _group(self, axis):
+        """The process group of ``axis``: one axis's sub-group, or for a
+        tuple of axes the one axis of size > 1 among them, or the world's
+        group when they hold every axis of size > 1 (a mesh spans the
+        world, so the world's ranks are in the tuple's row-major order)."""
+        live = self.live_axes(axis)
+        if len(live) == 1:
+            return self._groups[live[0]]
+        if set(live) != set(self.live_axes(self.axis_names)):
+            raise ValueError(f"a collective over {axis} on a mesh of "
+                             f"{self.shape}: only one axis or all of them")
+        return dist.group.WORLD
 
     # -- collectives over one axis -------------------------------------------
     def _stage(self, t: torch.Tensor) -> torch.Tensor:
@@ -121,7 +152,7 @@ class Mesh:
         buf = self._stage(t)
         if buf is t:
             buf = t.clone()
-        dist.all_reduce(buf, group=self._groups[axis])
+        dist.all_reduce(buf, group=self._group(axis))
         return self._back(buf, t.device)
 
     def all_reduce_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -144,7 +175,7 @@ class Mesh:
             return t
         src = self._stage(t.contiguous())
         parts = [self._like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self._groups[axis])
+        dist.all_gather(parts, src, group=self._group(axis))
         return torch.cat([self._back(p, t.device) for p in parts], dim=dim)
 
     def all_to_all(self, t: torch.Tensor, axis: str = "model",
@@ -153,7 +184,11 @@ class Mesh:
         ``t`` is cut into ``n`` equal blocks along ``split_dim``, block j
         goes to the rank of index j on ``axis``, and the blocks this rank
         receives are concatenated along ``concat_dim`` in axis-index order.
-        One ``all_to_all_single`` (through a pinned CPU copy under gloo)."""
+        ``axis`` may be a tuple of axes (``("data", "model")``: n their
+        product, index j row-major over them, through the world's group).
+        One ``all_to_all_single`` (through a pinned CPU copy under gloo);
+        the received blocks are written into the result one at a time, so
+        the card holds one block beside it, not a second whole copy."""
         n = self.axis_size(axis)
         if n == 1:
             return t
@@ -161,10 +196,17 @@ class Mesh:
         src = src.reshape((n, src.shape[0] // n) + tuple(src.shape[1:]))
         src = self._stage(src.contiguous())
         out = self._like(src)
-        dist.all_to_all_single(out, src, group=self._groups[axis])
-        out = self._back(out, t.device)
-        return torch.cat([b.movedim(0, split_dim) for b in out.unbind(0)],
-                         dim=concat_dim)
+        dist.all_to_all_single(out, src, group=self._group(axis))
+        del src
+        shape = list(t.shape)
+        shape[split_dim] //= n
+        w = shape[concat_dim]
+        shape[concat_dim] *= n
+        res = t.new_empty(shape)
+        for j in range(n):
+            res.narrow(concat_dim, j * w, w).copy_(
+                self._back(out[j], t.device).movedim(0, split_dim))
+        return res
 
     def all_gather_packed(self, ts: Sequence[torch.Tensor],
                           axis: str = "model") -> Tuple[torch.Tensor, ...]:

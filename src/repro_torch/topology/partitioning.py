@@ -213,6 +213,32 @@ class Segments:
         return sum(w for _, w, _ in self.pieces(mesh, local=True))
 
 
+def mamba_segments(cfg: ModelConfig, axis: str = "model"):
+    """Mamba2's fused dims as :class:`Segments` over ``axis``: ``in_proj``'s
+    output ``z | x | B | C | dt`` (the rank's heads' columns of z, x and
+    dt; B and C whole: ``n_groups`` = 1, every head reads them) and the
+    conv's channels ``x | B | C``."""
+    din, st, H = cfg.d_inner, cfg.ssm_state, cfg.num_ssm_heads
+    return (Segments(axis, (din, din, 2 * st, H), (True, True, False, True)),
+            Segments(axis, (din, 2 * st), (True, False)))
+
+
+def fused_pspec(cfg: ModelConfig, mesh, path: Tuple, spec: Tuple) -> Tuple:
+    """``spec`` (a leaf's rule) with a hybrid's Mamba2 ``in_proj``,
+    ``conv_w`` and ``conv_b`` cut segment by segment on a ``model`` axis of
+    more than one rank (:func:`mamba_segments`): a contiguous cut of the
+    fused dim would hand a rank other heads' channels (the reference's
+    GSPMD re-lays it out; the port's layers read the rank's segments).
+    The serving engine and the train mesh place them alike."""
+    if cfg.family != "hybrid" or mesh.axis_size("model") == 1:
+        return spec
+    if path[-2:] == ("mixer", "in_proj"):
+        return tuple(spec[:-1]) + (mamba_segments(cfg)[0],)
+    if path[-2:] in (("mixer", "conv_w"), ("mixer", "conv_b")):
+        return tuple(spec[:-1]) + (mamba_segments(cfg)[1],)
+    return spec
+
+
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()

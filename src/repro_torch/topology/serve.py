@@ -137,8 +137,10 @@ class ModelParallel:
     the reference's expert-parallel ``shard_map``): ``reduce`` sums a
     row-parallel projection's partial output (one ``all_reduce``, in fp32),
     ``gather`` makes a column-parallel output whole along its last dim
-    (``all_gather``), ``all_to_all`` exchanges a MoE layer's capacity slots
-    with the experts' owners, ``local`` cuts a replicated vector (a bias, a
+    (``all_gather``; ``join`` is the same, and ``copy`` an identity: the
+    train mesh's ops, which decode calls without a gradient),
+    ``all_to_all`` exchanges a MoE layer's capacity slots with the
+    experts' owners, ``local`` cuts a replicated vector (a bias, a
     norm's weight, a per-head constant) to this rank's share of one dim.
     ``all_reduces`` / ``reduce_s`` and ``all_to_alls`` / ``a2a_s`` count
     the reductions and the exchanges and their host time."""
@@ -161,6 +163,13 @@ class ModelParallel:
 
     def gather(self, y: "torch.Tensor") -> "torch.Tensor":
         return self.mesh.all_gather(y.contiguous(), "model", dim=-1)
+
+    join = gather
+
+    @staticmethod
+    def copy(x: "torch.Tensor") -> "torch.Tensor":
+        """The train mesh's ``copy`` at decode: an identity (no gradient)."""
+        return x
 
     def all_to_all(self, t: "torch.Tensor", split_dim: int,
                    concat_dim: int) -> "torch.Tensor":

@@ -11,7 +11,10 @@ among equal maxima, as ``argmax`` takes), and the rank's sum of
 exponentials beside the target's logit from the rank that owns it, summed
 in one ``all_reduce``.  The masked sums and counts of the rank's rows are
 summed over ``data`` before the division: the loss is the global masked
-mean.
+mean.  A vision batch's text tail and an audio batch's ``labels`` (no
+tokens) take the same path (:func:`repro_torch.train.step.loss_fn` cuts
+the tail before the CE); a MoE model's aux, already the same on every
+rank, is added after it with its coefficient, as mesh-less.
 """
 from __future__ import annotations
 

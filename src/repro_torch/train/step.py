@@ -20,15 +20,20 @@ model)`` (``topology.make_host_mesh(model=)``), where the reference runs
 ``launch/dryrun.py``'s builds under ``jit``: each rank is given its
 shards of the params and its rows of the batch
 (:func:`repro_torch.topology.train.shard_params` / ``shard_batch``) and
-the whole, replicated adapters and optimizer state.  The dense GQA and
-dense MLA models run tensor-parallel over ``model``
-(:mod:`repro_torch.models.layers`), ZeRO-3 above the rules' threshold;
-the loss is the global masked mean.  Each rank's adapter gradient is its
-part of the whole; the parts are summed over ``model`` and ``data`` in
-one packed ``all_reduce`` after the last microbatch, and ``b_only``, the
-clip and AdamW then act on the whole gradients, so the adapters stay
-equal on every rank.  Other families raise on a mesh of more than one
-rank (``ROADMAP.md`` item 9d).
+the whole, replicated adapters and optimizer state.  Every family runs
+tensor-parallel over ``model`` (:func:`repro_torch.models.transformer.
+forward`): dense GQA, MLA and the hybrid's shared block Megatron-style,
+RWKV6 and Mamba2 on the rank's heads, MoE layers expert parallel (over
+``("data", "model")`` where the rules cut the experts over both), the
+front ends' projection column-parallel; ZeRO-3 above the rules'
+threshold; the loss is the global masked mean plus, for MoE, its aux as
+the reference's ``_moe_fwd_sharded`` makes it.  Each rank's adapter
+gradient is its part of the whole; the parts are summed over ``model``
+and ``data`` in one packed ``all_reduce`` after the last microbatch, and
+``b_only``, the clip and AdamW then act on the whole gradients, so the
+adapters stay equal on every rank.  A width the ``model`` axis must
+divide and does not raises ``ValueError``
+(:func:`repro_torch.models.transformer.check_train_mesh`).
 """
 from __future__ import annotations
 

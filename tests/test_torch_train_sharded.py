@@ -23,7 +23,9 @@ q_offset=)`` against ``flash_jax(q_offset=)``, ``dispatch_flash``'s
 sequence branch on mid-head column slices and ``mla_absorbed``'s
 sequence-parallel branch against the reference's mesh-less functions,
 ``T.init(keep=init_keep(...))`` against the whole init's slices, and the
-families outside the slice refusing a mesh, naming item 9d.
+refusals that remain: every family builds its steps on a mesh, and one
+whose widths the axis does not divide (RWKV6's or Mamba2's heads, an
+MLP's ``d_ff``, DeepSeek-V3's shared expert) raises ``ValueError``.
 
 The module imports JAX only inside functions, so the spawned ranks start
 without it; the world starts in a thread while the parent computes the
@@ -212,23 +214,31 @@ def _mla_inputs():
 
 
 def _refusals(mesh):
-    """Each family outside the slice, given a mesh of 2 ranks."""
+    """Each family's SMOKE config, and one with a width a model axis of 2
+    does not divide, given a mesh of 2 ranks."""
     from repro_torch.common.config import OptimConfig
     from repro_torch.configs import (deepseek_v3_671b, granite_moe_1b_a400m,
                                      musicgen_medium, phi3_vision_4p2b,
                                      rwkv6_1p6b, zamba2_1p2b)
     from repro_torch.train import step as St
+    cfgs = [mod.SMOKE for mod in (granite_moe_1b_a400m, deepseek_v3_671b,
+                                  rwkv6_1p6b, zamba2_1p2b, phi3_vision_4p2b,
+                                  musicgen_medium)]
+    cfgs += [rwkv6_1p6b.SMOKE.replace(name="odd-rwkv-heads", d_model=96),
+             zamba2_1p2b.SMOKE.replace(name="odd-ssm-heads", d_model=48),
+             phi3_vision_4p2b.SMOKE.replace(name="odd-d-ff", d_ff=511),
+             deepseek_v3_671b.SMOKE.replace(name="odd-shared-expert",
+                                            moe_d_ff=127)]
     out = {}
-    for mod in (granite_moe_1b_a400m, deepseek_v3_671b, rwkv6_1p6b,
-                zamba2_1p2b, phi3_vision_4p2b, musicgen_medium):
+    for cfg in cfgs:
         for make in (lambda c: St.make_train_step(c, OptimConfig(), mesh=mesh),
                      lambda c: St.make_eval_step(c, mesh=mesh),
                      lambda c: St.make_prefill_step(c, mesh=mesh)):
             try:
-                make(mod.SMOKE)
-                out.setdefault(mod.SMOKE.name, []).append("built")
+                make(cfg)
+                out.setdefault(cfg.name, []).append("built")
             except ValueError as e:
-                out.setdefault(mod.SMOKE.name, []).append(str(e))
+                out.setdefault(cfg.name, []).append(str(e))
     return out
 
 
@@ -416,14 +426,22 @@ def test_flash_q_offset_matches_reference(world):
         _close(got.numpy(), want, 1e-5, f"q_offset {off}")
 
 
-def test_other_families_refuse_a_mesh_naming_item_9d(world):
+def test_indivisible_widths_refuse_a_mesh(world):
+    """Every family builds its train, eval and prefill steps on a mesh of
+    2; a width the axis does not divide raises ``ValueError`` naming it."""
     res, _ = world
     refusals = res[0]["refusals"]
-    assert len(refusals) == 6
+    assert len(refusals) == 10
+    widths = {"odd-rwkv-heads": "RWKV heads", "odd-ssm-heads": "SSM heads",
+              "odd-d-ff": "d_ff", "odd-shared-expert": "num_shared_experts"}
     for name, msgs in refusals.items():
         assert len(msgs) == 3
         for m in msgs:
-            assert "9d" in m and "dense GQA and dense MLA" in m, (name, m)
+            if name in widths:
+                assert widths[name] in m and "does not divide" in m, (name, m)
+                assert "9d" not in m
+            else:
+                assert m == "built", (name, m)
 
 
 def test_collective_ops_and_their_transposes(world):
